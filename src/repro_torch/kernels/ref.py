@@ -1,0 +1,75 @@
+"""Plain PyTorch versions of every hand-written kernel (port of
+`repro/kernels/ref.py`).
+
+Each function computes what its kernel computes, with ordinary tensor
+ops, on any device. The tests hold them against the JAX package; on the
+CPU the kernel wrappers run them as the implementation; on the GPU
+`chip_smoke.py` holds each kernel against its plain version bit for bit.
+Nothing on the main path calls them for a CUDA tensor.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def as_int32_words(words: torch.Tensor) -> torch.Tensor:
+    """uint32 bitplanes -> the same bits as int32 (torch has few uint32
+    ops). `(w >> s) & 1` extracts bit s correctly under the arithmetic
+    shift int32 gives, so nothing downstream needs unsigned words."""
+    return words.view(torch.int32) if words.dtype == torch.uint32 else words
+
+
+def h3_hash_ref(tuples: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
+    """tuples: (B, N_f, n) int {0,1}; params: (k, n) int -> (B, N_f, k)."""
+    sel = torch.where(tuples[..., None, :] != 0, params.to(torch.int32), 0)
+    h = torch.zeros(sel.shape[:-1], dtype=torch.int32, device=tuples.device)
+    for i in range(sel.shape[-1]):            # torch has no XOR reduction
+        h = h ^ sel[..., i]
+    return h
+
+
+def _popcount_scores(resp: torch.Tensor, mask: torch.Tensor,
+                     bias: torch.Tensor) -> torch.Tensor:
+    """resp (M, B, N_f, k) looked-up bits -> scores (B, M) int32: AND over
+    k (min of {0,1}), survive iff mask nonzero, popcount over N_f, bias."""
+    resp = torch.amin(resp, dim=-1)
+    resp = resp * (mask != 0).to(torch.int32)[:, None, :]
+    return (torch.sum(resp, dim=-1, dtype=torch.int32).T
+            + bias.to(torch.int32)[None, :])
+
+
+def fused_wnn_ref(tuples: torch.Tensor, params: torch.Tensor,
+                  table: torch.Tensor, mask: torch.Tensor,
+                  bias: torch.Tensor) -> torch.Tensor:
+    """Gather formulation of the fused kernel: table (M, N_f, E) int8
+    {0,1} -> scores (B, M) int32."""
+    hashes = h3_hash_ref(tuples, params)                      # (B, N_f, k)
+    f_idx = torch.arange(table.shape[1], device=table.device)[None, :, None]
+    vals = table[:, f_idx, hashes.long()].to(torch.int32)     # (M, B, N_f, k)
+    return _popcount_scores(vals, mask, bias)
+
+
+def packed_wnn_ref(tuples: torch.Tensor, params: torch.Tensor,
+                   words: torch.Tensor, mask: torch.Tensor,
+                   bias: torch.Tensor) -> torch.Tensor:
+    """Packed-domain formulation: gather the (hash >> 5) word of the
+    (M, N_f, W) bitplanes and extract bit (hash & 31) — never builds an
+    int8 table. Exactly score-equal to `fused_wnn_ref` on the unpacked
+    table."""
+    hashes = h3_hash_ref(tuples, params)                      # (B, N_f, k)
+    words = as_int32_words(words)
+    f_idx = torch.arange(words.shape[1], device=words.device)[None, :, None]
+    w = words[:, f_idx, (hashes >> 5).long()]                 # (M, B, N_f, k)
+    return _popcount_scores((w >> (hashes & 31)[None]) & 1, mask, bias)
+
+
+def thermometer_ref(x: torch.Tensor, thresholds: torch.Tensor) -> torch.Tensor:
+    """x: (B, F) f32; thresholds: (F, T) f32 -> bits (B, F, T) int8."""
+    return (x[:, :, None] > thresholds[None]).to(torch.int8)
+
+
+def decompress_ref(counts: torch.Tensor, bits: int) -> torch.Tensor:
+    """counts: (B, F) uint8 -> unary bits (B, F, T) int8 (t < count)."""
+    iota = torch.arange(bits, dtype=torch.int32, device=counts.device)
+    return (iota[None, None, :] < counts[..., None].to(torch.int32)
+            ).to(torch.int8)

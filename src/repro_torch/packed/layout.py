@@ -1,0 +1,200 @@
+"""Packed-domain table layout: uint32 bitplanes as the native serve
+representation (port of `repro/packed/layout.py`).
+
+Word layout (matches `core/export.py::pack_table` exactly):
+
+    entry e of filter (m, f)  ==  bit (e & 31) of word[m, f, e >> 5]
+
+little-endian bits within a word, words in entry order. `entries` that are
+not a multiple of 32 (E in {8, 16}) pad the single word's high bits with
+zeros; H3 hashes stay in [0, E), so padding bits are never read.
+
+The port carries word planes as int32 tensors holding the uint32 bit
+patterns: torch has few uint32 ops, and every consumer only shifts and
+masks. Stacked (multi-tenant) and sharded layouts belong to later slices
+of the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.model import round_bias
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
+
+
+def word_count(entries: int) -> int:
+    """uint32 words per filter for E entries (>= 1 whole word)."""
+    return max(1, entries // 32) if entries % 32 == 0 else 1
+
+
+def validate_packed_geometry(words: torch.Tensor, entries: int) -> None:
+    """Check that a word plane matches its declared entries: power-of-two
+    entries (H3 range closure), the exact packed width, uint32 words (or
+    their int32 bit patterns)."""
+    if entries <= 0 or entries & (entries - 1):
+        raise ValueError(
+            f"entries={entries} must be a power of two (H3 range closure)")
+    if words.ndim != 3:
+        raise ValueError(f"packed words must be (M, N_f, W), "
+                         f"got {tuple(words.shape)}")
+    w = words.shape[-1]
+    expect = word_count(entries)
+    if w != expect:
+        raise ValueError(
+            f"packed word count {w} != ceil({entries}/32)={expect} "
+            f"(word-aligned layout; non-power-of-two word counts cannot "
+            f"arise from a legal pack)")
+    if words.dtype not in (torch.uint32, torch.int32):
+        raise ValueError(f"packed words must be uint32, got {words.dtype}")
+
+
+def pack_words(table_bin: torch.Tensor) -> torch.Tensor:
+    """(M, N_f, E) {0,1} -> (M, N_f, W) int32 holding the uint32 words
+    `core/export.py::pack_table` writes."""
+    m, n_f, e = table_bin.shape
+    bits = (table_bin != 0).to(torch.int64)
+    pad = (-e) % 32
+    if pad:
+        bits = torch.nn.functional.pad(bits, (0, pad))
+    shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
+    words = torch.sum(bits.reshape(m, n_f, -1, 32) << shifts, dim=-1)
+    # words are in [0, 2^32): wrap the top half to int32's negative range
+    return (words - ((words >> 31) << 32)).to(torch.int32)
+
+
+def unpack_words(words: torch.Tensor, entries: int) -> torch.Tensor:
+    """(M, N_f, W) uint32/int32 words -> (M, N_f, E) int8 {0,1}; the
+    inverse of `pack_words`, for tests and explicit down-conversion."""
+    if words.dtype == torch.uint32:
+        words = words.view(torch.int32)
+    m, n_f, w = words.shape
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    bits = (words[..., :, None] >> shifts) & 1
+    return bits.reshape(m, n_f, w * 32)[..., :entries].to(torch.int8)
+
+
+@dataclasses.dataclass
+class PackedTables:
+    """A deployable model in the packed domain — what the serve path
+    carries from artifact load to kernel launch.
+
+    Per submodel (tuple-indexed): `words` (M, N_f, W) int32 bitplanes,
+    `masks` (M, N_f) int8 survival flags, `perms` (N_f, n) int64 input
+    permutations (the artifact stores int32; torch indexes with int64, so
+    the conversion happens here, once), `h3s` (k, n) int32 hash
+    parameters; plus the ensemble `bias` (M,) int32, `entries` per
+    submodel and `num_classes`. Construction validates the geometry, so
+    the serve path does not repeat it per batch.
+    """
+    words: tuple
+    masks: tuple
+    perms: tuple
+    h3s: tuple
+    bias: torch.Tensor
+    entries: tuple = ()
+    num_classes: int = 0
+
+    def __post_init__(self):
+        n = len(self.words)
+        if not (len(self.masks) == len(self.perms) == len(self.h3s)
+                == len(self.entries) == n):
+            raise ValueError(
+                f"per-submodel tuples disagree: words={n} "
+                f"masks={len(self.masks)} perms={len(self.perms)} "
+                f"h3s={len(self.h3s)} entries={len(self.entries)}")
+        self.validate()
+
+    @property
+    def num_submodels(self) -> int:
+        return len(self.words)
+
+    @property
+    def device(self) -> torch.device:
+        return self.bias.device
+
+    def to(self, device) -> "PackedTables":
+        """The same tables on `device` (self when already there)."""
+        device = torch.device(device)
+        if self.device == device:
+            return self
+
+        def mv(ts):
+            return tuple(t.to(device) for t in ts)
+
+        return PackedTables(words=mv(self.words), masks=mv(self.masks),
+                            perms=mv(self.perms), h3s=mv(self.h3s),
+                            bias=self.bias.to(device), entries=self.entries,
+                            num_classes=self.num_classes)
+
+    def validate(self) -> None:
+        """Per-submodel geometry validation, mirroring `ops.wnn_scores`."""
+        for i, (wds, mask, perm, h3, e) in enumerate(zip(
+                self.words, self.masks, self.perms, self.h3s, self.entries)):
+            validate_packed_geometry(wds, e)
+            m, n_f, _ = wds.shape
+            if m != self.num_classes:
+                raise ValueError(f"submodel {i}: words M={m} != "
+                                 f"num_classes={self.num_classes}")
+            if tuple(mask.shape) != (m, n_f):
+                raise ValueError(f"submodel {i}: mask {tuple(mask.shape)} "
+                                 f"!= (M, N_f)=({m}, {n_f})")
+            if perm.ndim != 2 or perm.shape[0] != n_f:
+                raise ValueError(f"submodel {i}: perm {tuple(perm.shape)} "
+                                 f"!= (N_f={n_f}, n)")
+            if h3.ndim != 2 or h3.shape[1] != perm.shape[1]:
+                raise ValueError(f"submodel {i}: h3 {tuple(h3.shape)} n != "
+                                 f"perm n={perm.shape[1]}")
+        if tuple(self.bias.shape) != (self.num_classes,):
+            raise ValueError(f"bias {tuple(self.bias.shape)} != "
+                             f"(M,)=({self.num_classes},)")
+
+    def table_bytes(self) -> int:
+        """Packed table storage in bytes: 4 bytes per word."""
+        return sum(int(w.shape[0]) * int(w.shape[1]) * int(w.shape[2]) * 4
+                   for w in self.words)
+
+
+def from_binary_model(statics: Sequence, tables_bin: Sequence,
+                      masks: Sequence, bias, entries: Sequence[int],
+                      num_classes: int, *,
+                      device=DEFAULT_DEVICE) -> PackedTables:
+    """Pack a binarized model (`core.model.SubmodelStatic`s, (M, N_f, E)
+    {0,1} tables, masks, bias) into `PackedTables` on `device`."""
+    dev = resolve_device(device)
+
+    def t(x):
+        return torch.as_tensor(x).to(dev)
+
+    return PackedTables(
+        words=tuple(pack_words(t(tb)) for tb in tables_bin),
+        masks=tuple((t(m) != 0).to(torch.int8) for m in masks),
+        perms=tuple(t(st.perm).to(torch.int64) for st in statics),
+        h3s=tuple(t(st.h3).to(torch.int32) for st in statics),
+        bias=round_bias(t(bias)),
+        entries=tuple(int(e) for e in entries),
+        num_classes=int(num_classes))
+
+
+def from_artifact(artifact, *, device=DEFAULT_DEVICE) -> PackedTables:
+    """Lift a `core.export.InferenceArtifact` into the packed runtime: the
+    artifact's uint32 planes move to `device` verbatim, as int32 bit
+    patterns; nothing is unpacked."""
+    dev = resolve_device(device)
+    subs = artifact.submodels
+    return PackedTables(
+        words=tuple(torch.from_numpy(np.ascontiguousarray(
+            sm.packed, np.uint32).view(np.int32)).to(dev) for sm in subs),
+        masks=tuple(torch.from_numpy(np.asarray(sm.mask) != 0).to(
+            dev, torch.int8) for sm in subs),
+        perms=tuple(torch.from_numpy(np.asarray(sm.perm, np.int64)).to(dev)
+                    for sm in subs),
+        # h3 is stored as uint32 but holds values below E: int32 is exact
+        h3s=tuple(torch.from_numpy(np.asarray(sm.h3).astype(np.int32)).to(dev)
+                  for sm in subs),
+        bias=torch.from_numpy(np.asarray(artifact.bias, np.int32)).to(dev),
+        entries=tuple(int(sm.entries) for sm in subs),
+        num_classes=int(artifact.num_classes))

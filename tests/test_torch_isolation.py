@@ -1,0 +1,122 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and
+its entry points never fall back to the CPU on their own."""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT_SRC = os.path.join(REPO, "src", "repro_torch")
+GOLDEN = os.path.join(REPO, "tests", "golden", "uln_s_artifact.npz")
+
+
+def _forbidden(module: str) -> bool:
+    """jax, jaxlib or the JAX package `repro` (not `repro_torch`)."""
+    root = module.split(".")[0]
+    return root in ("jax", "jaxlib", "repro")
+
+
+def _port_sources():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(PORT_SRC):
+        out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def test_importing_every_port_module_loads_no_jax_and_no_repro():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
+        "print(bad)\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr
+    n_modules, bad = out.stdout.strip().splitlines()
+    assert int(n_modules) >= 20
+    assert bad == "[]"
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_source_imports_no_jax_and_no_repro(path):
+    with open(path, encoding="utf-8") as fh:
+        tree = ast.parse(fh.read(), filename=path)
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            found += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            found.append(node.module)
+    assert [m for m in found if _forbidden(m)] == []
+
+
+def _no_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("this check is for machines without a CUDA device")
+
+
+def _entry_points():
+    from repro_torch import convert
+    from repro_torch.core import export, model
+    from repro_torch.kernels import ops
+    from repro_torch.launch.scheduler import WnnBatcher
+    from repro_torch.packed import layout, runtime
+    art = export.load(GOLDEN)
+    pt = layout.from_artifact(art, device="cpu")
+    bits = np.zeros((2, art.total_bits), np.uint8)
+    z = torch.zeros
+    return {
+        "artifact_scores": lambda: export.artifact_scores(art, bits),
+        "prepare_artifact": lambda: export.prepare_artifact(art),
+        "WnnBatcher": lambda: WnnBatcher(art, slots=4),
+        "packed_scores": lambda: runtime.packed_scores(pt, bits),
+        "from_artifact": lambda: layout.from_artifact(art),
+        "wnn_scores": lambda: ops.wnn_scores(
+            z((2, 3, 4), dtype=torch.int8), z((2, 4), dtype=torch.int32),
+            z((5, 3, 8), dtype=torch.int8), z((5, 3), dtype=torch.int8),
+            z(5, dtype=torch.int32)),
+        "thermometer": lambda: ops.thermometer(z((2, 3)), z((3, 2))),
+        "decompress": lambda: ops.decompress(z((2, 3), dtype=torch.uint8), 2),
+        "forward_binary_fused": lambda: model.forward_binary_fused(
+            None, [], [], [], z(5), z((2, 8))),
+        "encoder_from_numpy": lambda: convert.encoder_from_numpy(
+            np.zeros((3, 2), np.float32)),
+    }
+
+
+@pytest.mark.parametrize("name", [
+    "artifact_scores", "prepare_artifact", "WnnBatcher", "packed_scores",
+    "from_artifact", "wnn_scores", "thermometer", "decompress",
+    "forward_binary_fused", "encoder_from_numpy"])
+def test_entry_points_raise_without_a_gpu_unless_asked_for_the_cpu(name):
+    _no_gpu()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _entry_points()[name]()
+
+
+@pytest.mark.parametrize("alone", [False, True],
+                         ids=["in_repo", "script_alone"])
+def test_chip_smoke_fails_without_a_gpu_or_without_the_repo(tmp_path, alone):
+    _no_gpu()
+    script = os.path.join(REPO, "chip_smoke.py")
+    cwd = REPO
+    if alone:
+        cwd = str(tmp_path)
+        script = shutil.copy(script, cwd)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, script], capture_output=True,
+                         text=True, cwd=cwd, env=env, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

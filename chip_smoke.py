@@ -1,19 +1,30 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serve path on one NVIDIA GPU.
+"""Drive the PyTorch port's serve and train paths on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root
 
 Builds the hand-written CUDA kernels from `src/repro_torch/kernels/csrc`,
 holds each against its plain PyTorch version on the card (bit-equal),
-serves the golden ULN-S artifact through every backend, then runs the main
-path at full width: a seeded ULN-L artifact (784 features x 7 thermometer
-bits, six submodels, M = 10) saved and loaded back, 65536 rows of raw
-features through the thermometer and decompression kernels, scoring
-through the packed and fused kernels, and 4096+ requests through
-`WnnBatcher` per backend. Every phase prints one JSON line; any mismatch
-raises, so the exit code is nonzero. The last line is
-`{"ok": true, "device": {...}}`; the line before it is the card's name
-and power limit as `nvidia-smi` reports them.
+serves the golden ULN-S artifact through every backend, then runs two
+paths at full ULN-L width (784 features x 7 thermometer bits, six
+submodels, M = 10):
+
+* the serve path: a seeded ULN-L artifact saved and loaded back, 65536
+  rows of raw features through the thermometer and decompression kernels,
+  scoring through the packed and fused kernels, and 4096+ requests through
+  `WnnBatcher` per backend;
+* the train path: class-structured synthetic features of MNIST's shape,
+  the Gaussian thermometer fit and encode kernel, the hash precompute
+  through the `h3_hash` kernel, one-shot counting with bleaching,
+  multi-shot STE training (bf16 tables, dropout shared across classes),
+  30 % pruning with fine-tuning, export, save/load, and serving the
+  exported artifact through the packed kernel.
+
+Each path resets the kernels' launch counts just before it and reads them
+just after. Every phase prints one JSON line; any mismatch raises, so the
+exit code is nonzero. The last line is `{"ok": true, "device": {...}}`;
+the line before it is the card's name and power limit as `nvidia-smi`
+reports them.
 
 Times are CUDA-event medians after warm-up. Each kernel's bound is the
 larger of its bytes (each input read once, each output written once) over
@@ -23,10 +34,11 @@ float32 rate, 67 TFLOP/s, counts a fused multiply-add as two operations:
 one operation per fp32 lane per clock is 33.5 T/s. A Hopper SM has half
 as many int32 lanes as fp32 lanes, so integer work (the WNN kernels'
 hash folds, shifts, masks, ANDs and votes; decompression's compares)
-issues at most 16.75 T/s. Each thermometer kernel's `library_ms` is one
+issues at most 16.75 T/s; the H3 hash's 2·n·k select-and-XOR operations
+per tuple count there too. Each thermometer kernel's `library_ms` is one
 broadcasting PyTorch compare (`torch.gt`, `torch.lt`) whose bool output
 is viewed as int8; no single PyTorch call computes an H3-hashed Bloom
-lookup, so the WNN kernels' is null.
+lookup or an XOR reduction, so the WNN and hash kernels' is null.
 """
 from __future__ import annotations
 
@@ -56,6 +68,13 @@ PLAIN_CHUNK = 4096   # the plain WNN versions run in row chunks: their
 #                      would need tens of GB
 SERVE_REQUESTS = 4096
 SERVE_SLOTS = 256
+TRAIN_ROWS = 16384       # multi-shot training rows (64 steps of 256 an epoch)
+VAL_ROWS = 2048
+ONE_SHOT_ROWS = 4096
+# Accuracy floors of the train path on its synthetic data (10 classes,
+# chance 0.1); the models land well above them.
+ONE_SHOT_FLOOR = 0.5
+MULTI_SHOT_FLOOR = 0.5
 
 KERNEL_INFO = {
     "packed_wnn": ("src/repro_torch/kernels/csrc/wnn.cu",
@@ -66,6 +85,8 @@ KERNEL_INFO = {
                            "src/repro/kernels/thermometer.py:24"),
     "thermometer_decompress": ("src/repro_torch/kernels/csrc/thermometer.cu",
                                "src/repro/kernels/thermometer.py:59"),
+    "h3_hash": ("src/repro_torch/kernels/csrc/h3_hash.cu",
+                "src/repro/kernels/h3_hash.py:28"),
 }
 
 
@@ -283,6 +304,69 @@ def check_front_end_kernels(gen, ref, thermometer_encode,
     return out
 
 
+def check_h3_kernel(gen, ref, h3_hash):
+    """The hash kernel against its plain version, bit-equal: every ULN-L
+    geometry at 65536 rows (one hash precompute of that many rows, timed),
+    the ULN-XL largest submodel, k = 1, 4, 8 and 9, odd n/N_f/B, n = 1,
+    and k·n words past the 48 KB of shared memory."""
+    dev = "cuda"
+    total_bits = ULN_L["features"] * ULN_L["bits_per_input"]
+    cases = [dict(name=f"uln_l_n{n}_e{2 ** log2e}", main=True,
+                  batch=INFER_BATCH, n_f=math.ceil(total_bits / n), n=n,
+                  log2_entries=log2e, k=ULN_L["num_hashes"])
+             for n, log2e in ULN_L["submodels"]]
+    xl = ULN_XL_LARGEST
+    cases += [
+        dict(name="uln_xl_n32_e32768", batch=INFER_BATCH,
+             n_f=math.ceil(xl["total_bits"] / xl["n"]), n=xl["n"],
+             log2_entries=xl["log2_entries"], k=2),
+        dict(name="k1_odd", batch=4099, n_f=101, n=7, log2_entries=3, k=1),
+        dict(name="k4", batch=4097, n_f=77, n=12, log2_entries=4, k=4),
+        dict(name="k8_n64", batch=1031, n_f=45, n=64, log2_entries=10, k=8),
+        dict(name="k9_runtime_k", batch=2053, n_f=229, n=24, log2_entries=8,
+             k=9),
+        dict(name="n1", batch=3001, n_f=total_bits, n=1, log2_entries=6,
+             k=2),
+        dict(name="n100_k3_odd", batch=999, n_f=55, n=100, log2_entries=12,
+             k=3),
+        dict(name="k9_n1500_params_in_global", batch=33, n_f=3, n=1500,
+             log2_entries=15, k=9),
+    ]
+    rows = []
+    total = dict(ms=0.0, plain_ms=0.0, bytes=0, ops=0, max_abs_err=0)
+    for case in cases:
+        name, main = case.pop("name"), case.pop("main", False)
+        b, n_f, n, k = case["batch"], case["n_f"], case["n"], case["k"]
+        tuples = torch.randint(0, 2, (b, n_f, n), generator=gen, device=dev,
+                               dtype=torch.int8)
+        params = torch.randint(0, 2 ** case["log2_entries"], (k, n),
+                               generator=gen, device=dev, dtype=torch.int32)
+        got = h3_hash(tuples, params)
+        want = chunked(ref.h3_hash_ref, b, tuples, params)
+        torch.cuda.synchronize()
+        err = assert_equal(f"h3_hash[{name}]", got, want)
+        total["max_abs_err"] = max(total["max_abs_err"], err)
+        bytes_moved = b * n_f * n + k * n * 4 + b * n_f * k * 4
+        ops = 2 * n * k * b * n_f             # select and XOR per bit, hash
+        ms = cuda_ms(lambda: h3_hash(tuples, params), 20)
+        plain_ms = cuda_ms(lambda: chunked(ref.h3_hash_ref, b, tuples,
+                                           params), 3, warmup=1)
+        bms, by = bound(bytes_moved, ops, INT32_OPS_PER_S)
+        rows.append({"case": name, "batch": b, "n_f": n_f, "n": n, "k": k,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                     "bound_by": by, "bytes": bytes_moved, "ops": ops})
+        if main:
+            for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                           ("bytes", bytes_moved), ("ops", ops)):
+                total[key] += v
+        del tuples, params, got, want
+    total["bound_ms"], total["bound_by"] = bound(total["bytes"], total["ops"],
+                                                 INT32_OPS_PER_S)
+    total["library_ms"] = None
+    emit("h3_kernel", cases=rows, uln_l_hash_precompute=total)
+    return {"h3_hash": total}
+
+
 # ---------------------------------------------------------------------------
 # Phase 5: the main path at full width
 # ---------------------------------------------------------------------------
@@ -311,6 +395,11 @@ def uln_l_artifact(export, seed: int):
         submodels=subs, bias=rng.integers(-5, 6, m).astype(np.int32),
         num_classes=m, total_bits=total_bits,
         bits_per_input=ULN_L["bits_per_input"])
+
+
+# the kernels of the serve path; the train path adds h3_hash
+SERVE_KERNELS = ("packed_wnn", "fused_wnn", "thermometer_encode",
+                 "thermometer_decompress")
 
 
 def serve(WnnBatcher, art, bits_host, want, backend):
@@ -394,7 +483,7 @@ def main_path(export, ops, fit_gaussian_thermometer, WnnBatcher, kernels):
     if s_auto.shape != (INFER_BATCH, ULN_L["num_classes"]):
         raise AssertionError(f"scores shape {tuple(s_auto.shape)}")
     preds = torch.argmax(s_auto, -1)
-    idle = [k for k, v in launches.items() if v == 0]
+    idle = [k for k in SERVE_KERNELS if launches[k] == 0]
     if idle:
         raise AssertionError(f"main path never launched {idle}")
     emit("main_path", model="ULN-L", total_bits=f * t,
@@ -408,6 +497,155 @@ def main_path(export, ops, fit_gaussian_thermometer, WnnBatcher, kernels):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the train path at full width, serving what it exports
+# ---------------------------------------------------------------------------
+
+def synthetic_digits(gen, n: int, dev):
+    """Class-structured features of MNIST's shape: 784 features in (0, 1),
+    10 classes; each class a random prototype, each sample its class's
+    prototype plus a random mix of two class-specific style fields and
+    pixel noise, squashed by a sigmoid. Labels are uniform."""
+    m, f = ULN_L["num_classes"], ULN_L["features"]
+    protos = torch.randn((m, f), generator=gen, device=dev)
+    styles = torch.randn((m, 2, f), generator=gen, device=dev)
+    y = torch.randint(0, m, (n,), generator=gen, device=dev)
+    mix = 0.6 * torch.randn((n, 2, 1), generator=gen, device=dev)
+    x = (protos[y] + (mix * styles[y]).sum(1)
+         + 1.5 * torch.randn((n, f), generator=gen, device=dev))
+    return torch.sigmoid(x), y
+
+
+def uln_l_train_spec(model):
+    """ULN-L with the JAX spec's training flags (`uleen_cell.py:29-34`)."""
+    return model.UleenSpec(
+        num_classes=ULN_L["num_classes"],
+        total_bits=ULN_L["features"] * ULN_L["bits_per_input"],
+        submodels=tuple(model.SubmodelSpec(n, log2e, ULN_L["num_hashes"])
+                        for n, log2e in ULN_L["submodels"]),
+        bits_per_input=ULN_L["bits_per_input"], dropout_shared_classes=True,
+        bf16_tables=True)
+
+
+def synchronized(fn):
+    """fn() and the host seconds until the device has finished it."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def train_path(mods, kernels, *, device="cuda"):
+    """ULN-L as the paper trains it (Fig. 7b): Gaussian thermometer ->
+    one-shot -> multi-shot STE (Adam 1e-3, batch 256, dropout 0.5 shared
+    across classes, bf16 tables) -> prune 30 % + fine-tune -> export ->
+    save/load -> serve through the packed kernel. Returns the launches of
+    the kernels on this path."""
+    encoding, model, one_shot, multi_shot, pruning, export, ops, opt = mods
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(20262)
+    spec = uln_l_train_spec(model)
+    x, y = synthetic_digits(gen, TRAIN_ROWS + VAL_ROWS, dev)
+    x_tr, y_tr, x_val, y_val = (x[:TRAIN_ROWS], y[:TRAIN_ROWS],
+                                x[TRAIN_ROWS:], y[TRAIN_ROWS:])
+    t = ULN_L["bits_per_input"]
+    seconds = {}
+
+    kernels.reset_launch_counts()          # the train path's run starts here
+    t_path = time.perf_counter()
+
+    def encode():
+        enc = encoding.fit_gaussian_thermometer(x_tr, t, device=dev)
+        return [ops.thermometer(a, enc.thresholds, device=dev).reshape(
+            a.shape[0], -1) for a in (x_tr, x_val)]
+
+    (bits_tr, bits_val), seconds["fit_and_encode"] = synchronized(encode)
+    statics = model.init_static(gen, spec, device=dev)
+    hashes, seconds["hash_precompute"] = synchronized(
+        lambda: model.compute_hashes(spec, statics, bits_tr, device=dev))
+    osm, seconds["one_shot"] = synchronized(lambda: one_shot.train_one_shot(
+        spec, statics, bits_tr[:ONE_SHOT_ROWS], y_tr[:ONE_SHOT_ROWS],
+        bits_val, y_val, device=dev))
+    os_acc = one_shot.evaluate_one_shot(spec, statics, osm, bits_val, y_val,
+                                        device=dev)
+    # init_scale sets only the time scale of STE training (an entry flips
+    # after ~|init|/lr steps of one-signed gradient): at the default lr of
+    # 1e-3, 0.01 lets two epochs move entries as far as the JAX package's
+    # small runs do with 0.1 at 1e-2
+    params = model.init_params(gen, spec, init_scale=0.01, device=dev)
+    ms, seconds["multi_shot"] = synchronized(
+        lambda: multi_shot.train_multi_shot(
+            spec, statics, params, bits_tr, y_tr, bits_val, y_val,
+            multi_shot.MultiShotConfig(epochs=2), device=dev))
+    pruned, seconds["prune_and_finetune"] = synchronized(
+        lambda: pruning.prune_and_finetune(
+            spec, statics, ms.params, bits_tr, y_tr, bits_val, y_val,
+            ratio=0.3, finetune=multi_shot.MultiShotConfig(epochs=1),
+            device=dev))
+
+    def export_and_load():
+        art = export.export_model(spec, statics, pruned.params)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            path = str(Path(tmp) / "uln_l_trained.npz")
+            export.save(art, path)
+            return art, export.load(path)
+
+    (art, loaded), seconds["export_save_load"] = synchronized(export_and_load)
+    served, seconds["serve"] = synchronized(
+        lambda: export.artifact_scores(loaded, bits_val, backend="auto",
+                                       device=dev))
+    seconds["path"] = time.perf_counter() - t_path
+    launches = kernels.launch_counts()     # ... and ends here
+
+    # one train step at batch 256 from the trained params
+    optimizer = opt.adam(1e-3)
+    step = multi_shot.make_train_step(spec, optimizer)
+    leaves = [*ms.params.tables, ms.params.bias]
+    state = optimizer.init(leaves)
+    hb = tuple(h[:256] for h in hashes)
+    step_ms = cuda_ms(lambda: step(ms.params, state, hb, y_tr[:256], gen), 10)
+
+    # what came out is right: the artifact the port exported, saved and
+    # loaded serves exactly what forward_binary computes on the binarized
+    # trained params
+    tables_bin, masks, bias = model.binarize_params(pruned.params)
+    h_val = model.compute_hashes(spec, statics, bits_val, device=dev)
+    want = model.forward_binary(spec, tables_bin, masks, bias, h_val)
+    assert_equal("served exported artifact vs forward_binary", served, want)
+    assert_equal("served predictions vs forward_binary's",
+                 torch.argmax(served, -1), torch.argmax(want, -1))
+    for a, b in zip(art.submodels, loaded.submodels):
+        for field in ("packed", "mask", "perm", "h3"):
+            if not np.array_equal(getattr(a, field), getattr(b, field)):
+                raise AssertionError(f"save/load changed {field}")
+    losses = [h["loss"] for h in ms.history + pruned.history]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if os_acc <= ONE_SHOT_FLOOR:
+        raise AssertionError(f"one-shot accuracy {os_acc} <= {ONE_SHOT_FLOOR}")
+    if ms.val_accuracy <= MULTI_SHOT_FLOOR:
+        raise AssertionError(f"multi-shot accuracy {ms.val_accuracy} <= "
+                             f"{MULTI_SHOT_FLOOR}")
+    idle = [k for k in ("h3_hash", "thermometer_encode", "packed_wnn")
+            if launches[k] == 0]
+    if idle:
+        raise AssertionError(f"train path never launched {idle}")
+    served_acc = float((torch.argmax(served, -1) == y_val).float().mean())
+    emit("train_path", model="ULN-L", total_bits=spec.total_bits,
+         submodels=len(spec.submodels), train_rows=TRAIN_ROWS,
+         val_rows=VAL_ROWS, one_shot_rows=ONE_SHOT_ROWS,
+         bf16_tables=spec.bf16_tables,
+         dropout_shared_classes=spec.dropout_shared_classes,
+         seconds=seconds, train_step_ms_batch256=step_ms,
+         one_shot_acc=os_acc, one_shot_bleach=int(osm.bleach),
+         multi_shot_val_acc=ms.val_accuracy, multi_shot_history=ms.history,
+         pruned_val_acc=pruned.val_accuracy, served_exported_acc=served_acc,
+         floors={"one_shot": ONE_SHOT_FLOOR, "multi_shot": MULTI_SHOT_FLOOR},
+         size_kib=art.size_kib, packed_kib=art.packed_size_kib,
+         bias=art.bias.tolist(), launches=launches)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -415,11 +653,13 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import kernels
-    from repro_torch.core import export
+    from repro_torch.core import (encoding, export, model, multi_shot,
+                                  one_shot, pruning)
     from repro_torch.core.encoding import fit_gaussian_thermometer
     from repro_torch.kernels import build, ops, ref
     from repro_torch.launch.scheduler import WnnBatcher
     from repro_torch.packed import layout as packed_layout
+    from repro_torch.train import optimizer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -440,6 +680,7 @@ def main() -> int:
                             kernels.fused_wnn)
     front = check_front_end_kernels(gen, ref, kernels.thermometer_encode,
                                     kernels.thermometer_decompress)
+    h3 = check_h3_kernel(gen, ref, kernels.h3_hash)
     torch.cuda.empty_cache()
 
     golden = export.load(str(ROOT / "tests/golden/uln_s_artifact.npz"))
@@ -454,9 +695,16 @@ def main() -> int:
 
     launches = main_path(export, ops, fit_gaussian_thermometer, WnnBatcher,
                          kernels)
+    torch.cuda.empty_cache()
+    train_launches = train_path(
+        (encoding, model, one_shot, multi_shot, pruning, export, ops,
+         optimizer), kernels)
+    # each kernel's launches on the path that carries it: the serve path
+    # for the WNN and front-end kernels, the train path for the hash
+    launches = {**launches, "h3_hash": train_launches["h3_hash"]}
 
     rows = []
-    for name, timing in {**wnn, **front}.items():
+    for name, timing in {**wnn, **front, **h3}.items():
         source, replaces = KERNEL_INFO[name]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],

@@ -1,9 +1,10 @@
-"""Carry state from the JAX package into the port.
+"""Carry state between the JAX package and the port.
 
 The two packages never import each other; state crosses as numpy arrays.
-Each function takes what the JAX package holds (converted with
-`np.asarray`) and returns the port's object, so both packages can compute
-on the same artifact, tables and thresholds.
+Each `*_from_numpy` function takes what the JAX package holds (converted
+with `np.asarray`) and returns the port's object, and `params_to_numpy`
+goes back, so both packages can compute on the same artifact, statics,
+training state and thresholds.
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core import encoding, export, model
+from repro_torch.core import encoding, export, model, one_shot
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.packed import layout
 
@@ -33,14 +34,60 @@ def packed_tables_from_binary(statics: Sequence, tables_bin: Sequence,
     (perm (N_f, n), h3 (k, n)) numpy pairs, binarized (M, N_f, E) tables,
     masks and bias as numpy arrays."""
     dev = resolve_device(device)
-    sts = [model.SubmodelStatic(
-        perm=torch.from_numpy(np.asarray(perm, np.int32)),
-        h3=torch.from_numpy(np.asarray(h3).astype(np.int32)))
-        for perm, h3 in statics]
     return layout.from_binary_model(
-        sts, [torch.from_numpy(np.asarray(t) != 0) for t in tables_bin],
+        statics_from_numpy(statics, device=dev),
+        [torch.from_numpy(np.asarray(t) != 0) for t in tables_bin],
         [torch.from_numpy(np.asarray(m)) for m in masks],
         torch.from_numpy(np.asarray(bias)), entries, num_classes, device=dev)
+
+
+def statics_from_numpy(statics: Sequence, *,
+                       device=DEFAULT_DEVICE) -> list:
+    """`SubmodelStatic`s from (perm (N_f, n), h3 (k, n)) pairs — a JAX
+    `SubmodelStatic` unpacks to exactly that pair. H3 parameters become
+    int32 (they lie below E <= 2^15)."""
+    dev = resolve_device(device)
+    return [model.SubmodelStatic(
+        perm=torch.from_numpy(np.array(perm, np.int32)).to(dev),
+        h3=torch.from_numpy(np.array(h3).astype(np.int32)).to(dev))
+        for perm, h3 in statics]
+
+
+def params_from_numpy(params, *, device=DEFAULT_DEVICE) -> model.UleenParams:
+    """`UleenParams` from a (tables, bias, masks) triple of numpy arrays —
+    the field order of the JAX `UleenParams`, which unpacks the same way."""
+    dev = resolve_device(device)
+    tables, bias, masks = params
+
+    def t(a):
+        return torch.from_numpy(np.array(a, np.float32)).to(dev)
+
+    return model.UleenParams(tables=tuple(t(x) for x in tables), bias=t(bias),
+                             masks=tuple(t(x) for x in masks))
+
+
+def params_to_numpy(params: model.UleenParams) -> tuple:
+    """(tables, bias, masks) as float32 numpy arrays, in the JAX
+    `UleenParams` field order."""
+    def a(t):
+        return t.detach().cpu().numpy().astype(np.float32)
+
+    return (tuple(a(t) for t in params.tables), a(params.bias),
+            tuple(a(m) for m in params.masks))
+
+
+def one_shot_from_numpy(one_shot_model, *,
+                        device=DEFAULT_DEVICE) -> one_shot.OneShotModel:
+    """`OneShotModel` from a (counting, bleach, bias) triple of numpy
+    arrays (the JAX `OneShotModel` field order)."""
+    dev = resolve_device(device)
+    counting, bleach, bias = one_shot_model
+    return one_shot.OneShotModel(
+        counting=tuple(torch.from_numpy(np.array(c, np.int32)).to(dev)
+                       for c in counting),
+        bleach=torch.tensor(int(np.asarray(bleach)), dtype=torch.int32,
+                            device=dev),
+        bias=torch.from_numpy(np.array(bias, np.float32)).to(dev))
 
 
 def encoder_from_numpy(thresholds, *,

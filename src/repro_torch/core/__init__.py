@@ -1,2 +1,3 @@
-"""ULEEN core, serve side: specs, H3 hashing, Bloom lookups, thermometer
-encoding and the deployable artifact, on PyTorch tensors."""
+"""ULEEN core on PyTorch tensors: specs, H3 hashing, Bloom tables,
+thermometer encoding, one-shot and multi-shot training, pruning, export
+and the deployable artifact."""

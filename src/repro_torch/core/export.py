@@ -1,13 +1,13 @@
-"""Serve a deployable ULEEN inference artifact (port of
-`repro/core/export.py`, serve side).
+"""Export a trained ULEEN model and serve the deployable artifact (port of
+`repro/core/export.py`).
 
 Binary tables are bit-packed (32 entries per uint32 word), pruned filters
 carry a survival mask, and model size is accounted as the paper reports it
-(surviving filters x entries bits). `save`/`load` write and read the same
-npz files as the JAX package, byte for byte both ways: keys `meta`, `bias`
-and `sm{i}_{packed,mask,perm,h3,cfg}`. The artifact itself stays numpy;
+(surviving filters x entries bits). `export_model` turns training state
+into the artifact; `save`/`load` write and read the same npz files as the
+JAX package, byte for byte both ways: keys `meta`, `bias` and
+`sm{i}_{packed,mask,perm,h3,cfg}`. The artifact itself stays numpy;
 `prepare_artifact` moves it to the device once per representation.
-`export_model` (training state -> artifact) belongs to the training slice.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core.model import binarize_params
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.obs import registry as obs_registry
 
@@ -83,6 +84,29 @@ def unpack_table(packed: np.ndarray, entries: int) -> np.ndarray:
     m, n_f, w = packed.shape
     bits = (packed[..., :, None] >> np.arange(32, dtype=np.uint32)) & 1
     return bits.reshape(m, n_f, w * 32)[..., :entries].astype(bool)
+
+
+def export_model(spec, statics, params) -> InferenceArtifact:
+    """Trained state (`core.model.UleenSpec`, statics, `UleenParams`) ->
+    the deployable artifact, with the JAX package's dtypes: uint32 words
+    and H3 parameters, int32 perms and rounded bias, bool masks."""
+    tables_bin, masks, bias = binarize_params(params)
+
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    subs = [SubmodelArtifact(
+        packed=pack_table(host(tb)), mask=host(mask) > 0,
+        perm=host(st.perm).astype(np.int32),
+        h3=host(st.h3).astype(np.uint32), entries=sm.entries,
+        inputs_per_filter=sm.inputs_per_filter, num_hashes=sm.num_hashes)
+        for sm, st, tb, mask in zip(spec.submodels, statics, tables_bin,
+                                    masks)]
+    return InferenceArtifact(submodels=subs,
+                             bias=host(torch.round(bias)).astype(np.int32),
+                             num_classes=spec.num_classes,
+                             total_bits=spec.total_bits,
+                             bits_per_input=spec.bits_per_input)
 
 
 class UnpackedTables(NamedTuple):

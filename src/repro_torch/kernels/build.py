@@ -23,7 +23,7 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("wnn.cu", "thermometer.cu")
+SOURCES = ("wnn.cu", "thermometer.cu", "h3_hash.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -43,8 +43,11 @@ def nvcc_path() -> str:
 
 
 def library_path(source: str) -> Path:
+    """The library of `source`, named by a digest of the source, the
+    shared headers (`csrc/*.cuh`) and the flags."""
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{src.stem}-{digest}.so"
 

@@ -32,6 +32,8 @@
 
 #include <cstdint>
 
+#include "h3.cuh"
+
 namespace {
 
 constexpr int kMaxHashes = 8;       // kernels/launch.py MAX_HASHES
@@ -63,16 +65,6 @@ struct ByteLookup {
     return __ldg(filter + h) != 0;
   }
 };
-
-// Fold input bit i of a tuple into its K H3 hashes (branch-free select).
-template <int K>
-__device__ __forceinline__ void h3_fold(int32_t (&h)[K],
-                                        const int32_t* s_params, int n, int i,
-                                        bool set) {
-  const int32_t sel = -static_cast<int32_t>(set);
-#pragma unroll
-  for (int j = 0; j < K; ++j) h[j] ^= s_params[j * n + i] & sel;
-}
 
 // K, the number of hashes, is a template argument: the hash and lookup
 // loops then unroll to exactly K steps (a runtime k unrolled to the bound
@@ -108,18 +100,7 @@ wnn_kernel(const int8_t* __restrict__ tuples, const int32_t* __restrict__ params
 #pragma unroll
         for (int j = 0; j < K; ++j) h[j] = 0;
         if (live) {
-          const int8_t* t = trow + static_cast<size_t>(f) * n;
-          if (by_word) {
-            const uint32_t* t4 = reinterpret_cast<const uint32_t*>(t);
-            for (int q = 0; q < (n >> 2); ++q) {
-              const uint32_t v = __ldg(t4 + q);
-#pragma unroll
-              for (int b = 0; b < 4; ++b)
-                h3_fold<K>(h, s_params, n, 4 * q + b, ((v >> (8 * b)) & 0xffu) != 0);
-            }
-          } else {
-            for (int i = 0; i < n; ++i) h3_fold<K>(h, s_params, n, i, __ldg(t + i) != 0);
-          }
+          h3_tuple<K>(h, trow + static_cast<size_t>(f) * n, s_params, n, by_word);
 #pragma unroll
           for (int j = 0; j < K; ++j)
             live &= static_cast<uint32_t>(h[j]) < static_cast<uint32_t>(lookup.entries);

@@ -14,6 +14,7 @@ import torch
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.kernels import launch, ref
 from repro_torch.kernels.fused_wnn import fused_wnn
+from repro_torch.kernels.h3_hash import h3_hash as h3_hash_kernel
 from repro_torch.kernels.packed_wnn import packed_wnn
 from repro_torch.kernels.thermometer import (thermometer_decompress,
                                              thermometer_encode)
@@ -148,6 +149,14 @@ def wnn_scores(tuples, params, table, mask, bias, *, backend: str = "auto",
     if resolved == "fused":
         return fused_wnn(tuples, params, table, mask, bias)
     return ref.fused_wnn_ref(tuples, params, table, mask, bias)
+
+
+def h3_hash(tuples, params, *, device=DEFAULT_DEVICE) -> torch.Tensor:
+    """tuples: (B, N_f, n) {0,1}; params: (k, n) -> H3 hashes (B, N_f, k)
+    int32 via the hash kernel (plain version on the CPU)."""
+    dev = resolve_device(device)
+    return h3_hash_kernel(_as(torch.as_tensor(tuples).to(dev), torch.int8),
+                          _as(torch.as_tensor(params).to(dev), torch.int32))
 
 
 def ensemble_predict(scores: torch.Tensor):

@@ -60,6 +60,23 @@ def test_wnn_kernels_equal_plain_versions(gen, b, n_f, n, m, log2e, k):
                                                 bias))
 
 
+@pytest.mark.parametrize("b,n_f,n,k", [
+    (1, 1, 1, 1), (37, 45, 7, 2), (300, 458, 12, 2), (129, 172, 32, 9),
+    (65, 33, 100, 8), (17, 3, 1500, 9)])
+def test_h3_hash_kernel_equals_plain_version(gen, b, n_f, n, k):
+    """k = 9 (the runtime-k pass), n = 100, and k·n words past the 48 KB
+    of shared memory (parameters read from global memory)."""
+    tuples = torch.randint(0, 2, (b, n_f, n), generator=gen, device="cuda",
+                           dtype=torch.int8)
+    params = torch.randint(0, 2 ** 15, (k, n), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    before = kernels.h3_hash.launches
+    got = kernels.h3_hash(tuples, params)
+    torch.cuda.synchronize()
+    assert kernels.h3_hash.launches == before + 1
+    assert torch.equal(got, ref.h3_hash_ref(tuples, params))
+
+
 @pytest.mark.parametrize("b,f,t", [(1, 1, 1), (3, 5, 2), (1027, 784, 7)])
 def test_front_end_kernels_equal_plain_versions(gen, b, f, t):
     x = torch.randn((b, f), generator=gen, device="cuda")

@@ -69,13 +69,16 @@ def _no_gpu():
 
 def _entry_points():
     from repro_torch import convert
-    from repro_torch.core import export, model
+    from repro_torch.core import (encoding, export, model, multi_shot,
+                                  one_shot, pruning)
     from repro_torch.kernels import ops
     from repro_torch.launch.scheduler import WnnBatcher
     from repro_torch.packed import layout, runtime
     art = export.load(GOLDEN)
     pt = layout.from_artifact(art, device="cpu")
     bits = np.zeros((2, art.total_bits), np.uint8)
+    spec = model.UleenSpec(num_classes=5, total_bits=art.total_bits,
+                           submodels=())
     z = torch.zeros
     return {
         "artifact_scores": lambda: export.artifact_scores(art, bits),
@@ -93,13 +96,46 @@ def _entry_points():
             None, [], [], [], z(5), z((2, 8))),
         "encoder_from_numpy": lambda: convert.encoder_from_numpy(
             np.zeros((3, 2), np.float32)),
+        "fit_gaussian_thermometer": lambda: encoding.fit_gaussian_thermometer(
+            np.zeros((4, 3), np.float32), 2),
+        "fit_linear_thermometer": lambda: encoding.fit_linear_thermometer(
+            np.zeros((4, 3), np.float32), 2),
+        "fit_mean_binarizer": lambda: encoding.fit_mean_binarizer(
+            np.zeros((4, 3), np.float32)),
+        "h3_hash": lambda: ops.h3_hash(z((2, 3, 4), dtype=torch.int8),
+                                       z((2, 4), dtype=torch.int32)),
+        "compute_hashes": lambda: model.compute_hashes(spec, [], bits),
+        "init_static": lambda: model.init_static(torch.Generator(), spec),
+        "init_params": lambda: model.init_params(torch.Generator(), spec),
+        "binarize_to_packed": lambda: model.binarize_to_packed(
+            spec, [], model.UleenParams((), z(5), ())),
+        "train_one_shot": lambda: one_shot.train_one_shot(
+            spec, [], bits, [0, 1], bits, [0, 1]),
+        "evaluate_one_shot": lambda: one_shot.evaluate_one_shot(
+            spec, [], None, bits, [0, 1]),
+        "train_multi_shot": lambda: multi_shot.train_multi_shot(
+            spec, [], None, bits, [0, 1], bits, [0, 1]),
+        "evaluate": lambda: multi_shot.evaluate(spec, [], None, bits, [0, 1]),
+        "prune_and_finetune": lambda: pruning.prune_and_finetune(
+            spec, [], None, bits, [0, 1], bits, [0, 1]),
+        "statics_from_numpy": lambda: convert.statics_from_numpy(
+            [(np.zeros((2, 3), np.int32), np.zeros((2, 3), np.uint32))]),
+        "params_from_numpy": lambda: convert.params_from_numpy(
+            ([], np.zeros(5, np.float32), [])),
+        "one_shot_from_numpy": lambda: convert.one_shot_from_numpy(
+            ([], np.int32(1), np.zeros(5, np.float32))),
     }
 
 
 @pytest.mark.parametrize("name", [
     "artifact_scores", "prepare_artifact", "WnnBatcher", "packed_scores",
     "from_artifact", "wnn_scores", "thermometer", "decompress",
-    "forward_binary_fused", "encoder_from_numpy"])
+    "forward_binary_fused", "encoder_from_numpy", "fit_gaussian_thermometer",
+    "fit_linear_thermometer", "fit_mean_binarizer", "h3_hash",
+    "compute_hashes", "init_static", "init_params", "binarize_to_packed",
+    "train_one_shot", "evaluate_one_shot", "train_multi_shot", "evaluate",
+    "prune_and_finetune", "statics_from_numpy", "params_from_numpy",
+    "one_shot_from_numpy"])
 def test_entry_points_raise_without_a_gpu_unless_asked_for_the_cpu(name):
     _no_gpu()
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -185,9 +185,10 @@ def test_cpu_wrappers_count_no_launches():
     x, thr, counts = thermometer_inputs(3, 4, 5, 3)
     kernels.thermometer_encode(torch.from_numpy(x), torch.from_numpy(thr))
     kernels.thermometer_decompress(torch.from_numpy(counts), 3)
+    kernels.h3_hash(args[0], args[1])
     assert kernels.launch_counts() == {
         "packed_wnn": 0, "fused_wnn": 0, "thermometer_encode": 0,
-        "thermometer_decompress": 0}
+        "thermometer_decompress": 0, "h3_hash": 0}
 
 
 def test_wrappers_refuse_tensors_on_other_devices():
@@ -224,6 +225,29 @@ def test_wnn_wrappers_check_the_shapes_their_kernel_reads(kernel, bad, shape,
     args[bad] = torch.zeros(shape, dtype=args[bad].dtype, device="meta")
     with pytest.raises(ValueError, match=match):
         getattr(kernels, kernel)(*args.values())
+
+
+@pytest.mark.parametrize("tuples,params,error,match", [
+    ((4, 5, 12), (2, 12), ValueError, "takes CUDA tensors"),
+    ((4, 5, 12), (2, 11), ValueError, "params has shape"),
+    ((4, 60), (2, 12), ValueError, "expected tuples"),
+    ((4, 5, 12), (9, 12, 1), ValueError, "expected tuples"),
+])
+def test_h3_hash_wrapper_checks_its_arguments(tuples, params, error, match):
+    """The hash kernel reads raw pointers: its wrapper refuses shapes that
+    disagree and tensors off the CPU and CUDA before a launch (here on
+    meta tensors, which reach the checks and no kernel)."""
+    t = torch.zeros(tuples, dtype=torch.int8, device="meta")
+    p = torch.zeros(params, dtype=torch.int32, device="meta")
+    with pytest.raises(error, match=match):
+        kernels.h3_hash(t, p)
+
+
+def test_h3_hash_wrapper_checks_dtypes():
+    with pytest.raises(TypeError, match="tuples must be torch.int8"):
+        kernels.h3_hash(torch.zeros((2, 3, 4), dtype=torch.int32,
+                                    device="meta"),
+                        torch.zeros((2, 4), dtype=torch.int32, device="meta"))
 
 
 @pytest.mark.parametrize("log2e", [3, 4, 5, 6, 10])

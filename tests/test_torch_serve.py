@@ -541,7 +541,8 @@ def features(seed, b, f):
 def test_gaussian_fit_matches_jax():
     x = features(14, 300, 24)
     jenc = jencoding.fit_gaussian_thermometer(jnp.asarray(x), 7)
-    enc = encoding.fit_gaussian_thermometer(torch.from_numpy(x), 7)
+    enc = encoding.fit_gaussian_thermometer(torch.from_numpy(x), 7,
+                                            device=CPU)
     assert enc.thresholds.dtype == torch.float32
     np.testing.assert_allclose(enc.thresholds.numpy(),
                                np.asarray(jenc.thresholds), rtol=1e-6)

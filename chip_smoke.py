@@ -4,10 +4,11 @@
     python3 chip_smoke.py            # from the repository root
 
 Builds the hand-written CUDA kernels from `src/repro_torch/kernels/csrc`,
-holds each against its plain PyTorch version on the card (bit-equal),
+holds each against its plain PyTorch version on the card (the integer
+kernels bit-equal, the flash-attention kernel within a stated tolerance),
 serves the golden ULN-S artifact through every backend, then runs two
-paths at full ULN-L width (784 features x 7 thermometer bits, six
-submodels, M = 10):
+ULEEN paths at full ULN-L width (784 features x 7 thermometer bits, six
+submodels, M = 10) and one LM path:
 
 * the serve path: a seeded ULN-L artifact saved and loaded back, 65536
   rows of raw features through the thermometer and decompression kernels,
@@ -18,7 +19,13 @@ submodels, M = 10):
   through the `h3_hash` kernel, one-shot counting with bleaching,
   multi-shot STE training (bf16 tables, dropout shared across classes),
   30 % pruning with fine-tuning, export, save/load, and serving the
-  exported artifact through the packed kernel.
+  exported artifact through the packed kernel;
+* the LM serve path: Llama 3.2 3B at full width and depth (28 layers,
+  d 3072, 24/8 heads of 128, vocabulary 128 256) with float32 parameters
+  drawn on the card from a seeded generator; `serve()` on a batch of 4
+  prompts of 1024 tokens for 32 tokens, and the continuous-batching
+  `Engine` (8 slots) draining 32 requests of 128-1024 prompt tokens and
+  16-64 new tokens. Every prefill's attention runs the flash kernel.
 
 Each path resets the kernels' launch counts just before it and reads them
 just after. Every phase prints one JSON line; any mismatch raises, so the
@@ -38,7 +45,13 @@ issues at most 16.75 T/s; the H3 hash's 2·n·k select-and-XOR operations
 per tuple count there too. Each thermometer kernel's `library_ms` is one
 broadcasting PyTorch compare (`torch.gt`, `torch.lt`) whose bool output
 is viewed as int8; no single PyTorch call computes an H3-hashed Bloom
-lookup or an XOR reduction, so the WNN and hash kernels' is null.
+lookup or an XOR reduction, so the WNN and hash kernels' is null. The
+flash kernel's operations are 4·D FLOP (two multiply-adds) per visible
+(query, key) pair of each head, bounded at 67 TFLOP/s for float32 on the
+CUDA cores and 989 TFLOP/s for bf16 on the tensor cores; its
+`library_ms` is one `torch.nn.functional.scaled_dot_product_attention`
+call on the same tensors with the KV heads repeated (a yardstick only:
+the port never calls it).
 """
 from __future__ import annotations
 
@@ -52,11 +65,14 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12 / 2       # one op per fp32 lane per clock
 INT32_OPS_PER_S = 67e12 / 4      # half as many int32 lanes as fp32 lanes
+FP32_FLOP_PER_S = 67e12          # FMA as two FLOP, CUDA cores
+BF16_FLOP_PER_S = 989e12         # dense bf16 tensor cores
 
 ULN_L = dict(num_classes=10, features=784, bits_per_input=7, num_hashes=2,
              submodels=((12, 6), (16, 7), (20, 7), (24, 8), (28, 8), (32, 9)))
@@ -76,6 +92,23 @@ ONE_SHOT_ROWS = 4096
 ONE_SHOT_FLOOR = 0.5
 MULTI_SHOT_FLOOR = 0.5
 
+# The LM serve path (Llama 3.2 3B, `configs/llama3p2_3b.py`): serve() on
+# one batch, then the Engine on a closed backlog of mixed requests.
+LM_ARCH = "llama3p2_3b"
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 1024, 32
+LM_SLOTS, LM_REQUESTS = 8, 32
+LM_PROMPT_LENS, LM_GEN_LENS = (128, 256, 512, 1024), (16, 32, 64)
+LM_DECODE_TIMED_STEPS = 8
+# Tolerances of the flash kernel against its plain version: float32 (a
+# running softmax rounds otherwise than one softmax), bf16 (one rounding
+# of the output); the CPU tests hold the plain version to the JAX kernel
+# at the same.
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# Engine (batch-1) prefill logits against serve()'s batch-4 prefill on
+# the same prompts: float32 products that cuBLAS may split otherwise for
+# another batch, over 28 layers
+LM_PREFILL_LOGITS_TOL = 1e-3
+
 KERNEL_INFO = {
     "packed_wnn": ("src/repro_torch/kernels/csrc/wnn.cu",
                    "src/repro/kernels/packed_wnn.py:113"),
@@ -87,6 +120,8 @@ KERNEL_INFO = {
                                "src/repro/kernels/thermometer.py:59"),
     "h3_hash": ("src/repro_torch/kernels/csrc/h3_hash.cu",
                 "src/repro/kernels/h3_hash.py:28"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:80"),
 }
 
 
@@ -365,6 +400,101 @@ def check_h3_kernel(gen, ref, h3_hash):
     total["library_ms"] = None
     emit("h3_kernel", cases=rows, uln_l_hash_precompute=total)
     return {"h3_hash": total}
+
+
+def visible_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask keeps in one head: the work the flash
+    kernel's data needs (rows and keys counted from 0)."""
+    i = np.arange(sq)
+    hi = np.minimum(i, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros(sq, int)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def check_flash_kernel(gen, ref, flash_attention):
+    """The flash kernel against its plain version within FLASH_TOL: the LM
+    path's prefill shape (B 4, 24/8 heads of 128, 1024 tokens, causal,
+    float32; timed), and bf16, a sliding window, ragged tiles, D = 64 and
+    D = 256 (209 KB of shared memory). q, k and v enter as the model has
+    them: (B, S, H, D) projections viewed as (B, H, S, D)."""
+    dev = "cuda"
+    cases = [
+        dict(name="llama3p2_3b_prefill_b4_s1024", main=True, b=4, h=24,
+             hkv=8, sq=1024, sk=1024, d=128, causal=True, window=0,
+             dtype=torch.float32),
+        dict(name="bf16_b4_s1024", b=4, h=24, hkv=8, sq=1024, sk=1024,
+             d=128, causal=True, window=0, dtype=torch.bfloat16),
+        dict(name="window256_s1024", b=2, h=24, hkv=8, sq=1024, sk=1024,
+             d=128, causal=True, window=256, dtype=torch.float32),
+        dict(name="ragged_s777", b=1, h=24, hkv=8, sq=777, sk=777, d=128,
+             causal=True, window=0, dtype=torch.float32),
+        dict(name="d64_gqa32_8_s512", b=2, h=32, hkv=8, sq=512, sk=512,
+             d=64, causal=True, window=0, dtype=torch.float32),
+        dict(name="d256_noncausal_sq200_sk333", b=1, h=4, hkv=2, sq=200,
+             sk=333, d=256, causal=False, window=0, dtype=torch.bfloat16),
+    ]
+    rows, main = [], None
+    for case in cases:
+        name, is_main = case.pop("name"), case.pop("main", False)
+        b, h, hkv, sq, sk, d = (case[k] for k in
+                                ("b", "h", "hkv", "sq", "sk", "d"))
+        causal, window, dt = case["causal"], case["window"], case["dtype"]
+        q = torch.randn((b, sq, h, d), generator=gen, device=dev).to(dt)
+        k = torch.randn((b, sk, hkv, d), generator=gen, device=dev).to(dt)
+        v = torch.randn((b, sk, hkv, d), generator=gen, device=dev).to(dt)
+        q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        want = ref.attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        tol = FLASH_TOL[dt]
+        if not bool((diff <= tol + tol * want.float().abs()).all()):
+            raise AssertionError(f"flash_attention[{name}]: max |diff| "
+                                 f"{float(diff.max())} past tolerance {tol}")
+        err = float(diff.max())
+
+        # one PyTorch call computing the same function: SDPA with the KV
+        # heads repeated beforehand (the repeat is not timed)
+        kr = k.repeat_interleave(h // hkv, dim=1)
+        vr = v.repeat_interleave(h // hkv, dim=1)
+        mask = None
+        if window > 0 or (causal and sq != sk):
+            iq = torch.arange(sq, device=dev)[:, None]
+            ik = torch.arange(sk, device=dev)[None, :]
+            mask = (ik <= iq) if causal else torch.ones_like(ik <= iq)
+            if window > 0:
+                mask = mask & (ik > iq - window)
+
+        def library():
+            return F.scaled_dot_product_attention(
+                q, kr, vr, attn_mask=mask,
+                is_causal=causal and mask is None)
+        lib_err = float((library().float() - want.float()).abs().max())
+        ms = cuda_ms(lambda: flash_attention(q, k, v, causal=causal,
+                                             window=window), 20)
+        plain_ms = cuda_ms(lambda: ref.attention_ref(
+            q, k, v, causal=causal, window=window), 5)
+        library_ms = cuda_ms(library, 20)
+        esize = q.element_size()
+        bytes_moved = esize * (2 * b * h * sq * d + 2 * b * hkv * sk * d)
+        ops = 4 * b * h * d * visible_pairs(sq, sk, causal, window)
+        rate = FP32_FLOP_PER_S if dt == torch.float32 else BF16_FLOP_PER_S
+        bms, by = bound(bytes_moved, ops, rate)
+        row = {"case": name, "b": b, "h": h, "hkv": hkv, "sq": sq, "sk": sk,
+               "d": d, "causal": causal, "window": window,
+               "dtype": str(dt).replace("torch.", ""), "max_abs_err": err,
+               "tolerance": tol, "library_max_abs_err": lib_err, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": bms, "bound_by": by, "bytes": bytes_moved,
+               "ops": ops, "tflop_per_s": ops / ms / 1e9}
+        rows.append(row)
+        if is_main:
+            main = {k: row[k] for k in ("ms", "plain_ms", "library_ms",
+                                        "bound_ms", "bound_by", "bytes",
+                                        "ops", "max_abs_err", "tolerance")}
+        del q, k, v, kr, vr, got, want, diff
+    emit("lm_kernel", cases=rows)
+    return {"flash_attention": main}
 
 
 # ---------------------------------------------------------------------------
@@ -646,6 +776,222 @@ def train_path(mods, kernels, *, device="cuda"):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the LM serve path at full width and depth
+# ---------------------------------------------------------------------------
+
+def lm_serve_path(kernels, *, get_config, transformer, steps, scheduler,
+                  serve_fn, device="cuda"):
+    """Llama 3.2 3B at full width and depth, float32 parameters drawn on
+    the card: serve() on LM_BATCH prompts of LM_PROMPT tokens for LM_GEN
+    tokens, then the Engine draining LM_REQUESTS mixed requests, four of
+    which carry serve()'s prompts. Returns the path's kernel launches."""
+    dev = torch.device(device)
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(20263)
+    params = transformer.init_params(cfg, gen, dtype=torch.float32,
+                                     device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = transformer.param_count(params)
+    rng = np.random.default_rng(20263)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), dtype=np.int32)).to(dev)
+    max_len = max(LM_PROMPT + LM_GEN, max(LM_PROMPT_LENS)
+                  + max(LM_GEN_LENS)) + 1
+    reqs = scheduler.synth_request_stream(
+        cfg, LM_REQUESTS, seed=20263, prompt_lens=LM_PROMPT_LENS,
+        gen_lens=LM_GEN_LENS)
+    for i in range(LM_BATCH):           # four requests carry serve()'s prompts
+        reqs[i].tokens = prompts[i].cpu().numpy()
+        reqs[i].max_new = LM_GEN
+    prefill = steps.make_prefill_step(cfg, max_len=max_len)
+    decode = steps.make_decode_step(cfg)
+    # warm-up outside the counted run: cuBLAS handles and plans
+    prefill(params, {"tokens": prompts[:1, :128]})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    kernels.reset_launch_counts()          # the LM path's run starts here
+    prefill_calls = 0
+    t_path = time.perf_counter()
+    # serve()'s batch prefill, timed alone, and its decode steps
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    a.record()
+    ref_logits, state = prefill(params, {"tokens": prompts})
+    b.record()
+    b.synchronize()
+    prefill_calls += 1
+    prefill_ms = a.elapsed_time(b)
+    tok = torch.argmax(ref_logits[:, -1:], dim=-1).to(torch.int32)
+    decode_ms = []
+    for _ in range(LM_DECODE_TIMED_STEPS):
+        a.record()
+        logits, state = decode(params, tok, state)
+        b.record()
+        b.synchronize()
+        decode_ms.append(a.elapsed_time(b))
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+    del state
+    t0 = time.perf_counter()
+    served = serve_fn(cfg, params, prompts, max_len=max_len, gen=LM_GEN)
+    served = served.cpu()
+    serve_s = time.perf_counter() - t0
+    prefill_calls += 1
+
+    eng = scheduler.Engine(cfg, params, slots=LM_SLOTS, max_len=max_len,
+                           device=dev)
+    first_logits = {}
+    inner = eng._prefill
+
+    def capture(params, batch, length, slot, state):
+        out_logits, out_state = inner(params, batch, length, slot, state)
+        rid = eng.slots[slot].request.rid
+        if rid < LM_BATCH:
+            first_logits[rid] = out_logits[0, -1].float()
+        return out_logits, out_state
+    eng._prefill = capture
+    t0 = time.perf_counter()
+    results = eng.run(reqs)
+    torch.cuda.synchronize()
+    engine_s = time.perf_counter() - t0
+    prefill_calls += len(results)
+    seconds = time.perf_counter() - t_path
+    launches = kernels.launch_counts()     # ... and ends here
+    peak_bytes = torch.cuda.max_memory_allocated()
+
+    # what came out is right
+    n_layers = cfg.num_layers
+    if launches["flash_attention"] != n_layers * prefill_calls:
+        raise AssertionError(
+            f"flash_attention launched {launches['flash_attention']} times, "
+            f"not {n_layers} x {prefill_calls} prefill calls")
+    others = {k: v for k, v in launches.items()
+              if k != "flash_attention" and v}
+    if others:
+        raise AssertionError(f"the LM path launched other kernels: {others}")
+    if tuple(served.shape) != (LM_BATCH, LM_GEN):
+        raise AssertionError(f"serve() returned {tuple(served.shape)}")
+    if not bool(((served >= 0) & (served < cfg.padded_vocab)).all()):
+        raise AssertionError("serve() returned tokens outside the vocab")
+    if len(results) != LM_REQUESTS:
+        raise AssertionError(f"{len(results)} results for {LM_REQUESTS}")
+    short = [r.rid for r, q in zip(results, reqs)
+             if len(r.tokens) != q.max_new]
+    if short:
+        raise AssertionError(f"requests {short} did not return max_new")
+    if not bool(torch.isfinite(ref_logits).all()):
+        raise AssertionError("non-finite prefill logits")
+    logit_err = []
+    for i in range(LM_BATCH):
+        want = ref_logits[i, -1].float()
+        got = first_logits[i]
+        err = (got - want).abs()
+        if not bool((err <= LM_PREFILL_LOGITS_TOL * (1 + want.abs())).all()):
+            raise AssertionError(
+                f"Engine prefill logits of request {i} differ from "
+                f"serve()'s by {float(err.max())}")
+        logit_err.append(float(err.max()))
+        if results[i].tokens[0] != int(served[i, 0]):
+            raise AssertionError(f"request {i}: first token "
+                                 f"{results[i].tokens[0]} != serve()'s "
+                                 f"{int(served[i, 0])}")
+    agreement = [float(np.mean(np.asarray(results[i].tokens)
+                               == served[i].numpy()))
+                 for i in range(LM_BATCH)]
+    st = eng.stats()
+    if st["requests"] != LM_REQUESTS or eng.trace_counts["decode"] != 1:
+        raise AssertionError(f"engine stats {st}, shapes "
+                             f"{dict(eng.trace_counts)}")
+    profile = lm_profile(params, prefill, decode, prompts)
+    if isinstance(profile["decode_b4"], dict):
+        profile["decode_b4"]["device_busy_share_of_untraced_step"] = (
+            profile["decode_b4"]["device_ms_per_call"]
+            / float(np.median(decode_ms)))
+        profile["prefill_b4_s1024"]["device_busy_share_of_untraced_call"] = (
+            profile["prefill_b4_s1024"]["device_ms_per_call"] / prefill_ms)
+    emit("lm_serve_path", model=cfg.name, layers=n_layers, d_model=cfg.d_model,
+         heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+         head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff,
+         vocab=cfg.vocab_size, params=n_params, param_dtype="float32",
+         kv_cache_dtype=cfg.kv_cache_dtype, init_s=init_s,
+         max_len=max_len,
+         serve={"batch": LM_BATCH, "prompt": LM_PROMPT, "gen": LM_GEN,
+                "prefill_ms": prefill_ms,
+                "prefill_tok_per_s": LM_BATCH * LM_PROMPT / prefill_ms * 1e3,
+                "decode_ms_per_step_median": float(np.median(decode_ms)),
+                "decode_ms_per_step": decode_ms,
+                "serve_s": serve_s,
+                "serve_tok_per_s": LM_BATCH * LM_GEN / serve_s},
+         engine={"slots": LM_SLOTS, "requests": LM_REQUESTS,
+                 "prompt_lens": LM_PROMPT_LENS, "gen_lens": LM_GEN_LENS,
+                 "wall_s": engine_s,
+                 "prompt_tokens": int(sum(q.prompt_len for q in reqs)),
+                 "shapes": dict(eng.trace_counts), **st},
+         prefill_logits_max_abs_err=logit_err,
+         prefill_logits_tolerance=LM_PREFILL_LOGITS_TOL,
+         first_token_equal=True, token_agreement_vs_serve=agreement,
+         prefill_calls=prefill_calls, path_s=seconds,
+         max_memory_allocated_gib=peak_bytes / 2 ** 30, launches=launches,
+         profile=profile)
+    del params, eng
+    return launches
+
+
+def lm_profile(params, prefill, decode, prompts, top: int = 10) -> dict:
+    """Where the device time of one batch-4 prefill and of decode steps
+    goes: a torch.profiler trace (CPU and CUDA activities) of each, the
+    device kernels' time summed by name, and the device time per call.
+    Kernels run on one stream, so their times do not overlap. The trace's
+    own host overhead stretches the wall time, so the busy share of a step
+    is taken against the untraced CUDA-event step time by the caller.
+    "not measured" where the trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_us(evt):
+        return getattr(evt, "self_device_time_total",
+                       getattr(evt, "self_cuda_time_total", 0.0))
+
+    out = {}
+    for name, steps_n in (("prefill_b4_s1024", 0), ("decode_b4", 4)):
+        if steps_n:
+            _, state = prefill(params, {"tokens": prompts})
+            tok = torch.zeros((prompts.shape[0], 1), dtype=torch.int32,
+                              device=prompts.device)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if steps_n:
+                for _ in range(steps_n):
+                    _, state = decode(params, tok, state)
+            else:
+                prefill(params, {"tokens": prompts})
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        if steps_n:
+            del state
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and device_us(e) > 0]
+        if not kernels:
+            out[name] = "not measured"
+            continue
+        calls = max(steps_n, 1)
+        busy_us = sum(device_us(e) for e in kernels)
+        kernels.sort(key=device_us, reverse=True)
+        out[name] = {
+            "calls": calls, "traced_wall_ms_per_call": wall_us / calls / 1e3,
+            "device_ms_per_call": busy_us / calls / 1e3,
+            "kernel_launches_per_call": sum(e.count for e in kernels) / calls,
+            "top": [{"name": e.key[:90], "launches": e.count,
+                     "device_ms": device_us(e) / 1e3,
+                     "share": device_us(e) / busy_us}
+                    for e in kernels[:top]]}
+    return out
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -656,8 +1002,12 @@ def main() -> int:
     from repro_torch.core import (encoding, export, model, multi_shot,
                                   one_shot, pruning)
     from repro_torch.core.encoding import fit_gaussian_thermometer
+    from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.launch import scheduler, steps
     from repro_torch.launch.scheduler import WnnBatcher
+    from repro_torch.launch.serve import serve as lm_serve
+    from repro_torch.models import transformer
     from repro_torch.packed import layout as packed_layout
     from repro_torch.train import optimizer
 
@@ -681,6 +1031,7 @@ def main() -> int:
     front = check_front_end_kernels(gen, ref, kernels.thermometer_encode,
                                     kernels.thermometer_decompress)
     h3 = check_h3_kernel(gen, ref, kernels.h3_hash)
+    flash = check_flash_kernel(gen, ref, kernels.flash_attention)
     torch.cuda.empty_cache()
 
     golden = export.load(str(ROOT / "tests/golden/uln_s_artifact.npz"))
@@ -699,12 +1050,18 @@ def main() -> int:
     train_launches = train_path(
         (encoding, model, one_shot, multi_shot, pruning, export, ops,
          optimizer), kernels)
-    # each kernel's launches on the path that carries it: the serve path
-    # for the WNN and front-end kernels, the train path for the hash
-    launches = {**launches, "h3_hash": train_launches["h3_hash"]}
+    torch.cuda.empty_cache()
+    lm_launches = lm_serve_path(kernels, get_config=get_config,
+                                transformer=transformer, steps=steps,
+                                scheduler=scheduler, serve_fn=lm_serve)
+    # each kernel's launches on the path that carries it: the ULEEN serve
+    # path for the WNN and front-end kernels, the train path for the hash,
+    # the LM serve path for flash attention
+    launches = {**launches, "h3_hash": train_launches["h3_hash"],
+                "flash_attention": lm_launches["flash_attention"]}
 
     rows = []
-    for name, timing in {**wnn, **front, **h3}.items():
+    for name, timing in {**wnn, **front, **h3, **flash}.items():
         source, replaces = KERNEL_INFO[name]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
@@ -713,7 +1070,9 @@ def main() -> int:
                      "bound_ms": timing["bound_ms"],
                      "bound_by": timing["bound_by"],
                      "bytes": timing["bytes"], "ops": timing["ops"],
-                     "library_ms": timing["library_ms"]})
+                     "library_ms": timing["library_ms"],
+                     **({"tolerance": timing["tolerance"]}
+                        if "tolerance" in timing else {})})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,8 @@ The two packages never import each other; state crosses as numpy arrays.
 Each `*_from_numpy` function takes what the JAX package holds (converted
 with `np.asarray`) and returns the port's object, and `params_to_numpy`
 goes back, so both packages can compute on the same artifact, statics,
-training state and thresholds.
+training state and thresholds; `lm_params_from_numpy` carries an LM's
+parameters across for the tests (the chip path initialises on the card).
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch
 
 from repro_torch.core import encoding, export, model, one_shot
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.models import transformer
 from repro_torch.packed import layout
 
 
@@ -97,3 +99,35 @@ def encoder_from_numpy(thresholds, *,
     dev = resolve_device(device)
     thr = torch.tensor(np.asarray(thresholds, np.float32), device=dev)
     return encoding.ThermometerEncoder(thresholds=thr)
+
+
+def lm_params_from_numpy(cfg, tree, *, device=DEFAULT_DEVICE
+                         ) -> transformer.ParamTree:
+    """The port's parameter tree from a JAX LM parameter pytree converted
+    leaf by leaf with `np.asarray` (nested dicts; a segment of repeat > 1
+    stacks its layers on a leading (L,) axis, which is unstacked into the
+    segment's list of layers). Dtypes are kept."""
+    dev = resolve_device(device)
+    transformer.check_supported(cfg)
+
+    def t(a):
+        return torch.from_numpy(np.array(a)).to(dev)
+
+    def tensors(node):
+        if isinstance(node, Mapping):
+            return {k: tensors(v) for k, v in node.items()}
+        return t(node)
+
+    def layer(node, li, stacked):
+        if isinstance(node, Mapping):
+            return {k: layer(v, li, stacked) for k, v in node.items()}
+        return t(np.asarray(node)[li] if stacked else node)
+
+    out = {k: tensors(v) for k, v in tree.items() if k != "segments"}
+    out["segments"] = [
+        {name: [layer(seg_tree[name], li, seg.repeat > 1)
+                for li in range(seg.repeat)]
+         for name in seg_tree}
+        for seg, seg_tree in zip(transformer.arch_segments(cfg),
+                                 tree["segments"])]
+    return transformer.ParamTree(out)

@@ -1,11 +1,13 @@
 """Hand-written Hopper kernels and their plain versions.
 
 Each wrapper (`packed_wnn`, `fused_wnn`, `thermometer_encode`,
-`thermometer_decompress` on the serve path, `h3_hash` on the training
-path) launches its CUDA kernel on CUDA tensors and counts the launch in
-its `launches` attribute; on CPU tensors it runs its plain version from
-`ref.py` and counts nothing.
+`thermometer_decompress` on the ULEEN serve path, `h3_hash` on the ULEEN
+training path, `flash_attention` on the LM prefill path) launches its
+CUDA kernel on CUDA tensors and counts the launch in its `launches`
+attribute; on CPU tensors it runs its plain version from `ref.py` and
+counts nothing.
 """
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_wnn import fused_wnn
 from repro_torch.kernels.h3_hash import h3_hash
 from repro_torch.kernels.packed_wnn import packed_wnn
@@ -13,7 +15,7 @@ from repro_torch.kernels.thermometer import (thermometer_decompress,
                                              thermometer_encode)
 
 KERNELS = (packed_wnn, fused_wnn, thermometer_encode, thermometer_decompress,
-           h3_hash)
+           h3_hash, flash_attention)
 
 
 def launch_counts() -> dict:

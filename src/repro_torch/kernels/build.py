@@ -23,7 +23,7 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("wnn.cu", "thermometer.cu", "h3_hash.cu")
+SOURCES = ("wnn.cu", "thermometer.cu", "h3_hash.cu", "flash_attention.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

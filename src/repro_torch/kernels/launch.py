@@ -21,9 +21,12 @@ MAX_TUPLE_BITS = 64
 MAX_HASHES = 8
 
 
-def check_cuda_args(kernel: str, **tensors) -> torch.device:
+def check_cuda_args(kernel: str, *, contiguous: bool = True,
+                    **tensors) -> torch.device:
     """tensors: name -> (tensor, expected dtype, expected shape). Returns
-    their device."""
+    their device. With `contiguous=False` only the last dimension must be
+    contiguous: the kernel reads the others through the strides it is
+    passed."""
     for name, (t, dtype, shape) in tensors.items():
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, "
@@ -41,8 +44,11 @@ def check_cuda_args(kernel: str, **tensors) -> torch.device:
         elif t.device != device:
             raise ValueError(f"{kernel}: {name} is on {t.device}, other "
                              f"inputs on {device}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{kernel}: {name} must be contiguous")
+        if not contiguous and t.numel() and t.stride(-1) != 1:
+            raise ValueError(f"{kernel}: {name} must be contiguous in its "
+                             "last dimension")
     return device
 
 

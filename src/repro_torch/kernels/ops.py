@@ -13,6 +13,8 @@ import torch
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.kernels import launch, ref
+from repro_torch.kernels.flash_attention import \
+    flash_attention as flash_attention_kernel
 from repro_torch.kernels.fused_wnn import fused_wnn
 from repro_torch.kernels.h3_hash import h3_hash as h3_hash_kernel
 from repro_torch.kernels.packed_wnn import packed_wnn
@@ -182,3 +184,18 @@ def decompress(counts, bits: int, *, device=DEFAULT_DEVICE) -> torch.Tensor:
     dev = resolve_device(device)
     return thermometer_decompress(
         _as(torch.as_tensor(counts).to(dev), torch.uint8), bits)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    scale: float | None = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """q: (B, H, Sq, D); k, v: (B, Hkv, Sk, D) -> (B, H, Sq, D).
+
+    The JAX package repeats KV heads here and calls the TPU kernel on
+    (B·H, S, D) blocks; the port's kernel reads each query head's KV head
+    in place, so this only dispatches: the flash kernel on CUDA tensors,
+    its plain version (`ref.attention_ref`) on CPU tensors. It takes no
+    `device=`: the model calls it on activations that already lie on the
+    device the caller chose."""
+    return flash_attention_kernel(q, k, v, causal=causal, window=window,
+                                  scale=scale, q_offset=q_offset)

@@ -4,7 +4,8 @@
 Each function computes what its kernel computes, with ordinary tensor
 ops, on any device. The tests hold them against the JAX package; on the
 CPU the kernel wrappers run them as the implementation; on the GPU
-`chip_smoke.py` holds each kernel against its plain version bit for bit.
+`chip_smoke.py` holds each kernel against its plain version, bit for bit
+for the integer kernels and within a stated tolerance for attention.
 Nothing on the main path calls them for a CUDA tensor.
 """
 from __future__ import annotations
@@ -73,3 +74,33 @@ def decompress_ref(counts: torch.Tensor, bits: int) -> torch.Tensor:
     iota = torch.arange(bits, dtype=torch.int32, device=counts.device)
     return (iota[None, None, :] < counts[..., None].to(torch.int32)
             ).to(torch.int8)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0,
+                  scale: float | None = None,
+                  q_offset: int = 0) -> torch.Tensor:
+    """Naive softmax attention in float32. q: (B, H, Sq, D); k, v:
+    (B, Hkv, Sk, D), GQA by repeating each KV head H // Hkv times ->
+    (B, H, Sq, D) in q's dtype. Query row i sits at position i + q_offset;
+    `causal` keeps keys j <= i + q_offset, `window > 0` keeps
+    j > i + q_offset - window. A row with no visible key averages all Sk
+    keys (every score is -1e30), as the JAX package's `attention_ref`
+    does."""
+    h, sq, d = q.shape[1], q.shape[2], q.shape[3]
+    hkv, sk = k.shape[1], k.shape[2]
+    if hkv != h:
+        k = k.repeat_interleave(h // hkv, dim=1)
+        v = v.repeat_interleave(h // hkv, dim=1)
+    scale = d ** -0.5 if scale is None else scale
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    iq = q_offset + torch.arange(sq, device=q.device)[:, None]
+    ik = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (ik <= iq)
+    if window > 0:
+        mask = mask & (ik > iq - window)
+    s = torch.where(mask, s, torch.tensor(-1e30, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    return torch.matmul(p, v.float()).to(q.dtype)

@@ -1,25 +1,400 @@
-"""Micro-batching serve path for WNN artifact inference (port of
-`repro/launch/scheduler.py::WnnBatcher`).
+"""Serve engines (port of `repro/launch/scheduler.py`): the
+continuous-batching LM `Engine` and the WNN micro-batcher `WnnBatcher`.
 
-Requests queue on the host; each `step()` serves up to `slots` of them
-through ONE fixed-shape scores launch over the artifact's prepared tables
-on the device. The LM serve engine and the multi-tenant and class-sharded
-batchers belong to later slices of the port.
+`Engine` keeps every KV-cache slot busy every decode step: requests enter
+a FIFO queue (`submit`), each cache row is a *slot* with lifecycle
+FREE -> PREFILL -> DECODE -> DRAIN -> FREE, and whenever a slot frees the
+queue head is prefilled into that row (`steps.make_slot_prefill_step`) and
+joins the running masked decode batch mid-flight. This slice ports the
+contiguous engine; the paged engine with block backpressure and batched
+prefill waits for its item in ROADMAP.md (Queue 1 item 3), and there is no
+`mesh=`.
+
+`WnnBatcher` queues WNN classification requests on the host; each
+`step()` serves up to `slots` of them through ONE fixed-shape scores
+launch over the artifact's prepared tables on the device. The
+multi-tenant and class-sharded batchers belong to later slices.
+
+Eager PyTorch compiles nothing, so where the JAX engines count retraces,
+`trace_counts` here counts the distinct input shapes each step function
+receives (`obs.torchhooks.counted`): a warm engine keeps one decode
+shape, and one prefill shape per prompt-length bucket.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import enum
 import time
-from typing import Callable, List, Optional
+from typing import Any, Callable, Iterable, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.launch import steps
+from repro_torch.models import transformer
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import registry as obs_registry
 from repro_torch.obs import torchhooks
+
+_PAGED_TODO = ("the paged engine (paged=True, block backpressure) and batched "
+               "prefill (prefill_batch > 1) are not ported yet (ROADMAP.md, "
+               "Queue 1 item 3: the paged engine with batched prefill)")
+
+
+class SlotState(enum.Enum):
+    FREE = "free"          # no request; row contents are dead
+    PREFILL = "prefill"    # request admitted this step, cache being built
+    DECODE = "decode"      # live: emits one token per engine step
+    DRAIN = "drain"        # finished; result final, row reclaimed at the
+    #                        next admission scan
+
+
+@dataclasses.dataclass
+class Request:
+    """One generation request. `tokens` is the unpadded prompt (plen,)."""
+    tokens: np.ndarray
+    max_new: int
+    rid: int = -1                      # assigned by Engine.submit
+    arrival: float = 0.0               # stream offset (s) for run(realtime=)
+
+    @property
+    def prompt_len(self) -> int:
+        return int(np.asarray(self.tokens).shape[0])
+
+
+@dataclasses.dataclass
+class RequestResult:
+    rid: int
+    prompt_len: int
+    tokens: List[int]                  # generated ids, len == max_new
+    t_submit: float
+    t_admit: float = 0.0
+    t_first: float = 0.0               # first token (end of prefill)
+    # None = still in flight: with an injected clock a request can finish
+    # at time 0.0, and stats() filters on `is not None`
+    t_done: Optional[float] = None
+
+    @property
+    def latency(self) -> float:
+        return self.t_done - self.t_submit
+
+    @property
+    def queue_wait(self) -> float:
+        return self.t_admit - self.t_submit
+
+
+@dataclasses.dataclass
+class _Slot:
+    state: SlotState = SlotState.FREE
+    request: Optional[Request] = None
+    result: Optional[RequestResult] = None
+    generator: Any = None              # per-request generator (sampling)
+
+
+def _bucket_pow2(n: int, lo: int = 8) -> int:
+    b = lo
+    while b < n:
+        b *= 2
+    return b
+
+
+def _request_seed(seed: int, rid: int) -> int:
+    """The seed of request `rid`'s sampling generator: a function of the
+    engine seed and the rid only, so a request's sampled tokens do not
+    depend on the slot or step it lands in."""
+    return int(np.random.SeedSequence([seed, rid]).generate_state(1)[0])
+
+
+class Engine:
+    """Step-driven continuous-batching engine over one ServeState.
+
+    slots: batch width of the decode step == concurrent requests.
+    max_len: cache width; every request needs prompt_len + max_new <=
+        max_len.
+    bucket: None -> each prompt is prefilled at its exact length; "pow2"
+        -> prompts are right-padded to the next power-of-two bucket (at
+        least 8) and the length-aware prefill reads the last real
+        position. Padded prefill is only sound for full-width attention
+        caches, so "pow2" refuses a sliding-window model.
+    greedy/seed/temperature: token selection, mirroring `serve()`. Greedy
+        takes `torch.argmax` (the first maximum, as `jnp.argmax`). Sampled
+        decode draws from one `torch.Generator` per request, seeded from
+        (seed, rid): a request's tokens do not depend on its slot, though
+        they are not JAX's.
+    paged/block_size/num_blocks/prefill_batch: the paged engine; paged=True
+        or prefill_batch > 1 raise NotImplementedError (ROADMAP.md).
+    device: where params live and the engine runs; "cuda" by default, and
+        with no CUDA device it raises unless asked for the CPU.
+
+        eng = Engine(cfg, params, slots=4, max_len=64, device="cuda")
+        eng.submit(prompt_tokens, max_new=16)
+        results = eng.drain()          # -> [RequestResult]
+    """
+
+    def __init__(self, cfg: ArchConfig, params, *, slots: int = 4,
+                 max_len: int = 128, greedy: bool = True, seed: int = 0,
+                 temperature: float = 1.0, bucket: Optional[str] = None,
+                 clock: Callable = None, paged: bool = False,
+                 block_size: int = 16, num_blocks: Optional[int] = None,
+                 prefill_batch: int = 1, device=DEFAULT_DEVICE):
+        self.device = resolve_device(device)
+        if bucket not in (None, "pow2"):
+            raise ValueError(f"unknown bucket policy {bucket!r}")
+        if prefill_batch < 1:
+            raise ValueError(f"need prefill_batch >= 1, got {prefill_batch}")
+        if paged or prefill_batch > 1:
+            raise NotImplementedError(_PAGED_TODO)
+        transformer.check_supported(cfg)
+        if bucket == "pow2" and cfg.sliding_window:
+            raise ValueError(
+                "bucketed (padded) prefill needs full-width attention "
+                "caches: a sliding-window ring buffer folds padding in "
+                f"({cfg.name})")
+        if params.embed.device != self.device:
+            raise ValueError(f"params lie on {params.embed.device}, the "
+                             f"engine runs on {self.device}")
+        self.cfg = cfg
+        self.params = params
+        self.num_slots = slots
+        self.max_len = max_len
+        self.greedy = greedy
+        self.seed = seed
+        self.temperature = temperature
+        self.bucket = bucket
+        self.clock = clock or time.perf_counter
+
+        # distinct input shapes of each step function (one decode shape;
+        # one prefill shape per bucket), mirrored into the global recorder
+        self.trace_counts: collections.Counter = collections.Counter()
+        self.lat_hist = obs_metrics.Histogram()
+        self.queue_hist = obs_metrics.Histogram()
+        self._prefill = torchhooks.counted(
+            steps.make_slot_prefill_step(cfg, max_len=max_len),
+            self.trace_counts,
+            lambda params, batch, *a: f"prefill_{batch['tokens'].shape[1]}",
+            agg_key="prefill")
+        self._decode = torchhooks.counted(
+            steps.make_masked_decode_step(cfg), self.trace_counts, "decode")
+
+        self.state = steps.serve_state_zeros(cfg, params, slots, max_len)
+        self.slots = [_Slot() for _ in range(slots)]
+        self.queue: collections.deque = collections.deque()
+        self._next_tok = np.zeros((slots,), np.int32)
+        self.results: dict = {}
+        self._next_rid = 0
+        self.step_count = 0
+        self.peak_active = 0
+
+    # -- scheduling ---------------------------------------------------------
+
+    def submit(self, tokens, max_new: int, *, arrival: float = 0.0) -> int:
+        """Queue one request; returns its rid. Never drops: a full engine
+        only deepens the queue."""
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
+        req = Request(tokens=tokens, max_new=int(max_new), arrival=arrival)
+        if req.prompt_len < 1 or req.max_new < 1:
+            raise ValueError("need prompt_len >= 1 and max_new >= 1")
+        # the decode budget is the REAL prompt length (a bucket's padded
+        # tail sits above the kv_len mask and is overwritten by decode
+        # writes); the padded prefill itself must still fit the cache
+        need = req.prompt_len + req.max_new
+        if need > self.max_len:
+            raise ValueError(
+                f"request needs {need} cache rows (prompt + max_new), "
+                f"engine max_len is {self.max_len}")
+        padded = self._padded_len(req.prompt_len)
+        if padded > self.max_len:
+            raise ValueError(
+                f"prompt pads to the {padded} bucket, which exceeds engine "
+                f"max_len {self.max_len} even though the request itself "
+                f"fits ({need} rows) — raise max_len or drop bucketing")
+        req.rid = self._next_rid
+        self._next_rid += 1
+        self.results[req.rid] = RequestResult(
+            rid=req.rid, prompt_len=req.prompt_len, tokens=[],
+            t_submit=self.clock())
+        self.queue.append(req)
+        return req.rid
+
+    def _padded_len(self, plen: int) -> int:
+        return _bucket_pow2(plen) if self.bucket == "pow2" else plen
+
+    def _select(self, logits_last: torch.Tensor, slot: _Slot) -> int:
+        """Next token from (V,) logits: greedy argmax (as `serve()`) or a
+        sample from the request's own generator."""
+        if self.greedy:
+            return int(torch.argmax(logits_last))
+        probs = torch.softmax(logits_last.float() / self.temperature, -1)
+        return int(torch.multinomial(probs, 1, generator=slot.generator))
+
+    def _admit(self):
+        """Reclaim DRAIN slots, then prefill queue heads into FREE rows,
+        one batch-1 prefill per admitted request; its logits give the
+        first token."""
+        rec = obs_registry.get_recorder()
+        for sl in self.slots:
+            if sl.state is SlotState.DRAIN:
+                sl.state = SlotState.FREE
+                sl.request = sl.result = sl.generator = None
+        for i, sl in enumerate(self.slots):
+            if not self.queue or sl.state is not SlotState.FREE:
+                continue
+            req = self.queue.popleft()
+            res = self.results[req.rid]
+            sl.state = SlotState.PREFILL
+            sl.request = req
+            sl.result = res
+            if not self.greedy:
+                sl.generator = torch.Generator(device=self.device)
+                sl.generator.manual_seed(_request_seed(self.seed, req.rid))
+            res.t_admit = self.clock()
+            self.queue_hist.observe(res.queue_wait)
+            rec.histogram("serve.engine.queue_wait_s").observe(res.queue_wait)
+
+            plen = self._padded_len(req.prompt_len)
+            toks = np.zeros((1, plen), np.int32)
+            toks[0, :req.prompt_len] = req.tokens
+            batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+            with rec.span("engine.prefill", rid=req.rid, slot=i, plen=plen):
+                logits, self.state = self._prefill(
+                    self.params, batch, req.prompt_len, i, self.state)
+                tok = self._select(logits[0, -1], sl)
+            res.tokens.append(tok)
+            res.t_first = self.clock()
+            self._next_tok[i] = tok
+            self._finish_if_done(sl)
+            if sl.state is SlotState.PREFILL:
+                sl.state = SlotState.DECODE
+
+    def _finish_if_done(self, sl: _Slot):
+        if len(sl.result.tokens) >= sl.request.max_new:
+            sl.result.t_done = self.clock()
+            sl.state = SlotState.DRAIN
+            self.lat_hist.observe(sl.result.latency)
+            obs_registry.get_recorder().histogram(
+                "serve.engine.latency_s").observe(sl.result.latency)
+
+    def step(self) -> int:
+        """One engine step: admissions, then one masked decode over every
+        slot. Returns the number of live slots that emitted a token."""
+        self._admit()
+        active = np.array([sl.state is SlotState.DECODE
+                           for sl in self.slots])
+        self.peak_active = max(self.peak_active, int(active.sum()))
+        if not active.any():
+            return 0
+        rec = obs_registry.get_recorder()
+        with rec.span("engine.decode", active=int(active.sum())):
+            logits, self.state = self._decode(
+                self.params,
+                torch.from_numpy(self._next_tok[:, None]).to(self.device),
+                self.state, torch.from_numpy(active).to(self.device))
+            last = logits[:, -1]
+            if self.greedy:   # one batched argmax and one transfer a step
+                sel = torch.argmax(last, dim=-1).cpu().numpy()
+        self.step_count += 1
+        emitted = 0
+        for i, sl in enumerate(self.slots):
+            if not active[i]:
+                continue
+            tok = int(sel[i]) if self.greedy else self._select(last[i], sl)
+            sl.result.tokens.append(tok)
+            self._next_tok[i] = tok
+            emitted += 1
+            self._finish_if_done(sl)
+        return emitted
+
+    # -- drivers ------------------------------------------------------------
+
+    def busy(self) -> bool:
+        return bool(self.queue) or any(
+            sl.state in (SlotState.PREFILL, SlotState.DECODE, SlotState.DRAIN)
+            for sl in self.slots)
+
+    def drain(self) -> List[RequestResult]:
+        """Run until queue and slots are empty; results in rid order."""
+        while self.busy():
+            self.step()
+        return [self.results[rid] for rid in sorted(self.results)]
+
+    def run(self, requests: Iterable[Request], *,
+            realtime: bool = False) -> List[RequestResult]:
+        """Drain a request stream. With realtime=True each request is held
+        back until the clock passes its `arrival` offset; otherwise all
+        are submitted in arrival order and slot pressure alone governs
+        admission."""
+        pending = sorted(requests, key=lambda r: r.arrival)
+        t0 = self.clock()
+        while pending or self.busy():
+            now = self.clock() - t0
+            while pending and (not realtime or pending[0].arrival <= now):
+                r = pending.pop(0)
+                self.submit(r.tokens, r.max_new, arrival=r.arrival)
+            if self.busy():
+                self.step()
+            elif pending:
+                time.sleep(min(0.001, pending[0].arrival - now))
+        return [self.results[rid] for rid in sorted(self.results)]
+
+    def stats(self) -> dict:
+        """Aggregate serving stats. The key set is the JAX engine's and is
+        STABLE: every key is present on an empty engine too (latencies as
+        None, counters as 0), and the paged keys are False/None here.
+        p50/p99 come from the fixed-bucket latency histogram (bucket
+        upper edges clamped into the exact [min, max]); mean and max are
+        exact. `queue_wait_mean_s` averages over admitted requests."""
+        done = [r for r in self.results.values() if r.t_done is not None]
+        h = self.lat_hist
+        paged_keys = {"paged": False, "block_size": None, "num_blocks": None,
+                      "blocks_in_use": None, "peak_blocks": None}
+        if not done:
+            return {
+                "requests": 0, "tokens": 0, "tok_per_s": 0.0,
+                "latency_mean_s": None, "latency_p50_s": None,
+                "latency_p99_s": None, "latency_max_s": None,
+                "queue_wait_mean_s": None,
+                "decode_steps": self.step_count,
+                "peak_active": self.peak_active,
+                **paged_keys,
+            }
+        toks = sum(len(r.tokens) for r in done)
+        span = max(r.t_done for r in done) - min(r.t_submit for r in done)
+        return {
+            "requests": len(done),
+            "tokens": toks,
+            "tok_per_s": toks / span if span > 0 else float("inf"),
+            "latency_mean_s": h.mean,
+            "latency_p50_s": h.quantile(0.5),
+            "latency_p99_s": h.quantile(0.99),
+            "latency_max_s": h.max,
+            "queue_wait_mean_s": self.queue_hist.mean,
+            "decode_steps": self.step_count,
+            "peak_active": self.peak_active,
+            **paged_keys,
+        }
+
+
+def synth_request_stream(cfg: ArchConfig, n: int, *, rate: float = 32.0,
+                         seed: int = 0, prompt_lens=(8, 16, 24),
+                         gen_lens=(4, 8, 16)) -> List[Request]:
+    """n synthetic requests with Poisson arrivals (exponential gaps at
+    `rate` req/s) and mixed prompt and generation lengths, drawn from
+    numpy exactly as the JAX package draws them: the same seed gives the
+    same stream in both packages."""
+    rng = np.random.default_rng(seed)
+    t = 0.0
+    out = []
+    for _ in range(n):
+        t += float(rng.exponential(1.0 / rate))
+        plen = int(rng.choice(prompt_lens))
+        out.append(Request(
+            tokens=rng.integers(0, cfg.vocab_size, size=(plen,),
+                                dtype=np.int32),
+            max_new=int(rng.choice(gen_lens)), arrival=t))
+    return out
 
 
 @dataclasses.dataclass

@@ -1,0 +1,152 @@
+"""LM serving drivers: one synchronous batch, or a continuous-batching
+stream (port of `repro/launch/serve.py`).
+
+`serve()` prefills one batch and decodes it greedily in lockstep — the
+reference path. `serve_stream()` drains a request stream through
+`scheduler.Engine`, which admits queued prompts into KV-cache slots as
+they free up mid-decode.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3p2_3b \\
+        --smoke --device cpu --batch 4 --prompt-len 32 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3p2_3b \\
+        --smoke --device cpu --stream --requests 16 --rate 64 --slots 4
+
+Without `--device` it runs on the GPU, and raises when there is none.
+`--paged`, `--block-size`, `--num-blocks`, `--prefill-batch` and
+`--profile` wait for their items in ROADMAP.md (Queue 1 item 3).
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import sys
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ARCH_IDS, get_config
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.launch import steps
+from repro_torch.models import transformer
+from repro_torch.obs import registry as obs_registry
+from repro_torch.obs.metrics import fmt_seconds as _fmt_s
+
+
+def serve(cfg, params, prompts, *, max_len: int, gen: int) -> torch.Tensor:
+    """prompts: (B, S) int -> greedy tokens (B, gen) int32 on the
+    parameters' device."""
+    device = params.embed.device
+    prefill = steps.make_prefill_step(cfg, max_len=max_len)
+    decode = steps.make_decode_step(cfg)
+    with torch.inference_mode():
+        logits, state = prefill(
+            params, {"tokens": torch.as_tensor(prompts).to(device)})
+        outs = []
+        tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        for _ in range(gen):
+            outs.append(tok)
+            logits, state = decode(params, tok, state)
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        return torch.cat(outs, dim=1)
+
+
+def serve_stream(cfg, params, requests, *, slots: int, max_len: int,
+                 seed: int = 0, device=DEFAULT_DEVICE):
+    """Drain a request stream (`scheduler.Request`s, see
+    `scheduler.synth_request_stream`) through the continuous-batching
+    engine in real time (each request held back until its arrival), print
+    its stats; returns (results, engine)."""
+    from repro_torch.launch.scheduler import Engine
+    eng = Engine(cfg, params, slots=slots, max_len=max_len, seed=seed,
+                 device=device)
+    results = eng.run(requests, realtime=True)
+    st = eng.stats()
+    # every latency is None until a request completes: the print is
+    # None-safe
+    print(f"[serve] {cfg.name}: {st['requests']} requests, "
+          f"{st['tokens']} tokens in {st['decode_steps']} decode steps "
+          f"({st['tok_per_s']:.1f} tok/s, peak {st['peak_active']}/"
+          f"{slots} slots)")
+    print(f"[serve] latency mean/p50/p99/max = "
+          f"{_fmt_s(st['latency_mean_s'])}/"
+          f"{_fmt_s(st['latency_p50_s'])}/"
+          f"{_fmt_s(st['latency_p99_s'])}/"
+          f"{_fmt_s(st['latency_max_s'])} s, queue wait mean = "
+          f"{_fmt_s(st['queue_wait_mean_s'])} s")
+    return results, eng
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", choices=ARCH_IDS, required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--stream", action="store_true",
+                    help="continuous batching: Poisson request stream "
+                         "through the slot scheduler instead of one "
+                         "synchronous batch")
+    ap.add_argument("--requests", type=int, default=16,
+                    help="[--stream] number of requests")
+    ap.add_argument("--rate", type=float, default=64.0,
+                    help="[--stream] Poisson arrival rate, req/s")
+    ap.add_argument("--slots", type=int, default=None,
+                    help="[--stream] cache slots (default: --batch)")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write an obsmetrics/v1 METRICS.json snapshot of "
+                         "the run (latency histograms, shape counters, "
+                         "prefill/decode spans) to PATH")
+    ap.add_argument("--device", default=DEFAULT_DEVICE,
+                    help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch, smoke=args.smoke)
+    # independent streams: parameters from a generator on the device,
+    # prompts from numpy
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = transformer.init_params(cfg, gen, dtype=torch.float32,
+                                     device=dev)
+
+    def _run() -> int:
+        if args.stream:
+            from repro_torch.launch.scheduler import synth_request_stream
+            max_len = args.prompt_len + args.gen + 1
+            reqs = synth_request_stream(
+                cfg, args.requests, rate=args.rate, seed=args.seed,
+                prompt_lens=(max(1, args.prompt_len // 2), args.prompt_len),
+                gen_lens=(max(1, args.gen // 2), args.gen))
+            serve_stream(cfg, params, reqs, slots=args.slots or args.batch,
+                         max_len=max_len, seed=args.seed, device=dev)
+            return 0
+        rng = np.random.default_rng(args.seed)
+        prompts = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (args.batch, args.prompt_len), dtype=np.int32))
+        t0 = time.perf_counter()
+        toks = serve(cfg, params, prompts,
+                     max_len=args.prompt_len + args.gen + 1, gen=args.gen)
+        toks = toks.cpu()          # waits for the device
+        dt = time.perf_counter() - t0
+        print(f"[serve] {cfg.name}: generated {tuple(toks.shape)} in "
+              f"{dt:.2f}s ({args.batch * args.gen / dt:.1f} tok/s) on {dev}")
+        print("[serve] sample:", toks[0, :12].tolist())
+        return 0
+
+    with contextlib.ExitStack() as stack:
+        rec = None
+        if args.metrics_out:
+            rec = stack.enter_context(obs_registry.recording())
+        rc = _run()
+        if rec is not None:
+            rec.write(args.metrics_out)
+            print(f"[serve] metrics: {len(rec.spans)} spans, "
+                  f"{sum(c.value for c in rec.counters.values())} counter "
+                  f"events -> {args.metrics_out}")
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())

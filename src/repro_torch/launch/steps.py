@@ -1,0 +1,134 @@
+"""Serving step functions of the LM zoo (port of `repro/launch/steps.py`,
+the contiguous serve steps).
+
+The JAX package builds pure functions that `jax.jit` compiles; here the
+same factories return plain functions that run eagerly under
+`torch.inference_mode()`. States are updated in place: a prefill into a
+slot copies the fresh batch-1 state into that row of the engine's state,
+and a decode step writes one key and value per sequence into the caches it
+is given (see `models/transformer.py`).
+
+The paged steps (`make_paged_prefill_step`, `make_paged_decode_step`,
+`paged_serve_state_zeros`), `make_train_step` and `lm_loss` wait for their
+items in ROADMAP.md (Queue 1 item 3).
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import transformer
+
+
+def cast_tree(tree: torch.nn.Module, dtype) -> transformer.ParamTree:
+    """A copy of a parameter tree with every floating tensor cast to
+    `dtype` (integer tensors shared): the compute-dtype copy of float32
+    master weights."""
+    def walk(mod):
+        out = {}
+        for name, p in mod.named_parameters(recurse=False):
+            out[name] = p.to(dtype) if p.is_floating_point() else p.data
+        for name, child in mod.named_children():
+            if isinstance(child, torch.nn.ModuleList):
+                out[name] = [walk(c) for c in child]
+            else:
+                out[name] = walk(child)
+        return out
+    return transformer.ParamTree(walk(tree))
+
+
+def make_prefill_step(cfg: ArchConfig, *, max_len: int) -> Callable:
+    """(params, batch) -> (last logits, ServeState)."""
+    @torch.inference_mode()
+    def prefill_step(params, batch):
+        return transformer.forward_prefill(cfg, params, batch["tokens"],
+                                           max_len=max_len)
+    return prefill_step
+
+
+def make_decode_step(cfg: ArchConfig) -> Callable:
+    """(params, token, state) -> (logits, state'); the caches of `state`
+    are updated in place."""
+    @torch.inference_mode()
+    def decode_step(params, token, state):
+        return transformer.forward_decode(cfg, params, token, state)
+    return decode_step
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from _leaves(tree[key])
+    elif isinstance(tree, (list, tuple)):
+        for x in tree:
+            yield from _leaves(x)
+
+
+def write_state_slot(full, one, index):
+    """Write a batch-1 ServeState into row `index` of a batch-wide state,
+    in place; returns `full`.
+
+    Every tensor of the batch-1 tree is copied into the batch-wide tree
+    along the one axis where their shapes differ (the batch axis: 0 for
+    pos, 1 for the (L, B, ...) caches). Equal shapes mean a single-slot
+    engine: the row is the whole state."""
+    index = int(index)
+    for f, o in zip(_leaves(full), _leaves(one), strict=True):
+        diff = [a for a, (fd, od) in enumerate(zip(f.shape, o.shape))
+                if fd != od]
+        if not diff:
+            f.copy_(o)
+            continue
+        if len(diff) != 1 or o.shape[diff[0]] != 1:
+            raise ValueError(f"cannot write a {tuple(o.shape)} row into "
+                             f"{tuple(f.shape)}")
+        f.narrow(diff[0], index, 1).copy_(o)
+    return full
+
+
+def make_slot_prefill_step(cfg: ArchConfig, *, max_len: int) -> Callable:
+    """(params, batch, length, slot, state) -> (last logits, state).
+
+    Prefills ONE request (batch-1 `batch["tokens"]`, optionally padded to
+    a bucket with `length` real tokens) into a fresh width-max_len state
+    and copies it into row `slot` of the engine's batch-wide state."""
+    @torch.inference_mode()
+    def slot_prefill_step(params, batch, length, slot, state):
+        logits, one = transformer.forward_prefill(
+            cfg, params, batch["tokens"], max_len=max_len, length=length)
+        return logits, write_state_slot(state, one, slot)
+    return slot_prefill_step
+
+
+def make_masked_decode_step(cfg: ArchConfig) -> Callable:
+    """(params, token, state, active) -> (logits, state').
+
+    One decode step over every slot; `active` (B,) bool marks the slots
+    that hold live requests. Inactive slots still run (the batch keeps its
+    shape) but their pos is frozen; the key written into their row is
+    garbage that the next prefill into the slot overwrites before it can
+    become visible."""
+    @torch.inference_mode()
+    def masked_decode_step(params, token, state, active):
+        logits, new = transformer.forward_decode(cfg, params, token, state,
+                                                 token_mask=active)
+        pos = torch.where(active, new.pos, state.pos)
+        return logits, new._replace(pos=pos)
+    return masked_decode_step
+
+
+def serve_state_zeros(cfg: ArchConfig, params, slots: int,
+                      max_len: int) -> transformer.ServeState:
+    """All-zero batch-wide ServeState for an engine with `slots` cache
+    rows, on the parameters' device: the structure a prefill of that
+    batch builds, without running one."""
+    device = params.embed.device
+    caches = transformer.init_cache(cfg, slots, max_len, device=device)
+    return transformer.ServeState(
+        caches=caches, cross=[None] * len(caches),
+        pos=torch.zeros((slots,), dtype=torch.int32, device=device))
+

@@ -110,3 +110,49 @@ def test_batcher_launches_one_shape_on_the_card(gen):
     np.testing.assert_array_equal(got, z["scores"][:40])
     assert eng.stats()["traces"] == 1
     assert kernels.packed_wnn.launches == before + 3 * len(art.submodels)
+
+
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal,window,dtype", [
+    (2, 24, 8, 256, 256, 128, True, 0, "float32"),     # llama 3.2 3B heads
+    (2, 24, 8, 256, 256, 128, True, 0, "bfloat16"),
+    (1, 24, 8, 130, 130, 64, True, 0, "float32"),      # ragged, D = 64
+    (2, 4, 2, 200, 200, 64, True, 48, "float32"),      # sliding window
+    (2, 4, 2, 200, 200, 64, True, 48, "bfloat16"),
+    (1, 4, 4, 70, 50, 32, True, 0, "float32"),         # Sq > Sk, ragged
+    (1, 4, 1, 32, 96, 16, False, 0, "float32"),        # non-causal, MQA
+    (1, 2, 1, 100, 100, 256, True, 0, "float32"),      # 209 KB of shared
+    (1, 2, 1, 100, 100, 256, True, 0, "bfloat16"),
+])
+def test_flash_attention_kernel_equals_plain_version(gen, b, h, hkv, sq, sk,
+                                                     d, causal, window,
+                                                     dtype):
+    """The flash kernel against `ref.attention_ref` on the card: GQA
+    24/8 at D = 128 and 64, windows, ragged tiles, D = 256 past 48 KB of
+    shared memory; q enters as the model's transposed (B, S, H, D) view."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    q = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dt)
+    q = q.transpose(1, 2)                      # strided, as attn_mixer has it
+    k = torch.randn((b, hkv, sk, d), generator=gen, device="cuda").to(dt)
+    v = torch.randn((b, hkv, sk, d), generator=gen, device="cuda").to(dt)
+    before = kernels.flash_attention.launches
+    got = kernels.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert kernels.flash_attention.launches == before + 1
+    want = ref.attention_ref(q, k, v, causal=causal, window=window)
+    assert got.shape == want.shape and got.dtype == dt
+    # float32: the kernel's running softmax rounds otherwise than one
+    # softmax; bf16: one rounding of the output (2^-8) on values below 4
+    tol = 2e-2 if dt == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_attention_kernel_rejects_what_it_cannot_take(gen):
+    q = torch.randn((1, 4, 8, 48), generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        kernels.flash_attention(q, q, q)
+    q = torch.randn((1, 4, 8, 64), generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="no visible key"):
+        kernels.flash_attention(q, q[:, :, :2], q[:, :, :2], window=2)
+    with pytest.raises(TypeError):
+        kernels.flash_attention(q.half(), q.half(), q.half())

@@ -72,7 +72,10 @@ def _entry_points():
     from repro_torch.core import (encoding, export, model, multi_shot,
                                   one_shot, pruning)
     from repro_torch.kernels import ops
-    from repro_torch.launch.scheduler import WnnBatcher
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.scheduler import Engine, WnnBatcher
+    from repro_torch.models import transformer
     from repro_torch.packed import layout, runtime
     art = export.load(GOLDEN)
     pt = layout.from_artifact(art, device="cpu")
@@ -80,6 +83,8 @@ def _entry_points():
     spec = model.UleenSpec(num_classes=5, total_bits=art.total_bits,
                            submodels=())
     z = torch.zeros
+    lm = get_config("llama3p2_3b", smoke=True)
+    lm_params = transformer.init_params(lm, torch.Generator(), device="cpu")
     return {
         "artifact_scores": lambda: export.artifact_scores(art, bits),
         "prepare_artifact": lambda: export.prepare_artifact(art),
@@ -124,6 +129,13 @@ def _entry_points():
             ([], np.zeros(5, np.float32), [])),
         "one_shot_from_numpy": lambda: convert.one_shot_from_numpy(
             ([], np.int32(1), np.zeros(5, np.float32))),
+        "lm_init_params": lambda: transformer.init_params(
+            lm, torch.Generator()),
+        "Engine": lambda: Engine(lm, lm_params, slots=2, max_len=16),
+        "serve_main": lambda: serve.main(["--arch", "llama3p2_3b",
+                                          "--smoke"]),
+        "lm_params_from_numpy": lambda: convert.lm_params_from_numpy(
+            lm, {"embed": np.zeros((4, 4), np.float32), "segments": []}),
     }
 
 
@@ -135,7 +147,8 @@ def _entry_points():
     "compute_hashes", "init_static", "init_params", "binarize_to_packed",
     "train_one_shot", "evaluate_one_shot", "train_multi_shot", "evaluate",
     "prune_and_finetune", "statics_from_numpy", "params_from_numpy",
-    "one_shot_from_numpy"])
+    "one_shot_from_numpy", "lm_init_params", "Engine", "serve_main",
+    "lm_params_from_numpy"])
 def test_entry_points_raise_without_a_gpu_unless_asked_for_the_cpu(name):
     _no_gpu()
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -186,9 +186,11 @@ def test_cpu_wrappers_count_no_launches():
     kernels.thermometer_encode(torch.from_numpy(x), torch.from_numpy(thr))
     kernels.thermometer_decompress(torch.from_numpy(counts), 3)
     kernels.h3_hash(args[0], args[1])
+    q = torch.zeros((1, 2, 3, 16))
+    kernels.flash_attention(q, q, q)
     assert kernels.launch_counts() == {
         "packed_wnn": 0, "fused_wnn": 0, "thermometer_encode": 0,
-        "thermometer_decompress": 0, "h3_hash": 0}
+        "thermometer_decompress": 0, "h3_hash": 0, "flash_attention": 0}
 
 
 def test_wrappers_refuse_tensors_on_other_devices():

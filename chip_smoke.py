@@ -33,7 +33,10 @@ exit code is nonzero. The last line is `{"ok": true, "device": {...}}`;
 the line before it is the card's name and power limit as `nvidia-smi`
 reports them.
 
-Times are CUDA-event medians after warm-up. Each kernel's bound is the
+Times are CUDA-event medians after warm-up, per call (the host's work
+included wherever the card waits for it); the flash phase adds each
+kernel's and SDPA's device time from CUDA-graph replays (`device_ms`,
+`library_device_ms`). Each kernel's bound is the
 larger of its bytes (each input read once, each output written once) over
 3.35 TB/s and its operations over the card's lane rate for their type;
 both are computed from this run's shapes. NVIDIA's published non-tensor
@@ -47,11 +50,15 @@ broadcasting PyTorch compare (`torch.gt`, `torch.lt`) whose bool output
 is viewed as int8; no single PyTorch call computes an H3-hashed Bloom
 lookup or an XOR reduction, so the WNN and hash kernels' is null. The
 flash kernel's operations are 4·D FLOP (two multiply-adds) per visible
-(query, key) pair of each head, bounded at 67 TFLOP/s for float32 on the
-CUDA cores and 989 TFLOP/s for bf16 on the tensor cores; its
-`library_ms` is one `torch.nn.functional.scaled_dot_product_attention`
-call on the same tensors with the KV heads repeated (a yardstick only:
-the port never calls it).
+(query, key) pair of each head. bf16 is bounded at 989 TFLOP/s on the
+tensor cores (its `wgmma_bf16` route). float32 is bounded at the rate of
+the fastest route that keeps float32 accuracy, 3×TF32 on the tensor
+cores (its `mma_3xtf32` route): three TF32 products per product, 495/3 =
+165 TFLOP/s; `bound_cuda_core_ms` keeps the 67 TFLOP/s CUDA-core bound
+beside it, the bound of the first (CUDA-core) version. Its `library_ms`
+is one `torch.nn.functional.scaled_dot_product_attention` call on the
+same tensors with the KV heads repeated (a yardstick only: the port
+never calls it).
 """
 from __future__ import annotations
 
@@ -73,6 +80,7 @@ FP32_OPS_PER_S = 67e12 / 2       # one op per fp32 lane per clock
 INT32_OPS_PER_S = 67e12 / 4      # half as many int32 lanes as fp32 lanes
 FP32_FLOP_PER_S = 67e12          # FMA as two FLOP, CUDA cores
 BF16_FLOP_PER_S = 989e12         # dense bf16 tensor cores
+TF32X3_FLOP_PER_S = 495e12 / 3   # float32 as three TF32 tensor-core products
 
 ULN_L = dict(num_classes=10, features=784, bits_per_input=7, num_hashes=2,
              submodels=((12, 6), (16, 7), (20, 7), (24, 8), (28, 8), (32, 9)))
@@ -150,6 +158,34 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def graph_ms(fn, calls: int = 10, reps: int = 5) -> float:
+    """Device milliseconds of one `fn()`: `calls` calls captured in a CUDA
+    graph, the median replay over `reps` divided by `calls`. The host's
+    work (Python, argument checks, the launch itself) is left out, which
+    `cuda_ms` counts whenever the card waits for it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    del graph
     return float(np.median(times))
 
 
@@ -402,49 +438,93 @@ def check_h3_kernel(gen, ref, h3_hash):
     return {"h3_hash": total}
 
 
-def visible_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+def visible_pairs(sq: int, sk: int, causal: bool, window: int,
+                  q_offset: int = 0) -> int:
     """(query, key) pairs the mask keeps in one head: the work the flash
-    kernel's data needs (rows and keys counted from 0)."""
-    i = np.arange(sq)
+    kernel's data needs (query row i at position i + q_offset)."""
+    i = np.arange(sq) + q_offset
     hi = np.minimum(i, sk - 1) if causal else np.full(sq, sk - 1)
     lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros(sq, int)
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
-def check_flash_kernel(gen, ref, flash_attention):
-    """The flash kernel against its plain version within FLASH_TOL: the LM
-    path's prefill shape (B 4, 24/8 heads of 128, 1024 tokens, causal,
-    float32; timed), and bf16, a sliding window, ragged tiles, D = 64 and
-    D = 256 (209 KB of shared memory). q, k and v enter as the model has
-    them: (B, S, H, D) projections viewed as (B, H, S, D)."""
-    dev = "cuda"
-    cases = [
-        dict(name="llama3p2_3b_prefill_b4_s1024", main=True, b=4, h=24,
-             hkv=8, sq=1024, sk=1024, d=128, causal=True, window=0,
-             dtype=torch.float32),
-        dict(name="bf16_b4_s1024", b=4, h=24, hkv=8, sq=1024, sk=1024,
-             d=128, causal=True, window=0, dtype=torch.bfloat16),
-        dict(name="window256_s1024", b=2, h=24, hkv=8, sq=1024, sk=1024,
-             d=128, causal=True, window=256, dtype=torch.float32),
-        dict(name="ragged_s777", b=1, h=24, hkv=8, sq=777, sk=777, d=128,
-             causal=True, window=0, dtype=torch.float32),
-        dict(name="d64_gqa32_8_s512", b=2, h=32, hkv=8, sq=512, sk=512,
-             d=64, causal=True, window=0, dtype=torch.float32),
-        dict(name="d256_noncausal_sq200_sk333", b=1, h=4, hkv=2, sq=200,
-             sk=333, d=256, causal=False, window=0, dtype=torch.bfloat16),
-    ]
-    rows, main = [], None
-    for case in cases:
-        name, is_main = case.pop("name"), case.pop("main", False)
-        b, h, hkv, sq, sk, d = (case[k] for k in
-                                ("b", "h", "hkv", "sq", "sk", "d"))
-        causal, window, dt = case["causal"], case["window"], case["dtype"]
+FLASH_CASES = [
+    # the LM path's prefill shape, float32 (the kernels line's row)
+    dict(name="llama3p2_3b_prefill_b4_s1024", main=True, b=4, h=24, hkv=8,
+         sq=1024, sk=1024, d=128, dtype=torch.float32),
+    dict(name="bf16_b4_s1024", b=4, h=24, hkv=8, sq=1024, sk=1024, d=128,
+         dtype=torch.bfloat16),
+    # the Engine's batch-1 prefill (smaller query tiles fill the card)
+    dict(name="engine_prefill_b1_s256", b=1, h=24, hkv=8, sq=256, sk=256,
+         d=128, dtype=torch.float32),
+    dict(name="window256_s1024", b=2, h=24, hkv=8, sq=1024, sk=1024,
+         d=128, window=256, dtype=torch.float32),
+    dict(name="bf16_window256_s1024", b=2, h=24, hkv=8, sq=1024, sk=1024,
+         d=128, window=256, dtype=torch.bfloat16),
+    dict(name="ragged_s777", b=1, h=24, hkv=8, sq=777, sk=777, d=128,
+         dtype=torch.float32),
+    dict(name="d64_gqa32_8_s512", b=2, h=32, hkv=8, sq=512, sk=512, d=64,
+         dtype=torch.float32),
+    dict(name="d256_noncausal_sq200_sk333", b=1, h=4, hkv=2, sq=200,
+         sk=333, d=256, causal=False, dtype=torch.bfloat16),
+    # rows past a cached prefix: Sk = Sq + q_offset, bottom-right diagonal
+    dict(name="q_offset724_sq300_sk1024", b=1, h=24, hkv=8, sq=300, sk=1024,
+         d=128, q_offset=724, dtype=torch.float32),
+    dict(name="bf16_q_offset724_sq300_sk1024", b=1, h=24, hkv=8, sq=300,
+         sk=1024, d=128, q_offset=724, dtype=torch.bfloat16),
+    # narrow heads: 32- and 64-byte rows (32/64-byte TMA swizzle)
+    dict(name="bf16_d16_s512", b=2, h=8, hkv=2, sq=512, sk=512, d=16,
+         dtype=torch.bfloat16),
+    dict(name="bf16_d32_s512", b=2, h=8, hkv=2, sq=512, sk=512, d=32,
+         dtype=torch.bfloat16),
+    # GQA groups other than the prefill's 3: multi-head (1) and 8
+    dict(name="bf16_d64_mha8_s512", b=2, h=8, hkv=8, sq=512, sk=512, d=64,
+         dtype=torch.bfloat16),
+    dict(name="bf16_d64_gqa32_4_s512", b=2, h=32, hkv=4, sq=512, sk=512,
+         d=64, dtype=torch.bfloat16),
+    # q, k and v as slices of one fused (B, S, (H + 2 Hkv) D) projection:
+    # k is neither contiguous nor a plain transpose
+    dict(name="bf16_fused_qkv_s512", b=2, h=24, hkv=8, sq=512, sk=512,
+         d=128, fused=True, dtype=torch.bfloat16),
+]
+
+
+def flash_inputs(gen, case, dev="cuda"):
+    """q (B, H, Sq, D), k and v (B, Hkv, Sk, D) as the model has them:
+    (B, S, H, D) projections viewed as (B, H, S, D); or slices of one
+    fused projection."""
+    b, h, hkv, sq, sk, d, dt = (case[k] for k in
+                                ("b", "h", "hkv", "sq", "sk", "d", "dtype"))
+    if case.get("fused"):
+        qkv = torch.randn((b, sq, (h + 2 * hkv) * d), generator=gen,
+                          device=dev).to(dt)
+        q = qkv[..., :h * d].view(b, sq, h, d)
+        k = qkv[..., h * d:(h + hkv) * d].view(b, sk, hkv, d)
+        v = qkv[..., (h + hkv) * d:].view(b, sk, hkv, d)
+    else:
         q = torch.randn((b, sq, h, d), generator=gen, device=dev).to(dt)
         k = torch.randn((b, sk, hkv, d), generator=gen, device=dev).to(dt)
         v = torch.randn((b, sk, hkv, d), generator=gen, device=dev).to(dt)
-        q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        got = flash_attention(q, k, v, causal=causal, window=window)
-        want = ref.attention_ref(q, k, v, causal=causal, window=window)
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+def check_flash_kernel(gen, ref, flash_attention, plan, *, device="cuda"):
+    """The flash kernel against its plain version within FLASH_TOL at the
+    cases of FLASH_CASES, each timed beside its plain version and one
+    SDPA call, and each naming the route its type takes."""
+    dev = device
+    rows, main = [], None
+    for case in FLASH_CASES:
+        name, is_main = case["name"], case.get("main", False)
+        b, h, hkv, sq, sk, d, dt = (case[k] for k in
+                                    ("b", "h", "hkv", "sq", "sk", "d",
+                                     "dtype"))
+        causal, window = case.get("causal", True), case.get("window", 0)
+        q_offset = case.get("q_offset", 0)
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        q, k, v = flash_inputs(gen, case, dev)
+        got = flash_attention(q, k, v, **kw)
+        want = ref.attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
         diff = (got.float() - want.float()).abs()
         tol = FLASH_TOL[dt]
@@ -458,8 +538,8 @@ def check_flash_kernel(gen, ref, flash_attention):
         kr = k.repeat_interleave(h // hkv, dim=1)
         vr = v.repeat_interleave(h // hkv, dim=1)
         mask = None
-        if window > 0 or (causal and sq != sk):
-            iq = torch.arange(sq, device=dev)[:, None]
+        if window > 0 or (causal and (sq != sk or q_offset)):
+            iq = q_offset + torch.arange(sq, device=dev)[:, None]
             ik = torch.arange(sk, device=dev)[None, :]
             mask = (ik <= iq) if causal else torch.ones_like(ik <= iq)
             if window > 0:
@@ -470,31 +550,84 @@ def check_flash_kernel(gen, ref, flash_attention):
                 q, kr, vr, attn_mask=mask,
                 is_causal=causal and mask is None)
         lib_err = float((library().float() - want.float()).abs().max())
-        ms = cuda_ms(lambda: flash_attention(q, k, v, causal=causal,
-                                             window=window), 20)
-        plain_ms = cuda_ms(lambda: ref.attention_ref(
-            q, k, v, causal=causal, window=window), 5)
+        ms = cuda_ms(lambda: flash_attention(q, k, v, **kw), 20)
+        plain_ms = cuda_ms(lambda: ref.attention_ref(q, k, v, **kw), 5)
         library_ms = cuda_ms(library, 20)
+        device_ms = graph_ms(lambda: flash_attention(q, k, v, **kw))
+        library_device_ms = graph_ms(library)
         esize = q.element_size()
         bytes_moved = esize * (2 * b * h * sq * d + 2 * b * hkv * sk * d)
-        ops = 4 * b * h * d * visible_pairs(sq, sk, causal, window)
-        rate = FP32_FLOP_PER_S if dt == torch.float32 else BF16_FLOP_PER_S
+        ops = 4 * b * h * d * visible_pairs(sq, sk, causal, window, q_offset)
+        rate = TF32X3_FLOP_PER_S if dt == torch.float32 else BF16_FLOP_PER_S
         bms, by = bound(bytes_moved, ops, rate)
-        row = {"case": name, "b": b, "h": h, "hkv": hkv, "sq": sq, "sk": sk,
-               "d": d, "causal": causal, "window": window,
-               "dtype": str(dt).replace("torch.", ""), "max_abs_err": err,
-               "tolerance": tol, "library_max_abs_err": lib_err, "ms": ms,
+        p = plan(dt, d, batch=b, heads=h, sq=sq)
+        row = {"case": name, "route": p.route, "b": b, "h": h, "hkv": hkv,
+               "sq": sq, "sk": sk, "d": d, "causal": causal,
+               "window": window, "q_offset": q_offset,
+               "dtype": str(dt).replace("torch.", ""),
+               "block_q": p.block_q, "block_k": p.block_k,
+               "blocks": p.blocks, "max_abs_err": err, "tolerance": tol,
+               "library_max_abs_err": lib_err, "ms": ms,
                "plain_ms": plain_ms, "library_ms": library_ms,
+               "device_ms": device_ms,
+               "library_device_ms": library_device_ms,
                "bound_ms": bms, "bound_by": by, "bytes": bytes_moved,
-               "ops": ops, "tflop_per_s": ops / ms / 1e9}
+               "ops": ops, "tflop_per_s": ops / device_ms / 1e9}
+        if dt == torch.float32:
+            row["bound_cuda_core_ms"] = bound(bytes_moved, ops,
+                                              FP32_FLOP_PER_S)[0]
         rows.append(row)
         if is_main:
             main = {k: row[k] for k in ("ms", "plain_ms", "library_ms",
-                                        "bound_ms", "bound_by", "bytes",
+                                        "device_ms", "library_device_ms",
+                                        "bound_ms", "bound_by",
+                                        "bound_cuda_core_ms", "bytes",
                                         "ops", "max_abs_err", "tolerance")}
         del q, k, v, kr, vr, got, want, diff
     emit("lm_kernel", cases=rows)
     return {"flash_attention": main}
+
+
+# The Engine's batch-1 prefills (128-1024 prompt tokens) and two
+# non-causal shapes, where every key tile is full (the steady state)
+FLASH_SCALING = ([dict(b=1, sq=n, causal=True) for n in (128, 256, 512, 1024)]
+                 + [dict(b=4, sq=1024, causal=False),
+                    dict(b=1, sq=4096, causal=False)])
+
+
+def flash_scaling(gen, ref, flash_attention, plan):
+    """Device time (CUDA graphs) of the flash kernel and of one SDPA call
+    at the Llama heads (24/8 of 128) over FLASH_SCALING, both types; each
+    output held to its plain version within FLASH_TOL."""
+    rows = []
+    for dt in (torch.float32, torch.bfloat16):
+        for shape in FLASH_SCALING:
+            b, sq, causal = shape["b"], shape["sq"], shape["causal"]
+            case = dict(b=b, h=24, hkv=8, sq=sq, sk=sq, d=128, dtype=dt)
+            q, k, v = flash_inputs(gen, case)
+            got = flash_attention(q, k, v, causal=causal)
+            want = ref.attention_ref(q, k, v, causal=causal)
+            diff = (got.float() - want.float()).abs()
+            tol = FLASH_TOL[dt]
+            if not bool((diff <= tol + tol * want.float().abs()).all()):
+                raise AssertionError(f"flash_attention[b{b} s{sq}]: max "
+                                     f"|diff| {float(diff.max())}")
+            kr = k.repeat_interleave(3, dim=1)
+            vr = v.repeat_interleave(3, dim=1)
+            ms = graph_ms(lambda: flash_attention(q, k, v, causal=causal))
+            lib = graph_ms(lambda: F.scaled_dot_product_attention(
+                q, kr, vr, is_causal=causal))
+            ops = 4 * b * 24 * 128 * visible_pairs(sq, sq, causal, 0)
+            p = plan(dt, 128, batch=b, heads=24, sq=sq)
+            rows.append({"dtype": str(dt).replace("torch.", ""), "b": b,
+                         "sq": sq, "causal": causal, "route": p.route,
+                         "block_q": p.block_q, "blocks": p.blocks,
+                         "max_abs_err": float(diff.max()), "device_ms": ms,
+                         "library_device_ms": lib,
+                         "tflop_per_s": ops / ms / 1e9,
+                         "library_tflop_per_s": ops / lib / 1e9})
+            del q, k, v, kr, vr, got, want, diff
+    emit("lm_kernel_scaling", cases=rows)
 
 
 # ---------------------------------------------------------------------------
@@ -1004,6 +1137,7 @@ def main() -> int:
     from repro_torch.core.encoding import fit_gaussian_thermometer
     from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels.flash_attention import plan as flash_plan
     from repro_torch.launch import scheduler, steps
     from repro_torch.launch.scheduler import WnnBatcher
     from repro_torch.launch.serve import serve as lm_serve
@@ -1022,7 +1156,8 @@ def main() -> int:
     build.build_all()
     ptxas = [ln.strip() for src in build.SOURCES
              for ln in build.build_log(src).splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "registers" in ln or "spill" in ln
+             or "Performance Loss" in ln or "setmaxnreg" in ln]
     emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1031,7 +1166,9 @@ def main() -> int:
     front = check_front_end_kernels(gen, ref, kernels.thermometer_encode,
                                     kernels.thermometer_decompress)
     h3 = check_h3_kernel(gen, ref, kernels.h3_hash)
-    flash = check_flash_kernel(gen, ref, kernels.flash_attention)
+    flash = check_flash_kernel(gen, ref, kernels.flash_attention,
+                               flash_plan)
+    flash_scaling(gen, ref, kernels.flash_attention, flash_plan)
     torch.cuda.empty_cache()
 
     golden = export.load(str(ROOT / "tests/golden/uln_s_artifact.npz"))
@@ -1071,8 +1208,11 @@ def main() -> int:
                      "bound_by": timing["bound_by"],
                      "bytes": timing["bytes"], "ops": timing["ops"],
                      "library_ms": timing["library_ms"],
-                     **({"tolerance": timing["tolerance"]}
-                        if "tolerance" in timing else {})})
+                     **{k: timing[k] for k in ("tolerance",
+                                               "bound_cuda_core_ms",
+                                               "device_ms",
+                                               "library_device_ms")
+                        if k in timing}})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

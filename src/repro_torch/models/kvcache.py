@@ -21,6 +21,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
+
 _QUANTISED_TODO = ("the int8/int4 KV cache is not ported yet (ROADMAP.md, "
                    "Queue 1 item 3: the int8/int4 KV cache, Qwen 1.5)")
 PAGED_TODO = ("the paged KV cache is not ported yet (ROADMAP.md, Queue 1 "
@@ -41,12 +43,14 @@ class AttnCache(NamedTuple):
 
 def init_attn_cache(batch: int, kv_heads: int, window: int, head_dim: int,
                     dtype: str = "bf16", *, layers: Optional[int] = None,
-                    device=None) -> AttnCache:
+                    device=DEFAULT_DEVICE) -> AttnCache:
     """Zero cache (B, Hkv, W, hd) bf16, or (L, B, Hkv, W, hd) with
-    `layers`. Only dtype="bf16" is ported."""
+    `layers`, on `device` (the card unless the caller asks for the CPU).
+    Only dtype="bf16" is ported."""
     if dtype != "bf16":
         raise NotImplementedError(f"kv_cache_dtype={dtype!r}: "
                                   + _QUANTISED_TODO)
+    device = resolve_device(device)
     shape = (batch, kv_heads, window, head_dim)
     if layers is not None:
         shape = (layers, *shape)

@@ -296,7 +296,7 @@ def _unsupported_layer(spec: LayerSpec) -> NotImplementedError:
 
 
 def _empty_layer_cache(cfg, spec: LayerSpec, batch: int, width: int, *,
-                       layers: Optional[int] = None, device=None):
+                       layers: Optional[int] = None, device=DEFAULT_DEVICE):
     if spec.mixer not in ("attn", "local"):
         raise _unsupported_layer(spec)
     return kvcache.init_attn_cache(batch, cfg.num_kv_heads,
@@ -313,8 +313,9 @@ def _cache_width(cfg, spec: LayerSpec, width: int) -> int:
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
-               device=None) -> list:
-    """Per segment, {"l{i}": AttnCache} with (L, B, Hkv, W, hd) zeros."""
+               device=DEFAULT_DEVICE) -> list:
+    """Per segment, {"l{i}": AttnCache} with (L, B, Hkv, W, hd) zeros on
+    `device` (the card unless the caller asks for the CPU)."""
     check_supported(cfg)
     return [{f"l{i}": _empty_layer_cache(cfg, ls, batch, max_len,
                                          layers=seg.repeat, device=device)

@@ -266,23 +266,42 @@ def test_kv_cache_writes_match_jax():
                          jnp.asarray([4, 5, 0]))
     jc = jkv.cache_write_at(jc, jnp.asarray(one), jnp.asarray(-one),
                             jnp.asarray([1, 3]))
-    pc = kvcache.init_attn_cache(2, 2, 6, 8)
+    pc = kvcache.init_attn_cache(2, 2, 6, 8, device="cpu")
     out = kvcache.cache_write(pc, _t(new), _t(new), torch.tensor([4, 5, 0]))
     assert out.k.data_ptr() == pc.k.data_ptr()           # written in place
     kvcache.cache_write_at(pc, _t(one), _t(-one), torch.tensor([1, 3]))
     for got, want in zip(kvcache.cache_read(pc), jkv.cache_read(jc)):
         assert got.dtype == torch.bfloat16
         np.testing.assert_array_equal(_np(got), _np(want))
-    stacked = kvcache.init_attn_cache(2, 2, 6, 8, layers=3)
+    stacked = kvcache.init_attn_cache(2, 2, 6, 8, layers=3, device="cpu")
     kvcache.cache_write(stacked.layer(1), _t(new), _t(new),
                         torch.tensor([4, 5, 0]))
     assert stacked.k[1].abs().sum() > 0 and stacked.k[0].abs().sum() == 0
 
 
+def test_kv_caches_default_to_the_card():
+    """Without `device=` the caches go to the card, and so raise where
+    there is none; asked for the CPU, they lie there."""
+    cfg = cfgs.get_config("llama3p2_3b", smoke=True)
+    if torch.cuda.is_available():
+        assert kvcache.init_attn_cache(1, 1, 4, 8).k.is_cuda
+        assert transformer.init_cache(cfg, 1, 8)[0]["l0"].k.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            kvcache.init_attn_cache(1, 1, 4, 8)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            transformer.init_cache(cfg, 1, 8)
+    one = kvcache.init_attn_cache(1, 1, 4, 8, layers=2, device="cpu")
+    assert one.k.device.type == one.v.device.type == "cpu"
+    caches = transformer.init_cache(cfg, 2, 8, device="cpu")
+    assert all(c.k.device.type == c.v.device.type == "cpu"
+               for seg in caches for c in seg.values())
+
+
 @pytest.mark.parametrize("dtype", ["int8", "int4"])
 def test_quantised_cache_waits_for_its_slice(dtype):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kvcache.init_attn_cache(1, 1, 4, 8, dtype)
+        kvcache.init_attn_cache(1, 1, 4, 8, dtype, device="cpu")
 
 
 @pytest.mark.parametrize("what", ["init_paged_attn_cache",

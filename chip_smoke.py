@@ -12,8 +12,9 @@ submodels, M = 10) and one LM path:
 
 * the serve path: a seeded ULN-L artifact saved and loaded back, 65536
   rows of raw features through the thermometer and decompression kernels,
-  scoring through the packed and fused kernels, and 4096+ requests through
-  `WnnBatcher` per backend;
+  scoring through the WNN kernel on either table layout (`auto` and
+  `fused`: one launch a batch for the whole ensemble, the permutation
+  gather inside), and 4096+ requests through `WnnBatcher` per backend;
 * the train path: class-structured synthetic features of MNIST's shape,
   the Gaussian thermometer fit and encode kernel, the hash precompute
   through the `h3_hash` kernel, one-shot counting with bleaching,
@@ -45,7 +46,12 @@ one operation per fp32 lane per clock is 33.5 T/s. A Hopper SM has half
 as many int32 lanes as fp32 lanes, so integer work (the WNN kernels'
 hash folds, shifts, masks, ANDs and votes; decompression's compares)
 issues at most 16.75 T/s; the H3 hash's 2·n·k select-and-XOR operations
-per tuple count there too. Each thermometer kernel's `library_ms` is one
+per tuple count there too. The WNN kernel's operations are those of the
+class-sliced formulation it runs (`wnn_ensemble_cost`: per row a gather
+per input bit of every filter, the hash fold, k probes and k + 1 ANDs a
+filter, a vote per class and 32-filter chunk); `bound_per_class_ms`
+keeps the bound of the first, per-class formulation (k lookups and an
+AND per class and filter) beside it. Each thermometer kernel's `library_ms` is one
 broadcasting PyTorch compare (`torch.gt`, `torch.lt`) whose bool output
 is viewed as int8; no single PyTorch call computes an H3-hashed Bloom
 lookup or an XOR reduction, so the WNN and hash kernels' is null. The
@@ -64,6 +70,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -237,20 +244,48 @@ def wnn_case(gen, *, batch, n_f, n, log2_entries, m, k, mask_kind="random"):
     return tuples, params, table, mask, bias
 
 
-def wnn_cost(batch, n_f, n, m, k, table_bytes):
-    bytes_moved = (batch * n_f * n + k * n * 4 + table_bytes + m * n_f
-                   + m * 4 + batch * m * 4)
-    # per (b, f): n·k hash select-and-XORs; per (b, m, f): k bit lookups
-    # (load, shift, mask) and the AND, plus the vote
-    ops = batch * n_f * n * k * 2 + batch * m * n_f * (3 * k + 1)
-    return bytes_moved, ops
+def wnn_per_class_ops(batch, n_f, n, m, k):
+    """The first (per-class) formulation's integer operations: per
+    (b, f) n·k hash select-and-XORs; per (b, m, f) k bit lookups (load,
+    shift, mask) and the AND, plus the vote."""
+    return batch * n_f * n * k * 2 + batch * m * n_f * (3 * k + 1)
+
+
+def wnn_ensemble_cost(batch, row_bits, geoms, m, tables):
+    """Bytes and integer operations of the class-sliced formulation the
+    ensemble kernel runs, each term named, counted as the kernel issues
+    them. geoms: per submodel (N_f, n, k); tables: the flattened launch
+    arguments. Per row: for each input bit of every filter one select
+    (the gathered bit guards the fold) and the H3 fold, one XOR-AND a
+    hash (a single LOP3); per filter k probes and k + 1 ANDs (with the
+    mask word); per 32-filter chunk a vote per class (ballot and
+    popcount)."""
+    terms = {
+        "selects": batch * sum(n_f * n for n_f, n, _ in geoms),
+        "hash_fold": batch * sum(n_f * n * k for n_f, n, k in geoms),
+        "probes_and_ands": batch * sum(n_f * (2 * k + 1)
+                                       for n_f, _, k in geoms),
+        "votes": batch * sum(-(-n_f // 32) for n_f, _, _ in geoms) * m * 2,
+    }
+    bytes_terms = {
+        "rows": batch * row_bits,
+        "tables": sum(t.numel() * t.element_size() for t in
+                      (tables.perms, tables.params, tables.slices,
+                       tables.masks, tables.desc)),
+        "scores": batch * m * 4 + m * 4,
+    }
+    return bytes_terms, terms
 
 
 def check_wnn_kernels(gen, packed_layout, ref, packed_wnn, fused_wnn):
+    """The per-submodel tuple entries (`packed_wnn`, `fused_wnn` on
+    (B, N_f, n) tuples: the same kernel with the identity permutation on
+    class slices built in the call) against their plain versions,
+    bit-equal, at every ULN-L geometry and the edge cases."""
     cases = []
     for n, log2e in ULN_L["submodels"]:
         total_bits = ULN_L["features"] * ULN_L["bits_per_input"]
-        cases.append(dict(name=f"uln_l_n{n}_e{2 ** log2e}", main=True,
+        cases.append(dict(name=f"uln_l_n{n}_e{2 ** log2e}", timed=True,
                           batch=INFER_BATCH, n_f=math.ceil(total_bits / n),
                           n=n, log2_entries=log2e, m=ULN_L["num_classes"],
                           k=ULN_L["num_hashes"]))
@@ -267,13 +302,13 @@ def check_wnn_kernels(gen, packed_layout, ref, packed_wnn, fused_wnn):
              m=40, k=8),
         dict(name="zero_mask", batch=2053, n_f=229, n=24, log2_entries=8,
              m=10, k=2, mask_kind="zeros"),
+        # N_f·n = 32800 bits, past what the first ensemble kernel staged
+        dict(name="wide_tuples_32800_bits", batch=1029, n_f=1025, n=32,
+             log2_entries=6, m=10, k=2),
     ]
     rows = []
-    # per kernel, over the six ULN-L geometries one served batch launches
-    totals = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes=0, ops=0,
-                      max_abs_err=0) for k in ("packed_wnn", "fused_wnn")}
     for case in cases:
-        name, main = case.pop("name"), case.pop("main", False)
+        name, timed = case.pop("name"), case.pop("timed", False)
         tuples, params, table, mask, bias = wnn_case(gen, **case)
         words = packed_layout.pack_words(table)
         b = case["batch"]
@@ -284,41 +319,181 @@ def check_wnn_kernels(gen, packed_layout, ref, packed_wnn, fused_wnn):
         want_f = chunked(ref.fused_wnn_ref, b, tuples, params, table, mask,
                          bias)
         torch.cuda.synchronize()
-        errs = {"packed_wnn": assert_equal(f"packed_wnn[{name}]", got_p,
-                                           want_p),
-                "fused_wnn": assert_equal(f"fused_wnn[{name}]", got_f,
-                                          want_f)}
+        assert_equal(f"packed_wnn[{name}]", got_p, want_p)
+        assert_equal(f"fused_wnn[{name}]", got_f, want_f)
         assert_equal(f"packed_wnn vs fused_wnn[{name}]", got_p, got_f)
-        for kname, err in errs.items():
-            totals[kname]["max_abs_err"] = max(totals[kname]["max_abs_err"],
-                                               err)
         row = {"case": name, "batch": b, "n_f": case["n_f"], "n": case["n"],
                "entries": 2 ** case["log2_entries"], "m": case["m"],
-               "k": case["k"]}
-        for kname, kern, plain, tab in (
-                ("packed_wnn", packed_wnn, ref.packed_wnn_ref, words),
-                ("fused_wnn", fused_wnn, ref.fused_wnn_ref, table)):
-            ms = cuda_ms(lambda: kern(tuples, params, tab, mask, bias), 20)
-            plain_ms = cuda_ms(lambda: chunked(plain, b, tuples, params, tab,
-                                               mask, bias), 3, warmup=1)
-            bytes_moved, ops = wnn_cost(b, case["n_f"], case["n"], case["m"],
-                                        case["k"], tab.numel()
-                                        * tab.element_size())
-            bms, by = bound(bytes_moved, ops, INT32_OPS_PER_S)
-            row[kname] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-                          "bound_by": by, "bytes": bytes_moved, "ops": ops}
-            if main:
-                for key, v in (("ms", ms), ("plain_ms", plain_ms),
-                               ("bytes", bytes_moved), ("ops", ops)):
-                    totals[kname][key] += v
+               "k": case["k"], "max_abs_err": 0}
+        if timed:
+            # per call, the class slices the wrapper builds included
+            row["packed_wnn_ms"] = cuda_ms(
+                lambda: packed_wnn(tuples, params, words, mask, bias), 10)
+            row["fused_wnn_ms"] = cuda_ms(
+                lambda: fused_wnn(tuples, params, table, mask, bias), 10)
         rows.append(row)
         del tuples, params, table, words, mask, bias
-    emit("wnn_kernels", cases=rows)
-    for t in totals.values():
-        t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["ops"],
-                                             INT32_OPS_PER_S)
-        t["library_ms"] = None
-    return totals
+    emit("wnn_tuple_entries", cases=rows)
+
+
+def seeded_artifact(export, seed, *, m, subs, total_bits,
+                    bits_per_input=1, mask_kind="random"):
+    """A seeded artifact: table fill ~0.3, mask ~0.8 (or all zero),
+    random perm wrapped with repeated indices where N_f·n passes
+    total_bits, H3 params in [0, E), integer bias. subs: (n, log2 E, k)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for n, log2e, k in subs:
+        e, n_f = 2 ** log2e, math.ceil(total_bits / n)
+        perm = rng.permutation(total_bits)
+        if n_f * n > total_bits:           # classic WiSARD wrap padding
+            perm = np.concatenate(
+                [perm, rng.integers(0, total_bits, n_f * n - total_bits)])
+        packed = export.pack_table(rng.random((m, n_f, e)) < 0.3)
+        mask = rng.random((m, n_f)) < 0.8
+        if mask_kind == "zeros":
+            mask[:] = False
+        out.append(export.SubmodelArtifact(
+            packed=packed,
+            mask=mask, perm=perm[:n_f * n].reshape(n_f, n).astype(np.int32),
+            h3=rng.integers(0, e, (k, n)).astype(np.uint32), entries=e,
+            inputs_per_filter=n, num_hashes=k))
+    return export.InferenceArtifact(
+        submodels=out, bias=rng.integers(-5, 6, m).astype(np.int32),
+        num_classes=m, total_bits=total_bits, bits_per_input=bits_per_input)
+
+
+ULN_L_SUBS = tuple((n, log2e, ULN_L["num_hashes"])
+                   for n, log2e in ULN_L["submodels"])
+ULN_L_BITS = ULN_L["features"] * ULN_L["bits_per_input"]
+# the whole-ensemble kernel: ULN-L (all six submodels, the served batch),
+# the ULN-XL ensemble (`repro/launch/uleen_cell.py::ULN_XL_ENSEMBLE_SPEC`:
+# M = 32, three submodels up to E = 2^15), and edge cases: M = 40 (two
+# class planes) with n = 64 and k = 8, M = 33 with rows of an odd byte
+# count (tiles start off 16-byte boundaries), M = 8 (uint8 slices), M = 1,
+# an all-zero mask, B = 1, B off a multiple of the 8-row tile, and rows of
+# 40001 bits (several staged windows)
+ENSEMBLE_CASES = [
+    dict(name="uln_l_six_submodels", main=True, m=ULN_L["num_classes"],
+         subs=ULN_L_SUBS, total_bits=ULN_L_BITS, batch=INFER_BATCH),
+    dict(name="uln_xl_ensemble_m32", timed=True, m=32,
+         subs=((16, 11, 2), (24, 13, 2), (32, 15, 2)), total_bits=784 * 8,
+         batch=INFER_BATCH),
+    dict(name="m40_n64_k8", m=40, subs=((64, 10, 8), (7, 3, 1)),
+         total_bits=2880, batch=1031),
+    dict(name="m33_k5_odd_row_bytes", m=33, subs=((13, 8, 5), (9, 4, 3)),
+         total_bits=1001, batch=4099),
+    dict(name="m8_uint8_k4", m=8, subs=((12, 6, 2), (20, 7, 4)),
+         total_bits=784 * 2, batch=2053),
+    dict(name="m1", m=1, subs=((7, 3, 1),), total_bits=97, batch=5),
+    dict(name="zero_mask", m=10, subs=((24, 8, 2),), total_bits=ULN_L_BITS,
+         batch=2053, mask_kind="zeros"),
+    dict(name="b1", m=10, subs=ULN_L_SUBS, total_bits=ULN_L_BITS, batch=1),
+    # rows in five staged windows, perm indices past 32767
+    dict(name="wide_rows_40001", m=10, subs=((16, 7, 2), (12, 6, 2)),
+         total_bits=40001, batch=4099),
+]
+
+
+def check_wnn_ensemble(gen, export, ref, kernels, *, device="cuda"):
+    """The whole-ensemble kernel on both table layouts (class slices from
+    the packed words and from the int8 tables) against its plain version,
+    bit-equal, at ENSEMBLE_CASES; the ULN-L batch and the ULN-XL ensemble
+    timed per call and on the device beside the plain version and the
+    bound. Returns the kernels line's rows for packed_wnn and fused_wnn
+    (the ULN-L batch)."""
+    dev = device
+    rows, main = [], {}
+    for i, case in enumerate(ENSEMBLE_CASES):
+        case = dict(case)
+        name, is_main = case.pop("name"), case.pop("main", False)
+        timed = is_main or case.pop("timed", False)
+        b = case.pop("batch")
+        art = seeded_artifact(export, 20270 + i, **case)
+        bits = torch.randint(0, 2, (b, case["total_bits"]), generator=gen,
+                             device=dev, dtype=torch.int8)
+        preps = {k: export.prepare_artifact(art, backend=b, device=dev)
+                 for k, b in (("packed_wnn", "auto"), ("fused_wnn", "fused"))}
+        entries = {"packed_wnn": kernels.packed_wnn_ensemble,
+                   "fused_wnn": kernels.fused_wnn_ensemble}
+        pt = preps["packed_wnn"]
+
+        def plain(rows_, prep=pt):
+            return ref.wnn_ensemble_ref(rows_, prep.perms, prep.h3s,
+                                        prep.slices, prep.class_masks,
+                                        prep.bias)
+        want = chunked(plain, b, bits)
+        row = {"case": name, "batch": b, "m": case["m"],
+               "total_bits": case["total_bits"],
+               "submodels": [list(sm) for sm in case["subs"]],
+               "slice_bytes": pt.slice_bytes(),
+               "packed_table_bytes": pt.table_bytes()}
+        geoms = [(p.shape[0], p.shape[1], h.shape[0])
+                 for p, h in zip(pt.perms, pt.h3s)]
+        for kname, entry in entries.items():
+            got = entry(bits, preps[kname])
+            torch.cuda.synchronize()
+            err = assert_equal(f"{kname}_ensemble[{name}]", got, want)
+            if not timed:
+                continue
+            ms = cuda_ms(lambda: entry(bits, preps[kname]), 20)
+            device_ms = graph_ms(lambda: entry(bits, preps[kname]))
+            by_terms, op_terms = wnn_ensemble_cost(
+                b, case["total_bits"], geoms, case["m"],
+                preps[kname].kernel_args)
+            bms, by = bound(sum(by_terms.values()), sum(op_terms.values()),
+                            INT32_OPS_PER_S)
+            per_class_ops = sum(wnn_per_class_ops(b, n_f, n, case["m"], k)
+                                for n_f, n, k in geoms)
+            row[kname] = {
+                "ms": ms, "device_ms": device_ms, "bound_ms": bms,
+                "bound_by": by,
+                "bound_per_class_ms": bound(sum(by_terms.values()),
+                                            per_class_ops,
+                                            INT32_OPS_PER_S)[0],
+                "bytes": sum(by_terms.values()), "bytes_terms": by_terms,
+                "ops": sum(op_terms.values()), "ops_terms": op_terms,
+                "max_abs_err": err}
+        if timed:
+            plain_ms = cuda_ms(lambda: chunked(plain, b, bits), 3, warmup=1)
+            for kname in entries:
+                row[kname]["plain_ms"] = plain_ms
+        if is_main:
+            main = {k: dict(row[k], library_ms=None) for k in entries}
+        rows.append(row)
+        del bits, want, preps, pt
+    emit("wnn_ensemble", cases=rows)
+    return main
+
+
+def wnn_ptxas_report(log: str) -> list:
+    """Registers, stack and spills of each wnn.cu instantiation, from the
+    `-Xptxas -v` build log: the kernel's template arguments (class-word
+    type, planes P, hashes K) read off its mangled name. Its shared
+    memory is dynamic, from the input columns the perms read
+    (`wnn_shared_bytes_uln_l`)."""
+    types = {"h": "uint8", "t": "uint16", "j": "uint32"}
+    out = []
+    for ln in log.splitlines():
+        hit = re.search(r"Compiling entry function '(\S+)'", ln)
+        if hit:
+            args = re.search(r"wnn_ensemble_kernelI([htj])Li(\d+)ELi(\d+)E",
+                             hit.group(1))
+            out.append({"kernel": f"wnn_ensemble_kernel<{types[args[1]]}, "
+                                  f"P={args[2]}, K={args[3]}>"
+                        if args else hit.group(1)})
+            continue
+        if not out:
+            continue
+        spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", ln)
+        if spill:
+            out[-1].update(stack=int(spill[1]), spill_stores=int(spill[2]),
+                           spill_loads=int(spill[3]))
+        regs = re.search(r"Used (\d+) registers", ln)
+        if regs:
+            out[-1]["registers"] = int(regs[1])
+    return out
 
 
 def check_front_end_kernels(gen, ref, thermometer_encode,
@@ -635,29 +810,10 @@ def flash_scaling(gen, ref, flash_attention, plan):
 # ---------------------------------------------------------------------------
 
 def uln_l_artifact(export, seed: int):
-    """A seeded ULN-L artifact: table fill ~0.3, mask ~0.8, random perm,
-    H3 params in [0, E), integer bias — random weights at full width."""
-    rng = np.random.default_rng(seed)
-    m = ULN_L["num_classes"]
-    total_bits = ULN_L["features"] * ULN_L["bits_per_input"]
-    subs = []
-    for n, log2e in ULN_L["submodels"]:
-        e = 2 ** log2e
-        n_f = math.ceil(total_bits / n)
-        perm = rng.permutation(total_bits)
-        if n_f * n > total_bits:           # classic WiSARD wrap padding
-            perm = np.concatenate(
-                [perm, rng.integers(0, total_bits, n_f * n - total_bits)])
-        subs.append(export.SubmodelArtifact(
-            packed=export.pack_table(rng.random((m, n_f, e)) < 0.3),
-            mask=rng.random((m, n_f)) < 0.8,
-            perm=perm[:n_f * n].reshape(n_f, n).astype(np.int32),
-            h3=rng.integers(0, e, (ULN_L["num_hashes"], n)).astype(np.uint32),
-            entries=e, inputs_per_filter=n, num_hashes=ULN_L["num_hashes"]))
-    return export.InferenceArtifact(
-        submodels=subs, bias=rng.integers(-5, 6, m).astype(np.int32),
-        num_classes=m, total_bits=total_bits,
-        bits_per_input=ULN_L["bits_per_input"])
+    """A seeded ULN-L artifact: random weights at full width."""
+    return seeded_artifact(export, seed, m=ULN_L["num_classes"],
+                           subs=ULN_L_SUBS, total_bits=ULN_L_BITS,
+                           bits_per_input=ULN_L["bits_per_input"])
 
 
 # the kernels of the serve path; the train path adds h3_hash
@@ -687,7 +843,7 @@ def serve(WnnBatcher, art, bits_host, want, backend):
         raise AssertionError(f"WnnBatcher[{backend}] launched "
                              f"{st['traces']} batch shapes, not 1")
     return {"backend": backend, "requests_per_s": len(results) / wall,
-            "wall_s": wall, **st}
+            "wall_s": wall, "warm_up_batches": warm.batches, **st}
 
 
 def main_path(export, ops, fit_gaussian_thermometer, WnnBatcher, kernels):
@@ -719,18 +875,24 @@ def main_path(export, ops, fit_gaussian_thermometer, WnnBatcher, kernels):
     bits3 = ops.thermometer(x, enc.thresholds)                 # kernel #3
     bits4 = ops.decompress(enc.encode_counts(x), t)            # kernel #4
     bits = bits3.reshape(INFER_BATCH, f * t)
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     s_auto = export.artifact_scores(art, bits, backend="auto")     # #1
     s_fused = export.artifact_scores(art, bits, backend="fused")   # #2
     torch.cuda.synchronize()
     direct_s = time.perf_counter() - t0
+    # what the two scoring calls (and the one-time table preparation)
+    # held on the card past the batch's bits: no (B, N_f, n) tuples
+    scoring_peak_bytes = torch.cuda.max_memory_allocated() - base_bytes
     bits_host = bits[:SERVE_REQUESTS].cpu().numpy()
     want = s_auto[:SERVE_REQUESTS].cpu().numpy()
     served = [serve(WnnBatcher, art, bits_host, want, b)
               for b in ("auto", "fused")]
     launches = kernels.launch_counts()     # ... and ends here
 
-    # where a served batch's device time goes: the whole scoring call
-    # (per-submodel permutation gathers + kernels) beside its kernels alone
+    # the whole scoring call per backend (one kernel launch, the wrapper's
+    # host work included wherever the card waits for it)
     scores_ms = {b: cuda_ms(lambda: export.artifact_scores(
         art, bits, backend=b), 5) for b in ("auto", "fused")}
     front_end_ms = cuda_ms(lambda: ops.thermometer(x, enc.thresholds), 5)
@@ -749,11 +911,30 @@ def main_path(export, ops, fit_gaussian_thermometer, WnnBatcher, kernels):
     idle = [k for k in SERVE_KERNELS if launches[k] == 0]
     if idle:
         raise AssertionError(f"main path never launched {idle}")
+    # one WNN launch a batch: the direct call and every batcher step
+    for kname, backend in (("packed_wnn", "auto"), ("fused_wnn", "fused")):
+        sv = next(v for v in served if v["backend"] == backend)
+        batches = 1 + sv["warm_up_batches"] + sv["batches"]
+        if launches[kname] != batches:
+            raise AssertionError(f"{kname} launched {launches[kname]} times "
+                                 f"for {batches} batches")
+    # one submodel's tuples alone would be B·N_f·n >= B·total_bits bytes
+    if scoring_peak_bytes >= INFER_BATCH * f * t:
+        raise AssertionError(f"scoring held {scoring_peak_bytes} bytes past "
+                             "the bits: a tuple tensor was materialised")
+    prep_p = export.prepare_artifact(art, backend="auto")
+    prep_f = export.prepare_artifact(art, backend="fused")
     emit("main_path", model="ULN-L", total_bits=f * t,
          submodels=len(art.submodels), batch=INFER_BATCH,
          direct_s=direct_s, bits_set_share=float(bits3.float().mean()),
          pred_histogram=torch.bincount(preds, minlength=10).tolist(),
          packed_table_kib=art.packed_size_kib,
+         class_slice_bytes={"packed": prep_p.slice_bytes(),
+                            "fused": sum(t_.numel() * t_.element_size()
+                                         for t_ in prep_f.slices)},
+         kernel_args_bytes={"packed": prep_p.kernel_args.nbytes(),
+                            "fused": prep_f.kernel_args.nbytes()},
+         scoring_peak_bytes=scoring_peak_bytes,
          artifact_scores_ms=scores_ms, thermometer_ms=front_end_ms,
          serve=served,
          launches=launches)
@@ -1136,7 +1317,7 @@ def main() -> int:
                                   one_shot, pruning)
     from repro_torch.core.encoding import fit_gaussian_thermometer
     from repro_torch.configs import get_config
-    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import build, ops, ref, wnn_ensemble
     from repro_torch.kernels.flash_attention import plan as flash_plan
     from repro_torch.launch import scheduler, steps
     from repro_torch.launch.scheduler import WnnBatcher
@@ -1154,15 +1335,19 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build.build_all()
-    ptxas = [ln.strip() for src in build.SOURCES
+    ptxas = [ln.strip() for src in build.SOURCES if src != "wnn.cu"
              for ln in build.build_log(src).splitlines()
              if "registers" in ln or "spill" in ln
              or "Performance Loss" in ln or "setmaxnreg" in ln]
-    emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
+    emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas,
+         wnn_ptxas=wnn_ptxas_report(build.build_log("wnn.cu")),
+         wnn_shared_bytes_uln_l=wnn_ensemble.shared_bytes(
+             ULN_L_BITS, ULN_L["num_classes"]))
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    wnn = check_wnn_kernels(gen, packed_layout, ref, kernels.packed_wnn,
-                            kernels.fused_wnn)
+    wnn = check_wnn_ensemble(gen, export, ref, kernels)
+    check_wnn_kernels(gen, packed_layout, ref, kernels.packed_wnn,
+                      kernels.fused_wnn)
     front = check_front_end_kernels(gen, ref, kernels.thermometer_encode,
                                     kernels.thermometer_decompress)
     h3 = check_h3_kernel(gen, ref, kernels.h3_hash)
@@ -1210,6 +1395,7 @@ def main() -> int:
                      "library_ms": timing["library_ms"],
                      **{k: timing[k] for k in ("tolerance",
                                                "bound_cuda_core_ms",
+                                               "bound_per_class_ms",
                                                "device_ms",
                                                "library_device_ms")
                         if k in timing}})

@@ -111,12 +111,26 @@ def export_model(spec, statics, params) -> InferenceArtifact:
 
 class UnpackedTables(NamedTuple):
     """Device-resident 32× expansion of an artifact for the int8 backends
-    (fused/gather). Built and validated once by `prepare_artifact`."""
+    (fused/gather). Built and validated once by `prepare_artifact`; for
+    `fused`, with the launch arguments of the kernel
+    (`kernels/wnn_ensemble.py`: perms, params, class slices and mask
+    words) derived from the int8 tables at the same time."""
     tables: tuple    # per submodel (M, N_f, E) int8
     masks: tuple     # (M, N_f) int8
     perms: tuple     # (N_f, n) int64: torch indexes with int64 only
     h3s: tuple       # (k, n) int32
     bias: torch.Tensor  # (M,) int32
+    kernel_args: object = None  # `fused`: the ensemble flattened for one launch
+
+    @property
+    def slices(self) -> tuple:
+        """Per submodel class slices (N_f, E[, P]), views of `kernel_args`."""
+        return self.kernel_args.submodel_slices()[0]
+
+    @property
+    def class_masks(self) -> tuple:
+        """Per submodel mask words (N_f[, P]), views of `kernel_args`."""
+        return self.kernel_args.submodel_slices()[1]
 
 
 # one prepared object per REPRESENTATION: PackedTables serves both
@@ -126,11 +140,27 @@ _SAME_REPRESENTATION = {"auto": "packed", "packed": "auto",
 
 
 def _build_prep(artifact: InferenceArtifact, backend: str,
-                device: torch.device):
-    """The (uncached) representation build behind `prepare_artifact`."""
+                device: torch.device, unpacked=None):
+    """The (uncached) representation build behind `prepare_artifact`;
+    `unpacked`, a `gather` preparation, lends its int8 tables to `fused`,
+    which adds only the kernel's launch arguments."""
     if backend in ("auto", "packed"):
         from repro_torch.packed import layout
         return layout.from_artifact(artifact, device=device)
+    prep = _unpack(artifact, device) if unpacked is None else unpacked
+    if backend != "fused":
+        return prep
+    from repro_torch.kernels import wnn_ensemble
+    from repro_torch.packed import layout
+    return prep._replace(kernel_args=wnn_ensemble.ensemble_args(
+        prep.perms, prep.h3s,
+        [layout.class_slices_from_table(t) for t in prep.tables],
+        [layout.class_mask_words(m) for m in prep.masks],
+        int(artifact.num_classes)))
+
+
+def _unpack(artifact: InferenceArtifact, device: torch.device):
+    """The artifact's int8 tables, validated, on `device`."""
     subs = artifact.submodels
 
     from repro_torch.kernels import ops
@@ -160,7 +190,8 @@ def prepare_artifact(artifact: InferenceArtifact, *, backend: str = "auto",
 
     backend="packed"/"auto" lifts the artifact's uint32 word planes into a
     `repro_torch.packed.PackedTables` verbatim (no expansion at all);
-    "fused"/"gather" unpack to int8 device tables exactly once. The result
+    "fused"/"gather" unpack to int8 device tables exactly once, and
+    "fused" adds the class-sliced launch arguments of its kernel. The result
     is memoized on the artifact instance per (representation, device), so
     the serve path (`artifact_scores`, `launch.scheduler.WnnBatcher`)
     never redoes any table work per batch.
@@ -177,10 +208,10 @@ def prepare_artifact(artifact: InferenceArtifact, *, backend: str = "auto",
         rec.counter("prep.cache_hit").inc()
         return cache[key]
     prep = cache.get((_SAME_REPRESENTATION[backend], str(dev)))
-    if prep is None:
+    if prep is None or (backend == "fused" and prep.kernel_args is None):
         rec.counter("prep.cache_miss").inc()
         with rec.span("prep.build", backend=backend, device=str(dev)):
-            prep = _build_prep(artifact, backend, dev)
+            prep = _build_prep(artifact, backend, dev, prep)
     else:
         # same-representation reuse: no build, but record the alias fill
         rec.counter("prep.cache_hit").inc()
@@ -192,22 +223,34 @@ def scores_from_prep(prep, bits, *, backend: str = "auto") -> torch.Tensor:
     """Backend-dispatched scores from prepared tables, on their device.
 
     THE serve loop — `artifact_scores` and `launch.scheduler.WnnBatcher`
-    both route through here, so the per-submodel dispatch, mask and bias
-    semantics cannot drift between them. The prepared tables were
-    validated when they were built; a batch pays only the wrappers'
-    per-launch pointer checks.
+    both route through here, so the dispatch, mask and bias semantics
+    cannot drift between them. On a GPU the kernel backends (`auto`,
+    `packed`, `fused`) make one launch a batch on its (B, total_bits)
+    rows; the CPU and `gather` run the plain per-submodel loop. The
+    prepared tables were validated when they were built; a batch pays
+    only the wrapper's pointer checks.
     """
     if not isinstance(prep, UnpackedTables):
         from repro_torch.packed import runtime
         return runtime.packed_scores(prep, bits, backend=backend,
                                      device=prep.device)
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.fused_wnn import fused_wnn
+    from repro_torch.kernels.fused_wnn import fused_wnn, fused_wnn_ensemble
     dev = prep.bias.device
     resolved = ops.resolve_wnn_backend(backend, device=dev)
     if resolved not in ("fused", "gather"):
         raise ValueError(f"int8 tables serve backend='fused'|'gather'|'auto',"
                          f" got {backend!r}")
+    if resolved == "fused" and dev.type == "cuda":
+        if prep.kernel_args is None:
+            raise ValueError("these tables were prepared for 'gather'; "
+                             "prepare_artifact(..., backend='fused') adds "
+                             "the kernel's class slices")
+        bits = torch.as_tensor(bits).to(dev)
+        # the kernel reads any one-byte {0,1} rows as they are
+        if bits.dtype not in (torch.int8, torch.uint8, torch.bool):
+            bits = bits.to(torch.int8)
+        return fused_wnn_ensemble(bits.contiguous(), prep)
     # "fused" is the kernel (its plain version on the CPU), "gather" the
     # plain version on any device
     wnn = fused_wnn if resolved == "fused" else ref.fused_wnn_ref
@@ -234,8 +277,9 @@ def artifact_scores(artifact: InferenceArtifact, bits, *,
     """Serve encoded inputs straight from the deployable artifact.
 
     bits: (B, total_bits) bool/int {0,1} -> scores (B, M) int32 on
-    `device`, one WNN kernel launch per submodel on tuples sliced via the
-    stored permutation.
+    `device`; on a GPU one WNN kernel launch for the whole ensemble,
+    which gathers each filter's tuple through the stored permutation
+    itself.
 
     backend="packed"/"auto" serves the artifact's native uint32 bitplanes
     (the packed kernel on a GPU); "fused"/"gather" serve the int8

@@ -1,6 +1,7 @@
 """Hand-written Hopper kernels and their plain versions.
 
-Each wrapper (`packed_wnn`, `fused_wnn`, `thermometer_encode`,
+Each wrapper (`packed_wnn`, `fused_wnn` and their whole-ensemble entries
+`packed_wnn_ensemble`, `fused_wnn_ensemble`, `thermometer_encode`,
 `thermometer_decompress` on the ULEEN serve path, `h3_hash` on the ULEEN
 training path, `flash_attention` on the LM prefill path) launches its
 CUDA kernel on CUDA tensors and counts the launch in its `launches`
@@ -8,9 +9,9 @@ attribute; on CPU tensors it runs its plain version from `ref.py` and
 counts nothing.
 """
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.fused_wnn import fused_wnn
+from repro_torch.kernels.fused_wnn import fused_wnn, fused_wnn_ensemble
 from repro_torch.kernels.h3_hash import h3_hash
-from repro_torch.kernels.packed_wnn import packed_wnn
+from repro_torch.kernels.packed_wnn import packed_wnn, packed_wnn_ensemble
 from repro_torch.kernels.thermometer import (thermometer_decompress,
                                              thermometer_encode)
 

@@ -1,5 +1,6 @@
-// H3 hashing on the device, shared by the WNN scoring kernels (wnn.cu) and
-// the standalone hash-precompute kernel (h3_hash.cu).
+// H3 hashing on the device for the hash-precompute kernel (h3_hash.cu).
+// (The WNN scoring kernel, wnn.cu, folds the hash into its permutation
+// gather itself, eight rows per gathered index.)
 //
 // A tuple is n int8 {0,1} bytes; hash j of a tuple is the XOR of the
 // parameter words params[j * n + i] over the set bits i. K, the number of

@@ -1,158 +1,396 @@
-// Hopper kernels for ULEEN's Bloom-filter scoring: packed_wnn and fused_wnn.
+// Hopper kernel for ULEEN's Bloom-filter scoring of a whole ensemble:
+// the one kernel behind packed_wnn and fused_wnn.
 //
 // Replaces the Pallas TPU kernels
 //   repro/kernels/packed_wnn.py::packed_wnn   (body packed_wnn_kernel)
 //   repro/kernels/fused_wnn.py::fused_wnn     (body fused_wnn_kernel)
 // Both compute, for each batch row b and class m,
-//   scores[b, m] = bias[m] + sum_f (mask[m, f] != 0) * AND_j bit(m, f, h_j(b, f))
-// where h_j is the H3 hash of tuple (b, f) (XOR of the params row j entries
-// selected by the tuple's set bits) and bit() reads entry h of filter (m, f):
-//   packed: bit (h & 31) of the uint32 word words[m, f, h >> 5];
-//   fused:  table[m, f, h] != 0 on the int8 (M, N_f, E) table.
+//   scores[b, m] = bias[m] + sum_s sum_f (mask_s[m, f] != 0)
+//                  * AND_j bit_s(m, f, h_j(bits[b, perm_s[f, :]]))
+// where h_j is the H3 hash of the filter's n input bits (XOR of the
+// params row j entries selected by its set bits) and bit_s() reads entry
+// h of filter (m, f) of submodel s. Here one launch computes all
+// submodels, with the permutation gather inside, on the batch's
+// (B, total_bits) rows; the TPU kernels (and this port's first version)
+// ran once per submodel on (B, N_f, n) tuples gathered outside.
 //
-// The TPU kernels turn the lookup into a one-hot MXU contraction because
-// gathers are slow there. On Hopper the lookup is a direct load: the tables
-// of a whole ULN-L ensemble (373 KiB packed) stay in L2 and mostly in L1.
+// Layout (kernels/wnn_ensemble.py): the tables are class-sliced, entry
+// [f, h] of an (N_f, E) array holds the M class bits of table entry h of
+// filter f (uint8/uint16/uint32 for M <= 8/16/32, P uint32 words for
+// M <= 32·P), and a filter's mask is one M-bit word. So a filter's k
+// probes answer every class at once:
+//   resp = mask_f & AND_j slices[f, h_j]        (k loads, not M·k)
+// and class m's vote is bit m of resp. Permutations are stored (n, N_f)
+// per submodel as uint16 (rows may be wider; the inputs the filters read
+// lie below 65536), so a warp's lanes (one filter each) read
+// neighbouring indices.
 //
-// What bounds it: the (B, N_f, n) int8 tuples are the one large input, read
-// once (bytes / 3.35 TB/s), but the integer work on them (hash folds,
-// per-class lookups and votes) at Hopper's int32 issue rate, half its fp32
-// lane rate, is the higher floor. As written it runs several times above
-// that floor; PERF.md keeps its times beside the bound.
-// Design: one warp per batch row, one lane per filter. A lane reads its
-// tuple (as 32-bit words when n % 4 == 0), computes its k hashes once with
-// the (k, n) params in shared memory, then walks the classes. The class
-// count is a warp vote: the popcount of the ballot of the lanes' responses,
-// kept in the register of lane m, so no atomics and no shared-memory
-// reduction. Classes come in groups of 32 (one per lane). int32 sums are
-// exact in any order, so the scores are bit-equal to the plain versions.
+// Design. A persistent block (16 warps; 8 where large K or P need more
+// than 128 registers a thread) walks tiles of kRows = 8 rows. The tile
+// is transposed into shared memory as one byte per input bit that a
+// filter reads (bit r = row r): columns [0, cols) where cols is one past
+// the largest perm index, so the tile costs cols bytes whatever the row
+// width. The rows reach it through a staging buffer of at most kWindow
+// columns a row, copied with cp.async in 16-byte chunks from the 16-byte
+// boundary at or below each row's window (any row width, one code path);
+// wider inputs take several windows. The copy of the next tile's first
+// window overlaps the current tile's work. Each warp takes 32-filter
+// chunks of the ensemble's submodels in turn, one filter a lane; for each
+// of the filter's n inputs it loads the index once, reads the 8 rows'
+// bits with one shared byte load, and folds them into the 8 rows' k
+// hashes (a row's bit guards k XORs of the params words). Then k probes a
+// row through __ldg (the ULN-L ensemble's slices, 596 KiB, stay in the
+// 50 MB L2). Votes: per class a ballot over the 32 filters, kept by the
+// lane of that class, popcounted once per row and chunk; each warp's
+// int32 counts go to the tile's scores with shared-memory atomics (exact
+// in any order), and the block adds the bias and stores the (rows, M)
+// scores once. int32 sums are exact, so the scores are bit-equal to the
+// plain versions.
+//
+// What bounds it: integer issue and the probes, not bytes (the rows,
+// read once, are ~4× below the operation count's time). Removing parts
+// on the H100 (scripts/wnn_variants.py, switched by WNN_ABLATE below)
+// splits a batch's time between the gather and hash fold and the probes
+// and votes: each probe load's 32 lanes read 32 different filters'
+// slices. PERF.md keeps the measurements beside the bound.
+//
 // A hash at or past E (only from malformed params) reads nothing and
 // answers 0, as the TPU kernels' one-hot does.
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
-#include "h3.cuh"
+// Ablations for scripts/wnn_variants.py, 0 in the port's own build:
+// 1 every probe reads entry 0 or 1 of its filter's slice (the probes
+// without their cache misses), 2 no gather or hash fold (every hash 0),
+// 3 no votes (the compiler drops hash and probes too: the tile copy,
+// transpose and score stores alone). WNN_WARPS, when set, fixes the
+// warps a block.
+#ifndef WNN_ABLATE
+#define WNN_ABLATE 0
+#endif
+#ifndef WNN_WARPS
+#define WNN_WARPS 0
+#endif
 
 namespace {
 
-constexpr int kMaxHashes = 8;       // kernels/launch.py MAX_HASHES
-constexpr int kMaxTupleBits = 64;   // kernels/launch.py MAX_TUPLE_BITS
-constexpr int kWarpsPerBlock = 8;
+constexpr int kRows = 8;             // rows a tile: one bit each of a byte
+constexpr int kWindow = 8192;        // staged columns a row and copy
+// Warps per block: 16 where a thread's registers (8 rows × K hashes and
+// P response words) stay within the 128 that 512 threads allow, else 8.
+template <int K, int P>
+__host__ __device__ constexpr int warps_per_block() {
+  return WNN_WARPS ? WNN_WARPS : (K <= 4 && P <= 2 ? 16 : 8);
+}
+constexpr int kMaxHashes = 8;        // kernels/launch.py MAX_HASHES
+constexpr int kMaxPlanes = 4;        // kernels/wnn_ensemble.py MAX_PLANES
+constexpr int kMaxCols = 65536;      // uint16 perm indices
 constexpr unsigned kFullMask = 0xffffffffu;
 
-// A lookup policy names the table's element type, its elements per filter
-// and how entry h of one filter is tested. The kernel checks h < entries
-// once per hash, so bit() never reads out of range.
-struct PackedLookup {
-  using Elem = uint32_t;
-  const uint32_t* __restrict__ table;  // (M, N_f, W) bitplanes
-  int per_filter;                      // W
-  int entries;                         // 32 * W
-  __device__ __forceinline__ uint32_t bit(const uint32_t* filter,
-                                          int32_t h) const {
-    return (__ldg(filter + (h >> 5)) >> (h & 31)) & 1u;
-  }
+// One row of the descriptor array (kernels/wnn_ensemble.py DESC_FIELDS);
+// offsets are in elements of their arrays.
+struct Submodel {
+  int num_filters, n, k, entries, perm_off, param_off, slice_off, mask_off,
+      chunk_begin;
 };
 
-struct ByteLookup {
-  using Elem = int8_t;
-  const int8_t* __restrict__ table;    // (M, N_f, E) {0,1}
-  int per_filter;                      // E
-  int entries;                         // E
-  __device__ __forceinline__ uint32_t bit(const int8_t* filter,
-                                          int32_t h) const {
-    return __ldg(filter + h) != 0;
-  }
+struct SharedLayout {   // byte offsets into the dynamic shared memory
+  int trans, stage, slot, scores, total;
 };
 
-// K, the number of hashes, is a template argument: the hash and lookup
-// loops then unroll to exactly K steps (a runtime k unrolled to the bound
-// of 8 executes the predicated-off steps too, and the kernel is
-// instruction-bound).
-template <int K, class Lookup>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-wnn_kernel(const int8_t* __restrict__ tuples, const int32_t* __restrict__ params,
-           Lookup lookup, const int8_t* __restrict__ mask,
-           const int32_t* __restrict__ bias, int32_t* __restrict__ out,
-           int batch, int num_filters, int n, int m) {
-  using Elem = typename Lookup::Elem;
-  __shared__ int32_t s_params[kMaxHashes * kMaxTupleBits];
-  for (int i = threadIdx.x; i < K * n; i += blockDim.x) s_params[i] = params[i];
-  __syncthreads();
+__host__ __device__ inline int up16(int x) { return (x + 15) & ~15; }
+
+// kernels/wnn_ensemble.py shared_bytes mirrors this: the transposed tile
+// (a byte an input column), the staged window (a row's slot holds its
+// window and the head below its 16-byte boundary) and the int32 scores.
+__host__ __device__ inline SharedLayout shared_layout(int cols, int m) {
+  SharedLayout s;
+  s.trans = 0;
+  s.stage = up16(cols);
+  s.slot = up16(min(cols, kWindow)) + 16;
+  s.scores = s.stage + kRows * s.slot;
+  s.total = s.scores + kRows * m * 4;
+  return s;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Address of column c0 of a row.
+__device__ __forceinline__ uintptr_t window_start(const int8_t* bits, int row,
+                                                  int row_bits, int c0) {
+  return reinterpret_cast<uintptr_t>(bits + static_cast<size_t>(row) *
+                                                row_bits + c0);
+}
+
+// Copy columns [c0, c0 + w) of rows [r0, r0 + rows) to their slots of
+// `stage`, each from the 16-byte boundary at or below its start. A row's
+// last chunk may read up to 15 bytes past its window inside the same
+// aligned 16 bytes (never another page).
+template <int kThreads>
+__device__ __forceinline__ void copy_window(unsigned char* stage, int slot,
+                                            const int8_t* bits, int r0,
+                                            int rows, int row_bits, int c0,
+                                            int w) {
+  const int per_row = slot >> 4;
+  for (int c = threadIdx.x; c < rows * per_row; c += kThreads) {
+    const int r = c / per_row, j = c - r * per_row;
+    const uintptr_t first = window_start(bits, r0 + r, row_bits, c0);
+    const uintptr_t start = first & ~static_cast<uintptr_t>(15);
+    if (16 * j < static_cast<int>(first - start) + w)
+      cp_async16(stage + r * slot + 16 * j,
+                 reinterpret_cast<const void*>(start + 16 * j));
+  }
+}
+
+// Transpose a staged window: trans[i] bit r = row r has column c0 + i
+// set (rows past the batch read as 0).
+template <int kThreads>
+__device__ __forceinline__ void transpose_window(
+    unsigned char* trans, const unsigned char* stage, int slot,
+    const int8_t* bits, int r0, int rows, int row_bits, int c0, int w) {
+  int head[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+    head[r] = r * slot +
+              static_cast<int>(window_start(bits, r0 + r, row_bits, c0) & 15);
+  for (int i = threadIdx.x; i < w; i += kThreads) {
+    uint32_t v = 0;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+      v |= (r < rows && stage[head[r] + i] != 0) ? 1u << r : 0u;
+    trans[i] = static_cast<unsigned char>(v);
+  }
+}
+
+template <class Elem>
+__device__ __forceinline__ uint32_t load_word(const Elem* p) {
+  return static_cast<uint32_t>(__ldg(p));
+}
+
+template <class Elem, int P, int K>
+__global__ void __launch_bounds__(32 * warps_per_block<K, P>())
+wnn_ensemble_kernel(const int8_t* __restrict__ bits, int batch, int row_bits,
+                    int cols, const uint16_t* __restrict__ perms,
+                    const int32_t* __restrict__ params,
+                    const Elem* __restrict__ slices,
+                    const Elem* __restrict__ masks,
+                    const Submodel* __restrict__ subs, int num_subs,
+                    int chunks, const int32_t* __restrict__ bias,
+                    int32_t* __restrict__ out, int m) {
+  constexpr int kWarps = warps_per_block<K, P>();
+  constexpr int kThreads = 32 * kWarps;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const SharedLayout lay = shared_layout(cols, m);
+  unsigned char* trans = smem + lay.trans;
+  unsigned char* stage = smem + lay.stage;
+  int32_t* s_scores = reinterpret_cast<int32_t*>(smem + lay.scores);
+  const int win = min(cols, kWindow);
 
   const int lane = threadIdx.x & 31;
-  const bool by_word = (n & 3) == 0 &&
-                       (reinterpret_cast<uintptr_t>(tuples) & 3) == 0;
-  const size_t class_stride = static_cast<size_t>(num_filters) * lookup.per_filter;
-  // The row loop is uniform across a warp, so every ballot below runs
-  // with all 32 lanes.
-  for (int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5); row < batch;
-       row += gridDim.x * kWarpsPerBlock) {
-    const int8_t* trow = tuples + static_cast<size_t>(row) * num_filters * n;
-    for (int c0 = 0; c0 < m; c0 += 32) {
-      const int classes = min(32, m - c0);
-      int32_t count = 0;  // lane c holds class c0 + c
-      for (int f0 = 0; f0 < num_filters; f0 += 32) {
-        const int f = f0 + lane;
-        bool live = f < num_filters;
-        int32_t h[K];
+  const int warp = threadIdx.x >> 5;
+  const int tiles = (batch + kRows - 1) / kRows;
+
+  int tile = blockIdx.x;
+  if (tile < tiles)
+    copy_window<kThreads>(stage, lay.slot, bits, tile * kRows,
+                          min(kRows, batch - tile * kRows), row_bits, 0, win);
+  cp_async_commit();
+
+  for (; tile < tiles; tile += gridDim.x) {
+    const int r0 = tile * kRows;
+    const int rows = min(kRows, batch - r0);
+    for (int c0 = 0; c0 < cols; c0 += win) {
+      const int w = min(win, cols - c0);
+      if (c0 > 0) {   // later windows of wide rows: copied in turn
+        copy_window<kThreads>(stage, lay.slot, bits, r0, rows, row_bits, c0,
+                              w);
+        cp_async_commit();
+      }
+      cp_async_wait_all();
+      __syncthreads();   // the window has landed; the last tile's scores
+                         // are stored
+      if (c0 == 0)
+        for (int e = threadIdx.x; e < kRows * m; e += kThreads)
+          s_scores[e] = 0;
+      transpose_window<kThreads>(trans + c0, stage, lay.slot, bits, r0, rows,
+                                 row_bits, c0, w);
+      __syncthreads();   // `stage` is free; after the last window the
+                         // transposed tile is ready
+    }
+    if (tile + static_cast<int>(gridDim.x) < tiles) {
+      const int next = (tile + gridDim.x) * kRows;
+      copy_window<kThreads>(stage, lay.slot, bits, next,
+                            min(kRows, batch - next), row_bits, 0, win);
+    }
+    cp_async_commit();
+
+    int32_t acc[kRows][P];   // lane c: class 32 p + c of row r
 #pragma unroll
-        for (int j = 0; j < K; ++j) h[j] = 0;
+    for (int r = 0; r < kRows; ++r)
+#pragma unroll
+      for (int p = 0; p < P; ++p) acc[r][p] = 0;
+
+    int s = 0;
+    for (int g = warp; g < chunks; g += kWarps) {
+      while (s + 1 < num_subs && g >= __ldg(&subs[s + 1].chunk_begin)) ++s;
+      const Submodel sm = subs[s];
+      const int f = (g - sm.chunk_begin) * 32 + lane;
+      const bool live = f < sm.num_filters;
+      const int n = WNN_ABLATE == 2 ? 0 : sm.n;
+      const int k = sm.k;
+      const int32_t* prm = params + sm.param_off;
+
+      int32_t h[kRows][K];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+#pragma unroll
+        for (int j = 0; j < K; ++j) h[r][j] = 0;
+      // gather and hash: each index and params word serves 8 rows
+#pragma unroll 2
+      for (int i = 0; i < n; ++i) {
+        int idx = 0;
         if (live) {
-          h3_tuple<K>(h, trow + static_cast<size_t>(f) * n, s_params, n, by_word);
-#pragma unroll
-          for (int j = 0; j < K; ++j)
-            live &= static_cast<uint32_t>(h[j]) < static_cast<uint32_t>(lookup.entries);
+          const size_t at = static_cast<size_t>(sm.perm_off) +
+                            static_cast<size_t>(i) * sm.num_filters + f;
+          idx = __ldg(perms + at);
         }
-        // walk the classes with pointers: the hashes' word offsets and bit
-        // positions are the same for every class
-        const int8_t* mptr = mask + static_cast<size_t>(c0) * num_filters + f;
-        const Elem* fptr = lookup.table +
-            (static_cast<size_t>(c0) * num_filters + f) * lookup.per_filter;
-        for (int c = 0; c < classes; ++c, mptr += num_filters, fptr += class_stride) {
-          uint32_t resp = live && __ldg(mptr) != 0;
+        const uint32_t v = trans[idx];
+        int32_t pj[K];
 #pragma unroll
-          for (int j = 0; j < K; ++j)
-            if (resp) resp = lookup.bit(fptr, h[j]);
-          const int votes = __popc(__ballot_sync(kFullMask, resp));
-          if (lane == c) count += votes;
+        for (int j = 0; j < K; ++j)
+          pj[j] = j < k ? __ldg(prm + j * sm.n + i) : 0;
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          if (v & (1u << r)) {
+#pragma unroll
+            for (int j = 0; j < K; ++j) h[r][j] ^= pj[j];
+          }
         }
       }
-      if (lane < classes)
-        out[static_cast<size_t>(row) * m + c0 + lane] = count + bias[c0 + lane];
+      // probe: k loads a row answer every class
+      uint32_t mk[P];
+      uint32_t any = 0;
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        mk[p] = live ? load_word(masks + sm.mask_off +
+                                 static_cast<size_t>(f) * P + p)
+                     : 0u;
+        any |= mk[p];
+      }
+      uint32_t resp[kRows][P];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+#pragma unroll
+        for (int p = 0; p < P; ++p) resp[r][p] = mk[p];
+      if (any) {
+        const Elem* sl = slices + sm.slice_off +
+                         static_cast<size_t>(f) * sm.entries * P;
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+          for (int j = 0; j < K; ++j) {
+            if (j < k) {
+              const int32_t hh = WNN_ABLATE == 1 ? h[r][j] & 1 : h[r][j];
+              const bool ok = static_cast<uint32_t>(hh) <
+                              static_cast<uint32_t>(sm.entries);
+#pragma unroll
+              for (int p = 0; p < P; ++p)
+                resp[r][p] &= ok ? load_word(sl + static_cast<size_t>(hh) * P + p)
+                                 : 0u;
+            }
+          }
+        }
+      }
+      // votes: the ballot of class c's bit over the chunk's 32 filters,
+      // kept by lane c
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const int classes = WNN_ABLATE == 3 ? 0 : min(32, m - 32 * p);
+        uint32_t mine[kRows];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) mine[r] = 0;
+        for (int c = 0; c < classes; ++c) {
+          const bool me = lane == c;
+#pragma unroll
+          for (int r = 0; r < kRows; ++r) {
+            const uint32_t b = __ballot_sync(kFullMask, (resp[r][p] >> c) & 1u);
+            mine[r] = me ? b : mine[r];
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) acc[r][p] += __popc(mine[r]);
+      }
     }
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      if (lane < m - 32 * p) {
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+          if (acc[r][p]) atomicAdd(&s_scores[r * m + 32 * p + lane], acc[r][p]);
+      }
+    }
+    __syncthreads();   // every warp's votes are in
+    int32_t* dst = out + static_cast<size_t>(r0) * m;
+    for (int e = threadIdx.x; e < rows * m; e += kThreads)
+      dst[e] = s_scores[e] + __ldg(bias + e % m);
   }
+  cp_async_wait_all();
 }
 
-int check_geometry(int batch, int n, int k, int m) {
-  if (batch < 1 || n < 1 || n > kMaxTupleBits || k < 1 || k > kMaxHashes || m < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return 0;
+template <class Elem, int P, int K>
+int launch_k(const void* bits, int batch, int row_bits, int cols,
+             const void* perms, const void* params, const void* slices,
+             const void* masks, const void* subs, int num_subs, int chunks,
+             const void* bias, void* out, int m, cudaStream_t stream) {
+  auto kernel = wnn_ensemble_kernel<Elem, P, K>;
+  constexpr int kThreads = 32 * warps_per_block<K, P>();
+  const int smem = shared_layout(cols, m).total;
+  int dev = 0, sms = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (smem > optin) return static_cast<int>(cudaErrorInvalidValue);
+  if (cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
+    return static_cast<int>(e);
+  int per_sm = 0;
+  if (cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, kernel, kThreads, smem))
+    return static_cast<int>(e);
+  const int tiles = (batch + kRows - 1) / kRows;
+  const int blocks = std::min(tiles, std::max(1, per_sm) * sms);
+  kernel<<<blocks, kThreads, smem, stream>>>(
+      static_cast<const int8_t*>(bits), batch, row_bits, cols,
+      static_cast<const uint16_t*>(perms),
+      static_cast<const int32_t*>(params), static_cast<const Elem*>(slices),
+      static_cast<const Elem*>(masks), static_cast<const Submodel*>(subs),
+      num_subs, chunks, static_cast<const int32_t*>(bias),
+      static_cast<int32_t*>(out), m);
+  return static_cast<int>(cudaGetLastError());
 }
 
-template <int K, class Lookup>
-void launch_k(const void* tuples, const void* params, Lookup lookup,
-              const void* mask, const void* bias, void* out, int batch,
-              int num_filters, int n, int m, cudaStream_t stream) {
-  const int blocks = (batch + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  wnn_kernel<K, Lookup><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
-      static_cast<const int8_t*>(tuples), static_cast<const int32_t*>(params),
-      lookup, static_cast<const int8_t*>(mask),
-      static_cast<const int32_t*>(bias), static_cast<int32_t*>(out), batch,
-      num_filters, n, m);
-}
-
-template <class Lookup>
-int launch(const void* tuples, const void* params, Lookup lookup,
-           const void* mask, const void* bias, void* out, int batch,
-           int num_filters, int n, int k, int m, void* stream_ptr) {
-  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-#define WNN_LAUNCH_K(K)                                                     \
-  case K:                                                                   \
-    launch_k<K>(tuples, params, lookup, mask, bias, out, batch, num_filters, \
-                n, m, stream);                                              \
-    break;
+template <class Elem, int P>
+int launch_p(int k, const void* bits, int batch, int row_bits, int cols,
+             const void* perms, const void* params, const void* slices,
+             const void* masks, const void* subs, int num_subs, int chunks,
+             const void* bias, void* out, int m, cudaStream_t stream) {
+#define WNN_LAUNCH_K(K)                                                      \
+  case K:                                                                    \
+    return launch_k<Elem, P, K>(bits, batch, row_bits, cols, perms, params,  \
+                                slices, masks, subs, num_subs, chunks, bias, \
+                                out, m, stream);
   switch (k) {
     WNN_LAUNCH_K(1) WNN_LAUNCH_K(2) WNN_LAUNCH_K(3) WNN_LAUNCH_K(4)
     WNN_LAUNCH_K(5) WNN_LAUNCH_K(6) WNN_LAUNCH_K(7) WNN_LAUNCH_K(8)
@@ -160,33 +398,41 @@ int launch(const void* tuples, const void* params, Lookup lookup,
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef WNN_LAUNCH_K
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Plain C entry points (bound with ctypes). Each returns the CUDA error of
-// its launch, 0 when the kernel was queued on `stream`.
-extern "C" int packed_wnn_launch(const void* tuples, const void* params,
-                                 const void* words, const void* mask,
-                                 const void* bias, void* out, int batch,
-                                 int num_filters, int n, int k, int m,
-                                 int words_per_filter, int entries,
-                                 void* stream) {
-  if (int rc = check_geometry(batch, n, k, m)) return rc;
-  PackedLookup lookup{static_cast<const uint32_t*>(words), words_per_filter,
-                      entries};
-  return launch(tuples, params, lookup, mask, bias, out, batch, num_filters,
-                n, k, m, stream);
-}
-
-extern "C" int fused_wnn_launch(const void* tuples, const void* params,
-                                const void* table, const void* mask,
-                                const void* bias, void* out, int batch,
-                                int num_filters, int n, int k, int m,
-                                int entries, void* stream) {
-  if (int rc = check_geometry(batch, n, k, m)) return rc;
-  ByteLookup lookup{static_cast<const int8_t*>(table), entries, entries};
-  return launch(tuples, params, lookup, mask, bias, out, batch, num_filters,
-                n, k, m, stream);
+// Plain C entry point (bound with ctypes): scores (B, M) int32 of a whole
+// ensemble in one launch. Rows are `row_bits` bytes apart; the perms read
+// columns below `cols` (<= row_bits, <= 65536). `elem_bytes` (1, 2 or 4)
+// and `planes` (1-4, only with 4-byte words) name the class-slice layout,
+// `max_k` the largest submodel k (smaller ones skip the extra hashes).
+// Returns the CUDA error of the launch, 0 when the kernel was queued on
+// `stream`.
+extern "C" int wnn_ensemble_launch(const void* bits, int batch, int row_bits,
+                                   int cols, const void* perms,
+                                   const void* params, const void* slices,
+                                   const void* masks, const void* subs,
+                                   int num_subs, int chunks, const void* bias,
+                                   void* out, int m, int elem_bytes,
+                                   int planes, int max_k, void* stream_ptr) {
+  if (batch < 1 || cols < 1 || cols > row_bits || cols > kMaxCols || m < 1 ||
+      num_subs < 1 || chunks < 1 || max_k < 1 || max_k > kMaxHashes ||
+      planes < 1 || planes > kMaxPlanes || m > 32 * planes ||
+      (planes > 1 && elem_bytes != 4) || m > 8 * elem_bytes * planes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+#define WNN_ARGS                                                            \
+  max_k, bits, batch, row_bits, cols, perms, params, slices, masks, subs,   \
+      num_subs, chunks, bias, out, m, stream
+  if (elem_bytes == 1) return launch_p<uint8_t, 1>(WNN_ARGS);
+  if (elem_bytes == 2) return launch_p<uint16_t, 1>(WNN_ARGS);
+  if (elem_bytes != 4) return static_cast<int>(cudaErrorInvalidValue);
+  switch (planes) {
+    case 1: return launch_p<uint32_t, 1>(WNN_ARGS);
+    case 2: return launch_p<uint32_t, 2>(WNN_ARGS);
+    case 3: return launch_p<uint32_t, 3>(WNN_ARGS);
+    default: return launch_p<uint32_t, 4>(WNN_ARGS);
+  }
+#undef WNN_ARGS
 }

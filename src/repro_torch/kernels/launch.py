@@ -15,8 +15,9 @@ from __future__ import annotations
 
 import torch
 
-# The WNN kernels keep a tuple's k hashes in registers and its (k, n) H3
-# parameters in shared memory (csrc/wnn.cu: kMaxHashes, kMaxTupleBits).
+# The JAX package's bounds on a tuple's width and hash count; the WNN
+# kernel keeps each lane's k hashes of its 8 rows in registers
+# (csrc/wnn.cu kMaxHashes).
 MAX_TUPLE_BITS = 64
 MAX_HASHES = 8
 

@@ -64,6 +64,49 @@ def packed_wnn_ref(tuples: torch.Tensor, params: torch.Tensor,
     return _popcount_scores((w >> (hashes & 31)[None]) & 1, mask, bias)
 
 
+def _unsigned(words: torch.Tensor) -> torch.Tensor:
+    """Class words (uint8, or uint16/uint32 as int16/int32 bit patterns)
+    -> int64 holding their unsigned values."""
+    from repro_torch.kernels.wnn_ensemble import element_bits
+    return words.to(torch.int64) & ((1 << element_bits(words.dtype)) - 1)
+
+
+def wnn_ensemble_ref(bits: torch.Tensor, perms, h3s, slices, masks,
+                     bias: torch.Tensor) -> torch.Tensor:
+    """The class-sliced formulation of the whole ensemble (what
+    csrc/wnn.cu computes in one launch).
+
+    bits: (B, total_bits) {0,1}; per submodel perms (N_f, n), h3s (k, n),
+    class slices (N_f, E) (or (N_f, E, P) uint32 planes) whose entry
+    [f, h] holds bit m of class m's table entry h, mask words (N_f) (or
+    (N_f, P)); bias (M,) int32 -> scores (B, M) int32:
+
+        resp[b, f] = mask[f] & AND_j slices[f, h_j(bits[b, perm[f, :]])]
+        scores[b, m] = bias[m] + sum_{s, f} bit m of resp_s[b, f]
+
+    A hash at or past E (only from malformed parameters) answers 0, as
+    the per-class kernels' lookups do."""
+    m = bias.shape[0]
+    scores = torch.zeros((bits.shape[0], m), dtype=torch.int32,
+                         device=bits.device)
+    for perm, h3, sl, mk in zip(perms, h3s, slices, masks):
+        n_f, entries = sl.shape[0], sl.shape[1]
+        words = _unsigned(sl).reshape(n_f, entries, -1)        # (N_f, E, P)
+        hashes = h3_hash_ref(bits[:, perm.long()], h3).long()  # (B, N_f, k)
+        live = (hashes >= 0) & (hashes < entries)
+        f_idx = torch.arange(n_f, device=bits.device)[None, :, None]
+        vals = words[f_idx, hashes.clamp(0, entries - 1)]     # (B, N_f, k, P)
+        vals = torch.where(live[..., None], vals, 0)
+        resp = _unsigned(mk).reshape(n_f, -1)[None].expand(
+            vals.shape[0], -1, -1)                             # (B, N_f, P)
+        for j in range(vals.shape[2]):       # torch has no AND reduction
+            resp = resp & vals[:, :, j]
+        for c in range(m):
+            scores[:, c] += torch.sum((resp[..., c // 32] >> (c % 32)) & 1,
+                                      dim=1, dtype=torch.int32)
+    return scores + bias.to(torch.int32)[None, :]
+
+
 def thermometer_ref(x: torch.Tensor, thresholds: torch.Tensor) -> torch.Tensor:
     """x: (B, F) f32; thresholds: (F, T) f32 -> bits (B, F, T) int8."""
     return (x[:, :, None] > thresholds[None]).to(torch.int8)

@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.core.model import round_bias
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.kernels import wnn_ensemble
 
 
 def word_count(entries: int) -> int:
@@ -77,6 +78,59 @@ def unpack_words(words: torch.Tensor, entries: int) -> torch.Tensor:
     return bits.reshape(m, n_f, w * 32)[..., :entries].to(torch.int8)
 
 
+def _class_words(num_classes: int, class_bits) -> torch.Tensor:
+    """The class-sliced words of M classes: `class_bits(c)` is class c's
+    {0,1} array (any shape S); the result is S in the slice dtype, or
+    (*S, P) for P > 1 planes. One class at a time, so the int64 staging
+    never holds more than one plane."""
+    dtype, planes = wnn_ensemble.slice_format(num_classes)
+    acc = None
+    for c in range(num_classes):
+        bit = (class_bits(c) != 0).to(torch.int64) << (c % 32)
+        if acc is None:
+            acc = torch.zeros((planes, *bit.shape), dtype=torch.int64,
+                              device=bit.device)
+        acc[c // 32] |= bit
+    width = wnn_ensemble.element_bits(dtype)
+    if dtype != torch.uint8:     # the top half wraps to the negative range
+        acc = acc - ((acc >> (width - 1)) << width)
+    acc = acc.to(dtype)
+    return acc[0] if planes == 1 else torch.movedim(acc, 0, -1).contiguous()
+
+
+def class_slices_from_table(table: torch.Tensor) -> torch.Tensor:
+    """(M, N_f, E) {0,1} table -> class slices (N_f, E) (or (N_f, E, P)):
+    entry [f, h] holds bit m = table[m, f, h] (layout in
+    `kernels/wnn_ensemble.py`)."""
+    return _class_words(table.shape[0], lambda c: table[c])
+
+
+def class_slices_from_words(words: torch.Tensor, entries: int) -> torch.Tensor:
+    """(M, N_f, W) bitplanes -> the same class slices (N_f, E[, P]) as
+    `class_slices_from_table` on their unpacked table, one class unpacked
+    at a time."""
+    words = words.view(torch.int32) if words.dtype == torch.uint32 else words
+    return _class_words(words.shape[0],
+                        lambda c: unpack_words(words[c:c + 1], entries)[0])
+
+
+def class_mask_words(mask: torch.Tensor) -> torch.Tensor:
+    """(M, N_f) survival flags -> one M-bit word per filter, (N_f,) (or
+    (N_f, P)): bit m set iff mask[m, f] != 0."""
+    return _class_words(mask.shape[0], lambda c: mask[c])
+
+
+def table_from_class_slices(slices: torch.Tensor,
+                            num_classes: int) -> torch.Tensor:
+    """Class slices (N_f, E[, P]) -> the (M, N_f, E) int8 {0,1} table they
+    hold; the inverse of `class_slices_from_table`."""
+    words = slices if slices.ndim == 3 else slices[..., None]
+    width = wnn_ensemble.element_bits(slices.dtype)
+    words = words.to(torch.int64) & ((1 << width) - 1)
+    return torch.stack([(words[..., c // 32] >> (c % 32)) & 1
+                        for c in range(num_classes)]).to(torch.int8)
+
+
 @dataclasses.dataclass
 class PackedTables:
     """A deployable model in the packed domain — what the serve path
@@ -89,6 +143,14 @@ class PackedTables:
     parameters; plus the ensemble `bias` (M,) int32, `entries` per
     submodel and `num_classes`. Construction validates the geometry, so
     the serve path does not repeat it per batch.
+
+    Derived once at construction, on the same device: `kernel_args`, the
+    whole ensemble flattened for the one kernel launch a batch makes on a
+    GPU (`kernels/wnn_ensemble.py`), which holds the class slices
+    (N_f, E[, P]) and mask words (N_f[, P]) that answer every class with
+    one load (`class_slices_from_words`, `class_mask_words`); `slices`
+    and `class_masks` are per-submodel views of them. The words stay as
+    the artifact has them.
     """
     words: tuple
     masks: tuple
@@ -97,6 +159,8 @@ class PackedTables:
     bias: torch.Tensor
     entries: tuple = ()
     num_classes: int = 0
+    kernel_args: object = dataclasses.field(default=None, repr=False,
+                                            init=False)
 
     def __post_init__(self):
         n = len(self.words)
@@ -107,6 +171,21 @@ class PackedTables:
                 f"masks={len(self.masks)} perms={len(self.perms)} "
                 f"h3s={len(self.h3s)} entries={len(self.entries)}")
         self.validate()
+        self.kernel_args = wnn_ensemble.ensemble_args(
+            self.perms, self.h3s,
+            [class_slices_from_words(w, e)
+             for w, e in zip(self.words, self.entries)],
+            [class_mask_words(m) for m in self.masks], self.num_classes)
+
+    @property
+    def slices(self) -> tuple:
+        """Per submodel class slices (N_f, E[, P]), views of `kernel_args`."""
+        return self.kernel_args.submodel_slices()[0]
+
+    @property
+    def class_masks(self) -> tuple:
+        """Per submodel mask words (N_f[, P]), views of `kernel_args`."""
+        return self.kernel_args.submodel_slices()[1]
 
     @property
     def num_submodels(self) -> int:
@@ -156,6 +235,11 @@ class PackedTables:
         """Packed table storage in bytes: 4 bytes per word."""
         return sum(int(w.shape[0]) * int(w.shape[1]) * int(w.shape[2]) * 4
                    for w in self.words)
+
+    def slice_bytes(self) -> int:
+        """Class-sliced table storage in bytes (what the kernel probes)."""
+        return (self.kernel_args.slices.numel()
+                * self.kernel_args.slices.element_size())
 
 
 def from_binary_model(statics: Sequence, tables_bin: Sequence,

@@ -33,7 +33,8 @@ def gen():
 @pytest.mark.parametrize("b,n_f,n,m,log2e,k", [
     (1, 1, 1, 1, 3, 1), (37, 45, 7, 10, 3, 1), (300, 77, 12, 10, 4, 4),
     (129, 172, 32, 10, 9, 2), (65, 33, 64, 33, 10, 8),
-    (257, 196, 32, 32, 15, 2)])
+    (257, 196, 32, 32, 15, 2),
+    (19, 1025, 32, 10, 6, 2)])     # N_f·n = 32800 bits: four tile windows
 def test_wnn_kernels_equal_plain_versions(gen, b, n_f, n, m, log2e, k):
     e = 2 ** log2e
     tuples = torch.randint(0, 2, (b, n_f, n), generator=gen, device="cuda",
@@ -109,7 +110,101 @@ def test_batcher_launches_one_shape_on_the_card(gen):
     got = np.stack([r.scores for r in eng.drain()])
     np.testing.assert_array_equal(got, z["scores"][:40])
     assert eng.stats()["traces"] == 1
-    assert kernels.packed_wnn.launches == before + 3 * len(art.submodels)
+    # three batches, one launch each for the whole ensemble
+    assert kernels.packed_wnn.launches == before + 3
+
+
+def seeded_artifact(seed, m, subs, total_bits, mask_kind="random"):
+    """A seeded artifact drawn with numpy; subs as (n, log2 E, k), perms
+    wrapped with repeated indices where N_f·n passes total_bits."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for n, log2e, k in subs:
+        e, n_f = 2 ** log2e, -(-total_bits // n)
+        perm = np.concatenate([rng.permutation(total_bits),
+                               rng.integers(0, total_bits, n_f * n)])
+        mask = (np.zeros((m, n_f), bool) if mask_kind == "zeros"
+                else rng.random((m, n_f)) < 0.8)
+        out.append(export.SubmodelArtifact(
+            packed=export.pack_table(rng.random((m, n_f, e)) < 0.3),
+            mask=mask, perm=perm[:n_f * n].reshape(n_f, n).astype(np.int32),
+            h3=rng.integers(0, e, (k, n)).astype(np.uint32), entries=e,
+            inputs_per_filter=n, num_hashes=k))
+    return export.InferenceArtifact(
+        submodels=out, bias=rng.integers(-5, 6, m).astype(np.int32),
+        num_classes=m, total_bits=total_bits, bits_per_input=1)
+
+
+ULN_L = ((12, 6, 2), (16, 7, 2), (20, 7, 2), (24, 8, 2), (28, 8, 2),
+         (32, 9, 2))
+
+
+@pytest.mark.parametrize("m,subs,total_bits,b,mask_kind", [
+    (10, ULN_L, 5488, 1031, "random"),                  # ULN-L, six submodels
+    (32, ((16, 11, 2), (24, 13, 2), (32, 15, 2)), 6272, 257, "random"),  # XL
+    (1, ((7, 3, 1),), 50, 6, "random"),
+    (8, ((5, 4, 1), (12, 6, 2), (9, 5, 3), (16, 7, 4)), 100, 9, "random"),
+    (33, ((64, 10, 8), (6, 3, 5)), 200, 5, "random"),
+    (40, ((13, 8, 6), (11, 5, 7)), 1001, 4099, "random"),  # odd row bytes
+    (10, ((10, 5, 2),), 80, 5, "zeros"),
+    (10, ((7, 4, 2), (30, 9, 2)), 333, 1, "random"),
+    (10, ((16, 7, 2), (12, 6, 2)), 40001, 37, "random"),   # five windows
+    (12, ((32, 9, 2),), 65536, 9, "random"),     # the last uint16 index
+])
+def test_wnn_ensemble_kernel_equals_plain_version(gen, m, subs, total_bits,
+                                                  b, mask_kind):
+    """The whole-ensemble kernel on both table layouts, bit-equal to the
+    plain version, one launch a call."""
+    art = seeded_artifact(m * 7 + b, m, subs, total_bits, mask_kind)
+    bits = torch.randint(0, 2, (b, total_bits), generator=gen,
+                         device="cuda", dtype=torch.int8)
+    pt = export.prepare_artifact(art, backend="auto")
+    pf = export.prepare_artifact(art, backend="fused")
+    want = ref.wnn_ensemble_ref(bits, pt.perms, pt.h3s, pt.slices,
+                                pt.class_masks, pt.bias)
+    before = kernels.launch_counts()
+    got_p = kernels.packed_wnn_ensemble(bits, pt)
+    got_f = kernels.fused_wnn_ensemble(bits.view(torch.uint8), pf)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["packed_wnn"] == before["packed_wnn"] + 1
+    assert after["fused_wnn"] == before["fused_wnn"] + 1
+    assert torch.equal(got_p, want)
+    assert torch.equal(got_f, want)
+
+
+def test_wnn_ensemble_kernel_reads_rows_wider_than_its_perms(gen):
+    """Rows may run past the last input the perms read (here past the
+    65536 columns a tile holds): the kernel stages only those columns."""
+    art = seeded_artifact(5, 10, ((16, 7, 2),), 3000)
+    pt = export.prepare_artifact(art, backend="auto")
+    bits = torch.randint(0, 2, (21, 70001), generator=gen, device="cuda",
+                         dtype=torch.int8)
+    got = kernels.packed_wnn_ensemble(bits, pt)
+    want = ref.wnn_ensemble_ref(bits[:, :3000], pt.perms, pt.h3s, pt.slices,
+                                pt.class_masks, pt.bias)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("backend,kernel", [("auto", "packed_wnn"),
+                                            ("fused", "fused_wnn")])
+def test_served_path_is_one_launch_without_tuples(gen, backend, kernel):
+    """`artifact_scores` on the card: one launch a batch, and no
+    (B, N_f, n) tuple tensor (one submodel's would be 4096 × 5488 bytes)."""
+    art = seeded_artifact(3, 10, ULN_L, 5488)
+    bits = torch.randint(0, 2, (4096, 5488), generator=gen, device="cuda",
+                         dtype=torch.int8)
+    want = export.artifact_scores(art, bits[:8], backend="gather")
+    export.prepare_artifact(art, backend=backend)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = getattr(kernels, kernel).launches
+    got = export.artifact_scores(art, bits, backend=backend)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < 4096 * 5488 // 4
+    assert getattr(kernels, kernel).launches == before + 1
+    assert torch.equal(got[:8], want)
 
 
 @pytest.fixture

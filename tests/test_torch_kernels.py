@@ -175,6 +175,21 @@ def test_front_end_plain_versions_match_pallas_interpret(b, f, t):
     np.testing.assert_array_equal(got.numpy(), np.asarray(expect))
 
 
+def _cpu_prep():
+    """The class-sliced tables of a one-submodel ensemble on the CPU."""
+    from repro_torch.kernels import wnn_ensemble
+    rng = np.random.default_rng(1)
+    perm = torch.from_numpy(rng.integers(0, 96, (8, 12)))
+    h3 = torch.from_numpy(rng.integers(0, 64, (2, 12)).astype(np.int32))
+    sl = layout.class_slices_from_table(torch.from_numpy(
+        rng.random((3, 8, 64)) < 0.3))
+    cm = layout.class_mask_words(torch.ones((3, 8)))
+    return type("Tables", (), dict(
+        perms=(perm,), h3s=(h3,), bias=torch.zeros(3, dtype=torch.int32),
+        kernel_args=wnn_ensemble.ensemble_args([perm], [h3], [sl], [cm],
+                                               3)))()
+
+
 def test_cpu_wrappers_count_no_launches():
     """CPU tensors run the plain versions: no kernel launch is counted."""
     kernels.reset_launch_counts()
@@ -188,6 +203,10 @@ def test_cpu_wrappers_count_no_launches():
     kernels.h3_hash(args[0], args[1])
     q = torch.zeros((1, 2, 3, 16))
     kernels.flash_attention(q, q, q)
+    prep = _cpu_prep()
+    bits = torch.zeros((2, 96), dtype=torch.int8)
+    kernels.packed_wnn_ensemble(bits, prep)
+    kernels.fused_wnn_ensemble(bits, prep)
     assert kernels.launch_counts() == {
         "packed_wnn": 0, "fused_wnn": 0, "thermometer_encode": 0,
         "thermometer_decompress": 0, "h3_hash": 0, "flash_attention": 0}
@@ -265,3 +284,181 @@ def test_pack_words_matches_jax_and_round_trips(log2e):
         np.asarray(jlayout.pack_words(jnp.asarray(table))))
     np.testing.assert_array_equal(
         layout.unpack_words(got, 2 ** log2e).numpy(), table.astype(np.int8))
+
+
+# ---------------------------------------------------------------------------
+# The class-sliced layout and the ensemble kernel's flat arguments
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m,log2e,dtype,planes", [
+    (1, 3, torch.uint8, 1), (8, 6, torch.uint8, 1), (9, 5, torch.int16, 1),
+    (10, 7, torch.int16, 1), (16, 4, torch.int16, 1), (17, 6, torch.int32, 1),
+    (32, 5, torch.int32, 1), (33, 6, torch.int32, 2), (40, 8, torch.int32, 2),
+    (100, 3, torch.int32, 4)])
+def test_class_slices_from_words_and_tables_agree_and_invert(m, log2e, dtype,
+                                                             planes):
+    """Built from an int8 table and from its JAX-packed words, the class
+    slices are the same narrowest words, hold bit m = table[m, f, h], and
+    turn back into the table and its planes."""
+    rng = np.random.default_rng(m * 31 + log2e)
+    e = 2 ** log2e
+    table = rng.random((m, 13, e)) < 0.4
+    from_table = layout.class_slices_from_table(torch.from_numpy(table))
+    from_words = layout.class_slices_from_words(port_words(table), e)
+    assert from_table.dtype == dtype and from_words.dtype == dtype
+    want_shape = (13, e) if planes == 1 else (13, e, planes)
+    assert tuple(from_table.shape) == want_shape
+    assert torch.equal(from_table, from_words)
+    words = from_table.numpy().astype(np.int64).reshape(13, e, planes)
+    words &= (1 << (8 * from_table.element_size())) - 1
+    for c in range(m):
+        np.testing.assert_array_equal((words[..., c // 32] >> (c % 32)) & 1,
+                                      table[c])
+    back = layout.table_from_class_slices(from_words, m)
+    np.testing.assert_array_equal(back.numpy(), table.astype(np.int8))
+    np.testing.assert_array_equal(
+        layout.pack_words(back).numpy().view(np.uint32),
+        jexport.pack_table(table))
+
+
+@pytest.mark.parametrize("m", [1, 10, 33])
+def test_class_mask_words_keep_every_nonzero_flag(m):
+    rng = np.random.default_rng(m)
+    mask = rng.integers(0, 4, (m, 21)).astype(np.int8)   # values > 1 survive
+    got = layout.class_mask_words(torch.from_numpy(mask))
+    back = layout.table_from_class_slices(got[:, None], m)[:, :, 0]
+    np.testing.assert_array_equal(back.numpy(), (mask != 0).astype(np.int8))
+
+
+def emulate_wnn_ensemble(bits, args, bias):
+    """csrc/wnn.cu's addressing, walked in numpy over the flat arguments
+    of `wnn_ensemble.ensemble_args`: chunk g -> submodel by `chunk_begin`,
+    lane -> filter, the transposed perm, params row j, slice entry
+    (f·E + h)·P + p, mask word f·P + p."""
+    from repro_torch.kernels import wnn_ensemble
+    desc = args.desc.numpy()
+    perms = args.perms.numpy().view(np.uint16).astype(np.int64)
+    params = args.params.numpy().astype(np.int64)
+    planes, m = args.planes, args.num_classes
+    width = wnn_ensemble.element_bits(args.slices.dtype)
+    slices = args.slices.numpy().astype(np.int64) & ((1 << width) - 1)
+    masks = args.masks.numpy().astype(np.int64) & ((1 << width) - 1)
+    out = np.zeros((bits.shape[0], m), np.int64)
+    for g in range(args.chunks):
+        s = max(i for i in range(len(desc)) if desc[i, 8] <= g)
+        n_f, n, k, e, p_off, a_off, s_off, m_off, c0 = desc[s]
+        for f in range((g - c0) * 32, min((g - c0 + 1) * 32, n_f)):
+            h = np.zeros((bits.shape[0], k), np.int64)
+            for i in range(n):
+                col = bits[:, perms[p_off + i * n_f + f]] != 0
+                for j in range(k):
+                    h[:, j] ^= np.where(col, params[a_off + j * n + i], 0)
+            resp = np.tile(masks[m_off + f * planes:m_off + (f + 1) * planes],
+                           (bits.shape[0], 1))
+            for j in range(k):
+                at = s_off + (f * e + h[:, j])[:, None] * planes
+                resp &= slices[at + np.arange(planes)[None]]
+            for c in range(m):
+                out[:, c] += (resp[:, c // 32] >> (c % 32)) & 1
+    return out + bias.numpy()[None].astype(np.int64)
+
+
+@pytest.mark.parametrize("m,subs,total_bits,b", [
+    (10, ((7, 3, 1), (12, 6, 2)), 97, 5),
+    (40, ((64, 5, 8), (5, 4, 3)), 300, 3),
+    (1, ((9, 4, 2),), 40, 4),
+    (17, ((4, 3, 4), (33, 6, 2)), 70, 2),
+    (8, ((3, 2, 1),), 40000, 2)])      # indices past 32767: uint16 perms
+def test_ensemble_args_address_what_the_plain_version_reads(m, subs,
+                                                            total_bits, b):
+    """The flat arguments one launch takes (transposed perms, descriptor
+    offsets, chunk map) read exactly what the plain ensemble version
+    computes from the per-submodel tensors."""
+    from repro_torch.kernels import wnn_ensemble
+    rng = np.random.default_rng(total_bits + m)
+    perms, h3s, slices, masks = [], [], [], []
+    for n, log2e, k in subs:
+        n_f = min(-(-total_bits // n), 40)
+        perms.append(torch.from_numpy(rng.integers(0, total_bits, (n_f, n))))
+        h3s.append(torch.from_numpy(
+            rng.integers(0, 2 ** log2e, (k, n)).astype(np.int32)))
+        slices.append(layout.class_slices_from_table(torch.from_numpy(
+            rng.random((m, n_f, 2 ** log2e)) < 0.3)))
+        masks.append(layout.class_mask_words(torch.from_numpy(
+            rng.integers(0, 3, (m, n_f)))))
+    bias = torch.from_numpy(rng.integers(-5, 6, m).astype(np.int32))
+    bits = torch.from_numpy((rng.random((b, total_bits)) < 0.5)
+                            .astype(np.int8))
+    args = wnn_ensemble.ensemble_args(perms, h3s, slices, masks, m)
+    assert args.perms.dtype == torch.int16      # uint16 bit patterns
+    assert args.columns == 1 + max(int(p.max()) for p in perms)
+    assert args.chunks == sum(-(-p.shape[0] // 32) for p in perms)
+    want = ref.wnn_ensemble_ref(bits, perms, h3s, slices, masks, bias)
+    np.testing.assert_array_equal(emulate_wnn_ensemble(bits.numpy(), args,
+                                                       bias), want.numpy())
+    got_slices, got_masks = args.submodel_slices()
+    for got, sl in zip(got_slices + got_masks, slices + masks):
+        assert torch.equal(got, sl)
+
+
+@pytest.mark.parametrize("top,ok", [(65535, True), (65536, False)])
+def test_ensemble_args_take_uint16_indices(top, ok):
+    """Perm indices travel as uint16: the last one the kernel reads is
+    65535, and anything past it raises before a launch."""
+    from repro_torch.kernels import wnn_ensemble
+    perm = torch.tensor([[0, top], [32767, 32768]])
+    h3 = torch.ones((1, 2), dtype=torch.int32)
+    sl = layout.class_slices_from_table(torch.ones((3, 2, 4)))
+    cm = layout.class_mask_words(torch.ones((3, 2)))
+    if not ok:
+        with pytest.raises(ValueError, match="uint16"):
+            wnn_ensemble.ensemble_args([perm], [h3], [sl], [cm], 3)
+        return
+    args = wnn_ensemble.ensemble_args([perm], [h3], [sl], [cm], 3)
+    assert args.columns == top + 1
+    assert args.perms.numpy().view(np.uint16).tolist() == [0, 32767, top,
+                                                           32768]
+
+
+def _meta_ensemble(m, total_bits, n=12, log2e=6, k=2, n_f=9):
+    """Flat launch arguments built on the CPU and moved to meta tensors,
+    which reach the wrapper's checks and no kernel."""
+    import dataclasses
+
+    from repro_torch.kernels import wnn_ensemble
+    rng = np.random.default_rng(m)
+    args = wnn_ensemble.ensemble_args(
+        [torch.from_numpy(rng.integers(0, total_bits, (n_f, n)))],
+        [torch.from_numpy(rng.integers(0, 2 ** log2e, (k, n))
+                          .astype(np.int32))],
+        [layout.class_slices_from_table(torch.from_numpy(
+            rng.random((m, n_f, 2 ** log2e)) < 0.3))],
+        [layout.class_mask_words(torch.ones((m, n_f)))], m)
+    moved = {f.name: getattr(args, f.name).to("meta")
+             for f in dataclasses.fields(args)
+             if isinstance(getattr(args, f.name), torch.Tensor)}
+    return (dataclasses.replace(args, **moved),
+            torch.zeros((m,), dtype=torch.int32, device="meta"))
+
+
+@pytest.mark.parametrize("entry", ["packed_wnn_ensemble",
+                                   "fused_wnn_ensemble"])
+@pytest.mark.parametrize("m,bits,error,match", [
+    (10, ((4, 300), torch.int32), TypeError, "bits must be torch.int8"),
+    (10, ((1200,), torch.int8), ValueError, "bits must be"),
+    (10, ((4, 100), torch.int8), ValueError, "permutations read bit"),
+    (10, ((4, 20000), torch.uint8), ValueError, "CUDA tensors"),
+    (129, ((4, 300), torch.bool), ValueError, "at most 4"),
+])
+def test_ensemble_wrappers_check_what_the_kernel_reads(entry, m, bits,
+                                                       error, match):
+    """The ensemble kernel reads raw pointers: its wrappers refuse rows
+    of the wrong type, rank or width and class counts past its planes,
+    before a launch; rows of any width past the perms' reach pass the
+    width checks (then meta tensors stop at the device check)."""
+    args, bias = _meta_ensemble(m, 300)
+    tables = type("Tables", (), {"kernel_args": args, "bias": bias})()
+    shape, dtype = bits
+    with pytest.raises(error, match=match):
+        getattr(kernels, entry)(torch.zeros(shape, dtype=dtype,
+                                            device="meta"), tables)

@@ -25,7 +25,8 @@ from repro.packed import layout as jlayout  # noqa: E402
 from repro.packed import runtime as jruntime  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import bloom, encoding, export, hashing, model  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch import kernels  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.launch.scheduler import WnnBatcher  # noqa: E402
 from repro_torch.obs import registry, torchhooks  # noqa: E402
 from repro_torch.packed import layout, runtime  # noqa: E402
@@ -589,3 +590,133 @@ def test_whole_slice_matches_jax(golden):
         np.testing.assert_array_equal(scores.numpy(), np.asarray(jscores))
         np.testing.assert_array_equal(
             preds.numpy(), np.asarray(jnp.argmax(jscores, -1)))
+
+
+# ---------------------------------------------------------------------------
+# The class-sliced ensemble: what one launch a batch computes on the card
+# ---------------------------------------------------------------------------
+
+def random_artifact(seed, m, subs, total_bits, mask_kind="random"):
+    """A JAX artifact drawn with numpy; `subs` as (n, log2 E, k). Where
+    N_f·n passes total_bits the perm wraps with repeated indices."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for n, log2e, k in subs:
+        e, n_f = 2 ** log2e, -(-total_bits // n)
+        perm = np.concatenate([rng.permutation(total_bits),
+                               rng.integers(0, total_bits, n_f * n)])
+        mask = (np.zeros((m, n_f), bool) if mask_kind == "zeros"
+                else rng.random((m, n_f)) < 0.8)
+        out.append(jexport.SubmodelArtifact(
+            packed=jexport.pack_table(rng.random((m, n_f, e)) < 0.3),
+            mask=mask, perm=perm[:n_f * n].reshape(n_f, n).astype(np.int32),
+            h3=rng.integers(0, e, (k, n)).astype(np.uint32), entries=e,
+            inputs_per_filter=n, num_hashes=k))
+    return jexport.InferenceArtifact(
+        submodels=out, bias=rng.integers(-5, 6, m).astype(np.int32),
+        num_classes=m, total_bits=total_bits, bits_per_input=1)
+
+
+# M, submodels (n, log2 E, k), total bits, B, mask: M = 1, 8, 10, 33, 40;
+# k = 1..8; n off multiples of 4 and n = 64; N_f off multiples of 32;
+# wrapped perms; an all-zero mask; B = 1
+ENSEMBLE_CASES = {
+    "m1": (1, ((7, 3, 1),), 50, 6, "random"),
+    "m8_k1_to_4": (8, ((5, 4, 1), (12, 6, 2), (9, 5, 3), (16, 7, 4)), 100, 9,
+                   "random"),
+    "m10_three_submodels": (10, ((12, 6, 2), (16, 7, 2), (20, 7, 2)), 300, 7,
+                            "random"),
+    "m33_n64_k8": (33, ((64, 10, 8), (6, 3, 5)), 200, 5, "random"),
+    "m40_k6_k7": (40, ((13, 8, 6), (11, 5, 7)), 150, 4, "random"),
+    "zero_mask": (10, ((10, 5, 2),), 80, 5, "zeros"),
+    "b1": (10, ((7, 4, 2), (30, 9, 2)), 333, 1, "random"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ENSEMBLE_CASES))
+def test_ensemble_plain_version_matches_jax(case):
+    """`wnn_ensemble_ref` on the class slices both prepared
+    representations derive equals the JAX `artifact_scores` and
+    `packed.runtime.packed_scores`, exactly."""
+    m, subs, total_bits, b, mask_kind = ENSEMBLE_CASES[case]
+    jart = random_artifact(len(case), m, subs, total_bits, mask_kind)
+    bits = (np.random.default_rng(b).random((b, total_bits)) < 0.5
+            ).astype(np.uint8)
+    expect = np.asarray(jexport.artifact_scores(jart, jnp.asarray(bits),
+                                                backend="packed"))
+    np.testing.assert_array_equal(
+        np.asarray(jruntime.packed_scores(jlayout.from_artifact(jart),
+                                          jnp.asarray(bits))), expect)
+    art = convert.artifact_from_numpy(export.to_arrays(jart))
+    t_bits = torch.from_numpy(bits)
+    for backend, entry in (("auto", kernels.packed_wnn_ensemble),
+                           ("fused", kernels.fused_wnn_ensemble)):
+        prep = export.prepare_artifact(art, backend=backend, device=CPU)
+        got = entry(t_bits, prep)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), expect)
+        np.testing.assert_array_equal(
+            ref.wnn_ensemble_ref(t_bits, prep.perms, prep.h3s, prep.slices,
+                                 prep.class_masks, prep.bias).numpy(), expect)
+
+
+def test_ensemble_plain_version_serves_golden(golden):
+    bits, scores, _ = golden
+    art = golden_artifact()
+    for backend, entry in (("auto", kernels.packed_wnn_ensemble),
+                           ("fused", kernels.fused_wnn_ensemble)):
+        prep = export.prepare_artifact(art, backend=backend, device=CPU)
+        np.testing.assert_array_equal(
+            entry(torch.from_numpy(bits), prep).numpy(), scores)
+
+
+@pytest.mark.parametrize("backend", ["auto", "fused"])
+def test_prepared_tables_carry_the_class_slices(backend):
+    """Both representations derive the class slices, mask words and the
+    flat launch arguments once, when prepared: one `prep.build` span, the
+    same slices from words and from int8 tables, the words verbatim."""
+    with registry.recording() as rec:
+        art = golden_artifact()
+        prep = export.prepare_artifact(art, backend=backend, device=CPU)
+        export.prepare_artifact(art, backend=backend, device=CPU)
+        spans = [e for e in rec.snapshot()["spans"]
+                 if e["name"] == "prep.build"]
+    assert len(spans) == 1
+    for sm, sl, cm, perm in zip(art.submodels, prep.slices,
+                                prep.class_masks, prep.perms):
+        table = jexport.unpack_table(sm.packed, sm.entries)
+        assert sl.dtype == torch.int16           # M = 10
+        np.testing.assert_array_equal(
+            layout.table_from_class_slices(sl, 10).numpy(), table)
+        np.testing.assert_array_equal(
+            layout.table_from_class_slices(cm[:, None], 10)[:, :, 0].numpy(),
+            sm.mask.astype(np.int8))
+        assert sl.shape[0] == perm.shape[0]
+    args = prep.kernel_args
+    assert args.desc.shape == (len(art.submodels), 9)
+    assert args.perms.dtype == torch.int16
+    assert args.slices.numel() == sum(s.numel() for s in prep.slices)
+    # the per-submodel slices are views of the one launch copy
+    base = args.slices.untyped_storage().data_ptr()
+    assert all(s.untyped_storage().data_ptr() == base for s in prep.slices)
+
+
+def test_gather_prep_builds_no_class_slices(golden):
+    """`gather` never launches the kernel, so its preparation carries no
+    class slices; `fused` on the same artifact adds them once to the same
+    int8 tables."""
+    with registry.recording() as rec:
+        art = golden_artifact()
+        gather = export.prepare_artifact(art, backend="gather", device=CPU)
+        fused = export.prepare_artifact(art, backend="fused", device=CPU)
+        export.prepare_artifact(art, backend="fused", device=CPU)
+        spans = [e["attrs"]["backend"] for e in rec.snapshot()["spans"]
+                 if e["name"] == "prep.build"]
+    assert gather.kernel_args is None
+    assert fused.kernel_args is not None
+    assert spans == ["gather", "fused"]
+    assert all(a is b for a, b in zip(gather.tables, fused.tables))
+    bits = torch.from_numpy(golden[0][:16])
+    np.testing.assert_array_equal(
+        export.scores_from_prep(gather, bits, backend="gather").numpy(),
+        kernels.fused_wnn_ensemble(bits, fused).numpy())

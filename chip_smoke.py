@@ -3,9 +3,12 @@
 
     python3 chip_smoke.py            # from the repository root
 
-Builds the hand-written CUDA kernels from `src/repro_torch/kernels/csrc`,
-holds each against its plain PyTorch version on the card (the integer
-kernels bit-equal, the flash-attention kernel within a stated tolerance),
+Builds the hand-written CUDA kernels from `src/repro_torch/kernels/csrc`
+(the `build` phase lists ptxas's registers and spills of every WNN and
+front-end instantiation), holds each against its plain PyTorch version
+on the card (the integer kernels bit-equal, the flash-attention kernel
+within a stated tolerance; the WNN ensemble kernel on both of its routes
+and past 128 classes, each case naming its route),
 serves the golden ULN-S artifact through every backend, then runs two
 ULEEN paths at full ULN-L width (784 features x 7 thermometer bits, six
 submodels, M = 10) and one LM path:
@@ -35,9 +38,11 @@ the line before it is the card's name and power limit as `nvidia-smi`
 reports them.
 
 Times are CUDA-event medians after warm-up, per call (the host's work
-included wherever the card waits for it); the flash phase adds each
-kernel's and SDPA's device time from CUDA-graph replays (`device_ms`,
-`library_device_ms`). Each kernel's bound is the
+included wherever the card waits for it); the WNN, front-end and flash
+phases add each kernel's (and its PyTorch call's) device time from
+CUDA-graph replays (`device_ms`, `library_device_ms`); the front end
+also its achieved TB/s and share of its bound on that time. Each
+kernel's bound is the
 larger of its bytes (each input read once, each output written once) over
 3.35 TB/s and its operations over the card's lane rate for their type;
 both are computed from this run's shapes. NVIDIA's published non-tensor
@@ -371,8 +376,10 @@ ULN_L_BITS = ULN_L["features"] * ULN_L["bits_per_input"]
 # M = 32, three submodels up to E = 2^15), and edge cases: M = 40 (two
 # class planes) with n = 64 and k = 8, M = 33 with rows of an odd byte
 # count (tiles start off 16-byte boundaries), M = 8 (uint8 slices), M = 1,
-# an all-zero mask, B = 1, B off a multiple of the 8-row tile, and rows of
-# 40001 bits (several staged windows)
+# an all-zero mask, B = 1, B off a multiple of the 8-row tile, rows of
+# 40001 bits (several staged windows), M = 129 (two class groups of the
+# grid), perms reading 65,537 input bits (int32 indices: the
+# global-gather route) and 250,000 bits with M = 200
 ENSEMBLE_CASES = [
     dict(name="uln_l_six_submodels", main=True, m=ULN_L["num_classes"],
          subs=ULN_L_SUBS, total_bits=ULN_L_BITS, batch=INFER_BATCH),
@@ -392,10 +399,17 @@ ENSEMBLE_CASES = [
     # rows in five staged windows, perm indices past 32767
     dict(name="wide_rows_40001", m=10, subs=((16, 7, 2), (12, 6, 2)),
          total_bits=40001, batch=4099),
+    dict(name="m129_class_groups", timed=True, m=129, subs=ULN_L_SUBS,
+         total_bits=ULN_L_BITS, batch=16384),
+    dict(name="cols_65537_global_gather", timed=True, m=10,
+         subs=((16, 7, 2), (24, 8, 2)), total_bits=65537, batch=16384),
+    dict(name="cols_250000_m200", m=200, subs=((64, 6, 2),),
+         total_bits=250000, batch=1031),
 ]
 
 
-def check_wnn_ensemble(gen, export, ref, kernels, *, device="cuda"):
+def check_wnn_ensemble(gen, export, ref, kernels, wnn_ensemble, *,
+                       device="cuda"):
     """The whole-ensemble kernel on both table layouts (class slices from
     the packed words and from the int8 tables) against its plain version,
     bit-equal, at ENSEMBLE_CASES; the ULN-L batch and the ULN-XL ensemble
@@ -423,16 +437,30 @@ def check_wnn_ensemble(gen, export, ref, kernels, *, device="cuda"):
                                         prep.slices, prep.class_masks,
                                         prep.bias)
         want = chunked(plain, b, bits)
+        args = pt.kernel_args
+        groups = -(-args.planes // wnn_ensemble.GROUP_PLANES)
+        want_route = wnn_ensemble.perm_route(case["total_bits"])
+        if args.route != want_route or \
+                preps["fused_wnn"].kernel_args.route != want_route:
+            raise AssertionError(f"{name}: route {args.route}, expected "
+                                 f"{want_route}")
         row = {"case": name, "batch": b, "m": case["m"],
-               "total_bits": case["total_bits"],
+               "total_bits": case["total_bits"], "route": args.route,
+               "planes": args.planes, "class_groups": groups,
+               "shared_bytes": wnn_ensemble.shared_bytes(
+                   args.columns, case["m"], args.route),
                "submodels": [list(sm) for sm in case["subs"]],
                "slice_bytes": pt.slice_bytes(),
                "packed_table_bytes": pt.table_bytes()}
         geoms = [(p.shape[0], p.shape[1], h.shape[0])
                  for p, h in zip(pt.perms, pt.h3s)]
         for kname, entry in entries.items():
+            before = getattr(kernels, kname).launches
             got = entry(bits, preps[kname])
             torch.cuda.synchronize()
+            if getattr(kernels, kname).launches != before + 1:
+                raise AssertionError(f"{kname}_ensemble[{name}]: not one "
+                                     "launch")
             err = assert_equal(f"{kname}_ensemble[{name}]", got, want)
             if not timed:
                 continue
@@ -466,22 +494,14 @@ def check_wnn_ensemble(gen, export, ref, kernels, *, device="cuda"):
     return main
 
 
-def wnn_ptxas_report(log: str) -> list:
-    """Registers, stack and spills of each wnn.cu instantiation, from the
-    `-Xptxas -v` build log: the kernel's template arguments (class-word
-    type, planes P, hashes K) read off its mangled name. Its shared
-    memory is dynamic, from the input columns the perms read
-    (`wnn_shared_bytes_uln_l`)."""
-    types = {"h": "uint8", "t": "uint16", "j": "uint32"}
+def ptxas_report(log: str, name_of) -> list:
+    """Registers, stack and spills of each kernel instantiation in a
+    `-Xptxas -v` build log, named by `name_of(mangled name)`."""
     out = []
     for ln in log.splitlines():
         hit = re.search(r"Compiling entry function '(\S+)'", ln)
         if hit:
-            args = re.search(r"wnn_ensemble_kernelI([htj])Li(\d+)ELi(\d+)E",
-                             hit.group(1))
-            out.append({"kernel": f"wnn_ensemble_kernel<{types[args[1]]}, "
-                                  f"P={args[2]}, K={args[3]}>"
-                        if args else hit.group(1)})
+            out.append({"kernel": name_of(hit.group(1))})
             continue
         if not out:
             continue
@@ -496,8 +516,50 @@ def wnn_ptxas_report(log: str) -> list:
     return out
 
 
+def wnn_kernel_name(mangled: str) -> str:
+    """wnn.cu's template arguments (class-word type, planes P, hashes K,
+    the global-gather route) read off a mangled name. Its shared memory
+    is dynamic, from the input columns the perms read
+    (`wnn_shared_bytes_uln_l`)."""
+    types = {"h": "uint8", "t": "uint16", "j": "uint32"}
+    args = re.search(r"wnn_ensemble_kernelI([htj])Li(\d+)ELi(\d+)ELb([01])E",
+                     mangled)
+    if not args:
+        return mangled
+    route = "global_gather" if args[4] == "1" else "shared_tile"
+    return (f"wnn_ensemble_kernel<{types[args[1]]}, P={args[2]}, "
+            f"K={args[3]}, {route}>")
+
+
+def front_end_kernel_name(mangled: str) -> str:
+    """thermometer.cu's template arguments (T, 0 for run-time T; the
+    staged threshold ring; encode or decompress) read off a mangled name."""
+    args = re.search(r"front_end_kernelILi(\d+)ELb([01])ELb([01])E", mangled)
+    if not args:
+        return mangled
+    bits = args[1] if args[1] != "0" else "run-time"
+    staged = ", staged" if args[2] == "1" else ""
+    kind = "encode" if args[3] == "1" else "decompress"
+    return f"front_end_kernel<T={bits}{staged}, {kind}>"
+
+
+# the front-end kernels' edge shapes: a ragged last 16 bytes (B·F·T off a
+# multiple of 16), T = 1, 2, 16 and run-time T = 17, 33, a single row,
+# thresholds past the staged ring (F·T = 11200, and 15005 off every
+# 4-float boundary)
+FRONT_END_EDGES = [(3, 5, 1), (1, 784, 7), (1027, 33, 9), (3, 5, 17),
+                   (37, 29, 16), (11, 13, 33), (129, 61, 2), (5, 1600, 7),
+                   (2, 3001, 5)]
+
+
 def check_front_end_kernels(gen, ref, thermometer_encode,
                             thermometer_decompress):
+    """Both front-end kernels at 65536 ULN-L rows against their plain
+    versions and one PyTorch call each, bit-equal, timed per call (`ms`)
+    and on the device (`device_ms`, CUDA-graph replays) beside the bytes
+    bound (achieved TB/s and share of the bound from `device_ms`); then
+    bit-equal at FRONT_END_EDGES with NaN features, ±inf thresholds and
+    counts past T."""
     dev = "cuda"
     b, f, t = INFER_BATCH, ULN_L["features"], ULN_L["bits_per_input"]
     x = torch.randn((b, f), generator=gen, device=dev)
@@ -527,26 +589,39 @@ def check_front_end_kernels(gen, ref, thermometer_encode,
         got = kern(*args)
         err = assert_equal(name, got, plain(*args))
         assert_equal(f"{name} vs one PyTorch call", got, library(*args))
+        del got
         ms = cuda_ms(lambda: kern(*args), 20)
+        device_ms = graph_ms(lambda: kern(*args))
         plain_ms = cuda_ms(lambda: plain(*args), 20)
         library_ms = cuda_ms(lambda: library(*args), 20)
+        library_device_ms = graph_ms(lambda: library(*args))
         # one compare per output bit
         bms, by = bound(bytes_moved, b * f * t, ops_per_s)
-        out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        out[name] = {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms,
+                     "library_device_ms": library_device_ms,
                      "bound_ms": bms, "bound_by": by, "bytes": bytes_moved,
+                     "tb_per_s": bytes_moved / device_ms / 1e9,
+                     "bound_share": bms / device_ms,
                      "ops": b * f * t, "max_abs_err": err}
-    # odd shapes: a ragged last block, T = 1, a single row
-    for shape, tt in (((3, 5), 1), ((1, 784), 7), ((1027, 33), 9)):
+    del x, counts
+    for shape_b, shape_f, tt in FRONT_END_EDGES:
+        shape = (shape_b, shape_f)
         xs = torch.randn(shape, generator=gen, device=dev)
-        ts = torch.randn((shape[1], tt), generator=gen, device=dev)
-        cs = torch.randint(0, tt + 1, shape, generator=gen, device=dev,
+        xs[::2, ::3] = float("nan")
+        xs[-1, 0] = float("inf")
+        ts = torch.randn((shape_f, tt), generator=gen, device=dev)
+        ts[0, -1] = float("inf")
+        ts[-1, 0] = float("-inf")
+        cs = torch.randint(0, tt + 3, shape, generator=gen, device=dev,
                            dtype=torch.uint8)
-        assert_equal(f"thermometer_encode{shape}",
+        cs[0, 0] = 255                             # past T: all ones
+        assert_equal(f"thermometer_encode{shape + (tt,)}",
                      thermometer_encode(xs, ts), ref.thermometer_ref(xs, ts))
-        assert_equal(f"thermometer_decompress{shape}",
+        assert_equal(f"thermometer_decompress{shape + (tt,)}",
                      thermometer_decompress(cs, tt),
                      ref.decompress_ref(cs, tt))
-    emit("front_end_kernels", **out)
+    emit("front_end_kernels", edges=FRONT_END_EDGES, **out)
     return out
 
 
@@ -1335,17 +1410,20 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build.build_all()
-    ptxas = [ln.strip() for src in build.SOURCES if src != "wnn.cu"
+    ptxas = [ln.strip() for src in build.SOURCES
+             if src not in ("wnn.cu", "thermometer.cu")
              for ln in build.build_log(src).splitlines()
              if "registers" in ln or "spill" in ln
              or "Performance Loss" in ln or "setmaxnreg" in ln]
     emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas,
-         wnn_ptxas=wnn_ptxas_report(build.build_log("wnn.cu")),
+         wnn_ptxas=ptxas_report(build.build_log("wnn.cu"), wnn_kernel_name),
+         thermometer_ptxas=ptxas_report(build.build_log("thermometer.cu"),
+                                        front_end_kernel_name),
          wnn_shared_bytes_uln_l=wnn_ensemble.shared_bytes(
              ULN_L_BITS, ULN_L["num_classes"]))
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    wnn = check_wnn_ensemble(gen, export, ref, kernels)
+    wnn = check_wnn_ensemble(gen, export, ref, kernels, wnn_ensemble)
     check_wnn_kernels(gen, packed_layout, ref, kernels.packed_wnn,
                       kernels.fused_wnn)
     front = check_front_end_kernels(gen, ref, kernels.thermometer_encode,
@@ -1397,7 +1475,8 @@ def main() -> int:
                                                "bound_cuda_core_ms",
                                                "bound_per_class_ms",
                                                "device_ms",
-                                               "library_device_ms")
+                                               "library_device_ms",
+                                               "tb_per_s", "bound_share")
                         if k in timing}})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -108,7 +108,7 @@ def main() -> int:
                         args.desc.data_ptr(), args.desc.shape[0],
                         args.chunks, pt.bias.data_ptr(), out.data_ptr(),
                         spec["m"], args.slices.element_size(), args.planes,
-                        args.max_hashes,
+                        args.max_hashes, args.perms.element_size(),
                         torch.cuda.current_stream().cuda_stream)
                 if rc:
                     raise RuntimeError(f"{name}: launch failed ({rc})")

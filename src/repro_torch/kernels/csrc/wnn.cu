@@ -16,14 +16,18 @@
 //
 // Layout (kernels/wnn_ensemble.py): the tables are class-sliced, entry
 // [f, h] of an (N_f, E) array holds the M class bits of table entry h of
-// filter f (uint8/uint16/uint32 for M <= 8/16/32, P uint32 words for
-// M <= 32·P), and a filter's mask is one M-bit word. So a filter's k
-// probes answer every class at once:
+// filter f (uint8/uint16/uint32 for M <= 8/16/32, P = ceil(M/32) uint32
+// words past that), and a filter's mask is one M-bit word. So a filter's
+// k probes answer every class at once:
 //   resp = mask_f & AND_j slices[f, h_j]        (k loads, not M·k)
-// and class m's vote is bit m of resp. Permutations are stored (n, N_f)
-// per submodel as uint16 (rows may be wider; the inputs the filters read
-// lie below 65536), so a warp's lanes (one filter each) read
-// neighbouring indices.
+// and class m's vote is bit m of resp. Past 4 words (M > 128) the grid's
+// second axis splits the classes into groups of 128: block (x, g) reads
+// words [4g, 4g + 4) of each entry and scores classes [128g, 128g + 128),
+// redoing the gather and fold; with P <= 4 there is one group.
+// Permutations are stored (n, N_f) per submodel, so a warp's lanes (one
+// filter each) read neighbouring indices: uint16 while the inputs read
+// lie below 65536 (the shared-tile route below), int32 past that (the
+// global-gather route).
 //
 // Design. A persistent block (16 warps; 8 where large K or P need more
 // than 128 registers a thread) walks tiles of kRows = 8 rows. The tile
@@ -46,6 +50,13 @@
 // in any order), and the block adds the bias and stores the (rows, M)
 // scores once. int32 sums are exact, so the scores are bit-equal to the
 // plain versions.
+//
+// Inputs past 65536 columns take the global-gather route, a template
+// flag of the same kernel chosen by the wrapper from the perms' reach:
+// no tile in shared memory (one byte a column would outgrow the 227 KB a
+// block may hold), each gathered index reads its 8 rows' bytes from
+// global memory through L1/L2, and the fold, probes and votes are the
+// tile route's. It is instantiated with K = 8 only (k at run time).
 //
 // What bounds it: integer issue and the probes, not bytes (the rows,
 // read once, are ~4× below the operation count's time). Removing parts
@@ -85,8 +96,8 @@ __host__ __device__ constexpr int warps_per_block() {
   return WNN_WARPS ? WNN_WARPS : (K <= 4 && P <= 2 ? 16 : 8);
 }
 constexpr int kMaxHashes = 8;        // kernels/launch.py MAX_HASHES
-constexpr int kMaxPlanes = 4;        // kernels/wnn_ensemble.py MAX_PLANES
-constexpr int kMaxCols = 65536;      // uint16 perm indices
+constexpr int kGroupPlanes = 4;      // kernels/wnn_ensemble.py GROUP_PLANES
+constexpr int kTileCols = 65536;     // the shared-tile route: uint16 indices
 constexpr unsigned kFullMask = 0xffffffffu;
 
 // One row of the descriptor array (kernels/wnn_ensemble.py DESC_FIELDS);
@@ -104,13 +115,20 @@ __host__ __device__ inline int up16(int x) { return (x + 15) & ~15; }
 
 // kernels/wnn_ensemble.py shared_bytes mirrors this: the transposed tile
 // (a byte an input column), the staged window (a row's slot holds its
-// window and the head below its 16-byte boundary) and the int32 scores.
-__host__ __device__ inline SharedLayout shared_layout(int cols, int m) {
+// window and the head below its 16-byte boundary) and the int32 scores
+// of the block's m classes (at most 128, one group). The global-gather
+// route keeps the scores alone.
+__host__ __device__ inline SharedLayout shared_layout(int cols, int m,
+                                                      bool global_gather) {
   SharedLayout s;
   s.trans = 0;
-  s.stage = up16(cols);
-  s.slot = up16(min(cols, kWindow)) + 16;
-  s.scores = s.stage + kRows * s.slot;
+  if (global_gather) {
+    s.stage = s.slot = s.scores = 0;
+  } else {
+    s.stage = up16(cols);
+    s.slot = up16(min(cols, kWindow)) + 16;
+    s.scores = s.stage + kRows * s.slot;
+  }
   s.total = s.scores + kRows * m * 4;
   return s;
 }
@@ -179,20 +197,32 @@ __device__ __forceinline__ uint32_t load_word(const Elem* p) {
   return static_cast<uint32_t>(__ldg(p));
 }
 
-template <class Elem, int P, int K>
+// P: the class words a block reads (P < 4: the whole slice, one group;
+// P = 4: the group blockIdx.y of `planes` words an entry). Global: the
+// global-gather route (int32 perms, no tile in shared memory).
+template <class Elem, int P, int K, bool Global>
 __global__ void __launch_bounds__(32 * warps_per_block<K, P>())
 wnn_ensemble_kernel(const int8_t* __restrict__ bits, int batch, int row_bits,
-                    int cols, const uint16_t* __restrict__ perms,
+                    int cols, const void* __restrict__ perms,
                     const int32_t* __restrict__ params,
                     const Elem* __restrict__ slices,
                     const Elem* __restrict__ masks,
                     const Submodel* __restrict__ subs, int num_subs,
                     int chunks, const int32_t* __restrict__ bias,
-                    int32_t* __restrict__ out, int m) {
+                    int32_t* __restrict__ out, int m, int planes) {
   constexpr int kWarps = warps_per_block<K, P>();
   constexpr int kThreads = 32 * kWarps;
+  constexpr bool kGrouped = P == kGroupPlanes;
+  // the block's classes: [c_base, c_base + mg), words [w_base, w_base + pg)
+  // of an entry of `stride` words; compile-time for P < 4
+  const int stride = kGrouped ? planes : P;
+  const int w_base = kGrouped ? P * static_cast<int>(blockIdx.y) : 0;
+  const int c_base = 32 * w_base;
+  const int mg = kGrouped ? min(32 * P, m - c_base) : m;
+  const int pg = kGrouped ? min(P, planes - w_base) : P;
+  const int mb = min(m, 32 * P);   // the scores' row stride in shared memory
   extern __shared__ __align__(16) unsigned char smem[];
-  const SharedLayout lay = shared_layout(cols, m);
+  const SharedLayout lay = shared_layout(cols, mb, Global);
   unsigned char* trans = smem + lay.trans;
   unsigned char* stage = smem + lay.stage;
   int32_t* s_scores = reinterpret_cast<int32_t*>(smem + lay.scores);
@@ -203,40 +233,50 @@ wnn_ensemble_kernel(const int8_t* __restrict__ bits, int batch, int row_bits,
   const int tiles = (batch + kRows - 1) / kRows;
 
   int tile = blockIdx.x;
-  if (tile < tiles)
-    copy_window<kThreads>(stage, lay.slot, bits, tile * kRows,
-                          min(kRows, batch - tile * kRows), row_bits, 0, win);
-  cp_async_commit();
+  if constexpr (!Global) {
+    if (tile < tiles)
+      copy_window<kThreads>(stage, lay.slot, bits, tile * kRows,
+                            min(kRows, batch - tile * kRows), row_bits, 0,
+                            win);
+    cp_async_commit();
+  }
 
   for (; tile < tiles; tile += gridDim.x) {
     const int r0 = tile * kRows;
     const int rows = min(kRows, batch - r0);
-    for (int c0 = 0; c0 < cols; c0 += win) {
-      const int w = min(win, cols - c0);
-      if (c0 > 0) {   // later windows of wide rows: copied in turn
-        copy_window<kThreads>(stage, lay.slot, bits, r0, rows, row_bits, c0,
-                              w);
-        cp_async_commit();
+    if constexpr (Global) {
+      __syncthreads();   // the last tile's scores are stored
+      for (int e = threadIdx.x; e < kRows * mb; e += kThreads)
+        s_scores[e] = 0;
+      __syncthreads();
+    } else {
+      for (int c0 = 0; c0 < cols; c0 += win) {
+        const int w = min(win, cols - c0);
+        if (c0 > 0) {   // later windows of wide rows: copied in turn
+          copy_window<kThreads>(stage, lay.slot, bits, r0, rows, row_bits,
+                                c0, w);
+          cp_async_commit();
+        }
+        cp_async_wait_all();
+        __syncthreads();   // the window has landed; the last tile's scores
+                           // are stored
+        if (c0 == 0)
+          for (int e = threadIdx.x; e < kRows * mb; e += kThreads)
+            s_scores[e] = 0;
+        transpose_window<kThreads>(trans + c0, stage, lay.slot, bits, r0,
+                                   rows, row_bits, c0, w);
+        __syncthreads();   // `stage` is free; after the last window the
+                           // transposed tile is ready
       }
-      cp_async_wait_all();
-      __syncthreads();   // the window has landed; the last tile's scores
-                         // are stored
-      if (c0 == 0)
-        for (int e = threadIdx.x; e < kRows * m; e += kThreads)
-          s_scores[e] = 0;
-      transpose_window<kThreads>(trans + c0, stage, lay.slot, bits, r0, rows,
-                                 row_bits, c0, w);
-      __syncthreads();   // `stage` is free; after the last window the
-                         // transposed tile is ready
+      if (tile + static_cast<int>(gridDim.x) < tiles) {
+        const int next = (tile + gridDim.x) * kRows;
+        copy_window<kThreads>(stage, lay.slot, bits, next,
+                              min(kRows, batch - next), row_bits, 0, win);
+      }
+      cp_async_commit();
     }
-    if (tile + static_cast<int>(gridDim.x) < tiles) {
-      const int next = (tile + gridDim.x) * kRows;
-      copy_window<kThreads>(stage, lay.slot, bits, next,
-                            min(kRows, batch - next), row_bits, 0, win);
-    }
-    cp_async_commit();
 
-    int32_t acc[kRows][P];   // lane c: class 32 p + c of row r
+    int32_t acc[kRows][P];   // lane c: class c_base + 32 p + c of row r
 #pragma unroll
     for (int r = 0; r < kRows; ++r)
 #pragma unroll
@@ -264,9 +304,23 @@ wnn_ensemble_kernel(const int8_t* __restrict__ bits, int batch, int row_bits,
         if (live) {
           const size_t at = static_cast<size_t>(sm.perm_off) +
                             static_cast<size_t>(i) * sm.num_filters + f;
-          idx = __ldg(perms + at);
+          idx = Global ? __ldg(static_cast<const int32_t*>(perms) + at)
+                       : __ldg(static_cast<const uint16_t*>(perms) + at);
         }
-        const uint32_t v = trans[idx];
+        uint32_t v;
+        if constexpr (Global) {   // the 8 rows' bytes of column idx
+          v = 0;
+          if (live) {
+            const int8_t* col = bits + static_cast<size_t>(r0) * row_bits + idx;
+#pragma unroll
+            for (int r = 0; r < kRows; ++r)
+              v |= (r < rows &&
+                    __ldg(col + static_cast<size_t>(r) * row_bits) != 0)
+                       ? 1u << r : 0u;
+          }
+        } else {
+          v = trans[idx];
+        }
         int32_t pj[K];
 #pragma unroll
         for (int j = 0; j < K; ++j)
@@ -279,14 +333,15 @@ wnn_ensemble_kernel(const int8_t* __restrict__ bits, int batch, int row_bits,
           }
         }
       }
-      // probe: k loads a row answer every class
+      // probe: k loads a row answer every class of the block
       uint32_t mk[P];
       uint32_t any = 0;
 #pragma unroll
       for (int p = 0; p < P; ++p) {
-        mk[p] = live ? load_word(masks + sm.mask_off +
-                                 static_cast<size_t>(f) * P + p)
-                     : 0u;
+        mk[p] = live && p < pg
+                    ? load_word(masks + sm.mask_off +
+                                static_cast<size_t>(f) * stride + w_base + p)
+                    : 0u;
         any |= mk[p];
       }
       uint32_t resp[kRows][P];
@@ -296,7 +351,7 @@ wnn_ensemble_kernel(const int8_t* __restrict__ bits, int batch, int row_bits,
         for (int p = 0; p < P; ++p) resp[r][p] = mk[p];
       if (any) {
         const Elem* sl = slices + sm.slice_off +
-                         static_cast<size_t>(f) * sm.entries * P;
+                         static_cast<size_t>(f) * sm.entries * stride + w_base;
 #pragma unroll
         for (int r = 0; r < kRows; ++r) {
 #pragma unroll
@@ -307,8 +362,10 @@ wnn_ensemble_kernel(const int8_t* __restrict__ bits, int batch, int row_bits,
                               static_cast<uint32_t>(sm.entries);
 #pragma unroll
               for (int p = 0; p < P; ++p)
-                resp[r][p] &= ok ? load_word(sl + static_cast<size_t>(hh) * P + p)
-                                 : 0u;
+                resp[r][p] &= ok && p < pg
+                                  ? load_word(sl + static_cast<size_t>(hh) *
+                                                       stride + p)
+                                  : 0u;
             }
           }
         }
@@ -317,7 +374,7 @@ wnn_ensemble_kernel(const int8_t* __restrict__ bits, int batch, int row_bits,
       // kept by lane c
 #pragma unroll
       for (int p = 0; p < P; ++p) {
-        const int classes = WNN_ABLATE == 3 ? 0 : min(32, m - 32 * p);
+        const int classes = WNN_ABLATE == 3 ? 0 : min(32, mg - 32 * p);
         uint32_t mine[kRows];
 #pragma unroll
         for (int r = 0; r < kRows; ++r) mine[r] = 0;
@@ -335,28 +392,39 @@ wnn_ensemble_kernel(const int8_t* __restrict__ bits, int batch, int row_bits,
     }
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-      if (lane < m - 32 * p) {
+      if (lane < mg - 32 * p) {
 #pragma unroll
         for (int r = 0; r < kRows; ++r)
-          if (acc[r][p]) atomicAdd(&s_scores[r * m + 32 * p + lane], acc[r][p]);
+          if (acc[r][p])
+            atomicAdd(&s_scores[r * mb + 32 * p + lane], acc[r][p]);
       }
     }
     __syncthreads();   // every warp's votes are in
-    int32_t* dst = out + static_cast<size_t>(r0) * m;
-    for (int e = threadIdx.x; e < rows * m; e += kThreads)
-      dst[e] = s_scores[e] + __ldg(bias + e % m);
+    if constexpr (kGrouped) {   // the group's columns of the (B, M) scores
+      for (int e = threadIdx.x; e < rows * mg; e += kThreads) {
+        const int r = e / mg, c = e - r * mg;
+        out[static_cast<size_t>(r0 + r) * m + c_base + c] =
+            s_scores[r * mb + c] + __ldg(bias + c_base + c);
+      }
+    } else {
+      int32_t* dst = out + static_cast<size_t>(r0) * m;
+      for (int e = threadIdx.x; e < rows * m; e += kThreads)
+        dst[e] = s_scores[e] + __ldg(bias + e % m);
+    }
   }
-  cp_async_wait_all();
+  if constexpr (!Global) cp_async_wait_all();
 }
 
-template <class Elem, int P, int K>
+template <class Elem, int P, int K, bool Global>
 int launch_k(const void* bits, int batch, int row_bits, int cols,
              const void* perms, const void* params, const void* slices,
              const void* masks, const void* subs, int num_subs, int chunks,
-             const void* bias, void* out, int m, cudaStream_t stream) {
-  auto kernel = wnn_ensemble_kernel<Elem, P, K>;
+             const void* bias, void* out, int m, int planes,
+             cudaStream_t stream) {
+  auto kernel = wnn_ensemble_kernel<Elem, P, K, Global>;
   constexpr int kThreads = 32 * warps_per_block<K, P>();
-  const int smem = shared_layout(cols, m).total;
+  const int smem = shared_layout(cols, std::min(m, 32 * P), Global).total;
+  const int groups = (planes + P - 1) / P;   // 1 unless P = 4 and M > 128
   int dev = 0, sms = 0, optin = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -370,27 +438,32 @@ int launch_k(const void* bits, int batch, int row_bits, int cols,
           &per_sm, kernel, kThreads, smem))
     return static_cast<int>(e);
   const int tiles = (batch + kRows - 1) / kRows;
-  const int blocks = std::min(tiles, std::max(1, per_sm) * sms);
-  kernel<<<blocks, kThreads, smem, stream>>>(
-      static_cast<const int8_t*>(bits), batch, row_bits, cols,
-      static_cast<const uint16_t*>(perms),
+  const int blocks =
+      std::min(tiles, std::max(1, std::max(1, per_sm) * sms / groups));
+  kernel<<<dim3(blocks, groups), kThreads, smem, stream>>>(
+      static_cast<const int8_t*>(bits), batch, row_bits, cols, perms,
       static_cast<const int32_t*>(params), static_cast<const Elem*>(slices),
       static_cast<const Elem*>(masks), static_cast<const Submodel*>(subs),
       num_subs, chunks, static_cast<const int32_t*>(bias),
-      static_cast<int32_t*>(out), m);
+      static_cast<int32_t*>(out), m, planes);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <class Elem, int P>
-int launch_p(int k, const void* bits, int batch, int row_bits, int cols,
-             const void* perms, const void* params, const void* slices,
-             const void* masks, const void* subs, int num_subs, int chunks,
-             const void* bias, void* out, int m, cudaStream_t stream) {
-#define WNN_LAUNCH_K(K)                                                      \
-  case K:                                                                    \
-    return launch_k<Elem, P, K>(bits, batch, row_bits, cols, perms, params,  \
-                                slices, masks, subs, num_subs, chunks, bias, \
-                                out, m, stream);
+int launch_p(int k, bool global_gather, const void* bits, int batch,
+             int row_bits, int cols, const void* perms, const void* params,
+             const void* slices, const void* masks, const void* subs,
+             int num_subs, int chunks, const void* bias, void* out, int m,
+             int planes, cudaStream_t stream) {
+#define WNN_LAUNCH_ARGS                                                     \
+  bits, batch, row_bits, cols, perms, params, slices, masks, subs,          \
+      num_subs, chunks, bias, out, m, planes, stream
+  // the global-gather route: one instantiation, k at run time
+  if (global_gather)
+    return launch_k<Elem, P, kMaxHashes, true>(WNN_LAUNCH_ARGS);
+#define WNN_LAUNCH_K(K) \
+  case K:               \
+    return launch_k<Elem, P, K, false>(WNN_LAUNCH_ARGS);
   switch (k) {
     WNN_LAUNCH_K(1) WNN_LAUNCH_K(2) WNN_LAUNCH_K(3) WNN_LAUNCH_K(4)
     WNN_LAUNCH_K(5) WNN_LAUNCH_K(6) WNN_LAUNCH_K(7) WNN_LAUNCH_K(8)
@@ -398,33 +471,40 @@ int launch_p(int k, const void* bits, int batch, int row_bits, int cols,
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef WNN_LAUNCH_K
+#undef WNN_LAUNCH_ARGS
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes): scores (B, M) int32 of a whole
 // ensemble in one launch. Rows are `row_bits` bytes apart; the perms read
-// columns below `cols` (<= row_bits, <= 65536). `elem_bytes` (1, 2 or 4)
-// and `planes` (1-4, only with 4-byte words) name the class-slice layout,
-// `max_k` the largest submodel k (smaller ones skip the extra hashes).
-// Returns the CUDA error of the launch, 0 when the kernel was queued on
-// `stream`.
+// columns below `cols` (<= row_bits). `index_bytes` names the perms'
+// type and the route: 2, uint16 indices (cols <= 65536) through the
+// shared tile; 4, int32 indices gathered from global memory.
+// `elem_bytes` (1, 2 or 4) and `planes` (P >= 1 words an entry, P > 1
+// only with 4-byte words) name the class-slice layout, `max_k` the
+// largest submodel k (smaller ones skip the extra hashes). Returns the
+// CUDA error of the launch, 0 when the kernel was queued on `stream`.
 extern "C" int wnn_ensemble_launch(const void* bits, int batch, int row_bits,
                                    int cols, const void* perms,
                                    const void* params, const void* slices,
                                    const void* masks, const void* subs,
                                    int num_subs, int chunks, const void* bias,
                                    void* out, int m, int elem_bytes,
-                                   int planes, int max_k, void* stream_ptr) {
-  if (batch < 1 || cols < 1 || cols > row_bits || cols > kMaxCols || m < 1 ||
-      num_subs < 1 || chunks < 1 || max_k < 1 || max_k > kMaxHashes ||
-      planes < 1 || planes > kMaxPlanes || m > 32 * planes ||
-      (planes > 1 && elem_bytes != 4) || m > 8 * elem_bytes * planes)
+                                   int planes, int max_k, int index_bytes,
+                                   void* stream_ptr) {
+  const bool global_gather = index_bytes == 4;
+  if (batch < 1 || cols < 1 || cols > row_bits || m < 1 || num_subs < 1 ||
+      chunks < 1 || max_k < 1 || max_k > kMaxHashes || planes < 1 ||
+      m > 32 * planes || (planes + kGroupPlanes - 1) / kGroupPlanes > 65535 ||
+      (planes > 1 && elem_bytes != 4) || m > 8 * elem_bytes * planes ||
+      (index_bytes != 2 && index_bytes != 4) ||
+      (!global_gather && cols > kTileCols))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
 #define WNN_ARGS                                                            \
-  max_k, bits, batch, row_bits, cols, perms, params, slices, masks, subs,   \
-      num_subs, chunks, bias, out, m, stream
+  max_k, global_gather, bits, batch, row_bits, cols, perms, params, slices, \
+      masks, subs, num_subs, chunks, bias, out, m, planes, stream
   if (elem_bytes == 1) return launch_p<uint8_t, 1>(WNN_ARGS);
   if (elem_bytes == 2) return launch_p<uint16_t, 1>(WNN_ARGS);
   if (elem_bytes != 4) return static_cast<int>(cudaErrorInvalidValue);
@@ -432,7 +512,7 @@ extern "C" int wnn_ensemble_launch(const void* bits, int batch, int row_bits,
     case 1: return launch_p<uint32_t, 1>(WNN_ARGS);
     case 2: return launch_p<uint32_t, 2>(WNN_ARGS);
     case 3: return launch_p<uint32_t, 3>(WNN_ARGS);
-    default: return launch_p<uint32_t, 4>(WNN_ARGS);
+    default: return launch_p<uint32_t, kGroupPlanes>(WNN_ARGS);
   }
 #undef WNN_ARGS
 }

@@ -8,6 +8,15 @@ left). On CUDA tensors both launch the hand-written kernels in
 `csrc/thermometer.cu`; on CPU tensors they run the plain versions
 `ref.thermometer_ref` / `ref.decompress_ref`. They are CUDA rather than
 Triton so that all four serve-path kernels share one build path.
+
+The kernels see the output as one flat array of B·F·T bytes and write it
+in `TILE`-byte tiles a block, `CHUNK` bytes a warp and 16 a lane
+(`csrc/thermometer.cu`). The encoder's thresholds, with their first
+`CHUNK` values repeated after them, sit in shared memory while that ring
+holds at most `STAGED_FLOATS` floats (`thresholds_staged`), else they
+are read from global memory. The wrappers take contiguous inputs only (a
+column slice of a wider tensor raises) and allocate the output, so its
+16-byte stores are aligned.
 """
 from __future__ import annotations
 
@@ -21,6 +30,15 @@ _ENCODE_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
                                             ctypes.c_int, ctypes.c_void_p]
 _DECOMPRESS_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_longlong,
                                                 ctypes.c_int, ctypes.c_void_p]
+CHUNK = 512                 # csrc/thermometer.cu kChunk: bytes a warp step
+TILE = 16384                # csrc/thermometer.cu kTile: bytes a block step
+STAGED_FLOATS = 11264       # csrc/thermometer.cu kMaxStaged
+
+
+def thresholds_staged(features: int, bits: int) -> bool:
+    """Whether the encoder stages its (F, T) thresholds (and the ring's
+    first CHUNK repeated) in shared memory."""
+    return features * bits + CHUNK <= STAGED_FLOATS
 
 
 def thermometer_encode(x: torch.Tensor,

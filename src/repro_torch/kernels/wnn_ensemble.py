@@ -14,13 +14,18 @@ shifts and masks).
 `ensemble_args` concatenates a whole ensemble for one launch, and is
 where the class-sliced layout is kept: every submodel's permutation,
 transposed to (n, N_f) so the lanes of a warp (one filter each) read
-neighbouring indices, as uint16 (in int16 bit patterns; an index past
-65535 raises); the H3 parameters as int32; the class slices and mask
-words; and one descriptor row per submodel (`DESC_FIELDS`, offsets in
-elements). Per-submodel slices are views of the concatenation
-(`EnsembleArgs.submodel_slices`). It runs once, where the tables are
-prepared, never per batch. Nothing here runs at import time or needs a
-GPU.
+neighbouring indices; the H3 parameters as int32; the class slices and
+mask words; and one descriptor row per submodel (`DESC_FIELDS`, offsets
+in elements). The perms' reach picks the kernel's route
+(`EnsembleArgs.route`): `shared_tile` while every index lies below
+`TILE_COLUMNS` (uint16 indices, in int16 bit patterns; a tile of the
+batch's rows in shared memory), `global_gather` past that (int32
+indices; each gathered bit read from global memory). Any class count
+runs in one launch: past `GROUP_PLANES` words an entry the kernel's grid
+splits the classes into groups of 128. Per-submodel slices are views of
+the concatenation (`EnsembleArgs.submodel_slices`). It runs once, where
+the tables are prepared, never per batch. Nothing here runs at import
+time or needs a GPU.
 """
 from __future__ import annotations
 
@@ -36,9 +41,8 @@ from repro_torch.kernels import build, launch
 # One descriptor row per submodel, int32, read by csrc/wnn.cu's Submodel.
 DESC_FIELDS = ("num_filters", "n", "k", "entries", "perm_off", "param_off",
                "slice_off", "mask_off", "chunk_begin")
-MAX_PLANES = 4              # csrc/wnn.cu instantiates 1-4 uint32 planes
-MAX_CLASSES = 32 * MAX_PLANES   # the kernel's bound; the layout has none
-MAX_COLUMNS = 65536         # csrc/wnn.cu kMaxCols: uint16 perm indices
+GROUP_PLANES = 4            # csrc/wnn.cu kGroupPlanes: words a class group
+TILE_COLUMNS = 65536        # csrc/wnn.cu kTileCols: the shared tile's reach
 ROWS_PER_TILE = 8           # csrc/wnn.cu kRows
 WINDOW = 8192               # csrc/wnn.cu kWindow
 
@@ -46,7 +50,7 @@ _ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_int] * 3              # bits, B, row 
              + [ctypes.c_void_p] * 5                          # perms, params, slices, masks, desc
              + [ctypes.c_int] * 2                             # S, chunks
              + [ctypes.c_void_p] * 2                          # bias, out
-             + [ctypes.c_int] * 4                             # M, bytes, P, K
+             + [ctypes.c_int] * 5                             # M, bytes, P, K, index bytes
              + [ctypes.c_void_p])                             # stream
 
 
@@ -65,21 +69,34 @@ def element_bits(dtype: torch.dtype) -> int:
     return {torch.uint8: 8, torch.int16: 16, torch.int32: 32}[dtype]
 
 
-def shared_bytes(columns: int, num_classes: int) -> int:
+def shared_bytes(columns: int, num_classes: int,
+                 route: str = "shared_tile") -> int:
     """Dynamic shared memory of one block (mirrors csrc/wnn.cu
-    `shared_layout`): the transposed tile (a byte an input column, bit r
-    = row r), the staged window of each row and the tile's int32
-    scores."""
+    `shared_layout`): on the shared-tile route the transposed tile (a byte
+    an input column, bit r = row r) and the staged window of each row;
+    on both routes the tile's int32 scores of the block's classes (one
+    group: at most 32·GROUP_PLANES)."""
     def up16(x):
         return (x + 15) // 16 * 16
+    scores = ROWS_PER_TILE * min(num_classes, 32 * GROUP_PLANES) * 4
+    if route == "global_gather":
+        return scores
     slot = up16(min(columns, WINDOW)) + 16
-    return up16(columns) + ROWS_PER_TILE * slot + ROWS_PER_TILE * num_classes * 4
+    return up16(columns) + ROWS_PER_TILE * slot + scores
+
+
+def perm_route(columns: int) -> str:
+    """The kernel's route for perms that read `columns` input bits:
+    `shared_tile` (uint16 indices) up to TILE_COLUMNS, else
+    `global_gather` (int32 indices)."""
+    return "global_gather" if columns > TILE_COLUMNS else "shared_tile"
 
 
 @dataclasses.dataclass(frozen=True)
 class EnsembleArgs:
     """A whole ensemble, flattened for one `wnn_ensemble_launch`."""
-    perms: torch.Tensor       # int16 (uint16 bit patterns), per submodel (n, N_f)
+    perms: torch.Tensor       # per submodel (n, N_f): int16 (uint16 bit
+    #                           patterns) on `shared_tile`, int32 on `global_gather`
     params: torch.Tensor      # int32, per submodel (k, n)
     slices: torch.Tensor      # per submodel (N_f, E[, P]) class words
     masks: torch.Tensor       # per submodel (N_f[, P]) mask words
@@ -89,6 +106,7 @@ class EnsembleArgs:
     max_hashes: int
     chunks: int               # 32-filter chunks over all submodels
     columns: int              # 1 + the largest input index
+    route: str                # `perm_route(columns)`
     slice_shapes: tuple       # per submodel, for `submodel_slices`
     mask_shapes: tuple
 
@@ -119,9 +137,10 @@ def ensemble_args(perms: Sequence[torch.Tensor], h3s: Sequence[torch.Tensor],
         raise ValueError("an ensemble needs at least one submodel")
     top = max(int(p.max()) if p.numel() else 0 for p in perms)
     low = min(int(p.min()) if p.numel() else 0 for p in perms)
-    if low < 0 or top >= MAX_COLUMNS:
-        raise ValueError(f"perm indices in [{low}, {top}]: the kernel reads "
-                         f"input bits 0..{MAX_COLUMNS - 1} (uint16 indices)")
+    if low < 0 or top >= 2 ** 31:
+        raise ValueError(f"perm indices in [{low}, {top}]: outside the "
+                         "int32 input bits the kernel indexes")
+    route = perm_route(top + 1)
     rows, perm_parts, param_parts, slice_parts, mask_parts = [], [], [], [], []
     offs = dict(perm=0, param=0, slice=0, mask=0, chunk=0)
     max_k = 1
@@ -144,8 +163,10 @@ def ensemble_args(perms: Sequence[torch.Tensor], h3s: Sequence[torch.Tensor],
         rows.append([n_f, n, k, entries, offs["perm"], offs["param"],
                      offs["slice"], offs["mask"], offs["chunk"]])
         index = perm.t().reshape(-1).to(torch.int32)
-        # uint16 values as int16 bit patterns: the top half wraps negative
-        perm_parts.append((index - ((index >> 15) << 16)).to(torch.int16))
+        if route == "shared_tile":
+            # uint16 values as int16 bit patterns: the top half wraps negative
+            index = (index - ((index >> 15) << 16)).to(torch.int16)
+        perm_parts.append(index)
         param_parts.append(h3.reshape(-1).to(torch.int32))
         slice_parts.append(sl.reshape(-1))
         mask_parts.append(mk.reshape(-1))
@@ -164,7 +185,7 @@ def ensemble_args(perms: Sequence[torch.Tensor], h3s: Sequence[torch.Tensor],
         masks=torch.cat(mask_parts).contiguous(),
         desc=torch.tensor(rows, dtype=torch.int32, device=dev),
         num_classes=int(num_classes), planes=planes, max_hashes=max_k,
-        chunks=offs["chunk"], columns=top + 1,
+        chunks=offs["chunk"], columns=top + 1, route=route,
         slice_shapes=tuple(tuple(s.shape) for s in slices),
         mask_shapes=tuple(tuple(m.shape) for m in masks))
 
@@ -182,16 +203,13 @@ def launch_ensemble(kernel: str, bits: torch.Tensor, args: EnsembleArgs,
                          f"{tuple(bits.shape)}")
     b, row_bits = bits.shape
     m = args.num_classes
-    if args.planes > MAX_PLANES:
-        raise ValueError(f"{kernel}: M={m} classes need {args.planes} "
-                         f"uint32 planes; the kernel takes at most "
-                         f"{MAX_PLANES} (M <= {MAX_CLASSES})")
     if row_bits < args.columns:
         raise ValueError(f"{kernel}: rows of {row_bits} bits, but the "
                          f"permutations read bit {args.columns - 1}")
     device = launch.check_cuda_args(
         kernel, bits=(bits, torch.int8, (b, row_bits)),
-        perms=(args.perms, torch.int16, tuple(args.perms.shape)),
+        perms=(args.perms, (torch.int16 if args.route == "shared_tile"
+                            else torch.int32), tuple(args.perms.shape)),
         params=(args.params, torch.int32, tuple(args.params.shape)),
         slices=(args.slices, args.slices.dtype, tuple(args.slices.shape)),
         masks=(args.masks, args.slices.dtype, tuple(args.masks.shape)),
@@ -207,7 +225,7 @@ def launch_ensemble(kernel: str, bits: torch.Tensor, args: EnsembleArgs,
             args.desc.data_ptr(), args.desc.shape[0], args.chunks,
             bias.data_ptr(), out.data_ptr(), m,
             args.slices.element_size(), args.planes, args.max_hashes,
-            launch.stream_handle(device))
+            args.perms.element_size(), launch.stream_handle(device))
     build.check_launch("wnn_ensemble_launch", rc)
     return out
 

@@ -34,7 +34,8 @@ def gen():
     (1, 1, 1, 1, 3, 1), (37, 45, 7, 10, 3, 1), (300, 77, 12, 10, 4, 4),
     (129, 172, 32, 10, 9, 2), (65, 33, 64, 33, 10, 8),
     (257, 196, 32, 32, 15, 2),
-    (19, 1025, 32, 10, 6, 2)])     # N_f·n = 32800 bits: four tile windows
+    (19, 1025, 32, 10, 6, 2),      # N_f·n = 32800 bits: four tile windows
+    (33, 21, 12, 150, 5, 2)])      # 150 classes: two class groups
 def test_wnn_kernels_equal_plain_versions(gen, b, n_f, n, m, log2e, k):
     e = 2 ** log2e
     tuples = torch.randint(0, 2, (b, n_f, n), generator=gen, device="cuda",
@@ -78,17 +79,46 @@ def test_h3_hash_kernel_equals_plain_version(gen, b, n_f, n, k):
     assert torch.equal(got, ref.h3_hash_ref(tuples, params))
 
 
-@pytest.mark.parametrize("b,f,t", [(1, 1, 1), (3, 5, 2), (1027, 784, 7)])
+@pytest.mark.parametrize("b,f,t", [
+    (1, 1, 1), (3, 5, 2), (1027, 784, 7),
+    (3, 5, 17),          # B·F·T = 255: a ragged last 16 bytes, run-time T
+    (1, 784, 7),         # a single row
+    (37, 29, 16), (11, 13, 33), (129, 61, 1),
+    (5, 1600, 7),        # F·T = 11200: thresholds past the staged ring
+    (2, 3001, 5)])       # F·T = 15005: unstaged, off every 4-float boundary
 def test_front_end_kernels_equal_plain_versions(gen, b, f, t):
+    """NaN features, ±inf thresholds and counts past T included."""
     x = torch.randn((b, f), generator=gen, device="cuda")
     x[::2, ::3] = float("nan")
     thr = torch.randn((f, t), generator=gen, device="cuda")
-    counts = torch.randint(0, t + 1, (b, f), generator=gen, device="cuda",
+    thr[0, -1] = float("inf")
+    thr[-1, 0] = float("-inf")
+    x[-1, 0] = float("inf")
+    counts = torch.randint(0, t + 3, (b, f), generator=gen, device="cuda",
                            dtype=torch.uint8)
-    assert torch.equal(kernels.thermometer_encode(x, thr),
-                       ref.thermometer_ref(x, thr))
-    assert torch.equal(kernels.thermometer_decompress(counts, t),
-                       ref.decompress_ref(counts, t))
+    counts[0, 0] = 255
+    before = kernels.launch_counts()
+    got_e = kernels.thermometer_encode(x, thr)
+    got_d = kernels.thermometer_decompress(counts, t)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["thermometer_encode"] == before["thermometer_encode"] + 1
+    assert after["thermometer_decompress"] == \
+        before["thermometer_decompress"] + 1
+    assert torch.equal(got_e, ref.thermometer_ref(x, thr))
+    assert torch.equal(got_d, ref.decompress_ref(counts, t))
+
+
+def test_front_end_kernels_refuse_column_slices(gen):
+    """The kernels read x and counts as flat arrays: a column slice of a
+    wider tensor raises before a launch."""
+    x = torch.randn((9, 40), generator=gen, device="cuda")
+    counts = torch.zeros((9, 40), dtype=torch.uint8, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.thermometer_encode(x[:, 3:30],
+                                   torch.zeros((27, 7), device="cuda"))
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.thermometer_decompress(counts[:, :20], 7)
 
 
 @pytest.mark.parametrize("backend", ["gather", "fused", "packed", "auto"])
@@ -150,16 +180,29 @@ ULN_L = ((12, 6, 2), (16, 7, 2), (20, 7, 2), (24, 8, 2), (28, 8, 2),
     (10, ((7, 4, 2), (30, 9, 2)), 333, 1, "random"),
     (10, ((16, 7, 2), (12, 6, 2)), 40001, 37, "random"),   # five windows
     (12, ((32, 9, 2),), 65536, 9, "random"),     # the last uint16 index
+    (129, ((12, 6, 2), (20, 7, 3)), 784, 37, "random"),   # two class groups
+    (200, ((16, 7, 2), (9, 4, 1)), 500, 21, "random"),   # 7 words: 4 + 3
+    (10, ((16, 7, 2), (24, 8, 2)), 65537, 19, "random"),  # int32 perms
+    (10, ((64, 6, 2),), 250000, 5, "random"),             # global gather
+    (150, ((48, 6, 4),), 70001, 11, "random"),            # both at once
 ])
 def test_wnn_ensemble_kernel_equals_plain_version(gen, m, subs, total_bits,
                                                   b, mask_kind):
     """The whole-ensemble kernel on both table layouts, bit-equal to the
-    plain version, one launch a call."""
+    plain version, one launch a call, on the route the wrapper names:
+    uint16 perms through the shared tile up to 65,536 input bits, int32
+    perms gathered from global memory past that; any class count (class
+    groups of 128 past 4 words an entry)."""
     art = seeded_artifact(m * 7 + b, m, subs, total_bits, mask_kind)
     bits = torch.randint(0, 2, (b, total_bits), generator=gen,
                          device="cuda", dtype=torch.int8)
     pt = export.prepare_artifact(art, backend="auto")
     pf = export.prepare_artifact(art, backend="fused")
+    for args in (pt.kernel_args, pf.kernel_args):
+        assert args.columns == total_bits
+        assert args.route == ("shared_tile" if total_bits <= 65536
+                              else "global_gather")
+        assert args.planes == (-(-m // 32) if m > 16 else 1)
     want = ref.wnn_ensemble_ref(bits, pt.perms, pt.h3s, pt.slices,
                                 pt.class_masks, pt.bias)
     before = kernels.launch_counts()

@@ -70,6 +70,8 @@ WNN_CASES = [
     (7, 17, 9, 5, 6, 2, "zeros"),
     (130, 300, 28, 10, 8, 2, "random"),
     (1, 1, 64, 33, 5, 8, "random"),
+    (3, 9, 8, 129, 4, 2, "random"),     # past 128 classes: two groups
+    (2, 5, 6, 200, 3, 3, "random"),     # seven class words, two groups
 ]
 
 
@@ -173,6 +175,113 @@ def test_front_end_plain_versions_match_pallas_interpret(b, f, t):
     got = kernels.thermometer_decompress(torch.from_numpy(counts), t)
     expect = jdecompress(jnp.asarray(counts), t, interpret=True)
     np.testing.assert_array_equal(got.numpy(), np.asarray(expect))
+
+
+def _decompress_word(T, ta, ca, cb):
+    """csrc/thermometer.cu's four decompressed bytes at once (3 <= T <=
+    16): bits ta + k (less T past the boundary s = T - ta), counts
+    clamped to 127, tk < c iff bit 7 of 0x80 + tk - c is clear."""
+    full = 0xFFFFFFFF
+    nxt = 0 if T - ta >= 4 else (full << (8 * (T - ta))) & full
+    tk = (ta * 0x01010101 + 0x03020100 - (nxt & (T * 0x01010101))) & full
+    c4 = ((min(int(ca), 127) * 0x01010101) & ~nxt & full) | \
+        ((min(int(cb), 127) * 0x01010101) & nxt)
+    return (~((tk | 0x80808080) - c4) & full) >> 7 & 0x01010101
+
+
+def emulate_front_end(x, thr, counts, t_bits, blocks):
+    """csrc/thermometer.cu's walk, in Python over the flat arrays: each of
+    `blocks` starts at its 16 KB tile with the cursor (q = o / T,
+    t = o mod T, r = o mod F·T) and advances it by the grid's step with
+    carries; the tile's inputs are features q .. q + hi (hi clamped to the
+    last); warp w's chunk j lies d = (8 j + w)·512 bytes in, its
+    thresholds from (r + d) mod F·T; lane l builds words l + 32 i, byte k
+    from feature (t + d + off + k) / T (T <= 2) or from the pair qa,
+    qa + 1 picked by ta + k >= T, each clamped to hi (decompression at
+    3 <= T <= 16: the word at once, `_decompress_word`); thresholds from
+    the ring (thr_flat and its first 512 repeated) or the wrapped global
+    index. Encodes when `thr` is given, else decompresses. Returns the
+    flat output bytes."""
+    from repro_torch.kernels import thermometer as th
+    warps, chunk, tile, T = 8, th.CHUNK, th.TILE, t_bits
+    src = x if thr is not None else counts
+    total = src.size * T
+    row = thr.size if thr is not None else T
+    staged = thr is not None and th.thresholds_staged(row // T, T)
+    ring = (np.concatenate([thr, np.resize(thr, chunk)]) if staged
+            else None)
+    last = total // T - 1
+    out = np.full(total, -1, np.int64)
+    step = blocks * tile
+    dq, dt, dr = step // T, step % T, step % row
+    for o in range(0, step, tile):
+        q, t, r = o // T, o % T, o % row
+        for o in range(o, total, step):
+            hi = min(q + (t + tile - 1) // T, last) - q
+            for j in range(tile // (warps * chunk)):
+                for w in range(warps):
+                    d = (j * warps + w) * chunk
+                    rc = (r + d) % row
+                    for lane in range(32):
+                        for i in range(4):
+                            off = 4 * (lane + 32 * i)
+                            n0 = t + d + off
+                            qa, ta = n0 // T, n0 % T
+                            if thr is None and 3 <= T <= 16:
+                                word = _decompress_word(
+                                    T, ta, counts[q + min(qa, hi)],
+                                    counts[q + min(qa + 1, hi)])
+                            for k in range(4):
+                                if o + d + off + k >= total:
+                                    continue
+                                if T <= 2:
+                                    f, bit = (n0 + k) // T, (n0 + k) % T
+                                else:
+                                    nxt = ta + k >= T
+                                    f = qa + nxt
+                                    bit = ta + k - T if nxt else ta + k
+                                f = q + min(f, hi)
+                                if thr is None and 3 <= T <= 16:
+                                    val = (word >> (8 * k)) & 1
+                                elif thr is None:
+                                    val = int(bit < counts[f])
+                                elif staged:
+                                    val = int(x[f] > ring[rc + off + k])
+                                else:
+                                    rr = rc + off + k
+                                    val = int(x[f] > thr[rr - row
+                                                         if rr >= row
+                                                         else rr])
+                                out[o + d + off + k] = val
+            t, q = t + dt, q + dq
+            if t >= T:
+                t, q = t - T, q + 1
+            r = r + dr - (row if r + dr >= row else 0)
+    return out
+
+
+@pytest.mark.parametrize("b,f,t,blocks", [
+    (3, 5, 1, 1), (2, 50, 2, 1), (7, 13, 3, 2), (9, 300, 7, 1),
+    (2, 33, 16, 1), (31, 41, 17, 1), (40, 41, 33, 2),
+    (3, 700, 17, 1)])       # F·T = 11900: thresholds past the staged ring
+def test_front_end_kernel_walk_matches_plain_versions(b, f, t, blocks):
+    """The kernels' tile walk (cursor carries over grid steps, the tile's
+    clamped inputs, the word's feature pair, the threshold ring and its
+    wrap, the ragged last chunk) covers every output byte with what the
+    plain versions compute."""
+    from repro_torch.kernels import thermometer as th
+    x, thr, counts = thermometer_inputs(b * f + t, b, f, t)
+    counts[0, 0] = 255                      # a count past T: all ones
+    thr[0, -1] = np.inf
+    thr[-1, 0] = -np.inf
+    assert th.thresholds_staged(f, t) == (f * t <= th.STAGED_FLOATS - 512)
+    want = ref.thermometer_ref(torch.from_numpy(x), torch.from_numpy(thr))
+    got = emulate_front_end(x.reshape(-1), thr.reshape(-1), None, t, blocks)
+    np.testing.assert_array_equal(got, want.numpy().reshape(-1))
+    want = ref.decompress_ref(torch.from_numpy(counts), t)
+    got = emulate_front_end(x.reshape(-1), None, counts.reshape(-1), t,
+                            blocks)
+    np.testing.assert_array_equal(got, want.numpy().reshape(-1))
 
 
 def _cpu_prep():
@@ -332,34 +441,42 @@ def test_class_mask_words_keep_every_nonzero_flag(m):
 
 def emulate_wnn_ensemble(bits, args, bias):
     """csrc/wnn.cu's addressing, walked in numpy over the flat arguments
-    of `wnn_ensemble.ensemble_args`: chunk g -> submodel by `chunk_begin`,
-    lane -> filter, the transposed perm, params row j, slice entry
-    (f·E + h)·P + p, mask word f·P + p."""
+    of `wnn_ensemble.ensemble_args`: class group y -> words
+    [P_b·y, P_b·y + P_b) of an entry (P_b = min(P, GROUP_PLANES)) and
+    classes from 32·P_b·y; chunk g -> submodel by `chunk_begin`, lane ->
+    filter, the transposed perm (uint16 on the shared-tile route, int32
+    on the global-gather route), params row j, slice word
+    (f·E + h)·P + P_b·y + p, mask word f·P + P_b·y + p."""
     from repro_torch.kernels import wnn_ensemble
     desc = args.desc.numpy()
-    perms = args.perms.numpy().view(np.uint16).astype(np.int64)
+    index = np.uint16 if args.route == "shared_tile" else np.int32
+    perms = args.perms.numpy().view(index).astype(np.int64)
     params = args.params.numpy().astype(np.int64)
     planes, m = args.planes, args.num_classes
+    block = min(planes, wnn_ensemble.GROUP_PLANES)
     width = wnn_ensemble.element_bits(args.slices.dtype)
     slices = args.slices.numpy().astype(np.int64) & ((1 << width) - 1)
     masks = args.masks.numpy().astype(np.int64) & ((1 << width) - 1)
     out = np.zeros((bits.shape[0], m), np.int64)
-    for g in range(args.chunks):
-        s = max(i for i in range(len(desc)) if desc[i, 8] <= g)
-        n_f, n, k, e, p_off, a_off, s_off, m_off, c0 = desc[s]
-        for f in range((g - c0) * 32, min((g - c0 + 1) * 32, n_f)):
-            h = np.zeros((bits.shape[0], k), np.int64)
-            for i in range(n):
-                col = bits[:, perms[p_off + i * n_f + f]] != 0
+    for y in range(-(-planes // block)):
+        w0 = block * y
+        words = np.arange(w0, min(w0 + block, planes))
+        for g in range(args.chunks):
+            s = max(i for i in range(len(desc)) if desc[i, 8] <= g)
+            n_f, n, k, e, p_off, a_off, s_off, m_off, c0 = desc[s]
+            for f in range((g - c0) * 32, min((g - c0 + 1) * 32, n_f)):
+                h = np.zeros((bits.shape[0], k), np.int64)
+                for i in range(n):
+                    col = bits[:, perms[p_off + i * n_f + f]] != 0
+                    for j in range(k):
+                        h[:, j] ^= np.where(col, params[a_off + j * n + i], 0)
+                resp = np.tile(masks[m_off + f * planes + words],
+                               (bits.shape[0], 1))
                 for j in range(k):
-                    h[:, j] ^= np.where(col, params[a_off + j * n + i], 0)
-            resp = np.tile(masks[m_off + f * planes:m_off + (f + 1) * planes],
-                           (bits.shape[0], 1))
-            for j in range(k):
-                at = s_off + (f * e + h[:, j])[:, None] * planes
-                resp &= slices[at + np.arange(planes)[None]]
-            for c in range(m):
-                out[:, c] += (resp[:, c // 32] >> (c % 32)) & 1
+                    at = s_off + (f * e + h[:, j])[:, None] * planes
+                    resp &= slices[at + words[None]]
+                for c in range(32 * w0, min(m, 32 * (w0 + block))):
+                    out[:, c] += (resp[:, c // 32 - w0] >> (c % 32)) & 1
     return out + bias.numpy()[None].astype(np.int64)
 
 
@@ -368,12 +485,17 @@ def emulate_wnn_ensemble(bits, args, bias):
     (40, ((64, 5, 8), (5, 4, 3)), 300, 3),
     (1, ((9, 4, 2),), 40, 4),
     (17, ((4, 3, 4), (33, 6, 2)), 70, 2),
-    (8, ((3, 2, 1),), 40000, 2)])      # indices past 32767: uint16 perms
+    (8, ((3, 2, 1),), 40000, 2),       # indices past 32767: uint16 perms
+    (129, ((5, 3, 2), (9, 4, 1)), 60, 3),    # two class groups
+    (200, ((6, 3, 3),), 50, 2),              # seven words, groups of 4 + 3
+    (10, ((4, 3, 2), (7, 4, 2)), 70000, 2),  # past 65536: int32 perms
+    (130, ((8, 4, 2),), 250000, 2)])         # both at once
 def test_ensemble_args_address_what_the_plain_version_reads(m, subs,
                                                             total_bits, b):
     """The flat arguments one launch takes (transposed perms, descriptor
-    offsets, chunk map) read exactly what the plain ensemble version
-    computes from the per-submodel tensors."""
+    offsets, chunk map, class groups, the route's index type) read
+    exactly what the plain ensemble version computes from the
+    per-submodel tensors."""
     from repro_torch.kernels import wnn_ensemble
     rng = np.random.default_rng(total_bits + m)
     perms, h3s, slices, masks = [], [], [], []
@@ -390,8 +512,10 @@ def test_ensemble_args_address_what_the_plain_version_reads(m, subs,
     bits = torch.from_numpy((rng.random((b, total_bits)) < 0.5)
                             .astype(np.int8))
     args = wnn_ensemble.ensemble_args(perms, h3s, slices, masks, m)
-    assert args.perms.dtype == torch.int16      # uint16 bit patterns
     assert args.columns == 1 + max(int(p.max()) for p in perms)
+    wide = args.columns > wnn_ensemble.TILE_COLUMNS
+    assert args.route == ("global_gather" if wide else "shared_tile")
+    assert args.perms.dtype == (torch.int32 if wide else torch.int16)
     assert args.chunks == sum(-(-p.shape[0] // 32) for p in perms)
     want = ref.wnn_ensemble_ref(bits, perms, h3s, slices, masks, bias)
     np.testing.assert_array_equal(emulate_wnn_ensemble(bits.numpy(), args,
@@ -403,21 +527,22 @@ def test_ensemble_args_address_what_the_plain_version_reads(m, subs,
 
 @pytest.mark.parametrize("top,ok", [(65535, True), (65536, False)])
 def test_ensemble_args_take_uint16_indices(top, ok):
-    """Perm indices travel as uint16: the last one the kernel reads is
-    65535, and anything past it raises before a launch."""
+    """Perm indices travel as uint16 while the last one read is 65535 (the
+    shared-tile route); one past it, they travel as int32 and the
+    wrapper names the global-gather route."""
     from repro_torch.kernels import wnn_ensemble
     perm = torch.tensor([[0, top], [32767, 32768]])
     h3 = torch.ones((1, 2), dtype=torch.int32)
     sl = layout.class_slices_from_table(torch.ones((3, 2, 4)))
     cm = layout.class_mask_words(torch.ones((3, 2)))
-    if not ok:
-        with pytest.raises(ValueError, match="uint16"):
-            wnn_ensemble.ensemble_args([perm], [h3], [sl], [cm], 3)
-        return
     args = wnn_ensemble.ensemble_args([perm], [h3], [sl], [cm], 3)
     assert args.columns == top + 1
-    assert args.perms.numpy().view(np.uint16).tolist() == [0, 32767, top,
-                                                           32768]
+    assert args.route == ("shared_tile" if ok else "global_gather")
+    index = np.uint16 if ok else np.int32
+    assert args.perms.numpy().view(index).tolist() == [0, 32767, top, 32768]
+    with pytest.raises(ValueError, match="int32"):
+        wnn_ensemble.ensemble_args([perm + 2 ** 31 - top], [h3], [sl],
+                                   [cm], 3)
 
 
 def _meta_ensemble(m, total_bits, n=12, log2e=6, k=2, n_f=9):
@@ -448,14 +573,14 @@ def _meta_ensemble(m, total_bits, n=12, log2e=6, k=2, n_f=9):
     (10, ((1200,), torch.int8), ValueError, "bits must be"),
     (10, ((4, 100), torch.int8), ValueError, "permutations read bit"),
     (10, ((4, 20000), torch.uint8), ValueError, "CUDA tensors"),
-    (129, ((4, 300), torch.bool), ValueError, "at most 4"),
+    (129, ((4, 300), torch.bool), ValueError, "CUDA tensors"),
 ])
 def test_ensemble_wrappers_check_what_the_kernel_reads(entry, m, bits,
                                                        error, match):
     """The ensemble kernel reads raw pointers: its wrappers refuse rows
-    of the wrong type, rank or width and class counts past its planes,
-    before a launch; rows of any width past the perms' reach pass the
-    width checks (then meta tensors stop at the device check)."""
+    of the wrong type, rank or width before a launch; rows of any width
+    past the perms' reach and any class count (129: two class groups)
+    pass those checks (then meta tensors stop at the device check)."""
     args, bias = _meta_ensemble(m, 300)
     tables = type("Tables", (), {"kernel_args": args, "bias": bias})()
     shape, dtype = bits

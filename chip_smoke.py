@@ -18,8 +18,9 @@ submodels, M = 10) and one LM path:
   scoring through the WNN kernel on either table layout (`auto` and
   `fused`: one launch a batch for the whole ensemble, the permutation
   gather inside), and 4096+ requests through `WnnBatcher` per backend;
-* the train path: class-structured synthetic features of MNIST's shape,
-  the Gaussian thermometer fit and encode kernel, the hash precompute
+* the train path: the JAX package's synthetic MNIST
+  (`data.synth.make_mnist_like`, 28 x 28), the Gaussian thermometer fit
+  and encode kernel, the hash precompute
   through the `h3_hash` kernel, one-shot counting with bleaching,
   multi-shot STE training (bf16 tables, dropout shared across classes),
   30 % pruning with fine-tuning, export, save/load, and serving the
@@ -29,10 +30,21 @@ submodels, M = 10) and one LM path:
   drawn on the card from a seeded generator; `serve()` on a batch of 4
   prompts of 1024 tokens for 32 tokens, and the continuous-batching
   `Engine` (8 slots) draining 32 requests of 128-1024 prompt tokens and
-  16-64 new tokens. Every prefill's attention runs the flash kernel.
+  16-64 new tokens. Every prefill's attention runs the flash kernel;
+* the head path: a UleenHead (`examples/distill_uleen_head.py`'s task and
+  head) trained on mean-pooled embeddings of that full-width backbone
+  (the LM path's parameters, not drawn twice), then deployed binarized
+  through the gather, fused, packed and auto backends, bit-equal;
+* the tenant path: 2048 seeded ULN-S tenants (784 x 2 bits) stacked by
+  `prepare_tenants`, `stacked_predict` on 65536 rows (8 tenants held
+  bit-equal to the WNN kernel), and `WnnTenantBatcher` (64 resident
+  tenants, 256 slots) through 16384 Zipf-distributed requests;
+* the port's three examples at their own sizes, quickstart last.
 
 Each path resets the kernels' launch counts just before it and reads them
-just after. Every phase prints one JSON line; any mismatch raises, so the
+just after. The tenant path's scoring is tensor code, as the JAX package's
+is on every platform (no Pallas tenant kernel); its line puts that time
+beside the WNN kernel's on the same rows. Every phase prints one JSON line; any mismatch raises, so the
 exit code is nonzero. The last line is `{"ok": true, "device": {...}}`;
 the line before it is the card's name and power limit as `nvidia-smi`
 reports them.
@@ -654,7 +666,8 @@ def check_h3_kernel(gen, ref, h3_hash):
              log2_entries=15, k=9),
     ]
     rows = []
-    total = dict(ms=0.0, plain_ms=0.0, bytes=0, ops=0, max_abs_err=0)
+    total = dict(ms=0.0, plain_ms=0.0, device_ms=0.0, bytes=0, ops=0,
+                 max_abs_err=0)
     for case in cases:
         name, main = case.pop("name"), case.pop("main", False)
         b, n_f, n, k = case["batch"], case["n_f"], case["n"], case["k"]
@@ -677,7 +690,10 @@ def check_h3_kernel(gen, ref, h3_hash):
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
                      "bound_by": by, "bytes": bytes_moved, "ops": ops})
         if main:
+            rows[-1]["device_ms"] = device_ms = graph_ms(
+                lambda: h3_hash(tuples, params))
             for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                           ("device_ms", device_ms),
                            ("bytes", bytes_moved), ("ops", ops)):
                 total[key] += v
         del tuples, params, got, want
@@ -1020,21 +1036,6 @@ def main_path(export, ops, fit_gaussian_thermometer, WnnBatcher, kernels):
 # Phase 6: the train path at full width, serving what it exports
 # ---------------------------------------------------------------------------
 
-def synthetic_digits(gen, n: int, dev):
-    """Class-structured features of MNIST's shape: 784 features in (0, 1),
-    10 classes; each class a random prototype, each sample its class's
-    prototype plus a random mix of two class-specific style fields and
-    pixel noise, squashed by a sigmoid. Labels are uniform."""
-    m, f = ULN_L["num_classes"], ULN_L["features"]
-    protos = torch.randn((m, f), generator=gen, device=dev)
-    styles = torch.randn((m, 2, f), generator=gen, device=dev)
-    y = torch.randint(0, m, (n,), generator=gen, device=dev)
-    mix = 0.6 * torch.randn((n, 2, 1), generator=gen, device=dev)
-    x = (protos[y] + (mix * styles[y]).sum(1)
-         + 1.5 * torch.randn((n, f), generator=gen, device=dev))
-    return torch.sigmoid(x), y
-
-
 def uln_l_train_spec(model):
     """ULN-L with the JAX spec's training flags (`uleen_cell.py:29-34`)."""
     return model.UleenSpec(
@@ -1060,13 +1061,14 @@ def train_path(mods, kernels, *, device="cuda"):
     across classes, bf16 tables) -> prune 30 % + fine-tune -> export ->
     save/load -> serve through the packed kernel. Returns the launches of
     the kernels on this path."""
-    encoding, model, one_shot, multi_shot, pruning, export, ops, opt = mods
+    (encoding, model, one_shot, multi_shot, pruning, export, ops, opt,
+     synth) = mods
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(20262)
     spec = uln_l_train_spec(model)
-    x, y = synthetic_digits(gen, TRAIN_ROWS + VAL_ROWS, dev)
-    x_tr, y_tr, x_val, y_val = (x[:TRAIN_ROWS], y[:TRAIN_ROWS],
-                                x[TRAIN_ROWS:], y[TRAIN_ROWS:])
+    # the JAX package's synthetic MNIST (`data/synth.py`) at MNIST's shape
+    ds = synth.make_mnist_like(gen, TRAIN_ROWS, VAL_ROWS, hw=28, device=dev)
+    x_tr, y_tr, x_val, y_val = ds.x_train, ds.y_train, ds.x_test, ds.y_test
     t = ULN_L["bits_per_input"]
     seconds = {}
 
@@ -1174,7 +1176,8 @@ def lm_serve_path(kernels, *, get_config, transformer, steps, scheduler,
     """Llama 3.2 3B at full width and depth, float32 parameters drawn on
     the card: serve() on LM_BATCH prompts of LM_PROMPT tokens for LM_GEN
     tokens, then the Engine draining LM_REQUESTS mixed requests, four of
-    which carry serve()'s prompts. Returns the path's kernel launches."""
+    which carry serve()'s prompts. Returns the path's kernel launches,
+    the parameters (the head path reuses them) and the config."""
     dev = torch.device(device)
     cfg = get_config(LM_ARCH)
     t0 = time.perf_counter()
@@ -1325,8 +1328,8 @@ def lm_serve_path(kernels, *, get_config, transformer, steps, scheduler,
          prefill_calls=prefill_calls, path_s=seconds,
          max_memory_allocated_gib=peak_bytes / 2 ** 30, launches=launches,
          profile=profile)
-    del params, eng
-    return launches
+    del eng
+    return launches, params, cfg
 
 
 def lm_profile(params, prefill, decode, prompts, top: int = 10) -> dict:
@@ -1381,6 +1384,359 @@ def lm_profile(params, prefill, decode, prompts, top: int = 10) -> dict:
                     for e in kernels[:top]]}
     return out
 
+# ---------------------------------------------------------------------------
+# Phase 8: the UleenHead on the full-width Llama 3.2 3B backbone
+# ---------------------------------------------------------------------------
+
+# `examples/distill_uleen_head.py`'s task and head at the backbone's full
+# width: 1536 sequences of 32 tokens, 4 classes by vocabulary quartile,
+# mean-pooled embeddings (d 3072), 4 thermometer bits a feature (12,288
+# input bits), submodels (8, 2^6) and (16, 2^6); 150 Adam steps at 1e-2
+# with dropout 0.5 on 1408 rows; accuracy on the other 128. A class's
+# tokens come from 128 ids of its quartile, the quartile of the example as
+# it runs (smoke vocabulary 512): drawn from whole quartiles of 128,256
+# tokens, 32 random embeddings average to almost no class signal (a
+# nearest-centroid classifier reaches ~0.5, the head chance), so that task
+# is trained and reported beside it, not gated.
+HEAD_ROWS, HEAD_SEQ, HEAD_TEST_ROWS, HEAD_STEPS = 1536, 32, 128, 150
+HEAD_POOL = 128
+HEAD_FLOOR = 0.5          # the example's assert (4 classes, chance 0.25)
+HEAD_BACKENDS = ("gather", "fused", "packed", "auto")
+WNN_KERNELS = ("packed_wnn", "fused_wnn")
+
+
+def profiled_device_ms(fn, name_part: str, calls: int = 5):
+    """Device ms per call of the kernels whose name holds `name_part`, from
+    a torch.profiler trace of `calls` calls of fn(); "not measured" where
+    the trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+             for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and name_part in e.key)
+    return us / calls / 1e3 if us > 0 else "not measured"
+
+
+def nearest_centroid_acc(h_tr, y_tr, h_te, y_te, classes: int) -> float:
+    """Test accuracy of the nearest class mean of the row-normalised
+    training states: how much linear class signal the pooling leaves."""
+    def norm(h):
+        return (h - h.mean(-1, keepdim=True)) / h.std(-1, keepdim=True)
+
+    h_tr, h_te = norm(h_tr), norm(h_te)
+    cen = torch.stack([h_tr[y_tr == c].mean(0) for c in range(classes)])
+    pred = torch.cdist(h_te, cen).argmin(-1)
+    return float((pred == y_te).float().mean())
+
+
+def head_path(kernels, params, cfg, *, distill, head, wnn_ensemble,
+              device="cuda"):
+    """The UleenHead trained on the pooled embeddings of the full-width
+    backbone whose parameters the LM path drew, then deployed binarized
+    through every WNN backend. Returns the path's kernel launches."""
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(20264)
+    tokens, y = distill.make_task(cfg, gen, n=HEAD_ROWS, seq=HEAD_SEQ,
+                                  pool=HEAD_POOL)
+    with torch.no_grad():
+        h = distill.pooled_states(params, tokens)
+    h_tr, y_tr = h[:-HEAD_TEST_ROWS], y[:-HEAD_TEST_ROWS]
+    h_te, y_te = h[-HEAD_TEST_ROWS:], y[-HEAD_TEST_ROWS:]
+    hcfg = distill.head_config(cfg.d_model)
+    spec = hcfg.spec()
+    state = distill.init_scaled_head(gen, hcfg, device=dev)
+    torch.cuda.synchronize()
+
+    kernels.reset_launch_counts()          # the head path's run starts here
+    t0 = time.perf_counter()
+    trained, losses = distill.train_head(hcfg, state, h_tr, y_tr, gen,
+                                         steps=HEAD_STEPS, log=None)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    state = state._replace(params=trained)
+    with torch.no_grad():
+        scores = head.apply_head(hcfg, state, h_te, device=dev)
+        deployed = {b: head.apply_head(hcfg, state, h_te, backend=b,
+                                       device=dev) for b in HEAD_BACKENDS}
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()     # ... and ends here
+
+    # what came out is right: the kernel backends bit-equal to the plain
+    # gather formulation, the trained head above the example's floor
+    for b in HEAD_BACKENDS:
+        if deployed[b].dtype != torch.int32 or tuple(deployed[b].shape) != (
+                HEAD_TEST_ROWS, hcfg.num_classes):
+            raise AssertionError(f"deployed head {b}: {deployed[b].dtype} "
+                                 f"{tuple(deployed[b].shape)}")
+        assert_equal(f"deployed head {b} vs gather", deployed[b],
+                     deployed["gather"])
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite head loss: {losses}")
+    acc = float((torch.argmax(scores, -1) == y_te).float().mean())
+    if acc <= HEAD_FLOOR:
+        raise AssertionError(f"head test accuracy {acc} <= {HEAD_FLOOR}")
+    idle = [k for k in ("h3_hash", *WNN_KERNELS) if launches[k] == 0]
+    if idle:
+        raise AssertionError(f"head path never launched {idle}")
+
+    # the example's task over whole quartiles: trained the same way and
+    # reported beside the gated one
+    f_tokens, f_y = distill.make_task(cfg, gen, n=HEAD_ROWS, seq=HEAD_SEQ)
+    with torch.no_grad():
+        f_h = distill.pooled_states(params, f_tokens)
+    f_state = distill.init_scaled_head(gen, hcfg, device=dev)
+    f_params, f_losses = distill.train_head(
+        hcfg, f_state, f_h[:-HEAD_TEST_ROWS], f_y[:-HEAD_TEST_ROWS], gen,
+        steps=HEAD_STEPS, log=None)
+    with torch.no_grad():
+        f_scores = head.apply_head(hcfg, f_state._replace(params=f_params),
+                                   f_h[-HEAD_TEST_ROWS:], device=dev)
+    whole_quartiles = {
+        "test_acc": float((torch.argmax(f_scores, -1)
+                           == f_y[-HEAD_TEST_ROWS:]).float().mean()),
+        "loss_last": f_losses[-1],
+        "nearest_centroid_acc": nearest_centroid_acc(
+            f_h[:-HEAD_TEST_ROWS], f_y[:-HEAD_TEST_ROWS],
+            f_h[-HEAD_TEST_ROWS:], f_y[-HEAD_TEST_ROWS:], hcfg.num_classes)}
+
+    step, ost = distill.make_step(hcfg, state, h_tr, y_tr)
+    step_ms = cuda_ms(lambda: step(state.params, ost, gen), 10)
+    served = {}
+    for b in HEAD_BACKENDS:
+        def call(b=b):
+            with torch.no_grad():
+                return head.apply_head(hcfg, state, h_te, backend=b,
+                                       device=dev)
+        before = kernels.launch_counts()
+        call()
+        torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        ms = cuda_ms(call, 10)
+        kernel_ms = profiled_device_ms(call, "wnn_ensemble_kernel")
+        served[b] = {
+            "ms": ms,
+            "wnn_launches_per_call": sum(after[k] - before[k]
+                                         for k in WNN_KERNELS),
+            "wnn_kernel_device_ms": kernel_ms,
+            "share_outside_kernel": (1.0 - kernel_ms / ms
+                                     if isinstance(kernel_ms, float)
+                                     else "not measured"),
+            "test_acc": float((torch.argmax(deployed[b], -1) == y_te)
+                              .float().mean())}
+    emit("head_path", backbone=cfg.name, d_model=cfg.d_model,
+         vocab=cfg.vocab_size, backbone_params=sum(
+             p.numel() for p in params.parameters()),
+         rows=HEAD_ROWS, seq=HEAD_SEQ, token_pool_per_class=HEAD_POOL,
+         train_rows=HEAD_ROWS - HEAD_TEST_ROWS,
+         test_rows=HEAD_TEST_ROWS, classes=hcfg.num_classes,
+         bits_per_feature=hcfg.bits_per_feature, input_bits=spec.total_bits,
+         submodels=[(sm.inputs_per_filter, sm.entries, spec.num_filters(sm))
+                    for sm in spec.submodels],
+         perm_route=wnn_ensemble.perm_route(spec.total_bits),
+         steps=HEAD_STEPS, lr=1e-2, dropout=hcfg.dropout, train_s=train_s,
+         train_step_ms=step_ms, loss_first=losses[0], loss_last=losses[-1],
+         test_acc=acc, floor=HEAD_FLOOR,
+         nearest_centroid_acc=nearest_centroid_acc(
+             h_tr, y_tr, h_te, y_te, hcfg.num_classes),
+         whole_quartiles_task=whole_quartiles, deployed_bit_equal=True,
+         deployed=served, launches=launches)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: a full-size ULN-S tenant fleet
+# ---------------------------------------------------------------------------
+
+# ULN-S (`repro/launch/uleen_cell.py:80-84`): 784 x 2 bits, submodels
+# (12, 2^6), (16, 2^6), (20, 2^6), k = 2, M = 10; 2048 tenants
+# (`MULTITENANT_TENANTS`, uleen_cell.py:89), seeded weights.
+ULN_S_SUBS = ((12, 6, 2), (16, 6, 2), (20, 6, 2))
+ULN_S_BITS = 784 * 2
+TENANTS = 2048
+TENANT_ROWS = 65536
+TENANT_CHECKED = 8          # tenants cross-checked against the WNN kernel
+TENANT_REQUESTS = 16384
+TENANT_CAPACITY, TENANT_SLOTS = 64, 256
+TENANT_ZIPF = 1.1
+
+
+def tenant_path(kernels, export, runtime, WnnTenantBatcher, *,
+                device="cuda"):
+    """prepare_tenants over 2048 ULN-S tenants, stacked_predict on 65536
+    rows of uniform tenant ids, and WnnTenantBatcher(capacity 64, slots
+    256) through 16384 Zipf-distributed requests. Returns the path's
+    kernel launches."""
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    arts = [seeded_artifact(export, 30000 + t, m=10, subs=ULN_S_SUBS,
+                            total_bits=ULN_S_BITS, bits_per_input=2)
+            for t in range(TENANTS)]
+    make_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(20265)
+    bits = torch.randint(0, 2, (TENANT_ROWS, ULN_S_BITS), generator=gen,
+                         device=dev, dtype=torch.int8)
+    tids = torch.randint(0, TENANTS, (TENANT_ROWS,), generator=gen,
+                         device=dev)
+    rng = np.random.default_rng(20265)
+    p = 1.0 / np.arange(1, TENANTS + 1) ** TENANT_ZIPF
+    req_tids = rng.choice(TENANTS, size=TENANT_REQUESTS, p=p / p.sum())
+    req_rows = bits[:TENANT_REQUESTS].cpu().numpy()
+    torch.cuda.synchronize()
+
+    kernels.reset_launch_counts()          # the tenant path's run starts here
+    t0 = time.perf_counter()
+    st = export.prepare_tenants(arts, device=dev)
+    torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if export.prepare_tenants(arts, device=dev) is not st:
+        raise AssertionError("prepare_tenants did not memoize the fleet")
+    memo_s = time.perf_counter() - t0
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    scores, preds = runtime.stacked_predict(st, bits, tids, device=dev)
+    torch.cuda.synchronize()
+    peak_bytes = torch.cuda.max_memory_allocated() - base
+    checked = {}
+    for t in range(TENANT_CHECKED):
+        sel = (tids == t).nonzero().squeeze(1)
+        checked[t] = (sel, export.artifact_scores(
+            arts[t], bits[sel], backend="packed", device=dev))
+    warm = WnnTenantBatcher(capacity=TENANT_CAPACITY, slots=TENANT_SLOTS,
+                            device=dev)
+    for a in arts:
+        warm.add_tenant(a)
+    warm.submit(0, req_rows[0])
+    warm.drain()
+    tb = WnnTenantBatcher(capacity=TENANT_CAPACITY, slots=TENANT_SLOTS,
+                          device=dev)
+    for a in arts:
+        tb.add_tenant(a)
+    t0 = time.perf_counter()
+    for tid, row in zip(req_tids, req_rows):
+        tb.submit(int(tid), row)
+    results = tb.drain()
+    batcher_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()     # ... and ends here
+
+    # what came out is right
+    if tuple(scores.shape) != (TENANT_ROWS, 10) or scores.dtype != torch.int32:
+        raise AssertionError(f"stacked scores {tuple(scores.shape)} "
+                             f"{scores.dtype}")
+    for t, (sel, want) in checked.items():
+        if sel.numel() == 0:
+            raise AssertionError(f"tenant {t} drew no rows")
+        assert_equal(f"stacked scores vs the WNN kernel, tenant {t}",
+                     scores[sel], want)
+    if not torch.equal(preds.long(), torch.argmax(scores, -1)):
+        raise AssertionError("stacked_predict preds != argmax of its scores")
+    want_s, want_p = runtime.stacked_predict(
+        st, torch.from_numpy(req_rows).to(dev),
+        torch.from_numpy(req_tids).to(dev), device=dev)
+    got_s = np.stack([r.scores for r in results])
+    if not np.array_equal(got_s, want_s.cpu().numpy()):
+        raise AssertionError("WnnTenantBatcher scores != stacked_predict")
+    if [r.pred for r in results] != want_p.cpu().tolist():
+        raise AssertionError("WnnTenantBatcher preds != stacked_predict")
+    if [r.tid for r in results] != req_tids.tolist():
+        raise AssertionError("WnnTenantBatcher routed a request elsewhere")
+    bst = tb.stats()
+    if bst["traces"] != 1 or bst["install_traces"] != 1:
+        raise AssertionError(f"tenant batcher launched {bst['traces']} "
+                             f"scores and {bst['install_traces']} install "
+                             "shapes, not 1 and 1")
+    if bst["hits"] + bst["misses"] != TENANT_REQUESTS or bst["evictions"] < 1:
+        raise AssertionError(f"tenant batcher counts {bst}")
+    if launches["packed_wnn"] != TENANT_CHECKED:
+        raise AssertionError(f"packed_wnn launched {launches['packed_wnn']} "
+                             f"times for {TENANT_CHECKED} checked tenants")
+
+    # the tenant formulation beside the WNN kernel on the same rows
+    stacked_ms = cuda_ms(lambda: runtime.stacked_scores(st, bits, tids,
+                                                        device=dev), 5)
+    solo = export.prepare_artifact(arts[0], device=dev)
+    kernel_ms = cuda_ms(lambda: export.scores_from_prep(solo, bits,
+                                                        backend="packed"), 5)
+    kernel_device_ms = graph_ms(lambda: export.scores_from_prep(
+        solo, bits, backend="packed"))
+    sel0 = checked[0][0]
+    rows0 = bits[sel0]
+    tids0 = tids[sel0]
+    checked_ms = {
+        "rows": int(sel0.numel()),
+        "stacked_ms": cuda_ms(lambda: runtime.stacked_scores(
+            st, rows0, tids0, device=dev), 10),
+        "kernel_ms": cuda_ms(lambda: export.scores_from_prep(
+            solo, rows0, backend="packed"), 10)}
+    per_tenant = [v["requests"] for v in bst.pop("per_tenant").values()]
+    emit("tenant_path", model="ULN-S", tenants=TENANTS,
+         total_bits=ULN_S_BITS,
+         submodels=[(n, 2 ** log2e, k) for n, log2e, k in ULN_S_SUBS],
+         make_artifacts_s=make_s, prepare_tenants_s=prepare_s,
+         prepare_tenants_memo_s=memo_s,
+         packed_kib_per_tenant=arts[0].packed_size_kib,
+         stacked_table_bytes=st.table_bytes(),
+         stacked_device_bytes=st.nbytes(),
+         stacked_predict={"rows": TENANT_ROWS, "ms": stacked_ms,
+                          "peak_bytes": peak_bytes,
+                          "checked_tenants": TENANT_CHECKED,
+                          "checked_rows": [int(v[0].numel())
+                                           for v in checked.values()],
+                          "bit_equal_to_wnn_kernel": True},
+         wnn_kernel_same_rows={"rows": TENANT_ROWS, "tenant": 0,
+                               "ms": kernel_ms, "device_ms": kernel_device_ms,
+                               "stacked_over_kernel": stacked_ms / kernel_ms},
+         one_tenants_rows=checked_ms,
+         batcher={"capacity": TENANT_CAPACITY, "slots": TENANT_SLOTS,
+                  "requests": TENANT_REQUESTS, "zipf_s": TENANT_ZIPF,
+                  "distinct_tenants": int(len(np.unique(req_tids))),
+                  "wall_s": batcher_s,
+                  "requests_per_s": TENANT_REQUESTS / batcher_s,
+                  "busiest_tenant_requests": max(per_tenant),
+                  "warm_up_batches": warm.batches, **bst},
+         launches=launches)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the examples at their own sizes
+# ---------------------------------------------------------------------------
+
+def examples_path(kernels, examples):
+    """The port's three examples on the card, each at its own size (the
+    JAX examples'), their printed lines kept and their asserts live.
+    quickstart runs last. Returns the launches of all three."""
+    import contextlib
+    import io
+    kernels.reset_launch_counts()          # the examples' run starts here
+    out = []
+    for name, kwargs in (("uleen_edge_pipeline", {"backend": "fused"}),
+                         ("distill_uleen_head", {"backend": "packed"}),
+                         ("quickstart", {})):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            examples[name].main(device="cuda", **kwargs)
+        torch.cuda.synchronize()
+        out.append({"example": name, **kwargs,
+                    "seconds": time.perf_counter() - t0,
+                    "lines": buf.getvalue().strip().splitlines()})
+    launches = kernels.launch_counts()     # ... and ends here
+    idle = [k for k in ("thermometer_encode", "h3_hash", *WNN_KERNELS)
+            if launches[k] == 0]
+    if idle:
+        raise AssertionError(f"the examples never launched {idle}")
+    emit("examples", runs=out, launches=launches)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1388,17 +1744,21 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import kernels
-    from repro_torch.core import (encoding, export, model, multi_shot,
+    from repro_torch.core import (encoding, export, head, model, multi_shot,
                                   one_shot, pruning)
+    from repro_torch.examples import (distill_uleen_head, quickstart,
+                                      uleen_edge_pipeline)
     from repro_torch.core.encoding import fit_gaussian_thermometer
     from repro_torch.configs import get_config
+    from repro_torch.data import synth
     from repro_torch.kernels import build, ops, ref, wnn_ensemble
     from repro_torch.kernels.flash_attention import plan as flash_plan
     from repro_torch.launch import scheduler, steps
-    from repro_torch.launch.scheduler import WnnBatcher
+    from repro_torch.launch.scheduler import WnnBatcher, WnnTenantBatcher
     from repro_torch.launch.serve import serve as lm_serve
     from repro_torch.models import transformer
     from repro_torch.packed import layout as packed_layout
+    from repro_torch.packed import runtime
     from repro_torch.train import optimizer
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1449,14 +1809,29 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_launches = train_path(
         (encoding, model, one_shot, multi_shot, pruning, export, ops,
-         optimizer), kernels)
+         optimizer, synth), kernels)
     torch.cuda.empty_cache()
-    lm_launches = lm_serve_path(kernels, get_config=get_config,
-                                transformer=transformer, steps=steps,
-                                scheduler=scheduler, serve_fn=lm_serve)
+    lm_launches, lm_params, lm_cfg = lm_serve_path(
+        kernels, get_config=get_config, transformer=transformer, steps=steps,
+        scheduler=scheduler, serve_fn=lm_serve)
+    torch.cuda.empty_cache()
+    head_launches = head_path(kernels, lm_params, lm_cfg,
+                              distill=distill_uleen_head, head=head,
+                              wnn_ensemble=wnn_ensemble)
+    del lm_params
+    torch.cuda.empty_cache()
+    tenant_launches = tenant_path(kernels, export, runtime, WnnTenantBatcher)
+    torch.cuda.empty_cache()
+    example_launches = examples_path(kernels, {
+        "quickstart": quickstart, "uleen_edge_pipeline": uleen_edge_pipeline,
+        "distill_uleen_head": distill_uleen_head})
+    by_path = {"uleen_serve": launches, "uleen_train": train_launches,
+               "lm_serve": lm_launches, "head": head_launches,
+               "tenant": tenant_launches, "examples": example_launches}
     # each kernel's launches on the path that carries it: the ULEEN serve
     # path for the WNN and front-end kernels, the train path for the hash,
-    # the LM serve path for flash attention
+    # the LM serve path for flash attention; `launches_by_path` has every
+    # path's count
     launches = {**launches, "h3_hash": train_launches["h3_hash"],
                 "flash_attention": lm_launches["flash_attention"]}
 
@@ -1471,6 +1846,8 @@ def main() -> int:
                      "bound_by": timing["bound_by"],
                      "bytes": timing["bytes"], "ops": timing["ops"],
                      "library_ms": timing["library_ms"],
+                     "launches_by_path": {p: v[name]
+                                          for p, v in by_path.items()},
                      **{k: timing[k] for k in ("tolerance",
                                                "bound_cuda_core_ms",
                                                "bound_per_class_ms",

@@ -5,7 +5,10 @@ Each `*_from_numpy` function takes what the JAX package holds (converted
 with `np.asarray`) and returns the port's object, and `params_to_numpy`
 goes back, so both packages can compute on the same artifact, statics,
 training state and thresholds; `lm_params_from_numpy` carries an LM's
-parameters across for the tests (the chip path initialises on the card).
+parameters across for the tests (the chip path initialises on the card);
+`head_state_from_numpy` carries a `UleenHead`'s statics, tables and
+thresholds. Tenant fleets cross artifact by artifact
+(`artifact_from_numpy`).
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core import encoding, export, model, one_shot
+from repro_torch.core import encoding, export, head, model, one_shot
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import transformer
 from repro_torch.packed import layout
@@ -99,6 +102,21 @@ def encoder_from_numpy(thresholds, *,
     dev = resolve_device(device)
     thr = torch.tensor(np.asarray(thresholds, np.float32), device=dev)
     return encoding.ThermometerEncoder(thresholds=thr)
+
+
+def head_state_from_numpy(state, *, device=DEFAULT_DEVICE
+                          ) -> head.UleenHeadState:
+    """A `UleenHeadState` from a (params, statics, thresholds) triple —
+    the field order of the JAX `UleenHeadState`, which unpacks the same
+    way: params as (tables, bias, masks), statics as (perm, h3) pairs,
+    thresholds (T,) as float32."""
+    dev = resolve_device(device)
+    params, statics, thresholds = state
+    return head.UleenHeadState(
+        params=params_from_numpy(params, device=dev),
+        statics=tuple(statics_from_numpy(statics, device=dev)),
+        thresholds=torch.from_numpy(
+            np.array(thresholds, np.float32)).to(dev))
 
 
 def lm_params_from_numpy(cfg, tree, *, device=DEFAULT_DEVICE

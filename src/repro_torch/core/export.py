@@ -219,6 +219,59 @@ def prepare_artifact(artifact: InferenceArtifact, *, backend: str = "auto",
     return prep
 
 
+def prepare_tenants(artifacts, *, backend: str = "auto", mesh=None,
+                    device=DEFAULT_DEVICE):
+    """Hoisted, cached multi-artifact preparation: one
+    `repro_torch.packed.StackedPackedTables` fleet over N same-geometry
+    artifacts on `device`.
+
+    Packed-domain only (backend "packed"/"auto"): an int8 fleet would
+    multiply the 32x expansion by T. Each artifact goes through the
+    `prepare_artifact` cache first (a tenant already served alone costs
+    nothing to prepare again; a tenant only ever stacked never builds the
+    kernel's class slices), then the tables stack with the geometry gate
+    of `packed.stack_tenants`.
+
+    Memoized on the first artifact's cache, keyed on the identity tuple
+    of the whole fleet and the device (the same artifact objects in the
+    same order hit; the cached value holds the artifacts, so the ids stay
+    valid). A tenant-sharded fleet (`mesh=`) waits for the port's sharded
+    serving (ROADMAP Queue 1 item 3).
+    """
+    from repro_torch import packed
+    from repro_torch.kernels import ops
+    ops.resolve_wnn_backend(backend)
+    if backend not in ("auto", "packed"):
+        raise ValueError(
+            f"prepare_tenants serves the packed domain only (backend="
+            f"'packed'|'auto', got {backend!r})")
+    if mesh is not None:
+        raise NotImplementedError(
+            "a tenant-sharded fleet (mesh=) belongs to the port's sharded "
+            "serving, ROADMAP Queue 1 item 3")
+    artifacts = tuple(artifacts)
+    if not artifacts:
+        raise ValueError("prepare_tenants needs at least one artifact")
+    dev = resolve_device(device)
+    cache = getattr(artifacts[0], "_prepared", None)
+    if cache is None:
+        cache = artifacts[0]._prepared = {}
+    key = ("tenants", tuple(id(a) for a in artifacts), str(dev))
+    rec = obs_registry.get_recorder()
+    hit = cache.get(key)
+    if hit is not None:
+        rec.counter("prep.cache_hit").inc()
+        return hit[0]
+    rec.counter("prep.cache_miss").inc()
+    with rec.span("prep.stack_tenants", tenants=len(artifacts),
+                  sharded=False):
+        stacked = packed.stack_tenants(
+            prepare_artifact(a, backend=backend, device=dev)
+            for a in artifacts)
+    cache[key] = (stacked, artifacts)   # pin the ids the key ranges over
+    return stacked
+
+
 def scores_from_prep(prep, bits, *, backend: str = "auto") -> torch.Tensor:
     """Backend-dispatched scores from prepared tables, on their device.
 

@@ -153,6 +153,89 @@ def wnn_scores(tuples, params, table, mask, bias, *, backend: str = "auto",
     return ref.fused_wnn_ref(tuples, params, table, mask, bias)
 
 
+_INT_DTYPES = (torch.uint8, torch.int8, torch.int16, torch.int32,
+               torch.int64)
+
+
+def validate_tenant_geometry(bits, tids, perms, params, words, mask, *,
+                             entries: int) -> None:
+    """Validation for the tenant-indexed packed entry (the JAX package's
+    checks and messages): every per-tenant leaf carries the same leading
+    T, tenant 0's slice is a legal packed geometry, and the batch and tid
+    shapes agree."""
+    if bits.ndim != 2:
+        raise ValueError(
+            f"bits must be (B, total_bits), got {tuple(bits.shape)}")
+    if tids.ndim != 1 or tids.shape[0] != bits.shape[0]:
+        raise ValueError(
+            f"tids must be (B,)=({bits.shape[0]},), got {tuple(tids.shape)}")
+    if tids.dtype not in _INT_DTYPES:
+        raise ValueError(f"tids must be integer, got {tids.dtype}")
+    if words.ndim != 4:
+        raise ValueError(f"stacked words must be (T, M, N_f, W), "
+                         f"got {tuple(words.shape)}")
+    t = words.shape[0]
+    for name, leaf, nd in (("perms", perms, 3), ("params", params, 3),
+                           ("mask", mask, 3)):
+        if leaf.ndim != nd or leaf.shape[0] != t:
+            raise ValueError(
+                f"stacked {name} must have leading T={t} and {nd} dims, "
+                f"got {tuple(leaf.shape)}")
+    # tenant 0's slice must be a legal single-tenant geometry; the leaves
+    # are uniform along T, so one check covers every tenant
+    n_f, n = perms.shape[1], perms.shape[2]
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    validate_wnn_geometry(
+        meta((bits.shape[0], n_f, n), torch.int8),
+        meta(params.shape[1:], torch.int32), meta(words.shape[1:], words.dtype),
+        meta(mask.shape[1:], mask.dtype), meta((words.shape[1],), torch.int32),
+        entries=entries)
+
+
+def wnn_scores_tenant(bits, tids, perms, params, words, mask, *,
+                      backend: str = "auto", entries: int = 0,
+                      device=DEFAULT_DEVICE) -> torch.Tensor:
+    """One submodel's tenant-indexed scores (B, M) int32 on `device`.
+
+    bits: (B, total_bits) {0,1}; tids: (B,) tenant index per row; perms:
+    (T, N_f, n); params: (T, k, n) int32; words: (T, M, N_f, W) uint32
+    bitplanes (or their int32 bit patterns); mask: (T, M, N_f) int8.
+    Returns the partial scores WITHOUT bias (the caller adds each
+    tenant's).
+
+    Packed-domain only: backend must be "packed" or "auto" (the int8
+    backends would need T copies of the 32x expansion). Both run the
+    row-gather formulation (`ref.packed_wnn_tenant_ref`) as tensor code on
+    every device, as the JAX package does on every platform: it has no
+    Pallas tenant kernel.
+    """
+    if backend not in ("packed", "auto"):
+        raise ValueError(
+            f"wnn_scores_tenant serves the packed domain only (backend="
+            f"'packed'|'auto', got {backend!r}); stacked fleets never "
+            "materialize int8 tables")
+    dev = resolve_device(device)
+    bits, tids, perms, params, words, mask = (
+        torch.as_tensor(x).to(dev)
+        for x in (bits, tids, perms, params, words, mask))
+    validate_tenant_geometry(bits, tids, perms, params, words, mask,
+                             entries=entries)
+    return ref.packed_wnn_tenant_ref(bits, tids, perms, params, words, mask)
+
+
+def wnn_infer(tuples, params, table, mask, bias, *, use_kernel: bool = False,
+              device=DEFAULT_DEVICE) -> torch.Tensor:
+    """One submodel's WNN scores (B, M) int32: the legacy wrapper over
+    `wnn_scores`. use_kernel=True forces the fused backend; otherwise
+    "auto" applies (the kernel on a GPU, its plain version on the CPU)."""
+    return wnn_scores(tuples, params, table, mask, bias,
+                      backend="fused" if use_kernel else "auto",
+                      device=device)
+
+
 def h3_hash(tuples, params, *, device=DEFAULT_DEVICE) -> torch.Tensor:
     """tuples: (B, N_f, n) {0,1}; params: (k, n) -> H3 hashes (B, N_f, k)
     int32 via the hash kernel (plain version on the CPU)."""

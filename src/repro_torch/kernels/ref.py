@@ -64,6 +64,50 @@ def packed_wnn_ref(tuples: torch.Tensor, params: torch.Tensor,
     return _popcount_scores((w >> (hashes & 31)[None]) & 1, mask, bias)
 
 
+def packed_wnn_tenant_ref(bits: torch.Tensor, tids: torch.Tensor,
+                          perms: torch.Tensor, params: torch.Tensor,
+                          words: torch.Tensor,
+                          mask: torch.Tensor) -> torch.Tensor:
+    """Tenant-indexed packed-domain scores: every batch row carries a
+    tenant id and is scored against THAT tenant's stacked tables (its
+    permutation, H3 parameters, word plane and mask are row-gathered), so
+    one fixed-shape call serves the whole fleet.
+
+    bits: (B, total_bits) {0,1}; tids: (B,) integer in [0, T); perms:
+    (T, N_f, n); params: (T, k, n); words: (T, M, N_f, W) uint32
+    bitplanes (or their int32 bit patterns); mask: (T, M, N_f) ->
+    (B, M) int32 partial scores WITHOUT bias (the caller adds each
+    tenant's). Row r is score-equal to `packed_wnn_ref` on tenant
+    tids[r]'s slice: the same fold, word gather and bit extract, only
+    indexed per row. No Pallas kernel exists for it in the JAX package
+    either; it is tensor code on every device."""
+    b = bits.shape[0]
+    t, m, n_f, w_cnt = words.shape
+    n = perms.shape[-1]
+    tids = tids.long()
+    perm_row = perms[tids].reshape(b, n_f * n).long()         # (B, N_f·n)
+    tuples = torch.gather(bits.to(torch.int8), 1, perm_row).reshape(
+        b, n_f, n)
+    del perm_row
+    h3_row = params[tids].to(torch.int32)                     # (B, k, n)
+    hashes = torch.zeros((b, n_f, h3_row.shape[1]), dtype=torch.int32,
+                         device=bits.device)
+    for i in range(n):                        # torch has no XOR reduction
+        hashes ^= torch.where(tuples[:, :, i, None] != 0,
+                              h3_row[:, None, :, i], 0)
+    # (T, M, N_f, W) -> (T·N_f·W, M): one gather fetches a row's addressed
+    # word for every class at once
+    wt = as_int32_words(words).permute(0, 2, 3, 1).reshape(t * n_f * w_cnt, m)
+    rows = ((tids[:, None, None] * n_f
+             + torch.arange(n_f, device=bits.device)[None, :, None]) * w_cnt
+            + (hashes >> 5))
+    vals = (wt[rows] >> (hashes & 31)[..., None]) & 1          # (B, N_f, k, M)
+    resp = torch.amin(vals, dim=2)                             # AND for {0,1}
+    # survive iff nonzero (core/bloom.py::apply_mask)
+    surv = (mask[tids] != 0).to(torch.int32)                   # (B, M, N_f)
+    return torch.sum(resp.transpose(1, 2) * surv, dim=-1, dtype=torch.int32)
+
+
 def _unsigned(words: torch.Tensor) -> torch.Tensor:
     """Class words (uint8, or uint16/uint32 as int16/int32 bit patterns)
     -> int64 holding their unsigned values."""

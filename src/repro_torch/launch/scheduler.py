@@ -12,8 +12,11 @@ prefill waits for its item in ROADMAP.md (Queue 1 item 3), and there is no
 
 `WnnBatcher` queues WNN classification requests on the host; each
 `step()` serves up to `slots` of them through ONE fixed-shape scores
-launch over the artifact's prepared tables on the device. The
-multi-tenant and class-sharded batchers belong to later slices.
+launch over the artifact's prepared tables on the device.
+`WnnTenantBatcher` grows it a tenant axis: a fleet of same-geometry
+artifacts, at most `capacity` of them resident in one stacked device
+cache under LRU admission. The class-sharded batcher belongs to a later
+slice (ROADMAP Queue 1 item 3).
 
 Eager PyTorch compiles nothing, so where the JAX engines count retraces,
 `trace_counts` here counts the distinct input shapes each step function
@@ -528,3 +531,304 @@ class WnnBatcher:
                 "latency_p50_s": h.quantile(0.5),
                 "latency_p99_s": h.quantile(0.99),
                 "latency_max_s": h.max}
+
+
+@dataclasses.dataclass
+class WnnTenantResult:
+    """One served multi-tenant classification request."""
+    rid: int
+    tid: int                           # tenant the request was routed to
+    scores: np.ndarray                 # (M,) int32 ensemble scores
+    pred: int
+    t_submit: float
+    t_done: Optional[float] = None     # None = queued; see WnnResult
+
+    @property
+    def latency(self) -> float:
+        return self.t_done - self.t_submit
+
+
+class WnnTenantBatcher:
+    """Tenant-routed micro-batching over a fleet of same-geometry WNN
+    artifacts: `WnnBatcher` grown a tenant axis.
+
+    Artifacts register with `add_tenant`; at most `capacity` of them are
+    resident at once in one device-side `StackedPackedTables` cache
+    (`packed.stacked_zeros` slots). Requests carry a tenant id; each
+    `step()` routes up to `slots` of them through ONE fixed-shape
+    `stacked_predict` call whose rows index their tenant's tables by slot,
+    so neither the queue depth nor which tenants are in the batch changes
+    the shapes launched (`trace_counts["batch_scores"]` stays 1; slot
+    installs are one more fixed shape, `trace_counts["install"]`).
+
+    Admission is LRU: a request for a tenant that is not resident copies
+    its prepared tables (`core.export.prepare_artifact`, cached, so a
+    tenant admitted again after eviction is never prepared again) into a
+    free slot, else into the least-recently-used slot whose tenant the
+    forming batch does not use. When every slot is pinned by the batch,
+    the request defers to the queue head for the next step: a batch never
+    needs more distinct tenants than `capacity`, and `drain()` always
+    ends (a step's first request always admits). A tenant-sharded
+    batcher (`mesh=`) waits for the port's sharded serving.
+
+        batcher = WnnTenantBatcher(capacity=64, slots=32)
+        tid = batcher.add_tenant(artifact)
+        rid = batcher.submit(tid, encoded_bits_row)
+        results = batcher.drain()      # -> [WnnTenantResult]
+    """
+
+    def __init__(self, *, capacity: int = 64, slots: int = 64,
+                 backend: str = "auto", mesh=None, device=DEFAULT_DEVICE,
+                 clock: Callable = None):
+        if capacity < 1:
+            raise ValueError("need capacity >= 1")
+        if slots < 1:
+            raise ValueError("need slots >= 1")
+        if backend not in ("packed", "auto"):
+            raise ValueError(
+                f"the tenant batcher serves the packed domain only "
+                f"(backend='packed'|'auto', got {backend!r})")
+        if mesh is not None:
+            raise NotImplementedError(
+                "a mesh-sharded tenant batcher belongs to the port's "
+                "sharded serving, ROADMAP Queue 1 item 3")
+        self.device = resolve_device(device)
+        self.capacity = capacity
+        self.slots = slots
+        self.backend = backend
+        self.clock = clock or time.perf_counter
+        self.trace_counts: collections.Counter = collections.Counter()
+        self.lat_hist = obs_metrics.Histogram()
+
+        self.total_bits: Optional[int] = None
+        self._tenants: list = []           # tid -> prepared PackedTables
+        self._artifacts: list = []         # keep prep cache owners alive
+        self._stack = None                 # device StackedPackedTables
+        self._resident: dict = {}          # tid -> slot
+        self._slot_tid: list = [None] * capacity
+        self._lru: collections.OrderedDict = collections.OrderedDict()
+        self._scores = None
+        self._install = None
+
+        self.queue: collections.deque = collections.deque()
+        self.results: dict = {}
+        self._next_rid = 0
+        self.batches = 0
+        self.served = 0
+        self.admissions = 0
+        self.evictions = 0
+        self.hits = 0
+        self.misses = 0
+        self.per_tenant: dict = {}
+
+    # -- fleet registry -----------------------------------------------------
+
+    def add_tenant(self, artifact) -> int:
+        """Register one artifact; returns its tenant id. The first tenant
+        fixes the fleet's geometry, which later artifacts must match
+        exactly (entries, classes, per-submodel shapes), as
+        `packed.stack_tenants` requires."""
+        from repro_torch.core import export as export_mod
+        prep = export_mod.prepare_artifact(artifact, backend=self.backend,
+                                           device=self.device)
+        if self._stack is None:
+            self.total_bits = int(artifact.total_bits)
+            self._build(prep)
+        else:
+            tmpl = self._tenants[0]
+            if (prep.entries != tmpl.entries
+                    or prep.num_classes != tmpl.num_classes
+                    or int(artifact.total_bits) != self.total_bits
+                    or any(a.shape != b.shape for a, b in
+                           zip(prep.words, tmpl.words))
+                    or any(a.shape != b.shape for a, b in
+                           zip(prep.perms, tmpl.perms))):
+                raise ValueError(
+                    f"tenant {len(self._tenants)} geometry does not match "
+                    f"the fleet's (entries {prep.entries} vs {tmpl.entries}, "
+                    f"M {prep.num_classes} vs {tmpl.num_classes}) — stacked "
+                    "tenants must share geometry")
+        tid = len(self._tenants)
+        self._tenants.append(prep)
+        self._artifacts.append(artifact)
+        # per-tenant latency is a fixed-bucket histogram, not a list that
+        # grows with the traffic
+        self.per_tenant[tid] = {"requests": 0, "batches": 0,
+                                "hist": obs_metrics.Histogram()}
+        return tid
+
+    def _build(self, template):
+        """The device cache and the two fixed-shape calls, from the first
+        tenant's geometry."""
+        from repro_torch.packed import layout, runtime
+        backend, dev = self.backend, self.device
+        self._stack = layout.stacked_zeros(template, self.capacity)
+
+        def _batch_scores(st, bits, sids):
+            # slot-indexed fleet scoring: THE serve loop of the stacked path
+            scores, _ = runtime.stacked_predict(st, bits, sids,
+                                                backend=backend, device=dev)
+            return scores
+
+        def _install(st, pt, slot: int):
+            # in place: the resident stack keeps its shapes and storage
+            for dst, src in zip((*st.words, *st.masks, *st.perms, *st.h3s,
+                                 st.bias),
+                                (*pt.words, *pt.masks, *pt.perms, *pt.h3s,
+                                 pt.bias)):
+                dst[slot].copy_(src)
+            return st
+
+        self._scores = torchhooks.counted(_batch_scores, self.trace_counts,
+                                          "batch_scores")
+        self._install = torchhooks.counted(_install, self.trace_counts,
+                                           "install")
+
+    # -- serving ------------------------------------------------------------
+
+    def submit(self, tid: int, bits) -> int:
+        """Queue one encoded input for tenant `tid`; returns its rid."""
+        if not 0 <= tid < len(self._tenants):
+            raise ValueError(
+                f"unknown tenant {tid}; registered: {len(self._tenants)}")
+        bits = np.asarray(bits).reshape(-1)
+        if bits.shape[0] != self.total_bits:
+            raise ValueError(f"request has {bits.shape[0]} bits, the fleet "
+                             f"encodes {self.total_bits}")
+        rid = self._next_rid
+        self._next_rid += 1
+        self.results[rid] = WnnTenantResult(rid=rid, tid=tid, scores=None,
+                                            pred=-1, t_submit=self.clock())
+        self.queue.append((rid, tid, bits.astype(np.uint8)))
+        return rid
+
+    def _admit(self, tid: int, batch_tenants: set) -> Optional[int]:
+        """Install tenant `tid` into a slot: a free one, else the LRU
+        resident the forming batch does not use. None when every slot is
+        pinned (the caller defers the request)."""
+        rec = obs_registry.get_recorder()
+        free = [s for s, t in enumerate(self._slot_tid) if t is None]
+        if free:
+            slot = free[0]
+        else:
+            victim = next((t for t in self._lru if t not in batch_tenants),
+                          None)
+            if victim is None:
+                return None
+            slot = self._resident.pop(victim)
+            del self._lru[victim]
+            self.evictions += 1
+            rec.counter("serve.tenant.eviction").inc()
+        with rec.span("tenant.install", tid=tid, slot=slot):
+            self._stack = self._install(self._stack, self._tenants[tid],
+                                        slot)
+        self._slot_tid[slot] = tid
+        self._resident[tid] = slot
+        self.admissions += 1
+        rec.counter("serve.tenant.admission").inc()
+        return slot
+
+    def step(self) -> int:
+        """Serve up to `slots` queued requests in one fixed-shape call,
+        admitting and evicting tenants as needed; returns the number
+        served. Requests whose tenant cannot be made resident beside this
+        batch's tenants defer, in order, to the queue head."""
+        if not self.queue:
+            return 0
+        rec = obs_registry.get_recorder()
+        take: list = []
+        deferred: list = []
+        batch_tenants: set = set()
+        while self.queue and len(take) < self.slots:
+            rid, tid, bits = self.queue.popleft()
+            slot = self._resident.get(tid)
+            if slot is not None:
+                self.hits += 1
+                rec.counter("serve.tenant.cache_hit").inc()
+            else:
+                slot = self._admit(tid, batch_tenants)
+                if slot is None:
+                    # deferred, not a miss: the retry decides again, so
+                    # hits + misses always equals requests served
+                    deferred.append((rid, tid, bits))
+                    continue
+                self.misses += 1
+                rec.counter("serve.tenant.cache_miss").inc()
+            batch_tenants.add(tid)
+            take.append((rid, tid, bits, slot))
+        for item in reversed(deferred):
+            self.queue.appendleft(item)
+
+        batch = np.zeros((self.slots, self.total_bits), np.uint8)
+        sids = np.zeros((self.slots,), np.int64)
+        for i, (_rid, _tid, bits, slot) in enumerate(take):
+            batch[i] = bits
+            sids[i] = slot
+        with rec.span("wnn.tenant_batch", take=len(take),
+                      tenants=len(batch_tenants)):
+            # .cpu() waits for the device: the span covers the whole call
+            scores = self._scores(
+                self._stack, torch.from_numpy(batch).to(self.device),
+                torch.from_numpy(sids).to(self.device)).cpu().numpy()
+        t = self.clock()
+        lat_hist_global = rec.histogram("serve.tenant.latency_s")
+        for i, (rid, tid, _bits, _slot) in enumerate(take):
+            res = self.results[rid]
+            res.scores = scores[i]
+            res.pred = int(np.argmax(scores[i]))   # ties: first class
+            res.t_done = t
+            self.lat_hist.observe(res.latency)
+            lat_hist_global.observe(res.latency)
+            pt = self.per_tenant[tid]
+            pt["requests"] += 1
+            pt["hist"].observe(res.latency)
+        for tid in batch_tenants:
+            self.per_tenant[tid]["batches"] += 1
+            self._lru[tid] = None
+            self._lru.move_to_end(tid)    # most recently used -> tail
+        self.batches += 1
+        self.served += len(take)
+        return len(take)
+
+    def drain(self) -> List[WnnTenantResult]:
+        """Serve until the queue is empty; results in rid order."""
+        while self.queue:
+            self.step()
+        return [self.results[rid] for rid in sorted(self.results)]
+
+    def stats(self) -> dict:
+        """Fleet-serving stats: the JAX batcher's stable key set
+        (latencies None before any request finishes) and a per-tenant
+        breakdown (requests, batches the tenant rode in, its share of the
+        launched capacity, latency mean/p50/p99)."""
+        done = [r for r in self.results.values() if r.t_done is not None]
+        h = self.lat_hist
+        out = {"requests": len(done), "batches": self.batches,
+               "submitted": self._next_rid, "served": self.served,
+               "queued": len(self.queue),
+               "tenants": len(self._tenants),
+               "capacity": self.capacity,
+               "resident": len(self._resident),
+               "admissions": self.admissions,
+               "evictions": self.evictions,
+               "hits": self.hits, "misses": self.misses,
+               "occupancy": self.served / max(1, self.batches * self.slots),
+               "traces": int(self.trace_counts["batch_scores"]),
+               "install_traces": int(self.trace_counts["install"]),
+               "latency_mean_s": h.mean,
+               "latency_p50_s": h.quantile(0.5),
+               "latency_p99_s": h.quantile(0.99),
+               "latency_max_s": h.max,
+               "per_tenant": {}}
+        cap = max(1, self.batches * self.slots)
+        for tid, pt in self.per_tenant.items():
+            th = pt["hist"]
+            out["per_tenant"][tid] = {
+                "requests": pt["requests"],
+                "batches": pt["batches"],
+                "occupancy": pt["requests"] / cap,
+                "latency_mean_s": th.mean,
+                "latency_p50_s": th.quantile(0.5),
+                "latency_p99_s": th.quantile(0.99),
+            }
+        return out

@@ -8,11 +8,13 @@ it launches (each would be its own CUDA-graph capture or kernel
 specialisation). `counted` bumps its counter the first time each
 distinct signature of tensor shapes, dtypes and devices reaches the
 wrapped function, and never again for that signature. Tensors inside
-dicts, lists and tuples (a batch dict, a serve state) count as arguments
-too; other objects (a parameter module) do not.
+dicts, lists, tuples and the public fields of dataclasses (a batch dict,
+a serve state, a stacked tenant fleet) count as arguments too; other
+objects (a parameter module) do not.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -29,6 +31,10 @@ def _tensors(v):
     elif isinstance(v, (list, tuple)):
         for x in v:
             yield from _tensors(x)
+    elif dataclasses.is_dataclass(v) and not isinstance(v, type):
+        for f in dataclasses.fields(v):
+            if not f.name.startswith("_"):
+                yield from _tensors(getattr(v, f.name))
 
 
 def _signature(args, kwargs) -> tuple:

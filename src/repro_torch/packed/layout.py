@@ -11,8 +11,9 @@ zeros; H3 hashes stay in [0, E), so padding bits are never read.
 
 The port carries word planes as int32 tensors holding the uint32 bit
 patterns: torch has few uint32 ops, and every consumer only shifts and
-masks. Stacked (multi-tenant) and sharded layouts belong to later slices
-of the port.
+masks. `StackedPackedTables` stacks a fleet of same-geometry tables along
+a leading tenant axis (multi-tenant serving); sharded layouts belong to a
+later slice of the port (ROADMAP Queue 1 item 3).
 """
 from __future__ import annotations
 
@@ -144,13 +145,14 @@ class PackedTables:
     submodel and `num_classes`. Construction validates the geometry, so
     the serve path does not repeat it per batch.
 
-    Derived once at construction, on the same device: `kernel_args`, the
+    Derived once, on first use and on the same device: `kernel_args`, the
     whole ensemble flattened for the one kernel launch a batch makes on a
     GPU (`kernels/wnn_ensemble.py`), which holds the class slices
     (N_f, E[, P]) and mask words (N_f[, P]) that answer every class with
     one load (`class_slices_from_words`, `class_mask_words`); `slices`
-    and `class_masks` are per-submodel views of them. The words stay as
-    the artifact has them.
+    and `class_masks` are per-submodel views of them. Tables that are
+    only ever stacked into a tenant fleet (`stack_tenants`) never build
+    them. The words stay as the artifact has them.
     """
     words: tuple
     masks: tuple
@@ -159,8 +161,8 @@ class PackedTables:
     bias: torch.Tensor
     entries: tuple = ()
     num_classes: int = 0
-    kernel_args: object = dataclasses.field(default=None, repr=False,
-                                            init=False)
+    _kernel_args: object = dataclasses.field(default=None, repr=False,
+                                             init=False, compare=False)
 
     def __post_init__(self):
         n = len(self.words)
@@ -171,11 +173,17 @@ class PackedTables:
                 f"masks={len(self.masks)} perms={len(self.perms)} "
                 f"h3s={len(self.h3s)} entries={len(self.entries)}")
         self.validate()
-        self.kernel_args = wnn_ensemble.ensemble_args(
-            self.perms, self.h3s,
-            [class_slices_from_words(w, e)
-             for w, e in zip(self.words, self.entries)],
-            [class_mask_words(m) for m in self.masks], self.num_classes)
+
+    @property
+    def kernel_args(self) -> wnn_ensemble.EnsembleArgs:
+        """The ensemble's launch arguments, built on first use."""
+        if self._kernel_args is None:
+            self._kernel_args = wnn_ensemble.ensemble_args(
+                self.perms, self.h3s,
+                [class_slices_from_words(w, e)
+                 for w, e in zip(self.words, self.entries)],
+                [class_mask_words(m) for m in self.masks], self.num_classes)
+        return self._kernel_args
 
     @property
     def slices(self) -> tuple:
@@ -282,3 +290,170 @@ def from_artifact(artifact, *, device=DEFAULT_DEVICE) -> PackedTables:
         bias=torch.from_numpy(np.asarray(artifact.bias, np.int32)).to(dev),
         entries=tuple(int(sm.entries) for sm in subs),
         num_classes=int(artifact.num_classes))
+
+
+@dataclasses.dataclass
+class StackedPackedTables:
+    """A fleet of same-geometry deployable models: T `PackedTables`
+    stacked along a new leading tenant axis.
+
+    Leaves (per submodel, tuple-indexed): `words` (T, M, N_f, W) int32
+    bitplanes, `masks` (T, M, N_f) int8, `perms` (T, N_f, n) int64, `h3s`
+    (T, k, n) int32; plus `bias` (T, M) int32 — the dtypes of
+    `PackedTables`. Every tenant trained its own hash block, so perms and
+    H3 parameters are per-tenant leaves too; only the geometry is shared,
+    which is what lets one fixed-shape call serve the whole fleet.
+    `entries` per submodel, `num_classes` and `num_tenants` are static.
+    """
+    words: tuple
+    masks: tuple
+    perms: tuple
+    h3s: tuple
+    bias: torch.Tensor
+    entries: tuple = ()
+    num_classes: int = 0
+    num_tenants: int = 0
+
+    def __post_init__(self):
+        n = len(self.words)
+        if not (len(self.masks) == len(self.perms) == len(self.h3s)
+                == len(self.entries) == n):
+            raise ValueError(
+                f"per-submodel tuples disagree: words={n} "
+                f"masks={len(self.masks)} perms={len(self.perms)} "
+                f"h3s={len(self.h3s)} entries={len(self.entries)}")
+
+    @property
+    def num_submodels(self) -> int:
+        return len(self.words)
+
+    @property
+    def device(self) -> torch.device:
+        return self.bias.device
+
+    def validate(self) -> None:
+        """Every per-tenant leaf carries the same leading T, and tenant 0's
+        slice is a legal single-tenant layout (the leaves are uniform
+        along T, so checking one slice checks all)."""
+        t = self.num_tenants
+        if t < 1:
+            raise ValueError(f"num_tenants={t} must be >= 1")
+        for i, leaves in enumerate(zip(self.words, self.masks, self.perms,
+                                       self.h3s)):
+            for leaf in leaves:
+                if leaf.shape[0] != t:
+                    raise ValueError(
+                        f"submodel {i}: leading tenant dim "
+                        f"{leaf.shape[0]} != num_tenants={t}")
+        if tuple(self.bias.shape) != (t, self.num_classes):
+            raise ValueError(f"bias {tuple(self.bias.shape)} != (T, M)="
+                             f"({t}, {self.num_classes})")
+        self.tenant_slice(0).validate()
+
+    def tenant_slice(self, tid: int) -> PackedTables:
+        """The single-tenant `PackedTables` at index `tid` (views)."""
+        if not 0 <= tid < self.num_tenants:
+            raise ValueError(
+                f"tenant {tid} outside [0, {self.num_tenants})")
+        return PackedTables(
+            words=tuple(w[tid] for w in self.words),
+            masks=tuple(m[tid] for m in self.masks),
+            perms=tuple(p[tid] for p in self.perms),
+            h3s=tuple(h[tid] for h in self.h3s),
+            bias=self.bias[tid],
+            entries=self.entries, num_classes=self.num_classes)
+
+    def table_bytes(self) -> int:
+        """Packed word storage of the whole fleet (4 bytes per word)."""
+        return sum(w.numel() * 4 for w in self.words)
+
+    def nbytes(self) -> int:
+        """Every leaf's bytes on the device: words, masks, perms, H3
+        parameters and bias."""
+        leaves = (*self.words, *self.masks, *self.perms, *self.h3s,
+                  self.bias)
+        return sum(x.numel() * x.element_size() for x in leaves)
+
+    def to(self, device) -> "StackedPackedTables":
+        """The same fleet on `device` (self when already there)."""
+        device = torch.device(device)
+        if self.device == device:
+            return self
+
+        def mv(ts):
+            return tuple(t.to(device) for t in ts)
+
+        return StackedPackedTables(
+            words=mv(self.words), masks=mv(self.masks), perms=mv(self.perms),
+            h3s=mv(self.h3s), bias=self.bias.to(device), entries=self.entries,
+            num_classes=self.num_classes, num_tenants=self.num_tenants)
+
+
+def stack_tenants(tables) -> StackedPackedTables:
+    """Stack N same-geometry `PackedTables` (on one device) into one fleet.
+
+    Every model must agree on submodel count, `entries`, `num_classes`
+    and per-submodel leaf shapes; a mismatch raises ValueError naming the
+    offender, so one fixed-shape call serves every tenant.
+    """
+    tables = list(tables)
+    if not tables:
+        raise ValueError("stack_tenants needs at least one PackedTables")
+    ref = tables[0]
+    for t, pt in enumerate(tables[1:], start=1):
+        if pt.entries != ref.entries:
+            raise ValueError(
+                f"tenant {t}: entries {pt.entries} != tenant 0's "
+                f"{ref.entries} — stacked tenants must share geometry")
+        if pt.num_classes != ref.num_classes:
+            raise ValueError(
+                f"tenant {t}: num_classes {pt.num_classes} != tenant 0's "
+                f"{ref.num_classes}")
+        for i, (a, b) in enumerate(zip(pt.words, ref.words)):
+            if a.shape != b.shape:
+                raise ValueError(
+                    f"tenant {t} submodel {i}: words {tuple(a.shape)} != "
+                    f"tenant 0's {tuple(b.shape)}")
+        for i, (a, b) in enumerate(zip(pt.perms, ref.perms)):
+            if a.shape != b.shape:
+                raise ValueError(
+                    f"tenant {t} submodel {i}: perm {tuple(a.shape)} != "
+                    f"tenant 0's {tuple(b.shape)}")
+    n_sub = ref.num_submodels
+    st = StackedPackedTables(
+        words=tuple(torch.stack([pt.words[i] for pt in tables])
+                    for i in range(n_sub)),
+        masks=tuple(torch.stack([pt.masks[i] for pt in tables])
+                    for i in range(n_sub)),
+        perms=tuple(torch.stack([pt.perms[i] for pt in tables])
+                    for i in range(n_sub)),
+        h3s=tuple(torch.stack([pt.h3s[i] for pt in tables])
+                  for i in range(n_sub)),
+        bias=torch.stack([pt.bias for pt in tables]),
+        entries=ref.entries, num_classes=ref.num_classes,
+        num_tenants=len(tables))
+    st.validate()
+    return st
+
+
+def stacked_zeros(template: PackedTables,
+                  capacity: int) -> StackedPackedTables:
+    """An all-empty fleet of `capacity` slots with `template`'s geometry,
+    on its device: the resident cache the tenant batcher installs models
+    into. Empty Bloom words answer 0 for every lookup, so an unfilled
+    slot scores exactly the zero bias it carries."""
+    if capacity < 1:
+        raise ValueError(f"capacity={capacity} must be >= 1")
+
+    def z(x):
+        return torch.zeros((capacity, *x.shape), dtype=x.dtype,
+                           device=x.device)
+
+    return StackedPackedTables(
+        words=tuple(z(w) for w in template.words),
+        masks=tuple(z(m) for m in template.masks),
+        perms=tuple(z(p) for p in template.perms),
+        h3s=tuple(z(h) for h in template.h3s),
+        bias=z(template.bias),
+        entries=template.entries, num_classes=template.num_classes,
+        num_tenants=capacity)

@@ -359,3 +359,51 @@ def test_flash_attention_rejects_strides_its_route_cannot_take(gen, dtype):
     with pytest.raises(ValueError, match="aligned base"):
         kernels.flash_attention(ok, shifted, ok)
     assert kernels.flash_attention.launches == before
+
+
+@pytest.mark.parametrize("hidden_dim", [32, 3072])
+def test_head_deployed_scores_bit_equal_across_backends_on_the_card(
+        gen, hidden_dim):
+    """A UleenHead at a small width and at Llama 3.2 3B's (12,288 input
+    bits): fused, packed and auto launch the WNN kernel, and their int32
+    scores equal the plain gather formulation's."""
+    from repro_torch.core import head
+    from repro_torch.core.model import SubmodelSpec
+    cfg = head.UleenHeadConfig(num_classes=4, hidden_dim=hidden_dim,
+                               submodels=(SubmodelSpec(8, 6),
+                                          SubmodelSpec(16, 6)))
+    state = head.init_head(gen, cfg)
+    state = state._replace(params=state.params._replace(tables=tuple(
+        torch.rand(t.shape, generator=gen, device="cuda") * 2 - 1
+        for t in state.params.tables)))
+    h = torch.randn((67, hidden_dim), generator=gen, device="cuda")
+    want = head.apply_head(cfg, state, h, backend="gather")
+    for backend in ("fused", "packed", "auto"):
+        before = kernels.launch_counts()
+        got = head.apply_head(cfg, state, h, backend=backend)
+        after = kernels.launch_counts()
+        assert got.is_cuda and got.dtype == torch.int32
+        assert torch.equal(got, want), backend
+        assert sum(after[k] - before[k]
+                   for k in ("packed_wnn", "fused_wnn")) == 2, backend
+
+
+def test_stacked_tenant_scores_equal_the_wnn_kernel_on_the_card(gen):
+    """Tenant-stacked scores of a ULN-S-shaped fleet, row by row equal to
+    each tenant's own artifact scored by the WNN kernel."""
+    from repro_torch.packed import runtime
+    subs = ((12, 6, 2), (16, 6, 2), (20, 6, 2))
+    arts = [seeded_artifact(40 + t, 10, subs, 1568) for t in range(6)]
+    st = export.prepare_tenants(arts)
+    bits = torch.randint(0, 2, (301, 1568), generator=gen, device="cuda",
+                         dtype=torch.int8)
+    tids = torch.randint(0, 6, (301,), generator=gen, device="cuda")
+    scores, preds = runtime.stacked_predict(st, bits, tids)
+    assert scores.is_cuda and scores.dtype == torch.int32
+    before = kernels.packed_wnn.launches
+    for t in range(6):
+        sel = (tids == t).nonzero().squeeze(1)
+        want = export.artifact_scores(arts[t], bits[sel], backend="packed")
+        assert torch.equal(scores[sel], want), t
+    assert kernels.packed_wnn.launches == before + 6
+    assert torch.equal(preds.long(), torch.argmax(scores, -1))

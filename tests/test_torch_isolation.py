@@ -38,14 +38,20 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
-        "print(bad)\n")
+        "print(bad)\n"
+        "print(' '.join(sorted(n for n in sys.modules "
+        "if n.startswith('repro_torch'))))\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, cwd=REPO, timeout=300)
     assert out.returncode == 0, out.stderr
-    n_modules, bad = out.stdout.strip().splitlines()
+    n_modules, bad, names = out.stdout.strip().splitlines()
     assert int(n_modules) >= 20
     assert bad == "[]"
+    assert {"repro_torch.data.synth", "repro_torch.core.head",
+            "repro_torch.core.hwmodel", "repro_torch.examples.quickstart",
+            "repro_torch.examples.uleen_edge_pipeline",
+            "repro_torch.examples.distill_uleen_head"} <= set(names.split())
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -74,7 +80,12 @@ def _entry_points():
     from repro_torch.kernels import ops
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
-    from repro_torch.launch.scheduler import Engine, WnnBatcher
+    from repro_torch.launch.scheduler import (Engine, WnnBatcher,
+                                              WnnTenantBatcher)
+    from repro_torch.core import head
+    from repro_torch.data import synth
+    from repro_torch.examples import (distill_uleen_head, quickstart,
+                                      uleen_edge_pipeline)
     from repro_torch.models import transformer
     from repro_torch.packed import layout, runtime
     art = export.load(GOLDEN)
@@ -85,6 +96,11 @@ def _entry_points():
     z = torch.zeros
     lm = get_config("llama3p2_3b", smoke=True)
     lm_params = transformer.init_params(lm, torch.Generator(), device="cpu")
+    hcfg = head.UleenHeadConfig(num_classes=2, hidden_dim=4,
+                                submodels=(model.SubmodelSpec(4, 3),))
+    hstate = head.init_head(torch.Generator(), hcfg, device="cpu")
+    st = layout.stack_tenants([pt])
+    tids = np.zeros(2, np.int32)
     return {
         "artifact_scores": lambda: export.artifact_scores(art, bits),
         "prepare_artifact": lambda: export.prepare_artifact(art),
@@ -136,6 +152,33 @@ def _entry_points():
                                           "--smoke"]),
         "lm_params_from_numpy": lambda: convert.lm_params_from_numpy(
             lm, {"embed": np.zeros((4, 4), np.float32), "segments": []}),
+        "make_mnist_like": lambda: synth.make_mnist_like(
+            torch.Generator(), 4, 2, hw=4),
+        "make_tabular": lambda: synth.make_tabular(torch.Generator(), 3, 2,
+                                                   4, 2),
+        "make_uci_like": lambda: synth.make_uci_like(torch.Generator(),
+                                                     "iris"),
+        "make_lm_tokens": lambda: synth.make_lm_tokens(0, 10, 20),
+        "init_head": lambda: head.init_head(torch.Generator(), hcfg),
+        "gaussian_thresholds": lambda: head.gaussian_thresholds(4),
+        "apply_head": lambda: head.apply_head(hcfg, hstate, z((2, 4))),
+        "head_loss": lambda: head.head_loss(hcfg, hstate, z((2, 4)),
+                                            [0, 1]),
+        "head_state_from_numpy": lambda: convert.head_state_from_numpy(
+            (([], np.zeros(2, np.float32), []), [], np.zeros(4))),
+        "wnn_infer": lambda: ops.wnn_infer(
+            z((2, 3, 4), dtype=torch.int8), z((2, 4), dtype=torch.int32),
+            z((5, 3, 8), dtype=torch.int8), z((5, 3), dtype=torch.int8),
+            z(5, dtype=torch.int32)),
+        "wnn_scores_tenant": lambda: ops.wnn_scores_tenant(
+            bits, tids, st.perms[0], st.h3s[0], st.words[0], st.masks[0],
+            entries=st.entries[0]),
+        "stacked_scores": lambda: runtime.stacked_scores(st, bits, tids),
+        "prepare_tenants": lambda: export.prepare_tenants([art]),
+        "WnnTenantBatcher": lambda: WnnTenantBatcher(capacity=2, slots=2),
+        "quickstart_main": lambda: quickstart.main(),
+        "uleen_edge_pipeline_main": lambda: uleen_edge_pipeline.main(),
+        "distill_uleen_head_main": lambda: distill_uleen_head.main(),
     }
 
 
@@ -148,7 +191,12 @@ def _entry_points():
     "train_one_shot", "evaluate_one_shot", "train_multi_shot", "evaluate",
     "prune_and_finetune", "statics_from_numpy", "params_from_numpy",
     "one_shot_from_numpy", "lm_init_params", "Engine", "serve_main",
-    "lm_params_from_numpy"])
+    "lm_params_from_numpy", "make_mnist_like", "make_tabular",
+    "make_uci_like", "make_lm_tokens", "init_head", "gaussian_thresholds",
+    "apply_head", "head_loss", "head_state_from_numpy", "wnn_infer",
+    "wnn_scores_tenant", "stacked_scores", "prepare_tenants",
+    "WnnTenantBatcher", "quickstart_main", "uleen_edge_pipeline_main",
+    "distill_uleen_head_main"])
 def test_entry_points_raise_without_a_gpu_unless_asked_for_the_cpu(name):
     _no_gpu()
     with pytest.raises(RuntimeError, match="no CUDA device"):

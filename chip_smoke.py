@@ -39,10 +39,22 @@ submodels, M = 10) and one LM path:
   `prepare_tenants`, `stacked_predict` on 65536 rows (8 tenants held
   bit-equal to the WNN kernel), and `WnnTenantBatcher` (64 resident
   tenants, 256 slots) through 16384 Zipf-distributed requests;
+* the paged path: the LM path's backlog again through the paged `Engine`
+  (blocks of 16 tokens, a pool of half the contiguous worst case) at
+  prefill_batch 1 and 4, held against the contiguous Engine's tokens and
+  first-token logits; every batched prefill is one flash launch a layer;
+* the sharded path: the ULN-XL ensemble (M = 32, 784 x 8 bits) served
+  class-sharded by `WnnBatcher(mesh=)` on 65536 rows at model = 2, 4 and
+  data = 2 x model = 2, and the 2048-tenant ULN-S fleet tenant-sharded
+  (`make_tenant_sharded_predict`) at model = 2 and 4, in rank processes
+  (`launch.mesh.spawn_ranks`) that share the one card under gloo, whose
+  collectives run on host copies; with two or more cards, one rank per
+  card under NCCL. Every rank's scores are bit-equal to the unsharded
+  port's, with one WNN launch a batch on each rank;
 * the port's three examples at their own sizes, quickstart last.
 
 Each path resets the kernels' launch counts just before it and reads them
-just after. The tenant path's scoring is tensor code, as the JAX package's
+just after (the sharded path in each rank process, summed over ranks). The tenant path's scoring is tensor code, as the JAX package's
 is on every platform (no Pallas tenant kernel); its line puts that time
 beside the WNN kernel's on the same rows. Every phase prints one JSON line; any mismatch raises, so the
 exit code is nonzero. The last line is `{"ok": true, "device": {...}}`;
@@ -85,6 +97,7 @@ never calls it).
 """
 from __future__ import annotations
 
+import collections
 import json
 import math
 import re
@@ -1190,8 +1203,10 @@ def lm_serve_path(kernels, *, get_config, transformer, steps, scheduler,
     rng = np.random.default_rng(20263)
     prompts = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), dtype=np.int32)).to(dev)
-    max_len = max(LM_PROMPT + LM_GEN, max(LM_PROMPT_LENS)
-                  + max(LM_GEN_LENS)) + 1
+    # the widest request plus one, rounded up to whole KV blocks so the
+    # paged path serves the same backlog at the same cache width
+    max_len = -(-(max(LM_PROMPT + LM_GEN, max(LM_PROMPT_LENS)
+                      + max(LM_GEN_LENS)) + 1) // PAGED_BLOCK) * PAGED_BLOCK
     reqs = scheduler.synth_request_stream(
         cfg, LM_REQUESTS, seed=20263, prompt_lens=LM_PROMPT_LENS,
         gen_lens=LM_GEN_LENS)
@@ -1235,16 +1250,7 @@ def lm_serve_path(kernels, *, get_config, transformer, steps, scheduler,
 
     eng = scheduler.Engine(cfg, params, slots=LM_SLOTS, max_len=max_len,
                            device=dev)
-    first_logits = {}
-    inner = eng._prefill
-
-    def capture(params, batch, length, slot, state):
-        out_logits, out_state = inner(params, batch, length, slot, state)
-        rid = eng.slots[slot].request.rid
-        if rid < LM_BATCH:
-            first_logits[rid] = out_logits[0, -1].float()
-        return out_logits, out_state
-    eng._prefill = capture
+    first_logits, margins = tap_engine(eng)
     t0 = time.perf_counter()
     results = eng.run(reqs)
     torch.cuda.synchronize()
@@ -1328,8 +1334,49 @@ def lm_serve_path(kernels, *, get_config, transformer, steps, scheduler,
          prefill_calls=prefill_calls, path_s=seconds,
          max_memory_allocated_gib=peak_bytes / 2 ** 30, launches=launches,
          profile=profile)
+    contiguous = {"reqs": reqs, "max_len": max_len,
+                  "tokens": [r.tokens for r in results],
+                  "first_logits": first_logits, "margins": margins,
+                  "stats": st, "wall_s": engine_s}
     del eng
-    return launches, params, cfg
+    return launches, params, cfg, contiguous
+
+
+def tap_engine(eng):
+    """Wrap an Engine's prefill and decode steps (contiguous or paged) to
+    record, by rid, each request's first-token logits (float32, on the
+    card) and the top-2 margin of the logits behind every token it is
+    given. Returns (first_logits, margins), filled as the engine runs."""
+    first_logits, margins = {}, collections.defaultdict(list)
+    prefill, decode = eng._prefill, eng._decode
+
+    def top2_margins(last):
+        top = last.float().topk(2, dim=-1).values
+        return (top[:, 0] - top[:, 1]).tolist()
+
+    def tapped_prefill(*args):
+        logits, state = prefill(*args)
+        # contiguous: (params, batch, length, slot, state); paged:
+        # (params, batch, lengths, slots, tables, state), dummy rows first
+        # and aliasing the first real row's slot, which is written later
+        slots = args[3].tolist() if eng.paged else [int(args[3])]
+        m = top2_margins(logits[:, -1])
+        for row, slot in enumerate(slots):
+            rid = eng.slots[int(slot)].request.rid
+            first_logits[rid] = logits[row, -1].float()
+            margins[rid] = [m[row]]
+        return logits, state
+
+    def tapped_decode(params, token, state, active, *rest):
+        logits, state = decode(params, token, state, active, *rest)
+        m = top2_margins(logits[:, -1])
+        for i, live in enumerate(active.tolist()):
+            if live:
+                margins[eng.slots[i].request.rid].append(m[i])
+        return logits, state
+
+    eng._prefill, eng._decode = tapped_prefill, tapped_decode
+    return first_logits, margins
 
 
 def lm_profile(params, prefill, decode, prompts, top: int = 10) -> dict:
@@ -1399,6 +1446,150 @@ def lm_profile(params, prefill, decode, prompts, top: int = 10) -> dict:
 # nearest-centroid classifier reaches ~0.5, the head chance), so that task
 # is trained and reported beside it, not gated.
 HEAD_ROWS, HEAD_SEQ, HEAD_TEST_ROWS, HEAD_STEPS = 1536, 32, 128, 150
+# ---------------------------------------------------------------------------
+# The paged LM engine: the LM path's backlog under half its KV memory
+# ---------------------------------------------------------------------------
+
+PAGED_BLOCK = 16
+# (prefill_batch, pool): the half pool binds; the worst-case pool (the
+# Engine's default) never does, which leaves the block gather's cost alone
+PAGED_RUNS = ((1, "half"), (4, "half"), (1, "worst_case"))
+# first-token logits of a batched prefill against the batch-1 prefill's
+# (float32 GEMMs that cuBLAS may split otherwise for another batch, over
+# 28 layers), and the top-2 margin under which a token may differ
+PAGED_LOGITS_TOL = 1e-3
+PAGED_MARGIN = 1e-3
+
+
+def paged_path(kernels, params, cfg, contiguous, *, scheduler,
+               device="cuda"):
+    """The LM path's closed backlog of LM_REQUESTS requests through the
+    paged Engine (8 slots, blocks of PAGED_BLOCK tokens) with a pool of
+    1 + 4 x max_len / PAGED_BLOCK blocks, half the contiguous worst case,
+    at prefill_batch 1 and 4, and at prefill_batch 1 with the worst-case
+    pool. Held against the contiguous Engine's run of
+    the same backlog (`contiguous`, from lm_serve_path): batch-1 prefill
+    token for token; batched prefill's first-token logits within
+    PAGED_LOGITS_TOL and its tokens equal wherever the top-2 margin is at
+    least PAGED_MARGIN. Returns the path's kernel launches (both runs)."""
+    dev = torch.device(device)
+    max_len = contiguous["max_len"]
+    per_slot = max_len // PAGED_BLOCK
+    half = 1 + 4 * per_slot
+    reqs = contiguous["reqs"]
+    runs, total = [], {}
+    for pb, pool in PAGED_RUNS:
+        num_blocks = half if pool == "half" else 1 + LM_SLOTS * per_slot
+        eng = scheduler.Engine(cfg, params, slots=LM_SLOTS, max_len=max_len,
+                               paged=True, block_size=PAGED_BLOCK,
+                               num_blocks=num_blocks, prefill_batch=pb,
+                               device=dev)
+        first_logits, margins = tap_engine(eng)
+        pool_bytes = sum(c.k.numel() * c.k.element_size() * 2
+                         for seg in eng.state.caches for c in seg.values())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        kernels.reset_launch_counts()      # this run of the path starts here
+        t0 = time.perf_counter()
+        results = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()  # ... and ends here
+        peak_bytes = torch.cuda.max_memory_allocated()
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+        st = eng.stats()
+        eng.allocator.check()
+        if st["requests"] != LM_REQUESTS or st["blocks_in_use"] != 0:
+            raise AssertionError(f"paged engine (prefill_batch {pb}): {st}")
+        if not 0 < st["peak_blocks"] <= num_blocks - 1:
+            raise AssertionError(f"peak blocks {st['peak_blocks']} of "
+                                 f"{num_blocks}")
+        if launches["flash_attention"] != cfg.num_layers * \
+                eng.prefill_launches:
+            raise AssertionError(
+                f"flash_attention launched {launches['flash_attention']} "
+                f"times, not {cfg.num_layers} x {eng.prefill_launches} "
+                "prefill launches")
+        others = {k: v for k, v in launches.items()
+                  if k != "flash_attention" and v}
+        if others:
+            raise AssertionError(f"the paged path launched {others}")
+        tokens = [r.tokens for r in results]
+        short = [r.rid for r, q in zip(results, reqs)
+                 if len(r.tokens) != q.max_new]
+        if short:
+            raise AssertionError(f"requests {short} did not return max_new")
+        logit_err = max(
+            float((first_logits[i] - contiguous["first_logits"][i]).abs()
+                  .max()) for i in range(LM_REQUESTS))
+        differ = []
+        for rid, (got, want) in enumerate(zip(tokens,
+                                              contiguous["tokens"])):
+            if got == want:
+                continue
+            t = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+            margin = min(margins[rid][t], contiguous["margins"][rid][t])
+            differ.append({"rid": rid, "first_differing_token": t,
+                           "top2_margin": margin})
+        if pb == 1 and differ:
+            raise AssertionError(f"batch-1 paged tokens differ from the "
+                                 f"contiguous Engine's: {differ}")
+        for i in range(LM_REQUESTS):
+            want = contiguous["first_logits"][i]
+            err = (first_logits[i] - want).abs()
+            if not bool((err <= PAGED_LOGITS_TOL * (1 + want.abs())).all()):
+                raise AssertionError(
+                    f"prefill_batch {pb}: request {i}'s first-token logits "
+                    f"differ from the batch-1 prefill's by {float(err.max())}")
+        wide = [d for d in differ if d["top2_margin"] >= PAGED_MARGIN]
+        if wide:
+            raise AssertionError(f"prefill_batch {pb}: tokens differ where "
+                                 f"the top-2 margin is {PAGED_MARGIN} or "
+                                 f"more: {wide}")
+        runs.append({
+            "prefill_batch": pb, "pool": pool, "num_blocks": num_blocks,
+            "wall_s": wall,
+            "tok_per_s": st["tok_per_s"],
+            "latency_p50_s": st["latency_p50_s"],
+            "latency_p99_s": st["latency_p99_s"],
+            "queue_wait_mean_s": st["queue_wait_mean_s"],
+            "decode_steps": st["decode_steps"],
+            "peak_active": st["peak_active"],
+            "prefill_launches": eng.prefill_launches,
+            "peak_blocks": st["peak_blocks"],
+            "pool_bytes": pool_bytes,
+            "peak_pool_bytes_in_use": pool_bytes * st["peak_blocks"]
+            // num_blocks,
+            "max_memory_allocated_gib": peak_bytes / 2 ** 30,
+            "first_logits_max_abs_err": logit_err,
+            "tokens_equal_contiguous": not differ,
+            "differing_requests": differ, "shapes": dict(eng.trace_counts),
+            "launches": launches})
+        del eng
+    hd = cfg.resolved_head_dim
+    contiguous_bytes = (cfg.num_layers * 2 * LM_SLOTS * cfg.num_kv_heads
+                        * max_len * hd * 2)
+    cst = contiguous["stats"]
+    emit("paged_path", model=cfg.name, slots=LM_SLOTS, requests=LM_REQUESTS,
+         max_len=max_len, block_size=PAGED_BLOCK, half_pool_blocks=half,
+         contiguous_worst_case_blocks=LM_SLOTS * per_slot,
+         block_bytes=cfg.num_layers * 2 * cfg.num_kv_heads * PAGED_BLOCK
+         * hd * 2,
+         contiguous_cache_bytes=contiguous_bytes,
+         contiguous_engine={"wall_s": contiguous["wall_s"],
+                            "tok_per_s": cst["tok_per_s"],
+                            "latency_p50_s": cst["latency_p50_s"],
+                            "latency_p99_s": cst["latency_p99_s"],
+                            "queue_wait_mean_s": cst["queue_wait_mean_s"],
+                            "decode_steps": cst["decode_steps"]},
+         logits_tolerance=PAGED_LOGITS_TOL, margin=PAGED_MARGIN, runs=runs,
+         launches=total)
+    return total
+
+
 HEAD_POOL = 128
 HEAD_FLOOR = 0.5          # the example's assert (4 classes, chance 0.25)
 HEAD_BACKENDS = ("gather", "fused", "packed", "auto")
@@ -1706,6 +1897,281 @@ def tenant_path(kernels, export, runtime, WnnTenantBatcher, *,
 
 
 # ---------------------------------------------------------------------------
+# Sharded ULEEN serving: ranks of a torch.distributed mesh on the card(s)
+# ---------------------------------------------------------------------------
+
+# the ULN-XL ensemble (`repro/launch/uleen_cell.py:68-72`): M = 32 over
+# 784 x 8 bits, the JAX package's class-sharding target
+ULN_XL_SUBS = ((16, 11, 2), (24, 13, 2), (32, 15, 2))
+ULN_XL_BITS = 784 * 8
+ULN_XL_M = 32
+SHARDED_ROWS = 65536
+SHARDED_SLOTS = 8192
+SHARDED_SEED = 20266
+# world size -> (class meshes, tenant meshes), ranks sharing one card
+SHARDED_RUNS = {2: ([((2,), ("model",))], [((2,), ("model",))]),
+                4: ([((4,), ("model",)), ((2, 2), ("data", "model"))],
+                    [((4,), ("model",))])}
+SHARDED_TIMEOUT_S = 300
+
+
+def mesh_tag(shape, axes) -> str:
+    return "x".join(f"{a}{n}" for a, n in zip(axes, shape))
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    """Median host milliseconds of fn() followed by a synchronize."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def in_turn(rank: int, world: int, fn):
+    """fn() on each rank in turn, the others waiting at a barrier: device
+    times of ranks that share a card, measured one rank at a time."""
+    import torch.distributed as dist
+    out = None
+    for r in range(world):
+        dist.barrier()
+        if r == rank:
+            out = fn()
+            torch.cuda.synchronize()
+    dist.barrier()
+    return out
+
+
+def sharded_rank(rank, world, plan):
+    """One rank of the sharded path (run by `launch.mesh.spawn_ranks`):
+    every rank draws the same artifact, rows and fleet from the same
+    seeds, serves them on its class or tenant shard, and checks its
+    scores bit-equal to the unsharded reference the parent computed.
+    Returns the rank's measurements and kernel launch counts."""
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.core import export
+    from repro_torch.dist import collectives
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.scheduler import WnnBatcher
+    from repro_torch.packed import runtime
+    dev = mesh_mod.rank_device(plan["device"])
+    backend = dist.get_backend()
+    launches = {k: 0 for k in KERNEL_INFO}
+    out = {"rank": rank, "device": str(dev), "backend": backend,
+           "class": {}, "tenant": {}}
+    art = seeded_artifact(export, SHARDED_SEED, m=ULN_XL_M, subs=ULN_XL_SUBS,
+                          total_bits=ULN_XL_BITS, bits_per_input=8)
+    gen = torch.Generator(device=dev).manual_seed(SHARDED_SEED)
+    bits = torch.randint(0, 2, (SHARDED_ROWS, ULN_XL_BITS), generator=gen,
+                         device=dev, dtype=torch.int8)
+    rows = bits.cpu().numpy().astype(np.uint8)
+    want = plan["class_want"]
+    for shape, axes in plan["class_meshes"]:
+        mesh = mesh_mod.make_mesh(shape, axes)
+        tag = mesh_tag(shape, axes)
+        t0 = time.perf_counter()
+        warm = WnnBatcher(art, slots=SHARDED_SLOTS, mesh=mesh, device=dev)
+        torch.cuda.synchronize()
+        prepare_s = time.perf_counter() - t0
+        warm.submit(rows[0])
+        warm.drain()
+        eng = WnnBatcher(art, slots=SHARDED_SLOTS, mesh=mesh, device=dev)
+        for row in rows:
+            eng.submit(row)
+        kernels.reset_launch_counts()      # this rank's run starts here
+        step_ms = []
+        while eng.queue:
+            t0 = time.perf_counter()
+            eng.step()                     # ends in a host copy: synced
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        got = kernels.launch_counts()      # ... and ends here
+        for k, v in got.items():
+            launches[k] += v
+        scores = np.stack([r.scores for r in eng.drain()])
+        err = int(np.abs(scores.astype(np.int64) - want).max())
+        if err:
+            raise AssertionError(f"rank {rank} {tag}: class-sharded scores "
+                                 f"differ from the unsharded batcher's by "
+                                 f"{err}")
+        st = eng.stats()
+        if got["packed_wnn"] != eng.batches or st["traces"] != 1:
+            raise AssertionError(f"rank {rank} {tag}: {got['packed_wnn']} "
+                                 f"WNN launches for {eng.batches} batches, "
+                                 f"{st['traces']} batch shapes")
+        sp = eng._prep
+        b_axes = runtime.batch_axes(mesh, sp.rules, SHARDED_SLOTS,
+                                    exclude=sp.class_axes)
+        local_rows = bits[collectives.row_slice(SHARDED_SLOTS, mesh, b_axes)
+                          if b_axes else slice(0, SHARDED_SLOTS)]
+        kernel_device_ms = in_turn(rank, world, lambda: graph_ms(
+            lambda: export.scores_from_prep(sp.local, local_rows)))
+        part = export.scores_from_prep(sp.local, local_rows)
+        gather_ms = host_ms(lambda: collectives.all_gather(
+            part, mesh, sp.class_axes, dim=1), reps=10)
+        out["class"][tag] = {
+            "class_shards": st["class_shards"], "classes": [sp.lo, sp.lo
+                                                            + ULN_XL_M
+                                                            // sp.degree],
+            "rows_a_batch": int(local_rows.shape[0]),
+            "batches": eng.batches, "prepare_s": prepare_s,
+            "ms_per_batch_median": float(np.median(step_ms)),
+            "requests_per_s": SHARDED_ROWS / (sum(step_ms) / 1e3),
+            "wnn_kernel_device_ms": kernel_device_ms,
+            "gather_ms": gather_ms,
+            "gather": ("host-staged all_gather_into_tensor (gloo)"
+                       if collectives.host_staged(mesh.get_group(
+                           sp.class_axes[0])) else "all_gather_into_tensor "
+                       f"({backend})"),
+            "table_bytes": sp.local.table_bytes(),
+            "class_slice_bytes": sp.local.slice_bytes(),
+            "kernel_args_bytes": sp.local.kernel_args.nbytes(),
+            "launches": got, "max_abs_err": err}
+        del eng, warm
+    if plan["tenant_meshes"]:
+        arts = tenant_fleet(export)
+        tgen = torch.Generator(device=dev).manual_seed(20265)
+        tbits = torch.randint(0, 2, (TENANT_ROWS, ULN_S_BITS),
+                              generator=tgen, device=dev, dtype=torch.int8)
+        tids = torch.randint(0, TENANTS, (TENANT_ROWS,), generator=tgen,
+                             device=dev)
+        for shape, axes in plan["tenant_meshes"]:
+            mesh = mesh_mod.make_mesh(shape, axes)
+            tag = mesh_tag(shape, axes)
+            t0 = time.perf_counter()
+            st = export.prepare_tenants(arts, mesh=mesh, device=dev)
+            torch.cuda.synchronize()
+            prepare_s = time.perf_counter() - t0
+            predict = runtime.make_tenant_sharded_predict(
+                st, mesh, None, TENANT_ROWS, device=dev)
+            scores, preds = predict(st, tbits, tids)
+            err = int((scores.cpu().to(torch.int64)
+                       - torch.from_numpy(plan["tenant_want"])).abs().max())
+            if err or not torch.equal(preds.cpu().long(),
+                                      torch.argmax(scores.cpu(), -1)):
+                raise AssertionError(f"rank {rank} {tag}: tenant-sharded "
+                                     f"scores differ from stacked_predict's "
+                                     f"by {err}")
+            part = torch.zeros_like(scores)
+            out["tenant"][tag] = {
+                "tenants_per_rank": st.local.num_tenants,
+                "tenant_shards": st.num_tenants // st.local.num_tenants,
+                "tenant_range": [st.lo, st.lo + st.local.num_tenants],
+                "stacked_table_bytes": st.local.table_bytes(),
+                "stacked_device_bytes": st.local.nbytes(),
+                "prepare_tenants_s": prepare_s,
+                "ms_per_call": host_ms(lambda: predict(st, tbits, tids)),
+                "all_reduce_ms": host_ms(lambda: collectives.all_reduce_sum(
+                    part, mesh, st.tenant_axes), reps=10),
+                "max_abs_err": err}
+    out["launches"] = launches
+    return out
+
+
+def tenant_fleet(export):
+    """The tenant path's 2048 seeded ULN-S artifacts."""
+    return [seeded_artifact(export, 30000 + t, m=10, subs=ULN_S_SUBS,
+                            total_bits=ULN_S_BITS, bits_per_input=2)
+            for t in range(TENANTS)]
+
+
+def sharded_path(kernels, export, runtime, WnnBatcher, mesh_mod, *,
+                 device="cuda"):
+    """Class-sharded serving of the ULN-XL ensemble (WnnBatcher(mesh=) on
+    65536 rows, model = 2 and 4 and data = 2 x model = 2) and
+    tenant-sharded serving of the 2048-tenant ULN-S fleet
+    (make_tenant_sharded_predict, model = 2 and 4), every rank's scores
+    bit-equal to the unsharded port's. The ranks share the one card under
+    gloo (collectives on host copies); with two or more cards a run with
+    one rank per card under NCCL follows. Returns the launches summed
+    over every rank."""
+    dev = torch.device(device)
+    art = seeded_artifact(export, SHARDED_SEED, m=ULN_XL_M, subs=ULN_XL_SUBS,
+                          total_bits=ULN_XL_BITS, bits_per_input=8)
+    gen = torch.Generator(device=dev).manual_seed(SHARDED_SEED)
+    bits = torch.randint(0, 2, (SHARDED_ROWS, ULN_XL_BITS), generator=gen,
+                         device=dev, dtype=torch.int8)
+    ref = WnnBatcher(art, slots=SHARDED_SLOTS, device=dev)
+    ref_prepare_bytes = export.prepare_artifact(art, device=dev).table_bytes()
+    for row in bits.cpu().numpy().astype(np.uint8):
+        ref.submit(row)
+    step_ms = []
+    while ref.queue:
+        t0 = time.perf_counter()
+        ref.step()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    class_want = np.stack([r.scores for r in ref.drain()]).astype(np.int64)
+    prep = export.prepare_artifact(art, device=dev)
+    rows = bits[:SHARDED_SLOTS]
+    unsharded = {"ms_per_batch_median": float(np.median(step_ms)),
+                 "wnn_kernel_device_ms": graph_ms(
+                     lambda: export.scores_from_prep(prep, rows)),
+                 "table_bytes": ref_prepare_bytes,
+                 "class_slice_bytes": prep.slice_bytes()}
+    del ref, prep, rows, bits
+    arts = tenant_fleet(export)
+    st = export.prepare_tenants(arts, device=dev)
+    tgen = torch.Generator(device=dev).manual_seed(20265)
+    tbits = torch.randint(0, 2, (TENANT_ROWS, ULN_S_BITS), generator=tgen,
+                          device=dev, dtype=torch.int8)
+    tids = torch.randint(0, TENANTS, (TENANT_ROWS,), generator=tgen,
+                         device=dev)
+    tenant_want = runtime.stacked_predict(st, tbits, tids, device=dev)[
+        0].cpu().to(torch.int64).numpy()
+    stacked_bytes = st.table_bytes()
+    del st, tbits, tids, arts
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    runs = []
+    cards = torch.cuda.device_count()
+    plans = [(w, "gloo", cm, tm) for w, (cm, tm) in SHARDED_RUNS.items()]
+    if cards >= 2:
+        w = min(cards, 4)
+        plans.append((w, mesh_mod.collective_backend(dev, w),
+                      [((w,), ("model",))], [((w,), ("model",))]))
+        nccl = f"ran: {w} ranks, one a card"
+    else:
+        nccl = (f"not run: {cards} CUDA device; one rank per card under "
+                "NCCL needs 2 or more")
+    for world, backend, cmeshes, tmeshes in plans:
+        plan = {"class_meshes": cmeshes, "tenant_meshes": tmeshes,
+                "class_want": class_want, "tenant_want": tenant_want,
+                "device": device}
+        t0 = time.perf_counter()
+        outs = mesh_mod.spawn_ranks(sharded_rank, world, plan,
+                                    backend=backend,
+                                    timeout_s=SHARDED_TIMEOUT_S)
+        runs.append({"world": world, "backend": backend,
+                     "seconds": time.perf_counter() - t0, "ranks": outs})
+    launches = {k: sum(o["launches"][k] for r in runs for o in r["ranks"])
+                for k in KERNEL_INFO}
+    if launches["packed_wnn"] == 0:
+        raise AssertionError("the sharded path never launched packed_wnn")
+    for r in runs:
+        for o in r["ranks"]:
+            for tag, t in o["tenant"].items():
+                if t["stacked_table_bytes"] * t["tenant_shards"] != \
+                        stacked_bytes or t["tenant_shards"] != r["world"]:
+                    raise AssertionError(
+                        f"{tag}: {t['stacked_table_bytes']} stacked bytes "
+                        f"a rank over {t['tenant_shards']} shards, not "
+                        f"{stacked_bytes} / {r['world']}")
+    emit("sharded_path", model="ULN-XL ensemble", classes=ULN_XL_M,
+         total_bits=ULN_XL_BITS,
+         submodels=[(n, 2 ** log2e, k) for n, log2e, k in ULN_XL_SUBS],
+         rows=SHARDED_ROWS, slots=SHARDED_SLOTS, unsharded=unsharded,
+         tenant_fleet={"model": "ULN-S", "tenants": TENANTS,
+                       "rows": TENANT_ROWS,
+                       "stacked_table_bytes": stacked_bytes},
+         nccl_one_rank_per_card=nccl, runs=runs, launches=launches)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 10: the examples at their own sizes
 # ---------------------------------------------------------------------------
 
@@ -1753,6 +2219,7 @@ def main() -> int:
     from repro_torch.data import synth
     from repro_torch.kernels import build, ops, ref, wnn_ensemble
     from repro_torch.kernels.flash_attention import plan as flash_plan
+    from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch import scheduler, steps
     from repro_torch.launch.scheduler import WnnBatcher, WnnTenantBatcher
     from repro_torch.launch.serve import serve as lm_serve
@@ -1811,9 +2278,13 @@ def main() -> int:
         (encoding, model, one_shot, multi_shot, pruning, export, ops,
          optimizer, synth), kernels)
     torch.cuda.empty_cache()
-    lm_launches, lm_params, lm_cfg = lm_serve_path(
+    lm_launches, lm_params, lm_cfg, contiguous = lm_serve_path(
         kernels, get_config=get_config, transformer=transformer, steps=steps,
         scheduler=scheduler, serve_fn=lm_serve)
+    torch.cuda.empty_cache()
+    paged_launches = paged_path(kernels, lm_params, lm_cfg, contiguous,
+                                scheduler=scheduler)
+    del contiguous
     torch.cuda.empty_cache()
     head_launches = head_path(kernels, lm_params, lm_cfg,
                               distill=distill_uleen_head, head=head,
@@ -1822,12 +2293,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     tenant_launches = tenant_path(kernels, export, runtime, WnnTenantBatcher)
     torch.cuda.empty_cache()
+    sharded_launches = sharded_path(kernels, export, runtime, WnnBatcher,
+                                    mesh_mod)
+    torch.cuda.empty_cache()
     example_launches = examples_path(kernels, {
         "quickstart": quickstart, "uleen_edge_pipeline": uleen_edge_pipeline,
         "distill_uleen_head": distill_uleen_head})
     by_path = {"uleen_serve": launches, "uleen_train": train_launches,
                "lm_serve": lm_launches, "head": head_launches,
-               "tenant": tenant_launches, "examples": example_launches}
+               "tenant": tenant_launches, "examples": example_launches,
+               "sharded": sharded_launches, "paged": paged_launches}
     # each kernel's launches on the path that carries it: the ULEEN serve
     # path for the WNN and front-end kernels, the train path for the hash,
     # the LM serve path for flash attention; `launches_by_path` has every

@@ -168,7 +168,7 @@ class ArchConfig:
 # bf16 KV cache. The rest of the JAX package's zoo (whisper_tiny,
 # mamba2_2p7b, qwen1p5_32b, internvl2_26b, recurrentgemma_2b,
 # deepseek_v2_lite_16b, mixtral_8x7b) waits for its slice (ROADMAP.md,
-# Queue 1 item 3).
+# Queue 1 items 4.2-4.5).
 ARCH_IDS = ["qwen2p5_14b", "llama3p2_3b", "minitron_8b"]
 
 _ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
@@ -179,7 +179,7 @@ def get_config(arch: str, smoke: bool = False) -> ArchConfig:
     if arch not in ARCH_IDS:
         raise NotImplementedError(
             f"architecture {arch!r} is not ported yet; the port runs "
-            f"{ARCH_IDS} (ROADMAP.md, Queue 1 item 3 lists the rest in order)")
+            f"{ARCH_IDS} (ROADMAP.md, Queue 1 item 4 lists the rest in order)")
     mod = importlib.import_module(f"repro_torch.configs.{arch}")
     return mod.SMOKE if smoke else mod.CONFIG
 

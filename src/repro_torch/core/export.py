@@ -8,6 +8,12 @@ into the artifact; `save`/`load` write and read the same npz files as the
 JAX package, byte for byte both ways: keys `meta`, `bias` and
 `sm{i}_{packed,mask,perm,h3,cfg}`. The artifact itself stays numpy;
 `prepare_artifact` moves it to the device once per representation.
+
+With `mesh=` the preparation is sharded: under the `classes` partition a
+rank moves only its class slice of the tables to its device
+(`prepare_artifact`), under the `tenants` partition only its tenants
+(`prepare_tenants`), and the serve loop (`scores_from_prep`) ends in the
+one collective that makes the result whole on every rank.
 """
 from __future__ import annotations
 
@@ -139,6 +145,18 @@ _SAME_REPRESENTATION = {"auto": "packed", "packed": "auto",
                         "fused": "gather", "gather": "fused"}
 
 
+def _with_kernel_args(prep: UnpackedTables) -> UnpackedTables:
+    """`prep` with the fused kernel's launch arguments, derived from its
+    int8 tables for its own class count."""
+    from repro_torch.kernels import wnn_ensemble
+    from repro_torch.packed import layout
+    return prep._replace(kernel_args=wnn_ensemble.ensemble_args(
+        prep.perms, prep.h3s,
+        [layout.class_slices_from_table(t) for t in prep.tables],
+        [layout.class_mask_words(m) for m in prep.masks],
+        int(prep.bias.shape[0])))
+
+
 def _build_prep(artifact: InferenceArtifact, backend: str,
                 device: torch.device, unpacked=None):
     """The (uncached) representation build behind `prepare_artifact`;
@@ -148,15 +166,72 @@ def _build_prep(artifact: InferenceArtifact, backend: str,
         from repro_torch.packed import layout
         return layout.from_artifact(artifact, device=device)
     prep = _unpack(artifact, device) if unpacked is None else unpacked
-    if backend != "fused":
-        return prep
-    from repro_torch.kernels import wnn_ensemble
-    from repro_torch.packed import layout
-    return prep._replace(kernel_args=wnn_ensemble.ensemble_args(
-        prep.perms, prep.h3s,
-        [layout.class_slices_from_table(t) for t in prep.tables],
-        [layout.class_mask_words(m) for m in prep.masks],
-        int(artifact.num_classes)))
+    return _with_kernel_args(prep) if backend == "fused" else prep
+
+
+def artifact_class_slice(artifact: InferenceArtifact, lo: int,
+                         hi: int) -> InferenceArtifact:
+    """The artifact of classes [lo, hi) (numpy views): per-class packed
+    words, masks and bias sliced on M, perms and H3 parameters whole."""
+    m = int(artifact.num_classes)
+    if not 0 <= lo < hi <= m:
+        raise ValueError(f"class range [{lo}, {hi}) outside [0, {m})")
+    return dataclasses.replace(
+        artifact, bias=np.asarray(artifact.bias)[lo:hi], num_classes=hi - lo,
+        submodels=[dataclasses.replace(sm, packed=sm.packed[lo:hi],
+                                       mask=np.asarray(sm.mask)[lo:hi])
+                   for sm in artifact.submodels])
+
+
+def prep_class_slice(prep, lo: int, hi: int):
+    """The class shard [lo, hi) of prepared tables, for either
+    representation: what one rank holds under the `classes` partition.
+    Per-class leaves are views; an `UnpackedTables` prepared for `fused`
+    gets the kernel's launch arguments for its hi - lo classes."""
+    if not isinstance(prep, UnpackedTables):
+        return prep.class_slice(lo, hi)
+    m = int(prep.bias.shape[0])
+    if not 0 <= lo < hi <= m:
+        raise ValueError(f"class range [{lo}, {hi}) outside [0, {m})")
+    out = UnpackedTables(tables=tuple(t[lo:hi] for t in prep.tables),
+                         masks=tuple(x[lo:hi] for x in prep.masks),
+                         perms=prep.perms, h3s=prep.h3s,
+                         bias=prep.bias[lo:hi])
+    return out if prep.kernel_args is None else _with_kernel_args(out)
+
+
+def prep_shardings(prep, mesh, rules=None):
+    """(entries, degree) of prepared tables partitioned over `mesh` by
+    class, for either representation: `entries` maps each leaf name to
+    its resolved mesh-axis entries (per submodel for the tuple leaves;
+    `dist.sharding.ShardingRules.resolve`), `degree` is the class shard
+    count. Per-class leaves (tables or words, masks, bias) carry the
+    "classes" axis on M, perms and H3 parameters replicate, and the
+    divisibility sanitizer degrades every leaf to replication together
+    when M does not divide the mesh axis."""
+    from repro_torch.dist import sharding as sh
+    rules = rules if rules is not None else sh.SERVE_RULES
+    if isinstance(prep, UnpackedTables):
+        n = len(prep.tables)
+        axes = {"tables": (("classes", None, None),) * n,
+                "masks": (("classes", None),) * n,
+                "perms": ((None, None),) * n, "h3s": ((None, None),) * n,
+                "bias": ("classes",)}
+        leaves = prep._asdict()
+    else:
+        axes = prep.logical_axes()
+        leaves = {k: getattr(prep, k) for k in axes}
+    entries = {}
+    for name, log in axes.items():
+        if name == "bias":
+            entries[name] = rules.resolve(log, mesh,
+                                          shape=tuple(leaves[name].shape))
+        else:
+            entries[name] = tuple(
+                rules.resolve(a, mesh, shape=tuple(x.shape))
+                for a, x in zip(log, leaves[name]))
+    m = int(prep.bias.shape[0])
+    return entries, sh.class_partition(mesh, m, rules)[1]
 
 
 def _unpack(artifact: InferenceArtifact, device: torch.device):
@@ -185,7 +260,7 @@ def _unpack(artifact: InferenceArtifact, device: torch.device):
 
 
 def prepare_artifact(artifact: InferenceArtifact, *, backend: str = "auto",
-                     device=DEFAULT_DEVICE):
+                     mesh=None, rules=None, device=DEFAULT_DEVICE):
     """Hoisted, cached table preparation for repeated serving.
 
     backend="packed"/"auto" lifts the artifact's uint32 word planes into a
@@ -195,6 +270,16 @@ def prepare_artifact(artifact: InferenceArtifact, *, backend: str = "auto",
     is memoized on the artifact instance per (representation, device), so
     the serve path (`artifact_scores`, `launch.scheduler.WnnBatcher`)
     never redoes any table work per batch.
+
+    With `mesh` (called on every rank of it alike) the tables are
+    partitioned by class (`prep_shardings`): this rank moves only its
+    classes [r·M/S, (r+1)·M/S) to `device` — its slice of the numpy
+    artifact, never a replicated device copy — and gets a
+    `packed.runtime.ClassShardedTables` whose scores are whole on every
+    rank. When M does not divide the `classes` axes every leaf falls back
+    to replication together, and the result is the unsharded
+    preparation. Memoized per (representation, mesh, rules' content,
+    device).
     """
     from repro_torch.kernels import ops
     ops.resolve_wnn_backend(backend)     # reject unknown names eagerly
@@ -203,6 +288,9 @@ def prepare_artifact(artifact: InferenceArtifact, *, backend: str = "auto",
     cache = getattr(artifact, "_prepared", None)
     if cache is None:
         cache = artifact._prepared = {}
+    if mesh is not None:
+        return _prepare_class_sharded(artifact, backend, mesh, rules, dev,
+                                      cache)
     key = (backend, str(dev))
     if key in cache:
         rec.counter("prep.cache_hit").inc()
@@ -219,8 +307,43 @@ def prepare_artifact(artifact: InferenceArtifact, *, backend: str = "auto",
     return prep
 
 
+def _prepare_class_sharded(artifact, backend, mesh, rules, dev, cache):
+    """`prepare_artifact(mesh=)`: this rank's class slice, memoized."""
+    from repro_torch.dist import collectives
+    from repro_torch.dist import sharding as sh
+    from repro_torch.packed import runtime
+    rules = rules if rules is not None else sh.SERVE_RULES
+    m = int(artifact.num_classes)
+    entry, degree = sh.class_partition(mesh, m, rules)
+    if degree == 1:                      # replication fallback, every leaf
+        return prepare_artifact(artifact, backend=backend, device=dev)
+    rep = "packed" if backend in ("auto", "packed") else "int8"
+    key = (rep, mesh, sh.rules_key(rules), str(dev))
+    rec = obs_registry.get_recorder()
+    sp = cache.get(key)
+    if sp is not None and not (backend == "fused"
+                               and sp.local.kernel_args is None):
+        rec.counter("prep.cache_hit").inc()
+        return sp
+    rec.counter("prep.cache_miss").inc()
+    axes = sh.entry_axes(entry)
+    lo = collectives.axis_index(mesh, axes) * (m // degree)
+    with rec.span("prep.build", backend=backend, device=str(dev),
+                  sharded=True):
+        if sp is None:
+            local = _build_prep(artifact_class_slice(artifact, lo,
+                                                     lo + m // degree),
+                                backend, dev)
+        else:                            # a `gather` slice gains `fused`'s
+            local = _with_kernel_args(sp.local)  # launch arguments
+    sp = runtime.ClassShardedTables(local=local, mesh=mesh, rules=rules,
+                                    class_axes=axes, num_classes=m, lo=lo)
+    cache[key] = sp
+    return sp
+
+
 def prepare_tenants(artifacts, *, backend: str = "auto", mesh=None,
-                    device=DEFAULT_DEVICE):
+                    rules=None, device=DEFAULT_DEVICE):
     """Hoisted, cached multi-artifact preparation: one
     `repro_torch.packed.StackedPackedTables` fleet over N same-geometry
     artifacts on `device`.
@@ -235,8 +358,14 @@ def prepare_tenants(artifacts, *, backend: str = "auto", mesh=None,
     Memoized on the first artifact's cache, keyed on the identity tuple
     of the whole fleet and the device (the same artifact objects in the
     same order hit; the cached value holds the artifacts, so the ids stay
-    valid). A tenant-sharded fleet (`mesh=`) waits for the port's sharded
-    serving (ROADMAP Queue 1 item 3).
+    valid).
+
+    With `mesh` (called on every rank alike) the fleet is partitioned by
+    tenant: this rank prepares and stacks only tenants
+    [r·T/S, (r+1)·T/S) and gets a `packed.runtime.TenantShardedTables`
+    (serve it with `runtime.make_tenant_sharded_predict`). When T does
+    not divide the `tenants` axes the whole fleet is stacked on every
+    rank (a shard of all T tenants).
     """
     from repro_torch import packed
     from repro_torch.kernels import ops
@@ -245,10 +374,6 @@ def prepare_tenants(artifacts, *, backend: str = "auto", mesh=None,
         raise ValueError(
             f"prepare_tenants serves the packed domain only (backend="
             f"'packed'|'auto', got {backend!r})")
-    if mesh is not None:
-        raise NotImplementedError(
-            "a tenant-sharded fleet (mesh=) belongs to the port's sharded "
-            "serving, ROADMAP Queue 1 item 3")
     artifacts = tuple(artifacts)
     if not artifacts:
         raise ValueError("prepare_tenants needs at least one artifact")
@@ -257,17 +382,34 @@ def prepare_tenants(artifacts, *, backend: str = "auto", mesh=None,
     if cache is None:
         cache = artifacts[0]._prepared = {}
     key = ("tenants", tuple(id(a) for a in artifacts), str(dev))
+    lo, hi = 0, len(artifacts)
+    if mesh is not None:
+        from repro_torch.dist import collectives
+        from repro_torch.dist import sharding as sh
+        rules = rules if rules is not None else sh.SERVE_RULES
+        key += (mesh, sh.rules_key(rules))
+        entry, degree = sh.tenant_partition(mesh, len(artifacts), rules)
+        t_axes = sh.entry_axes(entry)
+        if degree > 1:
+            hi = len(artifacts) // degree
+            lo = collectives.axis_index(mesh, t_axes) * hi
+            hi += lo
     rec = obs_registry.get_recorder()
     hit = cache.get(key)
     if hit is not None:
         rec.counter("prep.cache_hit").inc()
         return hit[0]
     rec.counter("prep.cache_miss").inc()
-    with rec.span("prep.stack_tenants", tenants=len(artifacts),
-                  sharded=False):
+    with rec.span("prep.stack_tenants", tenants=hi - lo,
+                  sharded=mesh is not None):
         stacked = packed.stack_tenants(
             prepare_artifact(a, backend=backend, device=dev)
-            for a in artifacts)
+            for a in artifacts[lo:hi])
+    if mesh is not None:
+        from repro_torch.packed import runtime
+        stacked = runtime.TenantShardedTables(
+            local=stacked, mesh=mesh, rules=rules, tenant_axes=t_axes,
+            num_tenants=len(artifacts), lo=lo)
     cache[key] = (stacked, artifacts)   # pin the ids the key ranges over
     return stacked
 
@@ -281,8 +423,14 @@ def scores_from_prep(prep, bits, *, backend: str = "auto") -> torch.Tensor:
     `packed`, `fused`) make one launch a batch on its (B, total_bits)
     rows; the CPU and `gather` run the plain per-submodel loop. The
     prepared tables were validated when they were built; a batch pays
-    only the wrapper's pointer checks.
+    only the wrapper's pointer checks. A class-sharded preparation
+    scores this rank's classes and gathers the (B, M) matrix
+    (`packed.runtime.class_sharded_scores`).
     """
+    from repro_torch.packed import runtime as _runtime
+    if isinstance(prep, _runtime.ClassShardedTables):
+        return _runtime.class_sharded_scores(
+            prep, bits, lambda p, b: scores_from_prep(p, b, backend=backend))
     if not isinstance(prep, UnpackedTables):
         from repro_torch.packed import runtime
         return runtime.packed_scores(prep, bits, backend=backend,
@@ -319,7 +467,9 @@ def scores_from_prep(prep, bits, *, backend: str = "auto") -> torch.Tensor:
 
 
 def predict_from_prep(prep, bits, *, backend: str = "auto"):
-    """(scores (B, M), argmax predictions (B,)) from prepared tables."""
+    """(scores (B, M), argmax predictions (B,)) from prepared tables; on a
+    class-sharded preparation the argmax runs over the gathered class
+    axis, the same on every rank."""
     from repro_torch.kernels import ops
     return ops.ensemble_predict(scores_from_prep(prep, bits, backend=backend))
 

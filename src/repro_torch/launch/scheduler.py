@@ -5,18 +5,22 @@ continuous-batching LM `Engine` and the WNN micro-batcher `WnnBatcher`.
 a FIFO queue (`submit`), each cache row is a *slot* with lifecycle
 FREE -> PREFILL -> DECODE -> DRAIN -> FREE, and whenever a slot frees the
 queue head is prefilled into that row (`steps.make_slot_prefill_step`) and
-joins the running masked decode batch mid-flight. This slice ports the
-contiguous engine; the paged engine with block backpressure and batched
-prefill waits for its item in ROADMAP.md (Queue 1 item 3), and there is no
-`mesh=`.
+joins the running masked decode batch mid-flight. With `paged=True` the
+KV caches are shared block pools: a request reserves ceil(need /
+block_size) blocks at admission instead of a worst-case row, frees them
+when it drains, and waits in the queue while the pool is short
+(backpressure, never a drop); up to `prefill_batch` same-bucket requests
+are prefilled in one launch. The LM engine takes no `mesh=`: it serves on
+one card.
 
 `WnnBatcher` queues WNN classification requests on the host; each
 `step()` serves up to `slots` of them through ONE fixed-shape scores
-launch over the artifact's prepared tables on the device.
-`WnnTenantBatcher` grows it a tenant axis: a fleet of same-geometry
-artifacts, at most `capacity` of them resident in one stacked device
-cache under LRU admission. The class-sharded batcher belongs to a later
-slice (ROADMAP Queue 1 item 3).
+launch over the artifact's prepared tables on the device; with `mesh=`
+the tables are partitioned by class over the ranks of a
+`torch.distributed` mesh. `WnnTenantBatcher` grows it a tenant axis: a
+fleet of same-geometry artifacts, at most `capacity` of them resident in
+one stacked device cache under LRU admission; with `mesh=` its batch rows
+split over the mesh's batch axes.
 
 Eager PyTorch compiles nothing, so where the JAX engines count retraces,
 `trace_counts` here counts the distinct input shapes each step function
@@ -36,16 +40,12 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.dist import sharding as sh
 from repro_torch.launch import steps
-from repro_torch.models import transformer
+from repro_torch.models import kvcache, transformer
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import registry as obs_registry
 from repro_torch.obs import torchhooks
-
-_PAGED_TODO = ("the paged engine (paged=True, block backpressure) and batched "
-               "prefill (prefill_batch > 1) are not ported yet (ROADMAP.md, "
-               "Queue 1 item 3: the paged engine with batched prefill)")
-
 
 class SlotState(enum.Enum):
     FREE = "free"          # no request; row contents are dead
@@ -127,8 +127,19 @@ class Engine:
         decode draws from one `torch.Generator` per request, seeded from
         (seed, rid): a request's tokens do not depend on its slot, though
         they are not JAX's.
-    paged/block_size/num_blocks/prefill_batch: the paged engine; paged=True
-        or prefill_batch > 1 raise NotImplementedError (ROADMAP.md).
+    paged: block-granular KV: full-width attention caches become shared
+        block pools (`kvcache.PagedAttnCache`); a request reserves
+        ceil((prompt_len + max_new) / block_size) blocks at admission and
+        frees them when it drains. When the pool is short the queue head
+        waits (backpressure, never a drop). Windowed caches stay
+        contiguous.
+    block_size/num_blocks: [paged] block granularity (max_len must be a
+        multiple) and pool size; num_blocks defaults to the contiguous
+        worst case plus the null block, and must hold at least one
+        worst-case request.
+    prefill_batch: [paged] up to this many same-bucket queue heads are
+        prefilled in ONE launch (FIFO: another bucket ends the group);
+        partial groups pad with dummy rows.
     device: where params live and the engine runs; "cuda" by default, and
         with no CUDA device it raises unless asked for the CPU.
 
@@ -148,8 +159,11 @@ class Engine:
             raise ValueError(f"unknown bucket policy {bucket!r}")
         if prefill_batch < 1:
             raise ValueError(f"need prefill_batch >= 1, got {prefill_batch}")
-        if paged or prefill_batch > 1:
-            raise NotImplementedError(_PAGED_TODO)
+        if prefill_batch > 1 and not paged:
+            raise ValueError(
+                "prefill_batch > 1 (batched multi-slot admission) requires "
+                "paged=True: the contiguous engine admits one slot per "
+                "launch")
         transformer.check_supported(cfg)
         if bucket == "pow2" and cfg.sliding_window:
             raise ValueError(
@@ -169,20 +183,58 @@ class Engine:
         self.bucket = bucket
         self.clock = clock or time.perf_counter
 
+        self.paged = bool(paged)
+        self.prefill_batch = min(int(prefill_batch), slots)
+        if self.paged:
+            if block_size < 1:
+                raise ValueError(f"need block_size >= 1, got {block_size}")
+            if max_len % block_size:
+                raise ValueError(
+                    f"max_len {max_len} must be a multiple of block_size "
+                    f"{block_size} so a slot's logical view tiles exactly")
+            self.block_size: Optional[int] = int(block_size)
+            self.blocks_per_slot = max_len // block_size
+            if num_blocks is None:
+                num_blocks = slots * self.blocks_per_slot + 1
+            if num_blocks < self.blocks_per_slot + 1:
+                raise ValueError(
+                    f"num_blocks {num_blocks} cannot hold one worst-case "
+                    f"request ({self.blocks_per_slot} blocks + the null "
+                    "block): an empty engine would deadlock")
+            self.num_blocks: Optional[int] = int(num_blocks)
+            self.allocator = kvcache.BlockAllocator(self.num_blocks)
+            self.block_tables = np.zeros((slots, self.blocks_per_slot),
+                                         np.int32)
+            self._slot_blocks: list = [[] for _ in range(slots)]
+        else:
+            self.block_size = self.num_blocks = None
+            self.allocator = None
+
         # distinct input shapes of each step function (one decode shape;
         # one prefill shape per bucket), mirrored into the global recorder
         self.trace_counts: collections.Counter = collections.Counter()
         self.lat_hist = obs_metrics.Histogram()
         self.queue_hist = obs_metrics.Histogram()
+        if self.paged:
+            prefill = steps.make_paged_prefill_step(
+                cfg, max_len=max_len, admit=self.prefill_batch)
+            decode = steps.make_paged_decode_step(cfg)
+        else:
+            prefill = steps.make_slot_prefill_step(cfg, max_len=max_len)
+            decode = steps.make_masked_decode_step(cfg)
         self._prefill = torchhooks.counted(
-            steps.make_slot_prefill_step(cfg, max_len=max_len),
-            self.trace_counts,
+            prefill, self.trace_counts,
             lambda params, batch, *a: f"prefill_{batch['tokens'].shape[1]}",
             agg_key="prefill")
-        self._decode = torchhooks.counted(
-            steps.make_masked_decode_step(cfg), self.trace_counts, "decode")
+        self._decode = torchhooks.counted(decode, self.trace_counts, "decode")
 
-        self.state = steps.serve_state_zeros(cfg, params, slots, max_len)
+        if self.paged:
+            self.state = steps.paged_serve_state_zeros(
+                cfg, params, slots, max_len, block_size=self.block_size,
+                num_blocks=self.num_blocks)
+        else:
+            self.state = steps.serve_state_zeros(cfg, params, slots,
+                                                 max_len)
         self.slots = [_Slot() for _ in range(slots)]
         self.queue: collections.deque = collections.deque()
         self._next_tok = np.zeros((slots,), np.int32)
@@ -190,6 +242,7 @@ class Engine:
         self._next_rid = 0
         self.step_count = 0
         self.peak_active = 0
+        self.prefill_launches = 0
 
     # -- scheduling ---------------------------------------------------------
 
@@ -234,29 +287,57 @@ class Engine:
         return int(torch.multinomial(probs, 1, generator=slot.generator))
 
     def _admit(self):
-        """Reclaim DRAIN slots, then prefill queue heads into FREE rows,
-        one batch-1 prefill per admitted request; its logits give the
-        first token."""
-        rec = obs_registry.get_recorder()
-        for sl in self.slots:
+        """Reclaim DRAIN slots (freeing their blocks when paged), then
+        prefill queue heads into FREE rows; the prefill's logits give each
+        request's first token."""
+        for i, sl in enumerate(self.slots):
             if sl.state is SlotState.DRAIN:
                 sl.state = SlotState.FREE
                 sl.request = sl.result = sl.generator = None
+                if self.paged and self._slot_blocks[i]:
+                    self.allocator.free(self._slot_blocks[i])
+                    self._slot_blocks[i] = []
+                    # all-null row: the slot's masked decode writes sink
+                    # into block 0 until the next admission re-tables it
+                    self.block_tables[i, :] = 0
+        if self.paged:
+            self._admit_paged()
+        else:
+            self._admit_contiguous()
+
+    def _start(self, i: int, req: Request) -> _Slot:
+        """Slot i takes `req`: PREFILL, its generator, its queue wait."""
+        sl = self.slots[i]
+        res = self.results[req.rid]
+        sl.state = SlotState.PREFILL
+        sl.request = req
+        sl.result = res
+        if not self.greedy:
+            sl.generator = torch.Generator(device=self.device)
+            sl.generator.manual_seed(_request_seed(self.seed, req.rid))
+        res.t_admit = self.clock()
+        self.queue_hist.observe(res.queue_wait)
+        obs_registry.get_recorder().histogram(
+            "serve.engine.queue_wait_s").observe(res.queue_wait)
+        return sl
+
+    def _first_token(self, i: int, sl: _Slot, logits_last: torch.Tensor):
+        tok = self._select(logits_last, sl)
+        sl.result.tokens.append(tok)
+        sl.result.t_first = self.clock()
+        self._next_tok[i] = tok
+        self._finish_if_done(sl)
+        if sl.state is SlotState.PREFILL:
+            sl.state = SlotState.DECODE
+
+    def _admit_contiguous(self):
+        """One batch-1 prefill into its slot per admitted request."""
+        rec = obs_registry.get_recorder()
         for i, sl in enumerate(self.slots):
             if not self.queue or sl.state is not SlotState.FREE:
                 continue
             req = self.queue.popleft()
-            res = self.results[req.rid]
-            sl.state = SlotState.PREFILL
-            sl.request = req
-            sl.result = res
-            if not self.greedy:
-                sl.generator = torch.Generator(device=self.device)
-                sl.generator.manual_seed(_request_seed(self.seed, req.rid))
-            res.t_admit = self.clock()
-            self.queue_hist.observe(res.queue_wait)
-            rec.histogram("serve.engine.queue_wait_s").observe(res.queue_wait)
-
+            self._start(i, req)
             plen = self._padded_len(req.prompt_len)
             toks = np.zeros((1, plen), np.int32)
             toks[0, :req.prompt_len] = req.tokens
@@ -264,13 +345,78 @@ class Engine:
             with rec.span("engine.prefill", rid=req.rid, slot=i, plen=plen):
                 logits, self.state = self._prefill(
                     self.params, batch, req.prompt_len, i, self.state)
-                tok = self._select(logits[0, -1], sl)
-            res.tokens.append(tok)
-            res.t_first = self.clock()
-            self._next_tok[i] = tok
-            self._finish_if_done(sl)
-            if sl.state is SlotState.PREFILL:
-                sl.state = SlotState.DECODE
+                self.prefill_launches += 1
+                self._first_token(i, sl, logits[0, -1])
+
+    def _blocks_needed(self, req: Request) -> int:
+        return -(-(req.prompt_len + req.max_new) // self.block_size)
+
+    def _admit_paged(self):
+        """Group up to `prefill_batch` same-bucket queue heads (FIFO: a
+        head of another bucket ends the group), allocate each request's
+        blocks, and prefill the group in one launch. A head whose blocks
+        the pool cannot give waits until a drain frees some; construction
+        made sure an empty engine holds one worst-case request, so
+        `drain()` ends."""
+        rec = obs_registry.get_recorder()
+        while self.queue:
+            free_slots = [i for i, sl in enumerate(self.slots)
+                          if sl.state is SlotState.FREE]
+            if not free_slots:
+                break
+            bucket = self._padded_len(self.queue[0].prompt_len)
+            group = []                       # (req, slot, blocks)
+            while (self.queue and free_slots
+                   and len(group) < self.prefill_batch):
+                req = self.queue[0]
+                if self._padded_len(req.prompt_len) != bucket:
+                    break
+                blocks = self.allocator.alloc(self._blocks_needed(req))
+                if blocks is None:
+                    break                    # backpressure: the head waits
+                self.queue.popleft()
+                group.append((req, free_slots.pop(0), blocks))
+            if not group:
+                break
+            self._launch_paged_prefill(group, bucket)
+            rec.gauge("serve.engine.blocks_in_use").set(self.allocator.used)
+
+    def _launch_paged_prefill(self, group, bucket: int):
+        """One batched prefill launch over `prefill_batch` rows. Dummy pad
+        rows come FIRST and alias the first real request's slot with an
+        all-null table row: their pos write is overwritten by the real
+        row's, written after it, and their cache rows sink into the null
+        block."""
+        rec = obs_registry.get_recorder()
+        a = self.prefill_batch
+        pad = a - len(group)
+        toks = np.zeros((a, bucket), np.int32)
+        lengths = np.ones((a,), np.int32)
+        slots_arr = np.full((a,), group[0][1], np.int64)
+        tables = np.zeros((a, self.blocks_per_slot), np.int32)
+        for j, (req, slot_i, blocks) in enumerate(group):
+            r = pad + j
+            self._start(slot_i, req)
+            toks[r, :req.prompt_len] = req.tokens
+            lengths[r] = req.prompt_len
+            slots_arr[r] = slot_i
+            self._slot_blocks[slot_i] = blocks
+            self.block_tables[slot_i, :] = 0
+            self.block_tables[slot_i, :len(blocks)] = blocks
+            tables[r] = self.block_tables[slot_i]
+        dev = self.device
+        with rec.span("engine.prefill", rids=[r.rid for r, _, _ in group],
+                      slots=[s for _, s, _ in group], plen=bucket,
+                      admitted=len(group)):
+            logits, self.state = self._prefill(
+                self.params, {"tokens": torch.from_numpy(toks).to(dev)},
+                torch.from_numpy(lengths).to(dev),
+                torch.from_numpy(slots_arr),
+                torch.from_numpy(tables).to(dev), self.state)
+            self.prefill_launches += 1
+            for j, (_req, slot_i, _) in enumerate(group):
+                self._first_token(slot_i, self.slots[slot_i],
+                                  logits[pad + j, -1])
 
     def _finish_if_done(self, sl: _Slot):
         if len(sl.result.tokens) >= sl.request.max_new:
@@ -291,10 +437,15 @@ class Engine:
             return 0
         rec = obs_registry.get_recorder()
         with rec.span("engine.decode", active=int(active.sum())):
-            logits, self.state = self._decode(
-                self.params,
-                torch.from_numpy(self._next_tok[:, None]).to(self.device),
-                self.state, torch.from_numpy(active).to(self.device))
+            args = (self.params,
+                    torch.from_numpy(self._next_tok[:, None]).to(self.device),
+                    self.state, torch.from_numpy(active).to(self.device))
+            if self.paged:
+                # the tables ride along every step, one fixed shape, so
+                # table churn never changes the decode's shapes
+                args += (torch.from_numpy(self.block_tables).to(
+                    self.device),)
+            logits, self.state = self._decode(*args)
             last = logits[:, -1]
             if self.greedy:   # one batched argmax and one transfer a step
                 sel = torch.argmax(last, dim=-1).cpu().numpy()
@@ -345,14 +496,20 @@ class Engine:
     def stats(self) -> dict:
         """Aggregate serving stats. The key set is the JAX engine's and is
         STABLE: every key is present on an empty engine too (latencies as
-        None, counters as 0), and the paged keys are False/None here.
+        None, counters as 0), and the paged keys are False/None on a
+        contiguous engine.
         p50/p99 come from the fixed-bucket latency histogram (bucket
         upper edges clamped into the exact [min, max]); mean and max are
         exact. `queue_wait_mean_s` averages over admitted requests."""
         done = [r for r in self.results.values() if r.t_done is not None]
         h = self.lat_hist
-        paged_keys = {"paged": False, "block_size": None, "num_blocks": None,
-                      "blocks_in_use": None, "peak_blocks": None}
+        paged_keys = {
+            "paged": self.paged,
+            "block_size": self.block_size,
+            "num_blocks": self.num_blocks,
+            "blocks_in_use": self.allocator.used if self.paged else None,
+            "peak_blocks": self.allocator.peak if self.paged else None,
+        }
         if not done:
             return {
                 "requests": 0, "tokens": 0, "tok_per_s": 0.0,
@@ -418,6 +575,16 @@ class WnnBatcher:
     """Requests queue, each `step()` serves up to `slots` of them through
     one fixed-shape scores launch.
 
+    With `mesh` the batcher serves class-sharded, SPMD: every rank of the
+    mesh builds it alike, submits the same requests and steps in
+    lockstep. Each rank holds only its class slice of the tables
+    (`prepare_artifact(mesh=)`; replication when M does not divide the
+    `classes` axes), scores its columns with one kernel launch a batch,
+    and one all-gather makes the (B, M) matrix whole on every rank (rows
+    split over a `data` axis first, when the mesh has one). The scores are
+    bit-equal to the unsharded batcher's; `stats()["class_shards"]` is
+    the resolved degree.
+
     The tables are prepared exactly once (`core.export.prepare_artifact` —
     for the default packed backends the uint32 bitplanes go to the device
     verbatim, never expanded to int8), and every launch has the shape
@@ -432,7 +599,7 @@ class WnnBatcher:
     """
 
     def __init__(self, artifact, *, slots: int = 64, backend: str = "auto",
-                 device=DEFAULT_DEVICE, clock: Callable = None):
+                 mesh=None, device=DEFAULT_DEVICE, clock: Callable = None):
         from repro_torch.core import export as export_mod
         if slots < 1:
             raise ValueError("need slots >= 1")
@@ -440,16 +607,22 @@ class WnnBatcher:
         self.artifact = artifact
         self.slots = slots
         self.backend = backend
+        self.mesh = mesh
+        self.rules = sh.SERVE_RULES
         self.total_bits = int(artifact.total_bits)
         self.clock = clock or time.perf_counter
-        self._prep = export_mod.prepare_artifact(artifact, backend=backend,
-                                                 device=self.device)
+        self._prep = export_mod.prepare_artifact(
+            artifact, backend=backend, mesh=mesh, rules=self.rules,
+            device=self.device)
+        self.class_shards = 1 if mesh is None else sh.class_partition(
+            mesh, int(artifact.num_classes), self.rules)[1]
         self.trace_counts: collections.Counter = collections.Counter()
         self.lat_hist = obs_metrics.Histogram()
 
         def _batch_scores(prep, bits):
             # THE serve loop, shared with artifact_scores — semantics
-            # cannot drift between the one-shot and batch paths
+            # cannot drift between the one-shot and batch paths; sharded,
+            # its tail gathers the class columns (a no-op unsharded)
             scores, _ = export_mod.predict_from_prep(prep, bits,
                                                      backend=backend)
             return scores
@@ -516,15 +689,15 @@ class WnnBatcher:
         """Batch-serving stats; the JAX batcher's stable key set
         (latencies None before any request finishes). Quantiles come from
         the fixed-bucket latency histogram: bucket-resolution p50/p99,
-        exact mean/max. `class_shards` is 1: this slice serves on one
-        device."""
+        exact mean/max. `class_shards` is the resolved class degree (1
+        unsharded)."""
         done = [r for r in self.results.values() if r.t_done is not None]
         occupancy = self.served / max(1, self.batches * self.slots)
         h = self.lat_hist
         return {"requests": len(done), "batches": self.batches,
                 "submitted": self._next_rid, "served": self.served,
                 "queued": len(self.queue),
-                "class_shards": 1,
+                "class_shards": self.class_shards,
                 "occupancy": occupancy,
                 "traces": int(self.trace_counts["batch_scores"]),
                 "latency_mean_s": h.mean,
@@ -568,8 +741,14 @@ class WnnTenantBatcher:
     forming batch does not use. When every slot is pinned by the batch,
     the request defers to the queue head for the next step: a batch never
     needs more distinct tenants than `capacity`, and `drain()` always
-    ends (a step's first request always admits). A tenant-sharded
-    batcher (`mesh=`) waits for the port's sharded serving.
+    ends (a step's first request always admits).
+
+    With `mesh` (SPMD: every rank builds, submits and steps alike) the
+    batch rows split over the mesh's batch axes and one all-gather makes
+    the scores whole, while the resident stack is replicated: per-tenant
+    tables are KB-scale, which is the point; a static fleet partitioned
+    by tenant is `prepare_tenants(mesh=)` with
+    `runtime.make_tenant_sharded_predict`.
 
         batcher = WnnTenantBatcher(capacity=64, slots=32)
         tid = batcher.add_tenant(artifact)
@@ -588,11 +767,9 @@ class WnnTenantBatcher:
             raise ValueError(
                 f"the tenant batcher serves the packed domain only "
                 f"(backend='packed'|'auto', got {backend!r})")
-        if mesh is not None:
-            raise NotImplementedError(
-                "a mesh-sharded tenant batcher belongs to the port's "
-                "sharded serving, ROADMAP Queue 1 item 3")
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.rules = sh.SERVE_RULES
         self.capacity = capacity
         self.slots = slots
         self.backend = backend
@@ -660,14 +837,23 @@ class WnnTenantBatcher:
     def _build(self, template):
         """The device cache and the two fixed-shape calls, from the first
         tenant's geometry."""
+        from repro_torch.dist import collectives
         from repro_torch.packed import layout, runtime
-        backend, dev = self.backend, self.device
+        backend, dev, mesh = self.backend, self.device, self.mesh
         self._stack = layout.stacked_zeros(template, self.capacity)
+        b_axes = () if mesh is None else runtime.batch_axes(
+            mesh, self.rules, self.slots)
 
         def _batch_scores(st, bits, sids):
-            # slot-indexed fleet scoring: THE serve loop of the stacked path
+            # slot-indexed fleet scoring: THE serve loop of the stacked
+            # path; under a mesh each rank scores its rows, gathered after
+            if b_axes:
+                rows = collectives.row_slice(self.slots, mesh, b_axes)
+                bits, sids = bits[rows], sids[rows]
             scores, _ = runtime.stacked_predict(st, bits, sids,
                                                 backend=backend, device=dev)
+            if b_axes:
+                scores = collectives.all_gather(scores, mesh, b_axes, dim=0)
             return scores
 
         def _install(st, pt, slot: int):

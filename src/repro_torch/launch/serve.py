@@ -10,10 +10,14 @@ they free up mid-decode.
         --smoke --device cpu --batch 4 --prompt-len 32 --gen 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3p2_3b \\
         --smoke --device cpu --stream --requests 16 --rate 64 --slots 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3p2_3b \\
+        --smoke --device cpu --stream --paged --block-size 8 \\
+        --num-blocks 17 --prefill-batch 2
 
 Without `--device` it runs on the GPU, and raises when there is none.
-`--paged`, `--block-size`, `--num-blocks`, `--prefill-batch` and
-`--profile` wait for their items in ROADMAP.md (Queue 1 item 3).
+`--paged` serves the stream from block-granular KV pools (`--block-size`,
+`--num-blocks`, `--prefill-batch`). `--profile` waits for its item in
+ROADMAP.md (Queue 1 item 4.8).
 """
 from __future__ import annotations
 
@@ -52,14 +56,19 @@ def serve(cfg, params, prompts, *, max_len: int, gen: int) -> torch.Tensor:
 
 
 def serve_stream(cfg, params, requests, *, slots: int, max_len: int,
-                 seed: int = 0, device=DEFAULT_DEVICE):
+                 seed: int = 0, paged: bool = False, block_size: int = 16,
+                 num_blocks=None, prefill_batch: int = 1,
+                 device=DEFAULT_DEVICE):
     """Drain a request stream (`scheduler.Request`s, see
     `scheduler.synth_request_stream`) through the continuous-batching
     engine in real time (each request held back until its arrival), print
-    its stats; returns (results, engine)."""
+    its stats; returns (results, engine). With `paged=True` the engine
+    serves from block pools; block_size/num_blocks/prefill_batch pass
+    through."""
     from repro_torch.launch.scheduler import Engine
     eng = Engine(cfg, params, slots=slots, max_len=max_len, seed=seed,
-                 device=device)
+                 paged=paged, block_size=block_size, num_blocks=num_blocks,
+                 prefill_batch=prefill_batch, device=device)
     results = eng.run(requests, realtime=True)
     st = eng.stats()
     # every latency is None until a request completes: the print is
@@ -68,6 +77,12 @@ def serve_stream(cfg, params, requests, *, slots: int, max_len: int,
           f"{st['tokens']} tokens in {st['decode_steps']} decode steps "
           f"({st['tok_per_s']:.1f} tok/s, peak {st['peak_active']}/"
           f"{slots} slots)")
+    if st["paged"]:
+        print(f"[serve] paged: peak {st['peak_blocks']}/"
+              f"{st['num_blocks']} blocks of {st['block_size']} "
+              f"(contiguous worst case would pin "
+              f"{slots * (max_len // st['block_size'])}), "
+              f"{eng.prefill_launches} prefill launches")
     print(f"[serve] latency mean/p50/p99/max = "
           f"{_fmt_s(st['latency_mean_s'])}/"
           f"{_fmt_s(st['latency_p50_s'])}/"
@@ -95,6 +110,19 @@ def main(argv=None) -> int:
                     help="[--stream] Poisson arrival rate, req/s")
     ap.add_argument("--slots", type=int, default=None,
                     help="[--stream] cache slots (default: --batch)")
+    ap.add_argument("--paged", action="store_true",
+                    help="[--stream] block-granular paged KV: requests "
+                         "reserve ceil(need/block-size) blocks instead of "
+                         "a worst-case max_len row")
+    ap.add_argument("--block-size", type=int, default=16,
+                    help="[--paged] tokens per KV block (max_len is rounded "
+                         "up to a multiple)")
+    ap.add_argument("--num-blocks", type=int, default=None,
+                    help="[--paged] pool size; default = contiguous worst "
+                         "case + the null block")
+    ap.add_argument("--prefill-batch", type=int, default=1,
+                    help="[--paged] admit up to this many same-bucket "
+                         "requests in one batched prefill launch")
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="write an obsmetrics/v1 METRICS.json snapshot of "
                          "the run (latency histograms, shape counters, "
@@ -119,8 +147,13 @@ def main(argv=None) -> int:
                 cfg, args.requests, rate=args.rate, seed=args.seed,
                 prompt_lens=(max(1, args.prompt_len // 2), args.prompt_len),
                 gen_lens=(max(1, args.gen // 2), args.gen))
+            if args.paged and max_len % args.block_size:
+                max_len += args.block_size - max_len % args.block_size
             serve_stream(cfg, params, reqs, slots=args.slots or args.batch,
-                         max_len=max_len, seed=args.seed, device=dev)
+                         max_len=max_len, seed=args.seed, paged=args.paged,
+                         block_size=args.block_size,
+                         num_blocks=args.num_blocks,
+                         prefill_batch=args.prefill_batch, device=dev)
             return 0
         rng = np.random.default_rng(args.seed)
         prompts = torch.from_numpy(rng.integers(

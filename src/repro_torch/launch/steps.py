@@ -8,9 +8,12 @@ slot copies the fresh batch-1 state into that row of the engine's state,
 and a decode step writes one key and value per sequence into the caches it
 is given (see `models/transformer.py`).
 
-The paged steps (`make_paged_prefill_step`, `make_paged_decode_step`,
-`paged_serve_state_zeros`), `make_train_step` and `lm_loss` wait for their
-items in ROADMAP.md (Queue 1 item 3).
+The paged steps serve from shared block pools: a batched prefill admits
+up to `admit` same-bucket requests in one forward (one flash-attention
+launch a layer) and scatters each row's fresh cache into its slot's
+blocks (`write_paged_state_slot`); the paged decode step takes the slots'
+block tables beside the masked decode's arguments. `make_train_step` and
+`lm_loss` wait for their item in ROADMAP.md (Queue 1 item 4.6).
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import transformer
+from repro_torch.models import kvcache, transformer
 
 
 def cast_tree(tree: torch.nn.Module, dtype) -> transformer.ParamTree:
@@ -132,3 +135,92 @@ def serve_state_zeros(cfg: ArchConfig, params, slots: int,
         caches=caches, cross=[None] * len(caches),
         pos=torch.zeros((slots,), dtype=torch.int32, device=device))
 
+
+
+# ---------------------------------------------------------------------------
+# Paged serving steps
+# ---------------------------------------------------------------------------
+
+def write_paged_state_slot(full, one, slot, table_row):
+    """`write_state_slot` for a paged state, in place: every paged pool
+    takes the batch-1 contiguous cache scattered into the blocks of
+    `table_row` ((MB,) int); contiguous leaves (windowed caches, pos)
+    take row `slot` as before. Returns `full`."""
+    for seg_full, seg_one in zip(full.caches, one.caches, strict=True):
+        for name, f in seg_full.items():
+            if isinstance(f, kvcache.PagedAttnCache):
+                kvcache.paged_scatter_attn(f, seg_one[name], table_row)
+            else:
+                write_state_slot(f, seg_one[name], slot)
+    write_state_slot(full.pos, one.pos, slot)
+    return full
+
+
+def _state_row(state, j: int):
+    """Batch row j of a batch-A contiguous prefill state, keeping the
+    batch axis (behind the layer axis of the stacked caches)."""
+    caches = [{name: kvcache.AttnCache(c.k[:, j:j + 1], c.v[:, j:j + 1])
+               for name, c in seg.items()} for seg in state.caches]
+    return transformer.ServeState(caches=caches, cross=state.cross,
+                                  pos=state.pos[j:j + 1])
+
+
+def make_paged_prefill_step(cfg: ArchConfig, *, max_len: int,
+                            admit: int) -> Callable:
+    """(params, batch, lengths, slots, tables, state) -> (logits, state).
+
+    Batched multi-slot prefill: `batch["tokens"]` is (admit, S), up to
+    `admit` same-bucket requests prefilled in ONE forward (one
+    flash-attention launch a layer). lengths: (admit,) int on the
+    device; slots: (admit,) ints; tables: (admit, max_blocks) int on the
+    device. Partial groups pad with dummy rows that the engine orders
+    FIRST and points at the first real request's slot with an all-null
+    table row: their writes sink into block 0 or are overwritten by the
+    real row's, so they never touch live state."""
+    @torch.inference_mode()
+    def paged_prefill_step(params, batch, lengths, slots, tables, state):
+        logits, one = transformer.forward_prefill(
+            cfg, params, batch["tokens"], max_len=max_len, length=lengths)
+        for j in range(admit):
+            write_paged_state_slot(state, _state_row(one, j), int(slots[j]),
+                                   tables[j])
+        return logits, state
+    return paged_prefill_step
+
+
+def make_paged_decode_step(cfg: ArchConfig) -> Callable:
+    """(params, token, state, active, block_tables) -> (logits, state').
+
+    `make_masked_decode_step` plus the slots' block tables (B, MB). An
+    inactive slot's row is all-null, so its (pos-frozen) write lands in
+    the null block 0 instead of a recycled live block."""
+    @torch.inference_mode()
+    def paged_decode_step(params, token, state, active, block_tables):
+        logits, new = transformer.forward_decode(
+            cfg, params, token, state, block_tables=block_tables,
+            token_mask=active)
+        pos = torch.where(active, new.pos, state.pos)
+        return logits, new._replace(pos=pos)
+    return paged_decode_step
+
+
+def paged_serve_state_zeros(cfg: ArchConfig, params, slots: int,
+                            max_len: int, *, block_size: int,
+                            num_blocks: int) -> transformer.ServeState:
+    """`serve_state_zeros` with every full-width attention cache replaced
+    by a shared block pool (L, Hkv, num_blocks, block_size, hd) bf16 with
+    no batch axis; windowed (`local`) caches stay contiguous per slot,
+    already bounded by their window."""
+    transformer.check_supported(cfg)
+    device = params.embed.device
+    caches = [
+        {f"l{i}": (kvcache.init_paged_attn_cache(
+            cfg.num_kv_heads, num_blocks, block_size, cfg.resolved_head_dim,
+            cfg.kv_cache_dtype, stack=seg.repeat, device=device)
+            if ls.mixer == "attn" else transformer._empty_layer_cache(
+                cfg, ls, slots, max_len, layers=seg.repeat, device=device))
+         for i, ls in enumerate(seg.layers)}
+        for seg in transformer.arch_segments(cfg)]
+    return transformer.ServeState(
+        caches=caches, cross=[None] * len(caches),
+        pos=torch.zeros((slots,), dtype=torch.int32, device=device))

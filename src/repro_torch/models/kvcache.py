@@ -1,5 +1,5 @@
-"""KV caches for serving (port of `repro/models/kvcache.py`, the bf16
-contiguous cache).
+"""KV caches for serving (port of `repro/models/kvcache.py`: the bf16
+contiguous cache and the paged GQA block pool).
 
 A cache holds one preallocated tensor per segment and per K or V,
 (L, B, Hkv, W, hd), with the layer axis first as the JAX package stacks
@@ -10,23 +10,30 @@ token's K and V per layer, not the whole cache. A layer works on its view
 `AttnCache(k[l], v[l])`, so a write through the view lands in the segment's
 tensor.
 
-Only the bf16 cache is ported. The int8/int4 quantised cache and every
-paged structure (`PagedAttnCache`, `BlockAllocator`, the paged writes and
-gathers) wait for their items in ROADMAP.md (Queue 1 item 3: the int8/int4
-KV cache for Qwen 1.5, and the paged engine with batched prefill).
+Paged layout: instead of one worst-case `max_len` row per slot, a
+`PagedAttnCache` holds a shared pool of fixed-size blocks with no batch
+axis, (L, Hkv, num_blocks, block_size, hd), and each slot maps its logical
+block i to a physical block through a host-side block table
+(`BlockAllocator`). Block 0 is the *null* block: a freed slot's table row
+resets to it, so an inactive slot's masked decode write lands in a sink
+instead of a recycled live block, and unallocated logical blocks read
+from it (masked by kv_len before the softmax, so never visible).
+
+The int8/int4 quantised cache (ROADMAP Queue 1 item 4.5) and the paged
+MLA pool (item 4.2) are not ported.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional
 
 import torch
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 
 _QUANTISED_TODO = ("the int8/int4 KV cache is not ported yet (ROADMAP.md, "
-                   "Queue 1 item 3: the int8/int4 KV cache, Qwen 1.5)")
-PAGED_TODO = ("the paged KV cache is not ported yet (ROADMAP.md, Queue 1 "
-               "item 3: the paged engine with batched prefill)")
+                   "Queue 1 item 4.5: the int8/int4 KV cache, Qwen 1.5)")
+_PAGED_MLA_TODO = ("the paged MLA pool is not ported yet (ROADMAP.md, Queue 1 "
+                   "item 4.2: MoE, DeepSeek MLA with PagedMLACache)")
 
 
 class AttnCache(NamedTuple):
@@ -93,18 +100,168 @@ def cache_read(cache: AttnCache, dtype=torch.bfloat16):
     return cache.k.to(dtype), cache.v.to(dtype)
 
 
-def init_paged_attn_cache(*args, **kwargs):
-    """The paged GQA block pool of the JAX package; not ported yet."""
-    raise NotImplementedError(PAGED_TODO)
+# ---------------------------------------------------------------------------
+# Paged (block-granular) caches
+# ---------------------------------------------------------------------------
+
+
+class PagedAttnCache(NamedTuple):
+    """The shared GQA block pool: no batch axis; slots index it through a
+    block table. k/v: ([L,] Hkv, num_blocks, block_size, hd) bf16."""
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None    # int8 pools only (not ported)
+    v_scale: Optional[torch.Tensor] = None
+
+    def layer(self, i: int) -> "PagedAttnCache":
+        """Layer i's view of a stacked pool; writes land in the pool."""
+        return PagedAttnCache(self.k[i], self.v[i])
+
+
+def init_paged_attn_cache(kv_heads: int, num_blocks: int, block_size: int,
+                          head_dim: int, dtype: str = "bf16",
+                          stack: Optional[int] = None, *,
+                          device=DEFAULT_DEVICE) -> PagedAttnCache:
+    """Zero pool (Hkv, NB, BS, hd) bf16 on `device`; `stack` prepends a
+    layer axis. Only dtype="bf16" is ported."""
+    if dtype != "bf16":
+        raise NotImplementedError(f"kv_cache_dtype={dtype!r}: "
+                                  + _QUANTISED_TODO)
+    device = resolve_device(device)
+    shape = (kv_heads, num_blocks, block_size, head_dim)
+    if stack:
+        shape = (stack, *shape)
+    return PagedAttnCache(
+        k=torch.zeros(shape, dtype=torch.bfloat16, device=device),
+        v=torch.zeros(shape, dtype=torch.bfloat16, device=device))
 
 
 def init_paged_mla_cache(*args, **kwargs):
     """The paged MLA block pool of the JAX package; not ported yet."""
-    raise NotImplementedError(PAGED_TODO)
+    raise NotImplementedError(_PAGED_MLA_TODO)
+
+
+def paged_cache_write_at(cache: PagedAttnCache, k_new: torch.Tensor,
+                         v_new: torch.Tensor, block: torch.Tensor,
+                         offset: torch.Tensor) -> PagedAttnCache:
+    """Decode write, in place: one entry per sequence at (block[b],
+    offset[b]). k_new/v_new: (B, Hkv, 1, hd); block/offset: (B,) int.
+    Inactive slots carry an all-null block table, so their (masked,
+    frozen-pos) writes collide harmlessly in block 0. Returns `cache`."""
+    _check_unquantised(cache)
+    block, offset = block.to(torch.long), offset.to(torch.long)
+    # pool (Hkv, NB, BS, hd) <- (Hkv, B, hd) at the B (block, offset) pairs
+    cache.k[:, block, offset] = k_new[:, :, 0].transpose(0, 1).to(
+        cache.k.dtype)
+    cache.v[:, block, offset] = v_new[:, :, 0].transpose(0, 1).to(
+        cache.v.dtype)
+    return cache
+
+
+def paged_gather(cache: PagedAttnCache, table: torch.Tensor,
+                 dtype=torch.bfloat16):
+    """Each slot's logical view for the decode attention read: table
+    (B, MB) -> k, v (B, Hkv, MB·BS, hd). Unallocated logical blocks read
+    the null block, which sits above the kv_len mask like the dead tail
+    of a contiguous cache."""
+    _check_unquantised(cache)
+    table = table.to(torch.long)
+
+    def gather(pool):
+        x = pool[:, table]                    # (Hkv, B, MB, BS, hd)
+        h, b, mb, bs, d = x.shape
+        # contiguous, as a contiguous cache's layer view is: on the card
+        # the decode attention's products take another (differently
+        # rounded) route on the transposed view
+        return x.transpose(0, 1).reshape(b, h, mb * bs, d).to(
+            dtype).contiguous()
+
+    return gather(cache.k), gather(cache.v)
+
+
+def paged_scatter_attn(pool_cache: PagedAttnCache, one: AttnCache,
+                       table_row: torch.Tensor) -> PagedAttnCache:
+    """Move a freshly prefilled batch-1 contiguous cache ([L,] 1, Hkv, W,
+    hd), W = MB·BS, into the blocks of `table_row` ((MB,) int), in place.
+    The whole width moves: logical blocks past the slot's allocation map
+    to the null block in the table and collide there. Returns
+    `pool_cache`."""
+    _check_unquantised(pool_cache)
+    table_row = table_row.to(torch.long)
+
+    def put(pool, src):
+        src = src.squeeze(-4)                 # ([L,] Hkv, W, hd)
+        bs, mb = pool.shape[-2], table_row.shape[0]
+        src = src.reshape(*src.shape[:-2], mb, bs, src.shape[-1])
+        pool[..., table_row, :, :] = src.to(pool.dtype)
+
+    put(pool_cache.k, one.k)
+    put(pool_cache.v, one.v)
+    return pool_cache
 
 
 class BlockAllocator:
-    """The JAX package's host-side block free list; not ported yet."""
+    """Host-side free-list allocator over the physical block pool.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(PAGED_TODO)
+    Block 0 is the reserved null block and is never handed out; the free
+    list starts as [1 .. num_blocks-1] and serves ascending ids first.
+    Invariant (`check()`): free and live partition the usable blocks
+    exactly — no leaks, no double assignment. `peak` is the most blocks
+    ever live at once.
+    """
+
+    def __init__(self, num_blocks: int):
+        if num_blocks < 2:
+            raise ValueError(
+                f"need num_blocks >= 2 (1 usable + the null block), "
+                f"got {num_blocks}")
+        self.num_blocks = int(num_blocks)
+        self._free: List[int] = list(range(self.num_blocks - 1, 0, -1))
+        self._live: set = set()
+        self.peak = 0
+
+    @property
+    def used(self) -> int:
+        return len(self._live)
+
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    def alloc(self, n: int) -> Optional[List[int]]:
+        """n blocks, or None when the pool cannot satisfy the request (the
+        engine leaves the request queued: backpressure, never a drop)."""
+        if n < 1:
+            raise ValueError(f"need n >= 1 blocks, got {n}")
+        if n > len(self._free):
+            return None
+        out = [self._free.pop() for _ in range(n)]
+        self._live.update(out)
+        self.peak = max(self.peak, len(self._live))
+        return out
+
+    def free(self, blocks) -> None:
+        for b in blocks:
+            if b not in self._live:
+                raise ValueError(
+                    f"double free / foreign block {b} (live: "
+                    f"{len(self._live)})")
+            self._live.remove(b)
+            self._free.append(b)
+
+    def check(self) -> None:
+        """Reconcile: free and live partition {1..num_blocks-1}; raises
+        AssertionError on a duplicate, an overlap, the null block in
+        circulation or a leak."""
+        free = self._free
+        if len(set(free)) != len(free):
+            raise AssertionError(f"free list holds duplicates: {free}")
+        if set(free) & self._live:
+            raise AssertionError(
+                f"blocks both free and live: {set(free) & self._live}")
+        if 0 in self._live or 0 in free:
+            raise AssertionError("null block 0 entered circulation")
+        if len(free) + len(self._live) != self.num_blocks - 1:
+            raise AssertionError(
+                f"leak: {len(free)} free + {len(self._live)} live != "
+                f"{self.num_blocks - 1} usable")

@@ -9,7 +9,7 @@ RMSNorm gain as `1 + scale`, RoPE on split halves. Prefill attention
 hand-written flash kernel on CUDA tensors and its plain version on CPU
 tensors; decode attention (`decode_attention`) is plain PyTorch over the
 whole cache, as the JAX package's is plain XLA. `banded_attention` waits
-for the Mixtral slice (ROADMAP.md, Queue 1 item 3).
+for the Mixtral slice (ROADMAP.md, Queue 1 item 4.2).
 """
 from __future__ import annotations
 

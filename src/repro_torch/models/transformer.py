@@ -16,10 +16,16 @@ key per sequence — where the JAX package returns new arrays. So
 `forward_decode` updates the caches of the state it is given and returns
 them in a state with the advanced positions.
 
-Only the dense family with GQA attention runs here. MoE, MLA, SSM,
-recurrent, encoder-decoder and patch models raise `NotImplementedError`
-naming their item in ROADMAP.md (Queue 1 item 3), as do the paged cache
-and the quantised cache; `forward_train` waits for the LM train steps.
+A paged serving state holds a shared block pool per segment instead
+(`kvcache.PagedAttnCache`); `forward_decode(block_tables=)` writes each
+sequence's key at (block_table[b, pos // BS], pos % BS) and attends over
+the slot's gathered logical view under the same kv_len mask as the
+contiguous path.
+
+Only the dense family with GQA attention runs here. MoE and MLA (ROADMAP
+Queue 1 item 4.2), SSM and recurrent (4.3), encoder-decoder and patch
+models (4.4) and the quantised cache (4.5) raise `NotImplementedError`
+naming their item; `forward_train` waits for the LM train steps (4.6).
 """
 from __future__ import annotations
 
@@ -35,7 +41,7 @@ from repro_torch.models.layers import (apply_norm, apply_rope,
                                        chunked_attention, decode_attention,
                                        mlp)
 
-_ROADMAP = "ROADMAP.md, Queue 1 item 3"
+_ROADMAP = "ROADMAP.md, Queue 1 item 4"
 
 # ---------------------------------------------------------------------------
 # Segments
@@ -85,20 +91,21 @@ def check_supported(cfg: ArchConfig) -> None:
     dense GQA model with a bf16 cache."""
     waits = None
     if cfg.num_experts or cfg.attn_kind == "mla":
-        waits = "MoE (Mixtral with banded SWA, DeepSeek MLA)"
+        waits = "MoE (Mixtral with banded SWA, DeepSeek MLA)", ".2"
     elif cfg.family in ("ssm", "hybrid"):
-        waits = "SSM and hybrid (Mamba 2, RecurrentGemma)"
+        waits = "SSM and hybrid (Mamba 2, RecurrentGemma)", ".3"
     elif (cfg.encoder_layers or cfg.cross_attention or cfg.patch_tokens
           or cfg.max_positions):
-        waits = "the encoder-decoder and patch models (Whisper, InternVL2)"
+        waits = ("the encoder-decoder and patch models (Whisper, InternVL2)",
+                 ".4")
     elif cfg.kv_cache_dtype != "bf16":
-        waits = "the int8/int4 KV cache (Qwen 1.5)"
+        waits = "the int8/int4 KV cache (Qwen 1.5)", ".5"
     elif cfg.family != "dense" or cfg.attn_kind != "gqa":
-        waits = f"the {cfg.family} family"
+        waits = f"the {cfg.family} family", ""
     if waits:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense GQA family only; {waits} "
-            f"is not ported yet ({_ROADMAP})")
+            f"{cfg.name}: the port runs the dense GQA family only; "
+            f"{waits[0]} is not ported yet ({_ROADMAP}{waits[1]})")
 
 
 # ---------------------------------------------------------------------------
@@ -239,21 +246,24 @@ def _qkv(cfg, p, x):
 
 
 def attn_mixer(cfg, p, x, positions, *, window: int, mode: str, cache,
-               pos=None):
+               pos=None, block_table=None):
     """Causal GQA attention; a ring-buffer cache when window > 0.
 
     prefill: attention over the prompt through `chunked_attention` (the
     flash kernel on the card), and the prompt's last W keys and values
     written into `cache` (width W). decode (x (B, 1, D), pos (B,)): one
     key and value per sequence written at pos % W, then `decode_attention`
-    over the cache. Returns x @ wo; the cache is updated in place."""
+    over the cache; on a paged pool at (block_table[b, pos // BS],
+    pos % BS), then over the slot's gathered view, MB·BS == max_len wide,
+    so the same kv_len mask makes paged decode equal to contiguous decode.
+    Returns x @ wo; the cache is updated in place."""
     b, s, _ = x.shape
     q, k, v = _qkv(cfg, p, x)
     if cfg.rope_theta > 0:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    w = cache.k.shape[2]
+    w = cache.k.shape[-2]
     if mode == "prefill":
         out = chunked_attention(q, k, v, causal=True, window=window,
                                 chunk=cfg.attn_chunk,
@@ -262,6 +272,18 @@ def attn_mixer(cfg, p, x, positions, *, window: int, mode: str, cache,
         slots = torch.arange(s - keep, s, device=x.device) % w
         kvcache.cache_write(cache, k[:, :, s - keep:], v[:, :, s - keep:],
                             slots)
+    elif isinstance(cache, kvcache.PagedAttnCache):
+        bs = cache.k.shape[-2]
+        mb = block_table.shape[1]
+        # a frozen (inactive) slot's pos stays in its table's range; the
+        # clamp mirrors JAX's clamped take_along_axis all the same
+        logical = torch.clamp(pos // bs, max=mb - 1).to(torch.long)
+        blk = torch.gather(block_table.to(torch.long), 1, logical[:, None])
+        kvcache.paged_cache_write_at(cache, k, v, blk[:, 0], pos % bs)
+        kf, vf = kvcache.paged_gather(cache, block_table,
+                                      dtype=torch.bfloat16)
+        kv_len = torch.clamp(pos + 1, max=mb * bs)
+        out = decode_attention(q, kf, vf, kv_len=kv_len, window=0)
     else:
         kvcache.cache_write_at(cache, k, v, pos % w)
         kf, vf = kvcache.cache_read(cache, dtype=torch.bfloat16)
@@ -277,7 +299,7 @@ def attn_mixer(cfg, p, x, positions, *, window: int, mode: str, cache,
 # ---------------------------------------------------------------------------
 
 def _apply_layer(cfg, spec: LayerSpec, p, x, positions, *, mode, cache,
-                 pos=None):
+                 pos=None, block_table=None):
     """x after one layer (norm -> attention -> residual, norm -> MLP ->
     residual); `cache` is updated in place."""
     if spec.mixer not in ("attn", "local") or spec.ffn != "mlp" \
@@ -285,7 +307,8 @@ def _apply_layer(cfg, spec: LayerSpec, p, x, positions, *, mode, cache,
         raise _unsupported_layer(spec)
     h = apply_norm(cfg, p.ln1, x)
     x = x + attn_mixer(cfg, p.mixer, h, positions, window=cfg.sliding_window,
-                       mode=mode, cache=cache, pos=pos)
+                       mode=mode, cache=cache, pos=pos,
+                       block_table=block_table)
     return x + mlp(cfg, p.ffn, apply_norm(cfg, p.ln2, x))
 
 
@@ -338,7 +361,8 @@ def _logits(cfg, params, x):
 
 
 class ServeState(NamedTuple):
-    caches: Any           # per segment {"l{i}": AttnCache (L, B, Hkv, W, hd)}
+    caches: Any           # per segment {"l{i}": AttnCache (L, B, Hkv, W, hd)
+    #                       or PagedAttnCache (L, Hkv, NB, BS, hd)}
     cross: Any            # per segment cross kv (encoder-decoder) or None
     pos: torch.Tensor     # (B,) int32: next position index per sequence
 
@@ -391,17 +415,23 @@ def forward_decode(cfg: ArchConfig, params, token: torch.Tensor,
     """One decode step. token: (B, 1) -> (logits (B, 1, V), new state).
 
     The caches of `state` are updated in place and shared by the returned
-    state, whose pos is state.pos + 1. token_mask: a (B,) bool of live
-    rows, which only MoE layers read (dense rows are independent)."""
+    state, whose pos is state.pos + 1. block_tables: (B, max_blocks) int
+    when the state holds paged pools, shared by every layer; None for a
+    contiguous state. token_mask: a (B,) bool of live rows, which only MoE
+    layers read (dense rows are independent)."""
     del token_mask
     check_supported(cfg)
-    if block_tables is not None:
-        raise NotImplementedError(kvcache.PAGED_TODO)
+    paged = [isinstance(c, kvcache.PagedAttnCache)
+             for seg in state.caches for c in seg.values()]
+    if any(paged) and block_tables is None:
+        raise ValueError("a paged serving state needs block_tables")
+    if block_tables is not None and not any(paged):
+        raise ValueError("block_tables given for a contiguous serving state")
     x = _embed_tokens(cfg, params, token)
     positions = state.pos[:, None]
     for ls, lp, lc in _layers(cfg, params, state.caches):
         x = _apply_layer(cfg, ls, lp, x, positions, mode="decode", cache=lc,
-                         pos=state.pos)
+                         pos=state.pos, block_table=block_tables)
     logits = _logits(cfg, params, x)
     return logits, ServeState(caches=state.caches, cross=state.cross,
                               pos=state.pos + 1)

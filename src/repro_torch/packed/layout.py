@@ -12,8 +12,10 @@ zeros; H3 hashes stay in [0, E), so padding bits are never read.
 The port carries word planes as int32 tensors holding the uint32 bit
 patterns: torch has few uint32 ops, and every consumer only shifts and
 masks. `StackedPackedTables` stacks a fleet of same-geometry tables along
-a leading tenant axis (multi-tenant serving); sharded layouts belong to a
-later slice of the port (ROADMAP Queue 1 item 3).
+a leading tenant axis (multi-tenant serving). Both name the logical axes
+of their leaves (`logical_axes`: "classes" on every per-class leaf,
+"tenants" on every stacked leaf) and cut the slice one rank holds under
+that partition (`class_slice`, `tenant_shard`).
 """
 from __future__ import annotations
 
@@ -249,6 +251,33 @@ class PackedTables:
         return (self.kernel_args.slices.numel()
                 * self.kernel_args.slices.element_size())
 
+    def logical_axes(self) -> dict:
+        """{leaf name: logical axes}, per submodel for the tuple leaves.
+        Per-class discriminators are independent until the final argmax,
+        so every per-class leaf (words, masks, bias) carries "classes" on
+        its M dimension; the shared perms and H3 parameters (one hash
+        block serves every class) stay replicated."""
+        n = self.num_submodels
+        return {"words": (("classes", None, None),) * n,
+                "masks": (("classes", None),) * n,
+                "perms": ((None, None),) * n,
+                "h3s": ((None, None),) * n,
+                "bias": ("classes",)}
+
+    def class_slice(self, lo: int, hi: int) -> "PackedTables":
+        """The class shard [lo, hi): words, masks and bias sliced on M
+        (views), perms and H3 parameters whole. Its scores are columns
+        [lo, hi) of the full (B, M) matrix; its kernel arguments are built
+        for hi - lo classes on first use."""
+        if not 0 <= lo < hi <= self.num_classes:
+            raise ValueError(
+                f"class range [{lo}, {hi}) outside [0, {self.num_classes})")
+        return PackedTables(
+            words=tuple(w[lo:hi] for w in self.words),
+            masks=tuple(m[lo:hi] for m in self.masks),
+            perms=self.perms, h3s=self.h3s, bias=self.bias[lo:hi],
+            entries=self.entries, num_classes=hi - lo)
+
 
 def from_binary_model(statics: Sequence, tables_bin: Sequence,
                       masks: Sequence, bias, entries: Sequence[int],
@@ -362,6 +391,31 @@ class StackedPackedTables:
             h3s=tuple(h[tid] for h in self.h3s),
             bias=self.bias[tid],
             entries=self.entries, num_classes=self.num_classes)
+
+    def tenant_shard(self, lo: int, hi: int) -> "StackedPackedTables":
+        """The tenant shard [lo, hi) (views): what one rank holds under the
+        `tenants` partition."""
+        if not 0 <= lo < hi <= self.num_tenants:
+            raise ValueError(
+                f"tenant range [{lo}, {hi}) outside [0, {self.num_tenants})")
+        return StackedPackedTables(
+            words=tuple(w[lo:hi] for w in self.words),
+            masks=tuple(m[lo:hi] for m in self.masks),
+            perms=tuple(p[lo:hi] for p in self.perms),
+            h3s=tuple(h[lo:hi] for h in self.h3s),
+            bias=self.bias[lo:hi],
+            entries=self.entries, num_classes=self.num_classes,
+            num_tenants=hi - lo)
+
+    def logical_axes(self) -> dict:
+        """{leaf name: logical axes}: every leaf carries "tenants" on its
+        leading dim, since whole tenants are independent."""
+        n = self.num_submodels
+        return {"words": (("tenants", None, None, None),) * n,
+                "masks": (("tenants", None, None),) * n,
+                "perms": (("tenants", None, None),) * n,
+                "h3s": (("tenants", None, None),) * n,
+                "bias": ("tenants", None)}
 
     def table_bytes(self) -> int:
         """Packed word storage of the whole fleet (4 bytes per word)."""

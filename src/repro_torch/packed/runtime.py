@@ -10,14 +10,27 @@ then `packed_wnn`'s plain version). `core/export.py::artifact_scores` and
 `launch/scheduler.py::WnnBatcher` both route through here. The tables'
 geometry was checked when the `PackedTables` was built, so a batch pays
 only the wrapper's pointer checks. `stacked_scores` serves a
-tenant-stacked fleet (`StackedPackedTables`) in one fixed-shape call;
-sharded serving belongs to a later slice (ROADMAP Queue 1 item 3).
+tenant-stacked fleet (`StackedPackedTables`) in one fixed-shape call.
+
+Sharded serving runs SPMD on `torch.distributed`: every rank makes the
+same calls on the same host inputs and holds only its slice of the
+tables. A class-sharded rank (`ClassShardedTables`) scores its class
+columns with one kernel launch, and one all-gather of the (B, M/S) int32
+columns makes the (B, M) matrix whole before the argmax; a
+tenant-sharded rank (`make_tenant_sharded_predict`) scores the rows whose
+tenant it owns and one sum of the masked int32 scores completes every
+row. Integer addition is exact in any order, so both are bit-equal to
+the unsharded path.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.dist import collectives
+from repro_torch.dist import sharding as sh
 from repro_torch.kernels.packed_wnn import packed_wnn, packed_wnn_ensemble
 from repro_torch.packed.layout import PackedTables, StackedPackedTables
 
@@ -36,6 +49,9 @@ def packed_scores(pt: PackedTables, bits, *, backend: str = "auto",
             f"packed_scores serves the packed domain only (backend="
             f"'packed'|'auto', got {backend!r}); use core.model."
             "forward_binary_fused for the unpacked formulations")
+    if isinstance(pt, ClassShardedTables):
+        return class_sharded_scores(pt, bits, lambda p, b: packed_scores(
+            p, b, backend=backend, device=device))
     dev = resolve_device(device)
     pt = pt.to(dev)
     bits = torch.as_tensor(bits).to(dev)
@@ -58,7 +74,9 @@ def packed_scores(pt: PackedTables, bits, *, backend: str = "auto",
 
 def packed_predict(pt: PackedTables, bits, *, backend: str = "auto",
                    device=DEFAULT_DEVICE):
-    """(scores (B, M) int32, argmax predictions (B,) int32)."""
+    """(scores (B, M) int32, argmax predictions (B,) int32); on a
+    `ClassShardedTables` the gathered matrix and the argmax over the full
+    class axis, the same on every rank."""
     from repro_torch.kernels import ops
     return ops.ensemble_predict(
         packed_scores(pt, bits, backend=backend, device=device))
@@ -108,3 +126,136 @@ def stacked_predict(st: StackedPackedTables, bits, tids, *,
     return ops.ensemble_predict(stacked_scores(st, bits, tids,
                                                backend=backend,
                                                device=device))
+
+
+# ---------------------------------------------------------------------------
+# Sharded serving (SPMD over torch.distributed)
+# ---------------------------------------------------------------------------
+
+def batch_axes(mesh, rules: sh.ShardingRules, batch: int,
+               exclude: tuple = ()) -> tuple:
+    """The mesh axes a batch of `batch` rows splits over (the "batch"
+    rule, sanitised by divisibility), minus the axes in `exclude`."""
+    entry = rules.resolve(("batch",), mesh, shape=(batch,))[0]
+    return tuple(a for a in sh.entry_axes(entry) if a not in exclude)
+
+
+@dataclasses.dataclass
+class ClassShardedTables:
+    """What one rank holds of prepared tables partitioned over a mesh by
+    class: `local` (a `PackedTables` or a `core.export.UnpackedTables`)
+    holds classes [lo, lo + M/S) of the ensemble's `num_classes`, where S
+    is the degree of `class_axes`. Scores through it are the full (B, M)
+    matrix on every rank (`class_sharded_scores`)."""
+    local: object
+    mesh: object
+    rules: sh.ShardingRules
+    class_axes: tuple
+    num_classes: int
+    lo: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.local.bias.device
+
+    @property
+    def degree(self) -> int:
+        return self.num_classes // int(self.local.bias.shape[0])
+
+
+def class_sharded_scores(sp: ClassShardedTables, bits, score_local):
+    """(B, M) int32 scores of a class-sharded ensemble, whole on every
+    rank. `score_local(local, rows)` scores this rank's classes (on a GPU
+    one WNN kernel launch); the (rows, M/S) columns then cross the `model`
+    group in ONE all-gather. Where the mesh also has batch axes (`data`)
+    that divide B, each rank scores only its rows, and one more gather
+    over those axes makes the rows whole."""
+    bits = torch.as_tensor(bits)
+    b_axes = batch_axes(sp.mesh, sp.rules, int(bits.shape[0]),
+                        exclude=sp.class_axes)
+    if b_axes:
+        bits = bits[collectives.row_slice(int(bits.shape[0]), sp.mesh,
+                                          b_axes)]
+    part = score_local(sp.local, bits)                   # (B_loc, M/S)
+    scores = collectives.all_gather(part, sp.mesh, sp.class_axes, dim=1)
+    if b_axes:
+        scores = collectives.all_gather(scores, sp.mesh, b_axes, dim=0)
+    return scores
+
+
+@dataclasses.dataclass
+class TenantShardedTables:
+    """What one rank holds of a stacked fleet partitioned over a mesh by
+    tenant: `local` holds tenants [lo, lo + T/S) of the fleet's
+    `num_tenants`, S the degree of `tenant_axes`."""
+    local: StackedPackedTables
+    mesh: object
+    rules: sh.ShardingRules
+    tenant_axes: tuple
+    num_tenants: int
+    lo: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.local.device
+
+
+def make_tenant_sharded_predict(st_spec, mesh, rules: sh.ShardingRules,
+                                global_batch: int, *, backend: str = "auto",
+                                device=DEFAULT_DEVICE):
+    """Build `predict(st, bits, tids) -> (scores, preds)` with the fleet
+    partitioned over `mesh` by tenant.
+
+    Each rank of the `tenants` axes holds T/S whole tenants; it scores
+    only the rows whose tenant it owns, at local index `tid - lo`, the
+    others masked to 0 through `valid=`, and the masked int32 partials
+    cross the mesh in ONE all-reduce sum: bit-equal to the replicated
+    path, and a row whose tenant id is out of range everywhere scores 0
+    and predicts class 0. Batch rows split over the batch axes (one more
+    gather makes them whole); tenant tables never move.
+
+    `st_spec` gives the fleet's tenant count: a `TenantShardedTables`
+    (what `core.export.prepare_tenants(mesh=)` returns) or a whole fleet.
+    The returned `predict` takes this rank's `TenantShardedTables`, or
+    the `StackedPackedTables` of its shard. When the `tenants` axes
+    resolve to replication (T does not divide them, or a one-process
+    mesh) it is `stacked_predict`."""
+    rules = rules if rules is not None else sh.SERVE_RULES
+    num_tenants = st_spec.num_tenants
+    entry, degree = sh.tenant_partition(mesh, num_tenants, rules)
+    if degree == 1:
+        def replicated(st, bits, tids):
+            if isinstance(st, TenantShardedTables):
+                st = st.local
+            return stacked_predict(st, bits, tids, backend=backend,
+                                   device=device)
+        return replicated
+    t_axes = sh.entry_axes(entry)
+    t_loc = num_tenants // degree
+    lo = collectives.axis_index(mesh, t_axes) * t_loc
+    b_axes = batch_axes(mesh, rules, global_batch, exclude=t_axes)
+    dev = resolve_device(device)
+
+    def predict(st, bits, tids):
+        if isinstance(st, TenantShardedTables):
+            st = st.local
+        if st.num_tenants != t_loc:
+            raise ValueError(f"a shard of {st.num_tenants} tenants; this "
+                             f"rank holds {t_loc} of {num_tenants}")
+        bits = torch.as_tensor(bits).to(dev)
+        tids = torch.as_tensor(tids).to(dev, torch.int64)
+        if bits.shape[0] != global_batch:
+            raise ValueError(f"{bits.shape[0]} rows; this predict was "
+                             f"built for {global_batch}")
+        if b_axes:
+            rows = collectives.row_slice(global_batch, mesh, b_axes)
+            bits, tids = bits[rows], tids[rows]
+        own = (tids >= lo) & (tids < lo + t_loc)
+        part = stacked_scores(st, bits, torch.clamp(tids - lo, 0, t_loc - 1),
+                              backend=backend, valid=own, device=dev)
+        scores = collectives.all_reduce_sum(part, mesh, t_axes)  # the ONE
+        if b_axes:
+            scores = collectives.all_gather(scores, mesh, b_axes, dim=0)
+        from repro_torch.kernels import ops
+        return ops.ensemble_predict(scores)
+    return predict

@@ -308,21 +308,30 @@ def test_quantised_cache_waits_for_its_slice(dtype):
                                   "init_paged_mla_cache", "BlockAllocator",
                                   "block_tables"])
 def test_paged_structures_wait_for_their_slice(what):
+    """The paged GQA pool, the allocator and paged decode are ported
+    (`test_torch_paged.py` holds them to JAX); the paged MLA pool still
+    waits for its item, naming it."""
     cfg = cfgs.get_config("llama3p2_3b", smoke=True)
     p = transformer.init_params(cfg, torch.Generator(), device="cpu")
-    calls = {
-        "init_paged_attn_cache": lambda: kvcache.init_paged_attn_cache(
-            2, 8, 16, 16),
-        "init_paged_mla_cache": lambda: kvcache.init_paged_mla_cache(
-            8, 16, 32, 8),
-        "BlockAllocator": lambda: kvcache.BlockAllocator(8),
-        "block_tables": lambda: transformer.forward_decode(
-            cfg, p, torch.zeros((2, 1), dtype=torch.int32),
-            steps.serve_state_zeros(cfg, p, 2, 8),
-            block_tables=torch.zeros((2, 1), dtype=torch.int32)),
-    }
-    with pytest.raises(NotImplementedError, match="ROADMAP.*paged"):
-        calls[what]()
+    if what == "init_paged_mla_cache":
+        with pytest.raises(NotImplementedError, match="ROADMAP.*4.2.*MLA"):
+            kvcache.init_paged_mla_cache(8, 16, 32, 8)
+    elif what == "init_paged_attn_cache":
+        pool = kvcache.init_paged_attn_cache(2, 8, 16, 16, device="cpu")
+        assert tuple(pool.k.shape) == (2, 8, 16, 16)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            kvcache.init_paged_attn_cache(2, 8, 16, 16)
+    elif what == "BlockAllocator":
+        a = kvcache.BlockAllocator(8)
+        assert a.alloc(7) == list(range(1, 8)) and a.alloc(1) is None
+    else:
+        state = steps.paged_serve_state_zeros(cfg, p, 2, 8, block_size=4,
+                                              num_blocks=3)
+        logits, new = transformer.forward_decode(
+            cfg, p, torch.zeros((2, 1), dtype=torch.int32), state,
+            block_tables=torch.tensor([[1, 0], [2, 0]], dtype=torch.int32))
+        assert tuple(logits.shape) == (2, 1, cfg.padded_vocab)
+        assert new.pos.tolist() == [1, 1]
 
 
 # ---------------------------------------------------------------------------
@@ -669,9 +678,11 @@ def test_engine_sampled_tokens_do_not_depend_on_the_slot(llama):
 
 def test_engine_rejects_what_waits_for_later_slices(llama):
     cfg, p = llama["cfg"], llama["p"]
-    for kw in ({"paged": True}, {"prefill_batch": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            scheduler.Engine(cfg, p, device="cpu", **kw)
+    # the paged engine is ported (test_torch_paged.py); batched prefill
+    # needs it, as in the JAX engine
+    assert scheduler.Engine(cfg, p, paged=True, device="cpu").paged
+    with pytest.raises(ValueError, match="paged=True"):
+        scheduler.Engine(cfg, p, prefill_batch=2, device="cpu")
     with pytest.raises(ValueError, match="bucket"):
         scheduler.Engine(cfg, p, bucket="exact", device="cpu")
     eng = scheduler.Engine(cfg, p, slots=1, max_len=12, device="cpu")

@@ -23,6 +23,7 @@ from repro.packed import runtime as jruntime  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import export  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.launch import mesh as mesh_mod  # noqa: E402
 from repro_torch.launch.scheduler import WnnBatcher, WnnTenantBatcher  # noqa: E402
 from repro_torch.obs import torchhooks  # noqa: E402
 from repro_torch.packed import layout, runtime  # noqa: E402
@@ -269,8 +270,14 @@ def test_prepare_tenants_memoizes_and_stacks_lazily():
         export.prepare_tenants([], device=CPU)
     with pytest.raises(ValueError, match="packed domain"):
         export.prepare_tenants(arts, backend="fused", device=CPU)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        export.prepare_tenants(arts, mesh=object(), device=CPU)
+    # a one-process mesh resolves `tenants` to replication: every tenant
+    # in the one shard, stacked from the same preparations
+    sharded = export.prepare_tenants(arts, mesh=mesh_mod.make_host_mesh(),
+                                     device=CPU)
+    assert isinstance(sharded, runtime.TenantShardedTables)
+    assert (sharded.num_tenants, sharded.lo) == (3, 0)
+    for x, y in zip(sharded.local.words, st.words):
+        assert torch.equal(x, y)
 
 
 def serve_both(capacity, slots, n_tenants, stream, seed0):
@@ -383,9 +390,16 @@ def test_tenant_batcher_rejects_what_jax_rejects():
     for kw in ({"capacity": 0}, {"slots": 0}, {"backend": "fused"}):
         with pytest.raises(ValueError):
             WnnTenantBatcher(device=CPU, **kw)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        WnnTenantBatcher(mesh=object(), device=CPU)
     assert tb.stats()["latency_p50_s"] is None
+    # a mesh is no longer refused: on a one-process mesh the batch is not
+    # split and the batcher serves as without one
+    on_mesh = WnnTenantBatcher(capacity=2, slots=2,
+                               mesh=mesh_mod.make_host_mesh(), device=CPU)
+    on_mesh.add_tenant(arts[0])
+    on_mesh.submit(0, np.ones(TOTAL_BITS, np.uint8))
+    tb.submit(0, np.ones(TOTAL_BITS, np.uint8))
+    np.testing.assert_array_equal(on_mesh.drain()[0].scores,
+                                  tb.drain()[0].scores)
 
 
 def test_counted_walks_dataclass_fields():

@@ -51,7 +51,25 @@ submodels, M = 10) and one LM path:
   collectives run on host copies; with two or more cards, one rank per
   card under NCCL. Every rank's scores are bit-equal to the unsharded
   port's, with one WNN launch a batch on each rank;
-* the port's three examples at their own sizes, quickstart last.
+* the port's three examples at their own sizes, quickstart last;
+* the MoE path: Mixtral 8x7B at full width (d 4096, 32/8 heads of 128,
+  8 experts top-2, d_ff 14336, window 4096), depth cut to 4 of 32
+  layers: the flash kernel at the banded prefill shape; serve() on 2
+  prompts of 6144 tokens (past the window: the banded prefill and the
+  ring's wrap) for 32 tokens; an Engine of 4 slots on 8 requests of
+  512-6144 prompt tokens; the sorted and einsum dispatches on layer 0's
+  input; and the token mask, live rows bit-equal whatever the idle
+  slots hold;
+* the MLA path: DeepSeek-V2-Lite at full width and depth (27 layers,
+  MLA rank 512, 64 routed experts top-6 + 2 shared): the flash kernel at
+  (D_qk, D_v) = (192, 128); serve() on 4 x 1024; the LM path's backlog
+  through the contiguous Engine and the paged one (the worst-case pool:
+  the same schedule, equal tokens; half of it; half at prefill_batch 4);
+* the loadgen path: the golden scenarios `smoke_gqa`, `paged_mixed`
+  (Llama 3.2 3B) and `paged_mla` (DeepSeek) at full width through the
+  port's `loadgen.run_scenario`, written to `build/BENCH_serve.json`,
+  which the port's `check()` and `scripts/diff_serve.py` read;
+  `ssm_state` waits for its ROADMAP item and is named as waiting.
 
 Each path resets the kernels' launch counts just before it and reads them
 just after (the sharded path in each rank process, summed over ranks). The tenant path's scoring is tensor code, as the JAX package's
@@ -84,9 +102,9 @@ AND per class and filter) beside it. Each thermometer kernel's `library_ms` is o
 broadcasting PyTorch compare (`torch.gt`, `torch.lt`) whose bool output
 is viewed as int8; no single PyTorch call computes an H3-hashed Bloom
 lookup or an XOR reduction, so the WNN and hash kernels' is null. The
-flash kernel's operations are 4·D FLOP (two multiply-adds) per visible
-(query, key) pair of each head. bf16 is bounded at 989 TFLOP/s on the
-tensor cores (its `wgmma_bf16` route). float32 is bounded at the rate of
+flash kernel's operations are 2·(D + Dv) FLOP (two multiply-adds) per
+visible (query, key) pair of each head, 4·D where v is as wide as q.
+bf16 is bounded at 989 TFLOP/s on the tensor cores (its `wgmma_bf16` route). float32 is bounded at the rate of
 the fastest route that keeps float32 accuracy, 3×TF32 on the tensor
 cores (its `mma_3xtf32` route): three TF32 products per product, 495/3 =
 165 TFLOP/s; `bound_cuda_core_ms` keeps the 67 TFLOP/s CUDA-core bound
@@ -98,6 +116,7 @@ never calls it).
 from __future__ import annotations
 
 import collections
+import gc
 import json
 import math
 import re
@@ -769,11 +788,13 @@ FLASH_CASES = [
 
 
 def flash_inputs(gen, case, dev="cuda"):
-    """q (B, H, Sq, D), k and v (B, Hkv, Sk, D) as the model has them:
-    (B, S, H, D) projections viewed as (B, H, S, D); or slices of one
-    fused projection."""
+    """q (B, H, Sq, D), k (B, Hkv, Sk, D) and v (B, Hkv, Sk, Dv) as the
+    model has them: (B, S, H, D) projections viewed as (B, H, S, D); or
+    slices of one fused projection. Dv is the case's `dv` (D when
+    absent)."""
     b, h, hkv, sq, sk, d, dt = (case[k] for k in
                                 ("b", "h", "hkv", "sq", "sk", "d", "dtype"))
+    dv = case.get("dv", d)
     if case.get("fused"):
         qkv = torch.randn((b, sq, (h + 2 * hkv) * d), generator=gen,
                           device=dev).to(dt)
@@ -783,86 +804,102 @@ def flash_inputs(gen, case, dev="cuda"):
     else:
         q = torch.randn((b, sq, h, d), generator=gen, device=dev).to(dt)
         k = torch.randn((b, sk, hkv, d), generator=gen, device=dev).to(dt)
-        v = torch.randn((b, sk, hkv, d), generator=gen, device=dev).to(dt)
+        v = torch.randn((b, sk, hkv, dv), generator=gen, device=dev).to(dt)
     return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+MAIN_FLASH_KEYS = ("ms", "plain_ms", "library_ms", "device_ms",
+                   "library_device_ms", "bound_ms", "bound_by",
+                   "bound_cuda_core_ms", "bytes", "ops", "max_abs_err",
+                   "tolerance")
+
+
+def flash_case_row(gen, ref, flash_attention, plan, case, dev="cuda"):
+    """One FLASH_CASES-style case: the kernel against its plain version
+    within FLASH_TOL, timed beside it and one SDPA call, naming the route
+    its type takes. Operations are 2·(D + Dv) FLOP per visible (query,
+    key) pair of each head (4·D where Dv = D)."""
+    name = case["name"]
+    b, h, hkv, sq, sk, d, dt = (case[k] for k in
+                                ("b", "h", "hkv", "sq", "sk", "d", "dtype"))
+    dv = case.get("dv", d)
+    causal, window = case.get("causal", True), case.get("window", 0)
+    q_offset = case.get("q_offset", 0)
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              scale=case.get("scale"))
+    q, k, v = flash_inputs(gen, case, dev)
+    got = flash_attention(q, k, v, **kw)
+    want = ref.attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    tol = FLASH_TOL[dt]
+    if not bool((diff <= tol + tol * want.float().abs()).all()):
+        raise AssertionError(f"flash_attention[{name}]: max |diff| "
+                             f"{float(diff.max())} past tolerance {tol}")
+    err = float(diff.max())
+    del got, want, diff
+
+    # one PyTorch call computing the same function: SDPA with the KV
+    # heads repeated beforehand (the repeat is not timed)
+    kr = k.repeat_interleave(h // hkv, dim=1)
+    vr = v.repeat_interleave(h // hkv, dim=1)
+    mask = None
+    if window > 0 or (causal and (sq != sk or q_offset)):
+        iq = q_offset + torch.arange(sq, device=dev)[:, None]
+        ik = torch.arange(sk, device=dev)[None, :]
+        mask = (ik <= iq) if causal else torch.ones_like(ik <= iq)
+        if window > 0:
+            mask = mask & (ik > iq - window)
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q, kr, vr, attn_mask=mask,
+            is_causal=causal and mask is None, scale=kw["scale"])
+    want = ref.attention_ref(q, k, v, **kw)
+    lib_err = float((library().float() - want.float()).abs().max())
+    del want
+    ms = cuda_ms(lambda: flash_attention(q, k, v, **kw), 20)
+    plain_ms = cuda_ms(lambda: ref.attention_ref(q, k, v, **kw), 5)
+    library_ms = cuda_ms(library, 20)
+    device_ms = graph_ms(lambda: flash_attention(q, k, v, **kw))
+    library_device_ms = graph_ms(library)
+    esize = q.element_size()
+    bytes_moved = esize * (b * h * sq * (d + dv)
+                           + b * hkv * sk * (d + dv))
+    ops = 2 * (d + dv) * b * h * visible_pairs(sq, sk, causal, window,
+                                               q_offset)
+    rate = TF32X3_FLOP_PER_S if dt == torch.float32 else BF16_FLOP_PER_S
+    bms, by = bound(bytes_moved, ops, rate)
+    p = plan(dt, d, batch=b, heads=h, sq=sq, dv=dv)
+    row = {"case": name, "route": p.route, "b": b, "h": h, "hkv": hkv,
+           "sq": sq, "sk": sk, "d": d, "dv": dv, "causal": causal,
+           "window": window, "q_offset": q_offset,
+           "dtype": str(dt).replace("torch.", ""),
+           "block_q": p.block_q, "block_k": p.block_k,
+           "blocks": p.blocks, "max_abs_err": err, "tolerance": tol,
+           "library_max_abs_err": lib_err, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "device_ms": device_ms,
+           "library_device_ms": library_device_ms,
+           "bound_ms": bms, "bound_by": by, "bytes": bytes_moved,
+           "ops": ops, "tflop_per_s": ops / device_ms / 1e9}
+    if dt == torch.float32:
+        row["bound_cuda_core_ms"] = bound(bytes_moved, ops,
+                                          FP32_FLOP_PER_S)[0]
+    del q, k, v, kr, vr, mask
+    return row
 
 
 def check_flash_kernel(gen, ref, flash_attention, plan, *, device="cuda"):
     """The flash kernel against its plain version within FLASH_TOL at the
     cases of FLASH_CASES, each timed beside its plain version and one
     SDPA call, and each naming the route its type takes."""
-    dev = device
     rows, main = [], None
     for case in FLASH_CASES:
-        name, is_main = case["name"], case.get("main", False)
-        b, h, hkv, sq, sk, d, dt = (case[k] for k in
-                                    ("b", "h", "hkv", "sq", "sk", "d",
-                                     "dtype"))
-        causal, window = case.get("causal", True), case.get("window", 0)
-        q_offset = case.get("q_offset", 0)
-        kw = dict(causal=causal, window=window, q_offset=q_offset)
-        q, k, v = flash_inputs(gen, case, dev)
-        got = flash_attention(q, k, v, **kw)
-        want = ref.attention_ref(q, k, v, **kw)
-        torch.cuda.synchronize()
-        diff = (got.float() - want.float()).abs()
-        tol = FLASH_TOL[dt]
-        if not bool((diff <= tol + tol * want.float().abs()).all()):
-            raise AssertionError(f"flash_attention[{name}]: max |diff| "
-                                 f"{float(diff.max())} past tolerance {tol}")
-        err = float(diff.max())
-
-        # one PyTorch call computing the same function: SDPA with the KV
-        # heads repeated beforehand (the repeat is not timed)
-        kr = k.repeat_interleave(h // hkv, dim=1)
-        vr = v.repeat_interleave(h // hkv, dim=1)
-        mask = None
-        if window > 0 or (causal and (sq != sk or q_offset)):
-            iq = q_offset + torch.arange(sq, device=dev)[:, None]
-            ik = torch.arange(sk, device=dev)[None, :]
-            mask = (ik <= iq) if causal else torch.ones_like(ik <= iq)
-            if window > 0:
-                mask = mask & (ik > iq - window)
-
-        def library():
-            return F.scaled_dot_product_attention(
-                q, kr, vr, attn_mask=mask,
-                is_causal=causal and mask is None)
-        lib_err = float((library().float() - want.float()).abs().max())
-        ms = cuda_ms(lambda: flash_attention(q, k, v, **kw), 20)
-        plain_ms = cuda_ms(lambda: ref.attention_ref(q, k, v, **kw), 5)
-        library_ms = cuda_ms(library, 20)
-        device_ms = graph_ms(lambda: flash_attention(q, k, v, **kw))
-        library_device_ms = graph_ms(library)
-        esize = q.element_size()
-        bytes_moved = esize * (2 * b * h * sq * d + 2 * b * hkv * sk * d)
-        ops = 4 * b * h * d * visible_pairs(sq, sk, causal, window, q_offset)
-        rate = TF32X3_FLOP_PER_S if dt == torch.float32 else BF16_FLOP_PER_S
-        bms, by = bound(bytes_moved, ops, rate)
-        p = plan(dt, d, batch=b, heads=h, sq=sq)
-        row = {"case": name, "route": p.route, "b": b, "h": h, "hkv": hkv,
-               "sq": sq, "sk": sk, "d": d, "causal": causal,
-               "window": window, "q_offset": q_offset,
-               "dtype": str(dt).replace("torch.", ""),
-               "block_q": p.block_q, "block_k": p.block_k,
-               "blocks": p.blocks, "max_abs_err": err, "tolerance": tol,
-               "library_max_abs_err": lib_err, "ms": ms,
-               "plain_ms": plain_ms, "library_ms": library_ms,
-               "device_ms": device_ms,
-               "library_device_ms": library_device_ms,
-               "bound_ms": bms, "bound_by": by, "bytes": bytes_moved,
-               "ops": ops, "tflop_per_s": ops / device_ms / 1e9}
-        if dt == torch.float32:
-            row["bound_cuda_core_ms"] = bound(bytes_moved, ops,
-                                              FP32_FLOP_PER_S)[0]
+        row = flash_case_row(gen, ref, flash_attention, plan, case, device)
         rows.append(row)
-        if is_main:
-            main = {k: row[k] for k in ("ms", "plain_ms", "library_ms",
-                                        "device_ms", "library_device_ms",
-                                        "bound_ms", "bound_by",
-                                        "bound_cuda_core_ms", "bytes",
-                                        "ops", "max_abs_err", "tolerance")}
-        del q, k, v, kr, vr, got, want, diff
+        if case.get("main", False):
+            main = {k: row[k] for k in MAIN_FLASH_KEYS}
     emit("lm_kernel", cases=rows)
     return {"flash_attention": main}
 
@@ -1184,6 +1221,63 @@ def train_path(mods, kernels, *, device="cuda"):
 # Phase 7: the LM serve path at full width and depth
 # ---------------------------------------------------------------------------
 
+def timed_prefill_and_decode(prefill, decode, params, prompts, steps_n):
+    """(last-position logits, CUDA-event ms of one prefill, ms of each of
+    `steps_n` greedy decode steps after it): prefill and decode calls of
+    the path's run."""
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    first, state = prefill(params, {"tokens": prompts})
+    b.record()
+    b.synchronize()
+    prefill_ms = a.elapsed_time(b)
+    tok = torch.argmax(first[:, -1:], dim=-1).to(torch.int32)
+    decode_ms = []
+    for _ in range(steps_n):
+        a.record()
+        logits, state = decode(params, tok, state)
+        b.record()
+        b.synchronize()
+        decode_ms.append(a.elapsed_time(b))
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+    del state
+    return first, prefill_ms, decode_ms
+
+
+def check_launches(what: str, launches: dict, n_layers: int, prefills: int):
+    """Flash attention launched once a layer a prefill call, and no other
+    kernel."""
+    if launches["flash_attention"] != n_layers * prefills:
+        raise AssertionError(
+            f"{what}: flash_attention launched "
+            f"{launches['flash_attention']} times, not {n_layers} x "
+            f"{prefills} prefill calls")
+    others = {k: v for k, v in launches.items()
+              if k != "flash_attention" and v}
+    if others:
+        raise AssertionError(f"{what} launched other kernels: {others}")
+
+
+def check_served(what, served, batch, gen, vocab):
+    if tuple(served.shape) != (batch, gen):
+        raise AssertionError(f"{what}: serve() returned "
+                             f"{tuple(served.shape)}")
+    if not bool(((served >= 0) & (served < vocab)).all()):
+        raise AssertionError(f"{what}: serve() returned tokens outside "
+                             "the vocabulary")
+
+
+def check_results(what, results, reqs):
+    if len(results) != len(reqs):
+        raise AssertionError(f"{what}: {len(results)} results for "
+                             f"{len(reqs)} requests")
+    short = [r.rid for r, q in zip(results, reqs)
+             if len(r.tokens) != q.max_new]
+    if short:
+        raise AssertionError(f"{what}: requests {short} did not return "
+                             "max_new tokens")
+
+
 def lm_serve_path(kernels, *, get_config, transformer, steps, scheduler,
                   serve_fn, device="cuda"):
     """Llama 3.2 3B at full width and depth, float32 parameters drawn on
@@ -1224,24 +1318,9 @@ def lm_serve_path(kernels, *, get_config, transformer, steps, scheduler,
     prefill_calls = 0
     t_path = time.perf_counter()
     # serve()'s batch prefill, timed alone, and its decode steps
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
-        enable_timing=True)
-    a.record()
-    ref_logits, state = prefill(params, {"tokens": prompts})
-    b.record()
-    b.synchronize()
+    ref_logits, prefill_ms, decode_ms = timed_prefill_and_decode(
+        prefill, decode, params, prompts, LM_DECODE_TIMED_STEPS)
     prefill_calls += 1
-    prefill_ms = a.elapsed_time(b)
-    tok = torch.argmax(ref_logits[:, -1:], dim=-1).to(torch.int32)
-    decode_ms = []
-    for _ in range(LM_DECODE_TIMED_STEPS):
-        a.record()
-        logits, state = decode(params, tok, state)
-        b.record()
-        b.synchronize()
-        decode_ms.append(a.elapsed_time(b))
-        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
-    del state
     t0 = time.perf_counter()
     served = serve_fn(cfg, params, prompts, max_len=max_len, gen=LM_GEN)
     served = served.cpu()
@@ -1262,24 +1341,9 @@ def lm_serve_path(kernels, *, get_config, transformer, steps, scheduler,
 
     # what came out is right
     n_layers = cfg.num_layers
-    if launches["flash_attention"] != n_layers * prefill_calls:
-        raise AssertionError(
-            f"flash_attention launched {launches['flash_attention']} times, "
-            f"not {n_layers} x {prefill_calls} prefill calls")
-    others = {k: v for k, v in launches.items()
-              if k != "flash_attention" and v}
-    if others:
-        raise AssertionError(f"the LM path launched other kernels: {others}")
-    if tuple(served.shape) != (LM_BATCH, LM_GEN):
-        raise AssertionError(f"serve() returned {tuple(served.shape)}")
-    if not bool(((served >= 0) & (served < cfg.padded_vocab)).all()):
-        raise AssertionError("serve() returned tokens outside the vocab")
-    if len(results) != LM_REQUESTS:
-        raise AssertionError(f"{len(results)} results for {LM_REQUESTS}")
-    short = [r.rid for r, q in zip(results, reqs)
-             if len(r.tokens) != q.max_new]
-    if short:
-        raise AssertionError(f"requests {short} did not return max_new")
+    check_launches("the LM path", launches, n_layers, prefill_calls)
+    check_served("Llama", served, LM_BATCH, LM_GEN, cfg.padded_vocab)
+    check_results("Llama Engine", results, reqs)
     if not bool(torch.isfinite(ref_logits).all()):
         raise AssertionError("non-finite prefill logits")
     logit_err = []
@@ -1507,21 +1571,10 @@ def paged_path(kernels, params, cfg, contiguous, *, scheduler,
         if not 0 < st["peak_blocks"] <= num_blocks - 1:
             raise AssertionError(f"peak blocks {st['peak_blocks']} of "
                                  f"{num_blocks}")
-        if launches["flash_attention"] != cfg.num_layers * \
-                eng.prefill_launches:
-            raise AssertionError(
-                f"flash_attention launched {launches['flash_attention']} "
-                f"times, not {cfg.num_layers} x {eng.prefill_launches} "
-                "prefill launches")
-        others = {k: v for k, v in launches.items()
-                  if k != "flash_attention" and v}
-        if others:
-            raise AssertionError(f"the paged path launched {others}")
+        check_launches(f"the paged path (prefill_batch {pb})", launches,
+                       cfg.num_layers, eng.prefill_launches)
+        check_results(f"paged Engine (prefill_batch {pb})", results, reqs)
         tokens = [r.tokens for r in results]
-        short = [r.rid for r, q in zip(results, reqs)
-                 if len(r.tokens) != q.max_new]
-        if short:
-            raise AssertionError(f"requests {short} did not return max_new")
         logit_err = max(
             float((first_logits[i] - contiguous["first_logits"][i]).abs()
                   .max()) for i in range(LM_REQUESTS))
@@ -2175,6 +2228,462 @@ def sharded_path(kernels, export, runtime, WnnBatcher, mesh_mod, *,
 # Phase 10: the examples at their own sizes
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# Phase 11: the MoE family at full width (Mixtral 8x7B, DeepSeek-V2-Lite)
+# ---------------------------------------------------------------------------
+
+# Mixtral 8x7B (`configs/mixtral_8x7b.py`) at full width (d 4096, 32/8
+# heads of 128, 8 experts top-2, d_ff 14336, window 4096, vocabulary
+# 32000), depth cut to MOE_LAYERS of 32: serve() on MOE_BATCH prompts of
+# MOE_PROMPT tokens (past the window: the banded prefill and the ring's
+# wrap both run), then an Engine of MOE_SLOTS slots on MOE_REQUESTS
+# requests. Prompt lengths are multiples of 512: a prefill's tokens must
+# split into MoE groups of 512 (`models/moe.py`), as in the JAX package.
+MOE_ARCH, MOE_LAYERS = "mixtral_8x7b", 4
+MOE_BATCH, MOE_PROMPT, MOE_GEN = 2, 6144, 32
+MOE_SLOTS, MOE_REQUESTS = 4, 8
+MOE_PROMPT_LENS, MOE_GEN_LENS = (512, 1024, 2048, 4096, 6144), (16, 32)
+# the sorted and einsum dispatches on the same input: float32 sums in
+# another order
+MOE_DISPATCH_TOL = 1e-4
+# DeepSeek-V2-Lite (`configs/deepseek_v2_lite_16b.py`) at full width and
+# depth: serve() on MLA_BATCH prompts of MLA_PROMPT tokens, then the LM
+# path's backlog (LM_REQUESTS requests, LM_SLOTS slots) through the
+# contiguous and the paged Engine (blocks of PAGED_BLOCK)
+MLA_ARCH = "deepseek_v2_lite_16b"
+MLA_BATCH, MLA_PROMPT, MLA_GEN = 4, 1024, 32
+MLA_PREFILL_BATCH = 4
+MOE_DECODE_TIMED_STEPS = 4
+# the flash kernel at the shapes these paths give it, float32 as their
+# parameters are: Mixtral's banded prefill and DeepSeek's MLA prefill
+# (q and k 128 + 64 wide, v 128, scale 1/sqrt(192))
+FLASH_MOE_CASES = {
+    "moe": dict(name="mixtral_banded_b2_s6144_w4096", b=2, h=32, hkv=8,
+                sq=6144, sk=6144, d=128, window=4096, dtype=torch.float32),
+    "mla": dict(name="deepseek_mla_b4_s1024_d192_dv128", b=4, h=16,
+                hkv=16, sq=1024, sk=1024, d=192, dv=128,
+                scale=192 ** -0.5, dtype=torch.float32),
+}
+
+
+def token_mask_check(cfg, params, transformer, steps, reqs, max_len, dev):
+    """A masked decode step over 4 slots, the last two live: the live
+    rows' logits are bit-equal whether the two idle slots hold zeros (and
+    token 0) or two other requests' prefilled leftovers (and their
+    tokens). The same pair of steps without the mask is reported beside
+    it: queue positions follow the token order, so the idle rows, ahead
+    of the live ones, claim expert capacity first."""
+    prefill = steps.make_slot_prefill_step(cfg, max_len=max_len)
+    shortest = sorted(reqs, key=lambda r: r.prompt_len)[:4]
+
+    def state_with(rows):
+        st = steps.serve_state_zeros(cfg, params, 4, max_len)
+        toks = [0, 0, 0, 0]
+        for slot, r in rows:
+            batch = {"tokens": torch.from_numpy(r.tokens[None]).to(dev)}
+            logits, st = prefill(params, batch, r.prompt_len, slot, st)
+            toks[slot] = int(torch.argmax(logits[0, -1]))
+        return st, torch.tensor(toks, dtype=torch.int32, device=dev)[:, None]
+
+    live = [(2, shortest[0]), (3, shortest[1])]
+    active = torch.tensor([False, False, True, True], device=dev)
+    out = {}
+    for masked in (True, False):
+        logits = []
+        for rows in (live, live + [(0, shortest[2]), (1, shortest[3])]):
+            st, tok = state_with(rows)
+            with torch.inference_mode():
+                lg, _ = transformer.forward_decode(
+                    cfg, params, tok, st,
+                    token_mask=active if masked else None)
+            logits.append(lg[2:].float())
+            del st
+        out["masked" if masked else "unmasked"] = {
+            "live_rows_bit_equal": bool(torch.equal(*logits)),
+            "max_abs_diff": float((logits[0] - logits[1]).abs().max())}
+    if not out["masked"]["live_rows_bit_equal"]:
+        raise AssertionError(f"token mask: live rows' logits moved with the "
+                             f"idle slots' contents: {out}")
+    return out
+
+
+def moe_path(kernels, *, get_config, transformer, steps, scheduler,
+             serve_fn, moe, layers, ref, flash_attention, plan,
+             device="cuda"):
+    """Mixtral 8x7B at full width, MOE_LAYERS layers, float32 parameters
+    drawn on the card: the flash kernel at the banded prefill shape
+    against its plain version; serve() on MOE_BATCH x MOE_PROMPT; an
+    Engine of MOE_SLOTS slots on MOE_REQUESTS requests; then, outside the
+    counted run, the two dispatches on layer 0's input and the token
+    mask. Returns (launches, the flash row)."""
+    import dataclasses
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(20264)
+    flash = flash_case_row(gen, ref, flash_attention, plan,
+                           FLASH_MOE_CASES["moe"], device)
+    torch.cuda.empty_cache()
+    full = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, num_layers=MOE_LAYERS)
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, gen, dtype=torch.float32,
+                                     device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(20264)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT), dtype=np.int32)).to(dev)
+    max_len = MOE_PROMPT + MOE_GEN
+    reqs = scheduler.synth_request_stream(
+        cfg, MOE_REQUESTS, seed=20264, prompt_lens=MOE_PROMPT_LENS,
+        gen_lens=MOE_GEN_LENS)
+    prefill = steps.make_prefill_step(cfg, max_len=max_len)
+    decode = steps.make_decode_step(cfg)
+    prefill(params, {"tokens": prompts[:1, :512]})      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    kernels.reset_launch_counts()          # the MoE path's run starts here
+    t_path = time.perf_counter()
+    _, prefill_ms, decode_ms = timed_prefill_and_decode(
+        prefill, decode, params, prompts, MOE_DECODE_TIMED_STEPS)
+    t0 = time.perf_counter()
+    served = serve_fn(cfg, params, prompts, max_len=max_len,
+                      gen=MOE_GEN).cpu()
+    serve_s = time.perf_counter() - t0
+    eng = scheduler.Engine(cfg, params, slots=MOE_SLOTS, max_len=max_len,
+                           device=dev)
+    t0 = time.perf_counter()
+    results = eng.run(reqs)
+    torch.cuda.synchronize()
+    engine_s = time.perf_counter() - t0
+    seconds = time.perf_counter() - t_path
+    launches = kernels.launch_counts()     # ... and ends here
+    peak_bytes = torch.cuda.max_memory_allocated()
+
+    check_launches("the MoE path", launches, cfg.num_layers,
+                   2 + eng.prefill_launches)
+    check_served("Mixtral", served, MOE_BATCH, MOE_GEN, cfg.padded_vocab)
+    check_results("Mixtral Engine", results, reqs)
+    st = eng.stats()
+    if st["requests"] != MOE_REQUESTS or eng.trace_counts["decode"] != 1:
+        raise AssertionError(f"Mixtral engine stats {st}")
+    del eng
+
+    # the two dispatches on layer 0's MoE input (its ln2 of the prompts'
+    # embeddings): one group of 512 tokens a row of 512
+    lp = params.segments[0].l0[0]
+    x = layers.apply_norm(cfg, lp.ln2, params.embed[prompts[:, :4096].long()])
+    with torch.inference_mode():
+        ys, aux_s = moe.moe_block(cfg, lp.ffn, x)
+        ecfg = dataclasses.replace(cfg, moe_dispatch="einsum")
+        ye, aux_e = moe.moe_block(ecfg, lp.ffn, x)
+        sorted_ms = cuda_ms(lambda: moe.moe_block(cfg, lp.ffn, x), 3, 1)
+        einsum_ms = cuda_ms(lambda: moe.moe_block(ecfg, lp.ffn, x), 3, 1)
+    dispatch_err = float((ys - ye).abs().max())
+    if not bool(((ys - ye).abs() <= MOE_DISPATCH_TOL
+                 * (1 + ye.abs())).all()):
+        raise AssertionError(f"sorted and einsum dispatches differ by "
+                             f"{dispatch_err}")
+    del x, ys, ye
+    mask = token_mask_check(cfg, params, transformer, steps, reqs, max_len,
+                            dev)
+    emit("moe_path", model=full.name, layers=cfg.num_layers,
+         layers_published=full.num_layers, d_model=cfg.d_model,
+         heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+         head_dim=cfg.resolved_head_dim, experts=cfg.num_experts,
+         top_k=cfg.top_k, d_ff=cfg.moe_d_ff, window=cfg.sliding_window,
+         vocab=cfg.vocab_size, params=transformer.param_count(params),
+         param_dtype="float32", init_s=init_s, max_len=max_len,
+         ring=min(max_len, cfg.sliding_window),
+         serve={"batch": MOE_BATCH, "prompt": MOE_PROMPT, "gen": MOE_GEN,
+                "prefill_ms": prefill_ms,
+                "prefill_tok_per_s": MOE_BATCH * MOE_PROMPT / prefill_ms
+                * 1e3,
+                "decode_ms_per_step": decode_ms, "serve_s": serve_s,
+                "serve_tok_per_s": MOE_BATCH * MOE_GEN / serve_s},
+         engine={"slots": MOE_SLOTS, "requests": MOE_REQUESTS,
+                 "prompt_lens": MOE_PROMPT_LENS, "gen_lens": MOE_GEN_LENS,
+                 "wall_s": engine_s, "prefill_launches": len(results),
+                 "prompt_tokens": int(sum(q.prompt_len for q in reqs)),
+                 **st},
+         dispatch={"tokens": MOE_BATCH * 4096, "max_abs_diff": dispatch_err,
+                   "tolerance": MOE_DISPATCH_TOL, "aux_sorted": float(aux_s),
+                   "aux_einsum": float(aux_e), "sorted_ms": sorted_ms,
+                   "einsum_ms": einsum_ms},
+         token_mask=mask, path_s=seconds,
+         max_memory_allocated_gib=peak_bytes / 2 ** 30, launches=launches,
+         flash=flash)
+    del params
+    gc.collect()
+    return launches, flash
+
+
+def mla_path(kernels, *, get_config, transformer, steps, scheduler,
+             serve_fn, ref, flash_attention, plan, device="cuda"):
+    """DeepSeek-V2-Lite at full width and depth, float32 parameters drawn
+    on the card: the flash kernel at the MLA prefill shape against its
+    plain version; serve() on MLA_BATCH x MLA_PROMPT; the LM path's
+    backlog through the contiguous Engine, the paged Engine with the
+    worst-case pool (the same schedule: tokens and first-token logits
+    equal), with half of it (the pool binds) and with half of it at
+    prefill_batch MLA_PREFILL_BATCH. Returns (launches, the flash row)."""
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(20265)
+    flash = flash_case_row(gen, ref, flash_attention, plan,
+                           FLASH_MOE_CASES["mla"], device)
+    torch.cuda.empty_cache()
+    cfg = get_config(MLA_ARCH)
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, gen, dtype=torch.float32,
+                                     device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(20265)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (MLA_BATCH, MLA_PROMPT), dtype=np.int32)).to(dev)
+    max_len = -(-(max(MLA_PROMPT + MLA_GEN, max(LM_PROMPT_LENS)
+                      + max(LM_GEN_LENS)) + 1) // PAGED_BLOCK) * PAGED_BLOCK
+    per_slot = max_len // PAGED_BLOCK
+    reqs = scheduler.synth_request_stream(
+        cfg, LM_REQUESTS, seed=20265, prompt_lens=LM_PROMPT_LENS,
+        gen_lens=LM_GEN_LENS)
+    prefill = steps.make_prefill_step(cfg, max_len=max_len)
+    decode = steps.make_decode_step(cfg)
+    prefill(params, {"tokens": prompts[:1, :128]})      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    kernels.reset_launch_counts()          # the MLA path's run starts here
+    t_path = time.perf_counter()
+    _, prefill_ms, decode_ms = timed_prefill_and_decode(
+        prefill, decode, params, prompts, MOE_DECODE_TIMED_STEPS)
+    t0 = time.perf_counter()
+    served = serve_fn(cfg, params, prompts, max_len=max_len,
+                      gen=MLA_GEN).cpu()
+    serve_s = time.perf_counter() - t0
+    runs, prefills, groups = [], 2, []
+    half = 1 + LM_SLOTS * per_slot // 2
+    for paged, pool, pb in ((False, None, 1), (True, "worst_case", 1),
+                            (True, "half", 1),
+                            (True, "half", MLA_PREFILL_BATCH)):
+        kw = {}
+        if paged:
+            kw = dict(paged=True, block_size=PAGED_BLOCK, prefill_batch=pb,
+                      num_blocks=(half if pool == "half"
+                                  else 1 + LM_SLOTS * per_slot))
+        eng = scheduler.Engine(cfg, params, slots=LM_SLOTS,
+                               max_len=max_len, device=dev, **kw)
+        first_logits, margins = tap_engine(eng)
+        if pb > 1:                         # keep each group's inputs
+            inner = eng._prefill
+
+            def keep_group(params_, batch, lengths, *rest, inner=inner):
+                logits, state = inner(params_, batch, lengths, *rest)
+                groups.append((batch["tokens"], lengths,
+                               logits[:, -1].float()))
+                return logits, state
+            eng._prefill = keep_group
+        pool_bytes = sum(t.numel() * t.element_size()
+                         for seg in eng.state.caches for c in seg.values()
+                         for t in c if t is not None)
+        t0 = time.perf_counter()
+        results = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check_results(f"DeepSeek Engine ({pool or 'contiguous'}, "
+                      f"prefill_batch {pb})", results, reqs)
+        st = eng.stats()
+        if paged:
+            eng.allocator.check()
+            if st["blocks_in_use"] != 0:
+                raise AssertionError(f"paged engine kept blocks: {st}")
+        prefills += eng.prefill_launches
+        runs.append({"paged": paged, "pool": pool, "prefill_batch": pb,
+                     "num_blocks": kw.get("num_blocks"), "wall_s": wall,
+                     "cache_bytes": pool_bytes,
+                     "prefill_launches": eng.prefill_launches,
+                     "tokens": [r.tokens for r in results],
+                     "first_logits": first_logits, "margins": margins,
+                     **{k: st[k] for k in (
+                         "tok_per_s", "latency_p50_s", "latency_p99_s",
+                         "queue_wait_mean_s", "decode_steps", "peak_active",
+                         "peak_blocks")}})
+        del eng
+    seconds = time.perf_counter() - t_path
+    launches = kernels.launch_counts()     # ... and ends here
+    peak_bytes = torch.cuda.max_memory_allocated()
+
+    check_launches("the MLA path", launches, cfg.num_layers, prefills)
+    check_served("DeepSeek", served, MLA_BATCH, MLA_GEN, cfg.padded_vocab)
+    contiguous = runs[0]
+    # the paged engine on the contiguous engine's schedule: equal tokens
+    # and first-token logits (paging changes where the latents lie, not
+    # the arithmetic)
+    worst = runs[1]
+    if worst["tokens"] != contiguous["tokens"]:
+        raise AssertionError("paged (worst-case pool) tokens differ from "
+                             "the contiguous Engine's")
+    worst_err = max(float((worst["first_logits"][i]
+                           - contiguous["first_logits"][i]).abs().max())
+                    for i in range(LM_REQUESTS))
+    if worst_err > LM_PREFILL_LOGITS_TOL:
+        raise AssertionError(f"paged first-token logits differ by "
+                             f"{worst_err}")
+    # batched prefill: the group's first-token logits against the model's
+    # own batched prefill of the same padded rows (padded rows claim MoE
+    # capacity there too, as in the JAX package), and, reported beside
+    # it, against the batch-1 prefill, whose capacity differs
+    group_err = 0.0
+    with torch.inference_mode():
+        for toks, lengths, logits in groups[:3]:
+            want, _ = transformer.forward_prefill(cfg, params, toks,
+                                                  max_len=max_len,
+                                                  length=lengths)
+            want = want[:, -1].float()
+            err = (logits - want).abs()
+            if not bool((err <= LM_PREFILL_LOGITS_TOL
+                         * (1 + want.abs())).all()):
+                raise AssertionError(f"batched prefill logits differ from "
+                                     f"forward_prefill by {float(err.max())}")
+            group_err = max(group_err, float(err.max()))
+    batched = runs[3]
+    if batched["prefill_launches"] > LM_REQUESTS:
+        raise AssertionError(f"{batched['prefill_launches']} prefill "
+                             f"launches for {LM_REQUESTS} requests")
+    vs_batch1 = [float((batched["first_logits"][i]
+                        - contiguous["first_logits"][i]).abs().max())
+                 for i in range(LM_REQUESTS)]
+    want_tokens = contiguous["tokens"]
+    for r in runs:
+        r["tokens_equal_contiguous"] = r["tokens"] == want_tokens
+        r["requests_with_other_tokens"] = sum(
+            a != b for a, b in zip(r["tokens"], want_tokens))
+        del r["tokens"], r["first_logits"], r["margins"]
+    hd_bytes = (cfg.kv_lora_rank * 4 + cfg.qk_rope_dim * 2)
+    emit("mla_path", model=cfg.name, layers=cfg.num_layers,
+         d_model=cfg.d_model, heads=cfg.num_heads,
+         kv_lora_rank=cfg.kv_lora_rank, qk_dims=(cfg.qk_nope_dim,
+                                                 cfg.qk_rope_dim),
+         v_head_dim=cfg.v_head_dim, experts=cfg.num_experts,
+         shared_experts=cfg.num_shared_experts, top_k=cfg.top_k,
+         moe_d_ff=cfg.moe_d_ff, dense_layers=cfg.first_dense_layers,
+         moe_dispatch=cfg.moe_dispatch, vocab=cfg.vocab_size,
+         params=transformer.param_count(params), param_dtype="float32",
+         init_s=init_s, max_len=max_len, block_size=PAGED_BLOCK,
+         half_pool_blocks=half, latent_bytes_per_token_layer=hd_bytes,
+         serve={"batch": MLA_BATCH, "prompt": MLA_PROMPT, "gen": MLA_GEN,
+                "prefill_ms": prefill_ms,
+                "prefill_tok_per_s": MLA_BATCH * MLA_PROMPT / prefill_ms
+                * 1e3,
+                "decode_ms_per_step": decode_ms, "serve_s": serve_s,
+                "serve_tok_per_s": MLA_BATCH * MLA_GEN / serve_s},
+         engines=runs, worst_case_pool_first_logits_max_abs_err=worst_err,
+         batched_prefill_vs_forward_prefill_max_abs_err=group_err,
+         batched_prefill_vs_batch1_max_abs_err=max(vs_batch1),
+         batched_prefill_requests_within_tol_of_batch1=sum(
+             e <= LM_PREFILL_LOGITS_TOL for e in vs_batch1),
+         logits_tolerance=LM_PREFILL_LOGITS_TOL, path_s=seconds,
+         max_memory_allocated_gib=peak_bytes / 2 ** 30, launches=launches,
+         flash=flash)
+    del params
+    gc.collect()
+    return launches, flash
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the golden load scenarios through the port's loadgen
+# ---------------------------------------------------------------------------
+
+# `tests/golden/scenarios/*.yaml` as dicts: the card has no pyyaml
+# (`tests/test_torch_loadgen.py` holds them equal to the files' parse)
+LOADGEN_SCENARIOS = {
+    "smoke_gqa": {
+        "schema": "scenario/v1", "name": "smoke_gqa", "arch": "llama3p2_3b",
+        "engine": {"slots": 4, "max_len": 64, "paged": False},
+        "workload": {"requests": 8, "seed": 1,
+                     "arrival": {"process": "uniform", "rate": 64.0},
+                     "prompt_lens": [8, 16, 24], "gen_lens": [4, 8]},
+        "slo": {"p99_latency_s": 120.0}},
+    "paged_mixed": {
+        "schema": "scenario/v1", "name": "paged_mixed",
+        "arch": "llama3p2_3b",
+        "engine": {"slots": 4, "max_len": 64, "paged": True,
+                   "block_size": 8, "prefill_batch": 2},
+        "workload": {"requests": 10, "seed": 0,
+                     "arrival": {"process": "poisson", "rate": 64.0},
+                     "prompt_lens": [6, 12, 40], "gen_lens": [4, 8, 16]},
+        "slo": {"p99_latency_s": 120.0, "min_tok_per_s": 0.5}},
+    "paged_mla": {
+        "schema": "scenario/v1", "name": "paged_mla",
+        "arch": "deepseek_v2_lite_16b",
+        "engine": {"slots": 2, "max_len": 48, "paged": True,
+                   "block_size": 8},
+        "workload": {"requests": 5, "seed": 2,
+                     "arrival": {"process": "poisson", "rate": 32.0},
+                     "prompt_lens": [6, 12, 24], "gen_lens": [4, 8]},
+        "slo": {"p99_latency_s": 120.0}},
+}
+# golden scenarios whose architecture waits for its ROADMAP item
+LOADGEN_WAITING = {"ssm_state": "4.3"}
+
+
+def loadgen_path(kernels, loadgen, device="cuda"):
+    """LOADGEN_SCENARIOS through the port's `run_scenario` at full width
+    (`smoke=False`), on the card; the rows as a bench_serve/v1 file under
+    the git-ignored build/, which the port's `check()` accepts and
+    `scripts/diff_serve.py` reads (the file against itself). Returns the
+    path's launches."""
+    kernels.reset_launch_counts()          # the loadgen run starts here
+    rows, seconds = [], {}
+    for name, spec in LOADGEN_SCENARIOS.items():
+        defects = loadgen.validate_scenario(spec)
+        if defects:
+            raise AssertionError(f"scenario {name}: {defects}")
+        t0 = time.perf_counter()
+        rows.append(loadgen.run_scenario(spec, smoke=False, verbose=False,
+                                         device=device))
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = kernels.launch_counts()     # ... and ends here
+    if not launches["flash_attention"]:
+        raise AssertionError("the loadgen run never launched flash "
+                             "attention")
+    others = {k: v for k, v in launches.items()
+              if k != "flash_attention" and v}
+    if others:
+        raise AssertionError(f"the loadgen run launched {others}")
+    for row, spec in zip(rows, LOADGEN_SCENARIOS.values()):
+        if row["requests"] != spec["workload"]["requests"] \
+                or row["platform"] != "gpu":
+            raise AssertionError(f"loadgen row {row}")
+        if row["paged"] and not row["peak_cache_rows"] \
+                < row["reserved_rows_contiguous"]:
+            raise AssertionError(f"paged row reserved the worst case: {row}")
+    path = ROOT / "build" / "BENCH_serve.json"
+    path.parent.mkdir(exist_ok=True)
+    path.write_text(json.dumps({"schema": loadgen.BENCH_SCHEMA,
+                                "rows": rows}, indent=1, sort_keys=True))
+    rc = loadgen.check(str(path))
+    if rc:
+        raise AssertionError(f"loadgen.check({path}) returned {rc}")
+    diff = subprocess.run(
+        [sys.executable, str(ROOT / "scripts" / "diff_serve.py"), str(path),
+         str(path)], capture_output=True, text=True, timeout=120)
+    if diff.returncode:
+        raise AssertionError(f"diff_serve.py exited {diff.returncode}: "
+                             f"{diff.stdout[-2000:]}{diff.stderr[-2000:]}")
+    emit("loadgen_path", rows=rows, seconds=seconds,
+         bench=str(path.relative_to(ROOT)), check_rc=rc,
+         diff_serve_rc=diff.returncode,
+         diff_serve=diff.stdout.strip().splitlines()[-1:],
+         waiting={k: f"ROADMAP.md Queue 1 item {v}"
+                  for k, v in LOADGEN_WAITING.items()},
+         launches=launches)
+    return launches
+
+
 def examples_path(kernels, examples):
     """The port's three examples on the card, each at its own size (the
     JAX examples'), their printed lines kept and their asserts live.
@@ -2219,11 +2728,12 @@ def main() -> int:
     from repro_torch.data import synth
     from repro_torch.kernels import build, ops, ref, wnn_ensemble
     from repro_torch.kernels.flash_attention import plan as flash_plan
+    from repro_torch.launch import loadgen
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch import scheduler, steps
     from repro_torch.launch.scheduler import WnnBatcher, WnnTenantBatcher
     from repro_torch.launch.serve import serve as lm_serve
-    from repro_torch.models import transformer
+    from repro_torch.models import layers, moe, transformer
     from repro_torch.packed import layout as packed_layout
     from repro_torch.packed import runtime
     from repro_torch.train import optimizer
@@ -2299,10 +2809,33 @@ def main() -> int:
     example_launches = examples_path(kernels, {
         "quickstart": quickstart, "uleen_edge_pipeline": uleen_edge_pipeline,
         "distill_uleen_head": distill_uleen_head})
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_kw = dict(get_config=get_config, transformer=transformer,
+                  steps=steps, scheduler=scheduler, serve_fn=lm_serve,
+                  ref=ref, flash_attention=kernels.flash_attention,
+                  plan=flash_plan)
+    moe_launches, moe_flash = moe_path(kernels, moe=moe, layers=layers,
+                                       **moe_kw)
+    torch.cuda.empty_cache()
+    mla_launches, mla_flash = mla_path(kernels, **moe_kw)
+    torch.cuda.empty_cache()
+    loadgen_launches = loadgen_path(kernels, loadgen)
+    torch.cuda.empty_cache()
     by_path = {"uleen_serve": launches, "uleen_train": train_launches,
                "lm_serve": lm_launches, "head": head_launches,
                "tenant": tenant_launches, "examples": example_launches,
-               "sharded": sharded_launches, "paged": paged_launches}
+               "sharded": sharded_launches, "paged": paged_launches,
+               "moe": moe_launches, "mla": mla_launches,
+               "loadgen": loadgen_launches}
+    # the flash kernel's rows at the MoE paths' shapes, each with the
+    # launches of its path
+    flash_shapes = [
+        {"path": path, "case": row["case"], "d": row["d"], "dv": row["dv"],
+         "window": row["window"], "launches": by_path[path][
+             "flash_attention"],
+         **{k: row[k] for k in MAIN_FLASH_KEYS}}
+        for path, row in (("moe", moe_flash), ("mla", mla_flash))]
     # each kernel's launches on the path that carries it: the ULEEN serve
     # path for the WNN and front-end kernels, the train path for the hash,
     # the LM serve path for flash attention; `launches_by_path` has every
@@ -2323,6 +2856,8 @@ def main() -> int:
                      "library_ms": timing["library_ms"],
                      "launches_by_path": {p: v[name]
                                           for p, v in by_path.items()},
+                     **({"shapes": flash_shapes}
+                        if name == "flash_attention" else {}),
                      **{k: timing[k] for k in ("tolerance",
                                                "bound_cuda_core_ms",
                                                "bound_per_class_ms",

@@ -17,9 +17,13 @@
 // exponentiated in base 2 with the SFU's ex2.approx.ftz (2 ulp; within the
 // 2e-5 float32 tolerance). The output is cast to the inputs' type.
 //
-// What bounds it: at prefill shapes the multiply-adds, 4 D FLOP per visible
-// (query, key) pair, read from device memory once but from shared memory
-// many times. So both products run on the tensor cores, one route per type:
+// Query and key rows are D wide, value and output rows Dv (Dv = D except
+// for DeepSeek MLA's prefill, D = 192 over Dv = 128, which only the float32
+// route takes).
+//
+// What bounds it: at prefill shapes the multiply-adds, 2 (D + Dv) FLOP per
+// visible (query, key) pair (4 D where Dv = D), read from device memory
+// once but from shared memory many times. So both products run on the tensor cores, one route per type:
 //
 // * bf16, `wgmma` (flash_bf16_kernel). A block is one producer warpgroup and
 //   C consumer warpgroups of 64 query rows (C = 2 at D <= 128; 1 at D = 256,
@@ -53,9 +57,11 @@
 //   big and small halves of K and V there; mma.sync takes register
 //   fragments, so the split is per element.) A warp owns 16 query rows,
 //   up to 8 warps a block (4 below D = 128, two blocks an SM). Q and a
-//   two-stage ring of K and V tiles of 64 keys (16 at D = 256) sit in
-//   shared memory, filled with 16-byte cp.async; rows are padded by four
-//   floats so fragment loads hit 32 distinct banks. The keys of each 8-key
+//   two-stage ring of K and V tiles of 64 keys (16 at D = 256; 32 at
+//   (D, Dv) = (192, 128), whose Q and K rows take 196 floats and V rows 132:
+//   180 KB a block of 8 warps) sit in shared memory, filled with 16-byte
+//   cp.async; rows are padded by four floats so fragment loads hit 32
+//   distinct banks. The keys of each 8-key
 //   step are taken in the order (0, 2, 4, 6, 1, 3, 5, 7) on both sides of
 //   P V, which makes the S accumulator fragment the A fragment of P V: P
 //   moves neither through shuffles nor through shared memory.
@@ -196,15 +202,21 @@ __device__ __forceinline__ void scale_and_mask(float (&s)[N], const Problem& p,
 // float32: 3xTF32 on mma.sync.m16n8k8
 // ---------------------------------------------------------------------------
 
-template <int D>
+// DQ: the head dim of q and k; DV: that of v and the output (MLA's
+// prefill attends with DQ = 192 over DV = 128; every other caller has
+// DQ = DV). Q and K rows are staged DQ + 4 floats wide, V rows DV + 4.
+template <int DQ, int DV>
 struct F32Tile {
-  static constexpr int kBlockK = D <= 128 ? 64 : 16;
-  static constexpr int kMaxWarps = D >= 128 ? 8 : 4;
-  static constexpr int kMinBlocks = D >= 128 ? 1 : 2;
+  static constexpr int kBlockK = DQ != DV ? 32 : (DQ <= 128 ? 64 : 16);
+  static constexpr int kMaxWarps = DQ >= 128 ? 8 : 4;
+  static constexpr int kMinBlocks = DQ >= 128 ? 1 : 2;
   static constexpr int kStages = 2;
-  static constexpr int kLd = D + 4;    // floats per staged row
+  static constexpr int kLdQ = DQ + 4;  // floats per staged Q or K row
+  static constexpr int kLdV = DV + 4;  // floats per staged V row
+  static constexpr int kStageFloats = kBlockK * (kLdQ + kLdV);  // K + V
   static size_t smem_bytes(int warps) {
-    return (static_cast<size_t>(warps) * 16 + kStages * 2 * kBlockK) * kLd *
+    return (static_cast<size_t>(warps) * 16 * kLdQ +
+            static_cast<size_t>(kStages) * kStageFloats) *
            sizeof(float);
   }
 };
@@ -252,8 +264,8 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
 }
 
 // rows x D floats from `src` (row stride `ld_src`, rows >= `valid`
-// zero-filled) into shared `dst` (row stride kLd), by all threads.
-template <int D>
+// zero-filled) into shared `dst` (row stride LD), by all threads.
+template <int D, int LD>
 __device__ __forceinline__ void stage_rows(float* dst, const float* src,
                                            long long ld_src, int rows,
                                            int valid) {
@@ -261,27 +273,27 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src,
   for (int i = threadIdx.x; i < rows * kChunks; i += blockDim.x) {
     const int r = i / kChunks, c = i % kChunks;
     const bool in = r < valid;
-    cp_async16(dst + r * F32Tile<D>::kLd + 4 * c,
-               in ? src + r * ld_src + 4 * c : src, in);
+    cp_async16(dst + r * LD + 4 * c, in ? src + r * ld_src + 4 * c : src,
+               in);
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(32 * F32Tile<D>::kMaxWarps,
-                                  F32Tile<D>::kMinBlocks)
+template <int DQ, int DV>
+__global__ void __launch_bounds__(32 * F32Tile<DQ, DV>::kMaxWarps,
+                                  F32Tile<DQ, DV>::kMinBlocks)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  Strides qs, Strides ks, Strides vs, Strides os, Problem p,
                  int n_qtiles) {
-  using T = F32Tile<D>;
-  constexpr int BK = T::kBlockK, LD = T::kLd;
+  using T = F32Tile<DQ, DV>;
+  constexpr int BK = T::kBlockK, LD = T::kLdQ, LDV = T::kLdV;
   constexpr int kSn = BK / 8;          // 8-key accumulator tiles of S
-  constexpr int kOn = D / 8;           // 8-column accumulator tiles of O
+  constexpr int kOn = DV / 8;          // 8-column accumulator tiles of O
   extern __shared__ __align__(16) float smem[];
   const int warps = blockDim.x / 32;
   const int block_q = 16 * warps;
   float* q_s = smem;
-  float* kv_s = q_s + block_q * LD;    // stage s: K at 2 s, V at 2 s + 1
+  float* kv_s = q_s + block_q * LD;    // stage s: K, then V
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
@@ -301,11 +313,11 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   auto stage_kv = [&](int it) {
     const int k0 = (tile0 + it) * BK;
-    float* ks_ = kv_s + (2 * (it % T::kStages)) * BK * LD;
-    stage_rows<D>(ks_, kb + k0 * ks.s, ks.s, BK, p.sk - k0);
-    stage_rows<D>(ks_ + BK * LD, vb + k0 * vs.s, vs.s, BK, p.sk - k0);
+    float* ks_ = kv_s + (it % T::kStages) * T::kStageFloats;
+    stage_rows<DQ, LD>(ks_, kb + k0 * ks.s, ks.s, BK, p.sk - k0);
+    stage_rows<DV, LDV>(ks_ + BK * LD, vb + k0 * vs.s, vs.s, BK, p.sk - k0);
   };
-  stage_rows<D>(q_s, qb + q0 * qs.s, qs.s, block_q, p.sq - q0);
+  stage_rows<DQ, LD>(q_s, qb + q0 * qs.s, qs.s, block_q, p.sq - q0);
   stage_kv(0);
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 
@@ -323,7 +335,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();                   // tile `it` (and Q) landed
     const int k0 = (tile0 + it) * BK;
     if (w0 < w1 && k0 < wk.end && k0 + BK > wk.begin) {
-      const float* k_s = kv_s + (2 * (it % T::kStages)) * BK * LD;
+      const float* k_s = kv_s + (it % T::kStages) * T::kStageFloats;
       const float* v_s = k_s + BK * LD;
       const float* qw = q_s + (16 * warp + g) * LD + t;
       // S = Q K^T: A = Q rows (g, g + 8) x dims (t, t + 4) of each 8-step,
@@ -332,7 +344,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < kSn * 4; ++i) s[i] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < D / 8; ++kk) {
+      for (int kk = 0; kk < DQ / 8; ++kk) {
         const Split a[4] = {split(qw[8 * kk]), split(qw[8 * LD + 8 * kk]),
                             split(qw[8 * kk + 4]),
                             split(qw[8 * LD + 8 * kk + 4])};
@@ -360,10 +372,10 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < kSn; ++j) {
         const Split a[4] = {split(s[4 * j]), split(s[4 * j + 2]),
                             split(s[4 * j + 1]), split(s[4 * j + 3])};
-        const float* vr = v_s + (8 * j + 2 * t) * LD + g;
+        const float* vr = v_s + (8 * j + 2 * t) * LDV + g;
 #pragma unroll
         for (int n = 0; n < kOn; ++n)
-          mma_3xtf32(acc[n], a, split(vr[8 * n]), split(vr[LD + 8 * n]));
+          mma_3xtf32(acc[n], a, split(vr[8 * n]), split(vr[LDV + 8 * n]));
       }
     }
     __syncthreads();                   // stage `it % 2` may be refilled
@@ -1014,14 +1026,14 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int D>
+template <int DQ, int DV>
 int launch_f32(const Args& a, int warps) {
-  using T = F32Tile<D>;
+  using T = F32Tile<DQ, DV>;
   if (warps < 1 || warps > T::kMaxWarps)
     return static_cast<int>(cudaErrorInvalidValue);
   static bool opted_in = false;        // once per instantiation and process
   if (!opted_in) {
-    const int err = opt_in_shared(flash_f32_kernel<D>,
+    const int err = opt_in_shared(flash_f32_kernel<DQ, DV>,
                                   T::smem_bytes(T::kMaxWarps));
     if (err) return err;
     opted_in = true;
@@ -1029,7 +1041,8 @@ int launch_f32(const Args& a, int warps) {
   const int n_qtiles = (a.p.sq + 16 * warps - 1) / (16 * warps);
   if (n_qtiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(a.heads, a.batch, n_qtiles);
-  flash_f32_kernel<D><<<grid, 32 * warps, T::smem_bytes(warps), a.stream>>>(
+  flash_f32_kernel<DQ, DV>
+      <<<grid, 32 * warps, T::smem_bytes(warps), a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<float*>(a.o), a.qs, a.ks,
       a.vs, a.os, a.p, n_qtiles);
@@ -1062,14 +1075,16 @@ int launch_bf16(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instantiation of a (type, D, query tile, key tile) plan, or
-// cudaErrorInvalidValue when this file has none.
-int dispatch(const Args& a, int dtype, int d, int block_q, int block_k) {
+// The instantiation of a (type, D, Dv, query tile, key tile) plan, or
+// cudaErrorInvalidValue when this file has none. Dv differs from D only
+// for the float32 route's (192, 128).
+int dispatch(const Args& a, int dtype, int d, int dv, int block_q,
+             int block_k) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
 #define FLASH_F32(DIM)                                                       \
   case DIM:                                                                  \
-    if (block_k != F32Tile<DIM>::kBlockK || block_q % 16) return bad;        \
-    return launch_f32<DIM>(a, block_q / 16);
+    if (block_k != F32Tile<DIM, DIM>::kBlockK || block_q % 16) return bad;   \
+    return launch_f32<DIM, DIM>(a, block_q / 16);
 #define FLASH_BF16(DIM)                                                      \
   case DIM:                                                                  \
     if (block_q == 128 && block_k == Bf16Tile<DIM, 2>::kBlockK)              \
@@ -1077,6 +1092,11 @@ int dispatch(const Args& a, int dtype, int d, int block_q, int block_k) {
     if (block_q == 64 && block_k == Bf16Tile<DIM, 1>::kBlockK)               \
       return launch_bf16<DIM, 1>(a);                                         \
     return bad;
+  if (dtype == 0 && d == 192 && dv == 128) {
+    if (block_k != F32Tile<192, 128>::kBlockK || block_q % 16) return bad;
+    return launch_f32<192, 128>(a, block_q / 16);
+  }
+  if (dv != d) return bad;
   if (dtype == 0) {
     switch (d) {
       FLASH_F32(16) FLASH_F32(32) FLASH_F32(64) FLASH_F32(128) FLASH_F32(256)
@@ -1099,11 +1119,12 @@ int dispatch(const Args& a, int dtype, int d, int block_q, int block_k) {
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes). q (B, H, Sq, D), k and v
-// (B, Hkv, Sk, D), out (B, H, Sq, D), each addressed through its (batch,
-// head, row) element strides with the last dimension contiguous, all float32
-// (dtype 0) or bf16 (dtype 1) on the device of `stream`. H must be a
-// multiple of Hkv and D one of 16, 32, 64, 128, 256. (block_q, block_k) is
+// Plain C entry point (bound with ctypes). q (B, H, Sq, D), k (B, Hkv, Sk,
+// D), v (B, Hkv, Sk, Dv), out (B, H, Sq, Dv), each addressed through its
+// (batch, head, row) element strides with the last dimension contiguous,
+// all float32 (dtype 0) or bf16 (dtype 1) on the device of `stream`. H must
+// be a multiple of Hkv, D one of 16, 32, 64, 128, 256 with Dv = D, or
+// (float32 only) D = 192 with Dv = 128. (block_q, block_k) is
 // the host-side plan's tile (kernels/flash_attention.py::plan): float32
 // takes block_q = 16 x warps, bf16 block_q = 64 x consumer warpgroups.
 // bf16 tensors must meet TMA's rules (16-byte aligned base, strides in
@@ -1111,7 +1132,7 @@ int dispatch(const Args& a, int dtype, int d, int block_q, int block_k) {
 // Returns the CUDA error of the launch, 0 when the kernel was queued.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out, int dtype,
-    int batch, int heads, int kv_heads, int sq, int sk, int d,
+    int batch, int heads, int kv_heads, int sq, int sk, int d, int dv,
     long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
@@ -1136,5 +1157,5 @@ extern "C" int flash_attention_launch(
   a.p = Problem{heads / kv_heads, sq, sk, causal != 0, window, q_offset,
                 scale * kLog2e};
   a.stream = static_cast<cudaStream_t>(stream_ptr);
-  return dispatch(a, dtype, d, block_q, block_k);
+  return dispatch(a, dtype, d, dv, block_q, block_k);
 }

@@ -36,6 +36,12 @@ output is written into a (B, Sq, H, D) buffer and returned as its
 (B, H, Sq, D) transposed view: the model's output projection reads that
 buffer as it lies. So a prefill layer makes no copy for attention.
 
+Head dims: q and k are D wide, v and the output Dv. Both routes take
+D = Dv in `HEAD_DIMS`; the float32 route also takes (D, Dv) = (192, 128),
+DeepSeek MLA's prefill (128 + 64 rotary query and key columns over
+128-wide values). The bf16 route refuses (192, 128) with a ValueError:
+it is not instantiated (ROADMAP.md, Queue 2), and nothing pads it.
+
 Rows with no visible key (only with `window > 0` and
 `Sq + q_offset >= Sk + window`) raise here: the plain version averages all
 Sk keys uniformly on such rows, which the kernels do not reproduce.
@@ -51,9 +57,11 @@ import torch
 from repro_torch.kernels import build, launch, ref
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
+# (D, Dv) pairs with Dv != D, per route (csrc: dispatch)
+UNEQUAL_HEAD_DIMS = {torch.float32: ((192, 128),), torch.bfloat16: ()}
 ROUTES = {torch.float32: "mma_3xtf32", torch.bfloat16: "wgmma_bf16"}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
              + [ctypes.c_longlong] * 12
              + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
@@ -76,7 +84,8 @@ class FlashPlan:
     producer warpgroups' `setmaxnreg` counts with two consumers, the launch
     bound with one."""
     route: str
-    d: int
+    d: int                     # q and k head dim
+    dv: int                    # v and output head dim
     block_q: int               # query rows a block
     block_k: int               # keys a staged K or V tile
     stages: int                # K/V tiles in flight
@@ -101,11 +110,28 @@ class FlashPlan:
         return h * b * n
 
 
-def f32_tiles(d: int) -> tuple:
+def f32_tiles(d: int, dv: int | None = None) -> tuple:
     """(block_k, most warps a block, blocks an SM the launch bound asks
-    for) of the float32 route (csrc: F32Tile)."""
-    block_k = 64 if d <= 128 else 16
+    for) of the float32 route (csrc: F32Tile); (192, 128) takes 32-key
+    tiles so that Q and the K and V ring fit a block's shared memory."""
+    dv = d if dv is None else dv
+    block_k = 32 if dv != d else (64 if d <= 128 else 16)
     return block_k, (8 if d >= 128 else 4), (1 if d >= 128 else 2)
+
+
+def check_head_dims(dtype: torch.dtype, d: int, dv: int) -> None:
+    """Raise ValueError unless the route of `dtype` instantiates (D, Dv)."""
+    if d == dv and d in HEAD_DIMS:
+        return
+    if (d, dv) in UNEQUAL_HEAD_DIMS.get(dtype, ()):
+        return
+    if d == dv:
+        raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
+    route = ROUTES.get(dtype, str(dtype))
+    raise ValueError(
+        f"flash_attention: the {route} route does not take (D_qk, D_v) = "
+        f"({d}, {dv}); unequal pairs: "
+        f"{ {ROUTES[t]: p for t, p in UNEQUAL_HEAD_DIMS.items()} }")
 
 
 def bf16_tiles(d: int) -> tuple:
@@ -117,30 +143,34 @@ def bf16_tiles(d: int) -> tuple:
 
 @functools.lru_cache(maxsize=1024)
 def plan(dtype: torch.dtype, d: int, *, batch: int, heads: int, sq: int,
-         n_sms: int = H100_SMS) -> FlashPlan:
+         n_sms: int = H100_SMS, dv: int | None = None) -> FlashPlan:
     """The launch of `flash_attention` for these shapes (memoised: a
     prefill asks once per layer). Short prompts (the Engine's batch-1
     prefills) take smaller query tiles so that more of the card works:
     float32 the most warps whose grid reaches at least half the SMs (at
     D = 128 the key ring fills an SM's shared memory, so fewer warps a
     block do not bring more blocks an SM), bf16 two consumer warpgroups
-    only where the grid reaches every SM."""
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
+    only where the grid reaches every SM. `dv` is v's head dim (D when
+    None)."""
+    dv = d if dv is None else dv
+    if dtype not in ROUTES:
+        raise TypeError(f"flash_attention: q must be float32 or bfloat16, "
+                        f"got {dtype}")
+    check_head_dims(dtype, d, dv)
 
     def tiles(rows):
         return batch * heads * -(-sq // rows)
 
     if dtype == torch.float32:
-        block_k, max_warps, min_blocks = f32_tiles(d)
+        block_k, max_warps, min_blocks = f32_tiles(d, dv)
         warps = max_warps
         while warps > 1 and 2 * tiles(16 * warps) < n_sms:
             warps //= 2
         block_q, stages = 16 * warps, 2
-        smem = (block_q + stages * 2 * block_k) * (d + 4) * 4
+        smem = (block_q * (d + 4) + stages * block_k * (d + 4 + dv + 4)) * 4
         regs_cap = min(MAX_REGS_PER_THREAD,
                        REGS_PER_SM // (32 * max_warps * min_blocks))
-        return FlashPlan(ROUTES[dtype], d, block_q, block_k, stages,
+        return FlashPlan(ROUTES[dtype], d, dv, block_q, block_k, stages,
                          32 * warps, smem, ((32 * warps, regs_cap),),
                          (heads, batch, -(-sq // block_q)))
     if dtype == torch.bfloat16:
@@ -154,11 +184,10 @@ def plan(dtype: torch.dtype, d: int, *, batch: int, heads: int, sq: int,
         # to the consumers' 240; one: the launch bound leaves 255 to all
         regs = (((256, 240), (128, 24)) if consumers == 2
                 else ((128, MAX_REGS_PER_THREAD), (128, MAX_REGS_PER_THREAD)))
-        return FlashPlan(ROUTES[dtype], d, block_q, block_k, stages,
+        return FlashPlan(ROUTES[dtype], d, dv, block_q, block_k, stages,
                          128 * (consumers + 1), smem, regs,
                          (heads, batch, -(-sq // block_q)))
-    raise TypeError(f"flash_attention: q must be float32 or bfloat16, got "
-                    f"{dtype}")
+    raise AssertionError(dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -240,9 +269,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     scale: float | None = None,
                     q_offset: int = 0) -> torch.Tensor:
-    """q: (B, H, Sq, D); k, v: (B, Hkv, Sk, D), H a multiple of Hkv ->
-    (B, H, Sq, D) in q's dtype. Float32 or bf16 inputs; `scale` defaults
-    to 1/sqrt(D); query row i sits at position i + q_offset."""
+    """q: (B, H, Sq, D); k: (B, Hkv, Sk, D); v: (B, Hkv, Sk, Dv), H a
+    multiple of Hkv -> (B, H, Sq, Dv) in q's dtype. Float32 or bf16
+    inputs; (D, Dv) as the route takes them (`check_head_dims`); `scale`
+    defaults to 1/sqrt(D); query row i sits at position i + q_offset."""
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  scale=scale, q_offset=q_offset)
@@ -251,12 +281,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"(B, Hkv, Sk, D), got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, h, sq, d = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
+    hkv, sk, dv = k.shape[1], k.shape[2], v.shape[3]
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash_attention: q must be float32 or bfloat16, "
                         f"got {q.dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
+    check_head_dims(q.dtype, d, dv)
     if hkv < 1 or h % hkv:
         raise ValueError(f"flash_attention: {h} query heads are not a "
                          f"multiple of {hkv} KV heads")
@@ -269,12 +298,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             f"q_offset={q_offset} leaves query rows with no visible key")
     device = launch.check_cuda_args(
         "flash_attention", contiguous=False, q=(q, q.dtype, (b, h, sq, d)),
-        k=(k, q.dtype, (b, hkv, sk, d)), v=(v, q.dtype, (b, hkv, sk, d)))
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=device)
+        k=(k, q.dtype, (b, hkv, sk, d)), v=(v, q.dtype, (b, hkv, sk, dv)))
+    out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=device)
     if sq == 0 or b == 0:
         return out.transpose(1, 2)
     p = plan(q.dtype, d, batch=b, heads=h, sq=sq,
-             n_sms=_sm_count(device.index))
+             n_sms=_sm_count(device.index), dv=dv)
     strides = [kernel_strides(t) for t in (q, k, v)]
     if q.dtype == torch.bfloat16:
         for t, st, rows in zip((q, k, v), strides,
@@ -286,9 +315,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = float(d ** -0.5 if scale is None else scale)
     fn = build.kernel_function("flash_attention.cu", "flash_attention_launch",
                                _ARGTYPES)
-    out_strides = (sq * h * d, d, h * d)     # (B, Sq, H, D) as (b, h, s)
+    out_strides = (sq * h * dv, dv, h * dv)  # (B, Sq, H, Dv) as (b, h, s)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], b, h, hkv, sq, sk, d, *strides[0], *strides[1],
+            _DTYPES[q.dtype], b, h, hkv, sq, sk, d, dv, *strides[0],
+            *strides[1],
             *strides[2], *out_strides, scale, int(bool(causal)), int(window),
             int(q_offset), p.block_q, p.block_k,
             launch.stream_handle(device))

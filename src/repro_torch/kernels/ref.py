@@ -167,9 +167,10 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0,
                   scale: float | None = None,
                   q_offset: int = 0) -> torch.Tensor:
-    """Naive softmax attention in float32. q: (B, H, Sq, D); k, v:
-    (B, Hkv, Sk, D), GQA by repeating each KV head H // Hkv times ->
-    (B, H, Sq, D) in q's dtype. Query row i sits at position i + q_offset;
+    """Naive softmax attention in float32. q: (B, H, Sq, D); k: (B, Hkv,
+    Sk, D); v: (B, Hkv, Sk, Dv), GQA by repeating each KV head H // Hkv
+    times -> (B, H, Sq, Dv) in q's dtype (Dv may differ from D, as MLA's
+    prefill has it); `scale` defaults to 1/sqrt(D). Query row i sits at position i + q_offset;
     `causal` keeps keys j <= i + q_offset, `window > 0` keeps
     j > i + q_offset - window. A row with no visible key averages all Sk
     keys (every score is -1e30), as the JAX package's `attention_ref`

@@ -13,6 +13,8 @@ they free up mid-decode.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3p2_3b \\
         --smoke --device cpu --stream --paged --block-size 8 \\
         --num-blocks 17 --prefill-batch 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral_8x7b \\
+        --smoke --device cpu --prompt-len 24
 
 Without `--device` it runs on the GPU, and raises when there is none.
 `--paged` serves the stream from block-granular KV pools (`--block-size`,
@@ -56,39 +58,52 @@ def serve(cfg, params, prompts, *, max_len: int, gen: int) -> torch.Tensor:
 
 
 def serve_stream(cfg, params, requests, *, slots: int, max_len: int,
-                 seed: int = 0, paged: bool = False, block_size: int = 16,
-                 num_blocks=None, prefill_batch: int = 1,
-                 device=DEFAULT_DEVICE):
+                 greedy: bool = True, rng=None, temperature: float = 1.0,
+                 realtime: bool = True, verbose: bool = True,
+                 paged: bool = False, block_size: int = 16,
+                 num_blocks=None, prefill_batch: int = 1, bucket=None,
+                 clock=None, seed: int = 0, device=DEFAULT_DEVICE):
     """Drain a request stream (`scheduler.Request`s, see
     `scheduler.synth_request_stream`) through the continuous-batching
-    engine in real time (each request held back until its arrival), print
-    its stats; returns (results, engine). With `paged=True` the engine
-    serves from block pools; block_size/num_blocks/prefill_batch pass
-    through."""
+    engine; returns (results, engine). The JAX signature: with
+    `realtime=True` each request is held back until its arrival, with
+    False all are queued at once; `verbose` prints the stats; `bucket` and
+    `clock` (a zero-argument float clock, `time.perf_counter` by default)
+    pass to the `Engine`, as do `paged`, `block_size`, `num_blocks` and
+    `prefill_batch`. `greedy=False` samples at `temperature`; each
+    request's generator is seeded from (engine seed, rid), the engine seed
+    being `seed` or, given `rng` (a `torch.Generator`, the port's
+    counterpart of the JAX key), one draw from it."""
     from repro_torch.launch.scheduler import Engine
-    eng = Engine(cfg, params, slots=slots, max_len=max_len, seed=seed,
-                 paged=paged, block_size=block_size, num_blocks=num_blocks,
-                 prefill_batch=prefill_batch, device=device)
-    results = eng.run(requests, realtime=True)
-    st = eng.stats()
-    # every latency is None until a request completes: the print is
-    # None-safe
-    print(f"[serve] {cfg.name}: {st['requests']} requests, "
-          f"{st['tokens']} tokens in {st['decode_steps']} decode steps "
-          f"({st['tok_per_s']:.1f} tok/s, peak {st['peak_active']}/"
-          f"{slots} slots)")
-    if st["paged"]:
-        print(f"[serve] paged: peak {st['peak_blocks']}/"
-              f"{st['num_blocks']} blocks of {st['block_size']} "
-              f"(contiguous worst case would pin "
-              f"{slots * (max_len // st['block_size'])}), "
-              f"{eng.prefill_launches} prefill launches")
-    print(f"[serve] latency mean/p50/p99/max = "
-          f"{_fmt_s(st['latency_mean_s'])}/"
-          f"{_fmt_s(st['latency_p50_s'])}/"
-          f"{_fmt_s(st['latency_p99_s'])}/"
-          f"{_fmt_s(st['latency_max_s'])} s, queue wait mean = "
-          f"{_fmt_s(st['queue_wait_mean_s'])} s")
+    if rng is not None:
+        seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=rng,
+                                 device=rng.device))
+    eng = Engine(cfg, params, slots=slots, max_len=max_len, greedy=greedy,
+                 seed=seed, temperature=temperature, bucket=bucket,
+                 clock=clock, paged=paged, block_size=block_size,
+                 num_blocks=num_blocks, prefill_batch=prefill_batch,
+                 device=device)
+    results = eng.run(requests, realtime=realtime)
+    if verbose:
+        st = eng.stats()
+        # every latency is None until a request completes: the print is
+        # None-safe
+        print(f"[serve] {cfg.name}: {st['requests']} requests, "
+              f"{st['tokens']} tokens in {st['decode_steps']} decode steps "
+              f"({st['tok_per_s']:.1f} tok/s, peak {st['peak_active']}/"
+              f"{slots} slots)")
+        if st["paged"]:
+            print(f"[serve] paged: peak {st['peak_blocks']}/"
+                  f"{st['num_blocks']} blocks of {st['block_size']} "
+                  f"(contiguous worst case would pin "
+                  f"{slots * (max_len // st['block_size'])}), "
+                  f"{eng.prefill_launches} prefill launches")
+        print(f"[serve] latency mean/p50/p99/max = "
+              f"{_fmt_s(st['latency_mean_s'])}/"
+              f"{_fmt_s(st['latency_p50_s'])}/"
+              f"{_fmt_s(st['latency_p99_s'])}/"
+              f"{_fmt_s(st['latency_max_s'])} s, queue wait mean = "
+              f"{_fmt_s(st['queue_wait_mean_s'])} s")
     return results, eng
 
 

@@ -143,13 +143,15 @@ def serve_state_zeros(cfg: ArchConfig, params, slots: int,
 
 def write_paged_state_slot(full, one, slot, table_row):
     """`write_state_slot` for a paged state, in place: every paged pool
-    takes the batch-1 contiguous cache scattered into the blocks of
-    `table_row` ((MB,) int); contiguous leaves (windowed caches, pos)
-    take row `slot` as before. Returns `full`."""
+    (GQA or MLA) takes the batch-1 contiguous cache scattered into the
+    blocks of `table_row` ((MB,) int); contiguous leaves (windowed caches,
+    pos) take row `slot` as before. Returns `full`."""
     for seg_full, seg_one in zip(full.caches, one.caches, strict=True):
         for name, f in seg_full.items():
             if isinstance(f, kvcache.PagedAttnCache):
                 kvcache.paged_scatter_attn(f, seg_one[name], table_row)
+            elif isinstance(f, kvcache.PagedMLACache):
+                kvcache.paged_scatter_mla(f, seg_one[name], table_row)
             else:
                 write_state_slot(f, seg_one[name], slot)
     write_state_slot(full.pos, one.pos, slot)
@@ -159,8 +161,11 @@ def write_paged_state_slot(full, one, slot, table_row):
 def _state_row(state, j: int):
     """Batch row j of a batch-A contiguous prefill state, keeping the
     batch axis (behind the layer axis of the stacked caches)."""
-    caches = [{name: kvcache.AttnCache(c.k[:, j:j + 1], c.v[:, j:j + 1])
-               for name, c in seg.items()} for seg in state.caches]
+    def row(c):
+        return type(c)(*(None if x is None else x[:, j:j + 1] for x in c))
+
+    caches = [{name: row(c) for name, c in seg.items()}
+              for seg in state.caches]
     return transformer.ServeState(caches=caches, cross=state.cross,
                                   pos=state.pos[j:j + 1])
 
@@ -208,19 +213,30 @@ def paged_serve_state_zeros(cfg: ArchConfig, params, slots: int,
                             max_len: int, *, block_size: int,
                             num_blocks: int) -> transformer.ServeState:
     """`serve_state_zeros` with every full-width attention cache replaced
-    by a shared block pool (L, Hkv, num_blocks, block_size, hd) bf16 with
-    no batch axis; windowed (`local`) caches stay contiguous per slot,
-    already bounded by their window."""
+    by a shared block pool with no batch axis: (L, Hkv, num_blocks,
+    block_size, hd) bf16 for GQA, (L, num_blocks, block_size, r) float32
+    and (..., rd) bf16 for MLA. Windowed (`local`) caches stay contiguous
+    per slot, already bounded by their window, so a sliding-window model
+    (Mixtral) has no pool at all, as in the JAX package."""
     transformer.check_supported(cfg)
     device = params.embed.device
-    caches = [
-        {f"l{i}": (kvcache.init_paged_attn_cache(
-            cfg.num_kv_heads, num_blocks, block_size, cfg.resolved_head_dim,
-            cfg.kv_cache_dtype, stack=seg.repeat, device=device)
-            if ls.mixer == "attn" else transformer._empty_layer_cache(
-                cfg, ls, slots, max_len, layers=seg.repeat, device=device))
-         for i, ls in enumerate(seg.layers)}
-        for seg in transformer.arch_segments(cfg)]
+
+    def leaf(ls, repeat):
+        if ls.mixer == "attn":
+            return kvcache.init_paged_attn_cache(
+                cfg.num_kv_heads, num_blocks, block_size,
+                cfg.resolved_head_dim, cfg.kv_cache_dtype, stack=repeat,
+                device=device)
+        if ls.mixer == "mla":
+            return kvcache.init_paged_mla_cache(
+                num_blocks, block_size, cfg.kv_lora_rank, cfg.qk_rope_dim,
+                stack=repeat, device=device)
+        return transformer._empty_layer_cache(cfg, ls, slots, max_len,
+                                              layers=repeat, device=device)
+
+    caches = [{f"l{i}": leaf(ls, seg.repeat)
+               for i, ls in enumerate(seg.layers)}
+              for seg in transformer.arch_segments(cfg)]
     return transformer.ServeState(
         caches=caches, cross=[None] * len(caches),
         pos=torch.zeros((slots,), dtype=torch.int32, device=device))

@@ -1,5 +1,5 @@
 """KV caches for serving (port of `repro/models/kvcache.py`: the bf16
-contiguous cache and the paged GQA block pool).
+contiguous cache, the MLA latent cache and their paged block pools).
 
 A cache holds one preallocated tensor per segment and per K or V,
 (L, B, Hkv, W, hd), with the layer axis first as the JAX package stacks
@@ -19,8 +19,14 @@ resets to it, so an inactive slot's masked decode write lands in a sink
 instead of a recycled live block, and unallocated logical blocks read
 from it (masked by kv_len before the softmax, so never visible).
 
-The int8/int4 quantised cache (ROADMAP Queue 1 item 4.5) and the paged
-MLA pool (item 4.2) are not ported.
+DeepSeek's MLA cache holds the compressed latent instead of keys and
+values: `MLACache` ([L,] B, W, r) float32 latents and ([L,] B, W, rd) bf16
+rotary keys, and `PagedMLACache` the same as (NB, BS, ...) pools. The
+latent stays float32 because the w_uk / w_uv up-projections amplify a
+bf16 rounding enough to break decode = teacher forcing; the rotary key is
+read as it is, so it is bf16 like a GQA cache.
+
+The int8/int4 quantised cache (ROADMAP Queue 1 item 4.5) is not ported.
 """
 from __future__ import annotations
 
@@ -32,8 +38,6 @@ from repro_torch.device import DEFAULT_DEVICE, resolve_device
 
 _QUANTISED_TODO = ("the int8/int4 KV cache is not ported yet (ROADMAP.md, "
                    "Queue 1 item 4.5: the int8/int4 KV cache, Qwen 1.5)")
-_PAGED_MLA_TODO = ("the paged MLA pool is not ported yet (ROADMAP.md, Queue 1 "
-                   "item 4.2: MoE, DeepSeek MLA with PagedMLACache)")
 
 
 class AttnCache(NamedTuple):
@@ -136,11 +140,6 @@ def init_paged_attn_cache(kv_heads: int, num_blocks: int, block_size: int,
         v=torch.zeros(shape, dtype=torch.bfloat16, device=device))
 
 
-def init_paged_mla_cache(*args, **kwargs):
-    """The paged MLA block pool of the JAX package; not ported yet."""
-    raise NotImplementedError(_PAGED_MLA_TODO)
-
-
 def paged_cache_write_at(cache: PagedAttnCache, k_new: torch.Tensor,
                          v_new: torch.Tensor, block: torch.Tensor,
                          offset: torch.Tensor) -> PagedAttnCache:
@@ -197,6 +196,123 @@ def paged_scatter_attn(pool_cache: PagedAttnCache, one: AttnCache,
 
     put(pool_cache.k, one.k)
     put(pool_cache.v, one.v)
+    return pool_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA latent caches (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+
+class MLACache(NamedTuple):
+    ckv: torch.Tensor                 # ([L,] B, W, r) float32 latent
+    krope: torch.Tensor               # ([L,] B, W, rd) bf16 rotary key
+
+    def layer(self, i: int) -> "MLACache":
+        """Layer i's view of a stacked cache; writes land in the stack."""
+        return MLACache(self.ckv[i], self.krope[i])
+
+
+def init_mla_cache(batch: int, window: int, lora_rank: int, rope_dim: int,
+                   *, layers: Optional[int] = None,
+                   device=DEFAULT_DEVICE) -> MLACache:
+    """Zero latent cache: ckv (B, W, r) float32, krope (B, W, rd) bf16, or
+    with a leading (L,) axis given `layers`, on `device`."""
+    device = resolve_device(device)
+    lead = () if layers is None else (layers,)
+    return MLACache(
+        ckv=torch.zeros((*lead, batch, window, lora_rank),
+                        dtype=torch.float32, device=device),
+        krope=torch.zeros((*lead, batch, window, rope_dim),
+                          dtype=torch.bfloat16, device=device))
+
+
+def mla_cache_write(cache: MLACache, ckv_new: torch.Tensor,
+                    krope_new: torch.Tensor, slots: torch.Tensor) -> MLACache:
+    """Prefill write, in place: T entries at positions `slots` ((T,) int,
+    shared by the batch). ckv_new (B, T, r); krope_new (B, T, rd)."""
+    slots = slots.to(torch.long)
+    cache.ckv[:, slots] = ckv_new.to(cache.ckv.dtype)
+    cache.krope[:, slots] = krope_new.to(cache.krope.dtype)
+    return cache
+
+
+def mla_cache_write_at(cache: MLACache, ckv_new: torch.Tensor,
+                       krope_new: torch.Tensor,
+                       slot: torch.Tensor) -> MLACache:
+    """Decode write, in place: one entry per sequence at its own slot.
+    ckv_new (B, 1, r); krope_new (B, 1, rd); slot (B,) int."""
+    rows = torch.arange(cache.ckv.shape[0], device=cache.ckv.device)
+    slot = slot.to(torch.long)
+    cache.ckv[rows, slot] = ckv_new[:, 0].to(cache.ckv.dtype)
+    cache.krope[rows, slot] = krope_new[:, 0].to(cache.krope.dtype)
+    return cache
+
+
+class PagedMLACache(NamedTuple):
+    """The shared latent block pool: ckv ([L,] NB, BS, r) float32, krope
+    ([L,] NB, BS, rd) bf16, the dtypes of `MLACache` for its reasons."""
+    ckv: torch.Tensor
+    krope: torch.Tensor
+
+    def layer(self, i: int) -> "PagedMLACache":
+        """Layer i's view of a stacked pool; writes land in the pool."""
+        return PagedMLACache(self.ckv[i], self.krope[i])
+
+
+def init_paged_mla_cache(num_blocks: int, block_size: int, lora_rank: int,
+                         rope_dim: int, stack: Optional[int] = None, *,
+                         device=DEFAULT_DEVICE) -> PagedMLACache:
+    """Zero pool (NB, BS, r) float32 and (NB, BS, rd) bf16 on `device`;
+    `stack` prepends a layer axis."""
+    device = resolve_device(device)
+    lead = (stack,) if stack else ()
+    return PagedMLACache(
+        ckv=torch.zeros((*lead, num_blocks, block_size, lora_rank),
+                        dtype=torch.float32, device=device),
+        krope=torch.zeros((*lead, num_blocks, block_size, rope_dim),
+                          dtype=torch.bfloat16, device=device))
+
+
+def mla_paged_cache_write_at(cache: PagedMLACache, ckv_new: torch.Tensor,
+                             krope_new: torch.Tensor, block: torch.Tensor,
+                             offset: torch.Tensor) -> PagedMLACache:
+    """Decode write, in place, at (block[b], offset[b]). ckv_new (B, 1, r);
+    krope_new (B, 1, rd); block/offset (B,) int. Returns `cache`."""
+    block, offset = block.to(torch.long), offset.to(torch.long)
+    cache.ckv[block, offset] = ckv_new[:, 0].to(cache.ckv.dtype)
+    cache.krope[block, offset] = krope_new[:, 0].to(cache.krope.dtype)
+    return cache
+
+
+def mla_paged_gather(cache: PagedMLACache, table: torch.Tensor):
+    """(B, MB) table -> (ckv (B, MB·BS, r), krope (B, MB·BS, rd)), both
+    float32 and contiguous, as the contiguous decode reads its cache."""
+    table = table.to(torch.long)
+
+    def gather(pool):
+        x = pool[table]                       # (B, MB, BS, X)
+        b, mb, bs, d = x.shape
+        return x.reshape(b, mb * bs, d).float().contiguous()
+
+    return gather(cache.ckv), gather(cache.krope)
+
+
+def paged_scatter_mla(pool_cache: PagedMLACache, one: MLACache,
+                      table_row: torch.Tensor) -> PagedMLACache:
+    """`paged_scatter_attn` for the latent pool: a batch-1 contiguous
+    MLACache ([L,] 1, W, X), W = MB·BS, into the blocks of `table_row`,
+    in place. Returns `pool_cache`."""
+    table_row = table_row.to(torch.long)
+
+    def put(pool, src):
+        src = src.squeeze(-3)                 # ([L,] W, X)
+        bs, mb = pool.shape[-2], table_row.shape[0]
+        src = src.reshape(*src.shape[:-2], mb, bs, src.shape[-1])
+        pool[..., table_row, :, :] = src.to(pool.dtype)
+
+    put(pool_cache.ckv, one.ckv)
+    put(pool_cache.krope, one.krope)
     return pool_cache
 
 

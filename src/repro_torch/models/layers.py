@@ -1,15 +1,16 @@
 """Transformer building blocks: norms, RoPE, MLP, attention (port of
-`repro/models/layers.py`, the dense-model part).
+`repro/models/layers.py`).
 
 Functions take plain tensors and parameter modules whose attribute names
 are the JAX package's dict keys (`p.scale`, `p.w1`, ...). Arithmetic
 follows the JAX functions step for step: norms and RoPE in float32, the
 RMSNorm gain as `1 + scale`, RoPE on split halves. Prefill attention
-(`chunked_attention`) goes through `kernels.ops.flash_attention`, the
-hand-written flash kernel on CUDA tensors and its plain version on CPU
-tensors; decode attention (`decode_attention`) is plain PyTorch over the
-whole cache, as the JAX package's is plain XLA. `banded_attention` waits
-for the Mixtral slice (ROADMAP.md, Queue 1 item 4.2).
+(`chunked_attention`, and `banded_attention` for Mixtral's sliding
+window) goes through `kernels.ops.flash_attention`, the hand-written
+flash kernel on CUDA tensors and its plain version on CPU tensors; decode
+attention (`decode_attention`) is plain PyTorch over the whole cache, as
+the JAX package's is plain XLA. `sinusoidal_positions` (Whisper) waits
+for its slice (ROADMAP.md, Queue 1 item 4.4).
 """
 from __future__ import annotations
 
@@ -105,7 +106,9 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       kv_len=None, chunk: int = DEFAULT_CHUNK,
                       scale: Optional[float] = None,
                       remat_body: bool = True) -> torch.Tensor:
-    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D) -> (B, Hq, Sq, D).
+    """q: (B, Hq, Sq, D); k: (B, Hkv, Sk, D); v: (B, Hkv, Sk, Dv) ->
+    (B, Hq, Sq, Dv); Dv may differ from D (MLA's 192-wide queries and
+    keys over 128-wide values).
 
     The JAX function streams the softmax over KV chunks in XLA; here the
     same streaming softmax is the flash kernel (`ops.flash_attention`) on
@@ -122,6 +125,24 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         k, v = k[:, :, :kv_len], v[:, :, :kv_len]
     return ops.flash_attention(q, k, v, causal=causal, window=window,
                                scale=scale, q_offset=q_offset)
+
+
+def banded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     window: int, q_block: int = DEFAULT_CHUNK,
+                     scale: Optional[float] = None,
+                     remat_body: bool = True) -> torch.Tensor:
+    """Causal sliding-window attention that touches only the band: query
+    i sees keys (i - window, i]. q: (B, Hq, S, D); k, v: (B, Hkv, S, D).
+
+    The JAX function walks query blocks of `q_block` and slices each
+    block's (window + q_block) keys, O(S·(window + q_block)) work where
+    masking a full scan would be O(S²). The flash kernel does the same
+    inside one launch: a query tile starts at its band's first key tile
+    and skips the tiles outside the band, so `q_block` and `remat_body`
+    (facts of the XLA program) are accepted and ignored."""
+    del q_block, remat_body
+    return ops.flash_attention(q, k, v, causal=True, window=window,
+                               scale=scale)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -1,5 +1,5 @@
 """Model assembly of the LM zoo (port of `repro/models/transformer.py`, the
-dense family).
+dense and MoE families).
 
 A model is a list of *segments*, each a homogeneous group of layers; a
 layer is (mixer, ffn). The JAX package scans each segment over stacked
@@ -7,7 +7,10 @@ parameters. Here the layers of a segment are an `nn.ModuleList` run by a
 Python loop, and the parameter tree keeps the JAX dict keys as attribute
 names: `params.embed`, `params.segments[0].l0[i]` for layer i (with `ln1`,
 `mixer.wq`/`wk`/`wv`/`wo`, `ln2`, `ffn.w1`/`w2`/`w3`), `params.final_norm`
-and `params.lm_head`.
+and `params.lm_head`. An MoE layer's `ffn` holds `router` (D, E) and the
+experts' `w1`/`w3` (E, D, F) and `w2` (E, F, D), with DeepSeek's shared
+experts as `shared_w1`/`w3`/`w2`; an MLA layer's `mixer` holds `wq`,
+`w_dkv`, `kv_norm`, `w_uk` (r, H, nd), `w_uv` (r, H, vd) and `wo`.
 
 Serving state: the KV cache of a segment is one preallocated tensor per K
 and per V, (L, B, Hkv, W, hd) bf16 (stacked also for a one-layer segment),
@@ -16,16 +19,22 @@ key per sequence — where the JAX package returns new arrays. So
 `forward_decode` updates the caches of the state it is given and returns
 them in a state with the advanced positions.
 
-A paged serving state holds a shared block pool per segment instead
-(`kvcache.PagedAttnCache`); `forward_decode(block_tables=)` writes each
-sequence's key at (block_table[b, pos // BS], pos % BS) and attends over
-the slot's gathered logical view under the same kv_len mask as the
-contiguous path.
+An MLA layer caches its float32 latent and bf16 rotary key instead,
+(L, B, W, r) and (L, B, W, rd) (`kvcache.MLACache`), and decodes in the
+absorbed form over them. A sliding-window layer (Mixtral) keeps a ring of
+min(max_len, window) keys.
 
-Only the dense family with GQA attention runs here. MoE and MLA (ROADMAP
-Queue 1 item 4.2), SSM and recurrent (4.3), encoder-decoder and patch
-models (4.4) and the quantised cache (4.5) raise `NotImplementedError`
-naming their item; `forward_train` waits for the LM train steps (4.6).
+A paged serving state holds a shared block pool per segment instead
+(`kvcache.PagedAttnCache`, `kvcache.PagedMLACache`);
+`forward_decode(block_tables=)` writes each sequence's key or latent at
+(block_table[b, pos // BS], pos % BS) and attends over the slot's
+gathered logical view under the same kv_len mask as the contiguous path.
+
+The dense and MoE families run here, with GQA (full or sliding-window)
+or MLA attention. SSM and recurrent (ROADMAP Queue 1 item 4.3),
+encoder-decoder and patch models (4.4) and the quantised cache (4.5)
+raise `NotImplementedError` naming their item; `forward_train` waits for
+the LM train steps (4.6).
 """
 from __future__ import annotations
 
@@ -36,10 +45,10 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
-from repro_torch.models import kvcache
+from repro_torch.models import kvcache, moe
 from repro_torch.models.layers import (apply_norm, apply_rope,
-                                       chunked_attention, decode_attention,
-                                       mlp)
+                                       banded_attention, chunked_attention,
+                                       decode_attention, mlp, rmsnorm)
 
 _ROADMAP = "ROADMAP.md, Queue 1 item 4"
 
@@ -88,11 +97,9 @@ def arch_segments(cfg: ArchConfig) -> list:
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise NotImplementedError naming the ROADMAP item for anything but a
-    dense GQA model with a bf16 cache."""
+    dense or MoE model with GQA or MLA attention and a bf16 cache."""
     waits = None
-    if cfg.num_experts or cfg.attn_kind == "mla":
-        waits = "MoE (Mixtral with banded SWA, DeepSeek MLA)", ".2"
-    elif cfg.family in ("ssm", "hybrid"):
+    if cfg.family in ("ssm", "hybrid"):
         waits = "SSM and hybrid (Mamba 2, RecurrentGemma)", ".3"
     elif (cfg.encoder_layers or cfg.cross_attention or cfg.patch_tokens
           or cfg.max_positions):
@@ -100,12 +107,14 @@ def check_supported(cfg: ArchConfig) -> None:
                  ".4")
     elif cfg.kv_cache_dtype != "bf16":
         waits = "the int8/int4 KV cache (Qwen 1.5)", ".5"
-    elif cfg.family != "dense" or cfg.attn_kind != "gqa":
+    elif cfg.family not in ("dense", "moe") or cfg.attn_kind not in ("gqa",
+                                                                    "mla"):
         waits = f"the {cfg.family} family", ""
     if waits:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense GQA family only; "
-            f"{waits[0]} is not ported yet ({_ROADMAP}{waits[1]})")
+            f"{cfg.name}: the port runs the dense and MoE families with GQA "
+            f"or MLA attention; {waits[0]} is not ported yet "
+            f"({_ROADMAP}{waits[1]})")
 
 
 # ---------------------------------------------------------------------------
@@ -182,6 +191,20 @@ def _attn_params(bld, cfg):
     return p
 
 
+def _mla_params(bld, cfg):
+    d, h = cfg.d_model, cfg.num_heads
+    r, nd, rd, vd = (cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                     cfg.v_head_dim)
+    return {
+        "wq": bld.param((d, h * (nd + rd))),
+        "w_dkv": bld.param((d, r + rd)),
+        "kv_norm": bld.param((r,), init="zeros"),
+        "w_uk": bld.param((r, h, nd)),
+        "w_uv": bld.param((r, h, vd)),
+        "wo": bld.param((h * vd, d)),
+    }
+
+
 def _mlp_params(bld, cfg):
     d, f = cfg.d_model, cfg.d_ff
     p = {"w1": bld.param((d, f)), "w2": bld.param((f, d))}
@@ -193,9 +216,32 @@ def _mlp_params(bld, cfg):
     return p
 
 
+def _moe_params(bld, cfg):
+    d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+    p = {
+        "router": bld.param((d, e), init="normal_1"),
+        "w1": bld.param((e, d, f), fan_in=d),
+        "w3": bld.param((e, d, f), fan_in=d),
+        "w2": bld.param((e, f, d), fan_in=f),
+    }
+    if cfg.num_shared_experts:
+        fs = f * cfg.num_shared_experts
+        p["shared_w1"] = bld.param((d, fs))
+        p["shared_w3"] = bld.param((d, fs))
+        p["shared_w2"] = bld.param((fs, d))
+    return p
+
+
+_MIXER_SCHEMA = {"attn": _attn_params, "local": _attn_params,
+                 "mla": _mla_params}
+_FFN_SCHEMA = {"mlp": _mlp_params, "moe": _moe_params}
+
+
 def _layer_params(bld, cfg, spec: LayerSpec):
-    return {"ln1": _norm_params(bld, cfg), "mixer": _attn_params(bld, cfg),
-            "ln2": _norm_params(bld, cfg), "ffn": _mlp_params(bld, cfg)}
+    return {"ln1": _norm_params(bld, cfg),
+            "mixer": _MIXER_SCHEMA[spec.mixer](bld, cfg),
+            "ln2": _norm_params(bld, cfg),
+            "ffn": _FFN_SCHEMA[spec.ffn](bld, cfg)}
 
 
 def _build(cfg: ArchConfig, bld: Builder) -> dict:
@@ -249,8 +295,9 @@ def attn_mixer(cfg, p, x, positions, *, window: int, mode: str, cache,
                pos=None, block_table=None):
     """Causal GQA attention; a ring-buffer cache when window > 0.
 
-    prefill: attention over the prompt through `chunked_attention` (the
-    flash kernel on the card), and the prompt's last W keys and values
+    prefill: attention over the prompt through `chunked_attention`, or
+    `banded_attention` for a banded sliding window (the flash kernel on
+    the card either way), and the prompt's last W keys and values
     written into `cache` (width W). decode (x (B, 1, D), pos (B,)): one
     key and value per sequence written at pos % W, then `decode_attention`
     over the cache; on a paged pool at (block_table[b, pos // BS],
@@ -265,9 +312,14 @@ def attn_mixer(cfg, p, x, positions, *, window: int, mode: str, cache,
     q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     w = cache.k.shape[-2]
     if mode == "prefill":
-        out = chunked_attention(q, k, v, causal=True, window=window,
-                                chunk=cfg.attn_chunk,
-                                remat_body=cfg.inner_remat)
+        if window > 0 and cfg.banded_swa:
+            out = banded_attention(q, k, v, window=window,
+                                   q_block=cfg.attn_chunk,
+                                   remat_body=cfg.inner_remat)
+        else:
+            out = chunked_attention(q, k, v, causal=True, window=window,
+                                    chunk=cfg.attn_chunk,
+                                    remat_body=cfg.inner_remat)
         keep = min(w, s)
         slots = torch.arange(s - keep, s, device=x.device) % w
         kvcache.cache_write(cache, k[:, :, s - keep:], v[:, :, s - keep:],
@@ -275,11 +327,8 @@ def attn_mixer(cfg, p, x, positions, *, window: int, mode: str, cache,
     elif isinstance(cache, kvcache.PagedAttnCache):
         bs = cache.k.shape[-2]
         mb = block_table.shape[1]
-        # a frozen (inactive) slot's pos stays in its table's range; the
-        # clamp mirrors JAX's clamped take_along_axis all the same
-        logical = torch.clamp(pos // bs, max=mb - 1).to(torch.long)
-        blk = torch.gather(block_table.to(torch.long), 1, logical[:, None])
-        kvcache.paged_cache_write_at(cache, k, v, blk[:, 0], pos % bs)
+        kvcache.paged_cache_write_at(cache, k, v, _block_of(block_table, pos,
+                                                            bs), pos % bs)
         kf, vf = kvcache.paged_gather(cache, block_table,
                                       dtype=torch.bfloat16)
         kv_len = torch.clamp(pos + 1, max=mb * bs)
@@ -294,32 +343,134 @@ def attn_mixer(cfg, p, x, positions, *, window: int, mode: str, cache,
     return out @ p.wo
 
 
+def _block_of(block_table, pos, bs: int):
+    """Each sequence's physical block of position `pos` (B,): its table
+    row's entry pos // BS. A frozen (inactive) slot's pos stays in its
+    table's range; the clamp mirrors JAX's clamped take_along_axis all the
+    same."""
+    mb = block_table.shape[1]
+    logical = torch.clamp(pos // bs, max=mb - 1).to(torch.long)
+    return torch.gather(block_table.to(torch.long), 1, logical[:, None])[:, 0]
+
+
+def mla_mixer(cfg, p, x, positions, *, mode: str, cache, pos=None,
+              block_table=None):
+    """DeepSeek-V2 multi-head latent attention.
+
+    prefill: keys [w_uk·latent, shared rotary key] (D_qk = nd + rd) and
+    values w_uv·latent (vd) through `chunked_attention` (the flash
+    kernel's (192, 128) instantiation at full width) with scale
+    1/sqrt(nd + rd); the prompt's last W latents and rotary keys written
+    into `cache`. decode (x (B, 1, D), pos (B,)): the absorbed form in
+    float32, q_nope·w_uk scored against the latent cache plus q_rope
+    against the rotary keys, softmax under kv_len = min(pos + 1, W), and
+    the context's latent mapped through w_uv; on a paged pool over the
+    slot's gathered view. Returns x @ wo; the cache is updated in
+    place."""
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    r, nd, rd, vd = (cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                     cfg.v_head_dim)
+    scale = 1.0 / ((nd + rd) ** 0.5)
+
+    q = (x @ p.wq).view(b, s, h, nd + rd)
+    qn, qr = q[..., :nd], q[..., nd:]
+    qr = apply_rope(qr, positions, cfg.rope_theta)
+    dkv = x @ p.w_dkv
+    ckv, kr = dkv[..., :r], dkv[..., r:]
+    ckv = rmsnorm(ckv, p.kv_norm)
+    kr = apply_rope(kr[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+
+    if mode == "prefill":
+        # plain products over the latent (the JAX package's einsums), so
+        # k and v come out contiguous with real strides for the kernel;
+        # the shared rotary key is copied into every head's columns
+        kn = (ckv @ p.w_uk.reshape(r, h * nd)).view(b, s, h, nd)
+        v = (ckv @ p.w_uv.reshape(r, h * vd)).view(b, s, h, vd)
+        k = torch.cat([kn, kr[:, :, None].expand(b, s, h, rd)], dim=-1)
+        qf = torch.cat([qn, qr], dim=-1)
+        out = chunked_attention(qf.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=True,
+                                chunk=cfg.attn_chunk, scale=scale,
+                                remat_body=cfg.inner_remat)
+        out = out.transpose(1, 2).reshape(b, s, h * vd)
+        w = cache.ckv.shape[-2]
+        keep = min(w, s)
+        slots = torch.arange(s - keep, s, device=x.device) % w
+        kvcache.mla_cache_write(cache, ckv[:, s - keep:], kr[:, s - keep:],
+                                slots)
+    else:
+        if isinstance(cache, kvcache.PagedMLACache):
+            bs = cache.ckv.shape[-2]
+            blk = _block_of(block_table, pos, bs)
+            kvcache.mla_paged_cache_write_at(cache, ckv, kr, blk, pos % bs)
+            ckv_all, kr_all = kvcache.mla_paged_gather(cache, block_table)
+            w = block_table.shape[1] * bs
+        else:
+            w = cache.ckv.shape[1]
+            kvcache.mla_cache_write_at(cache, ckv, kr, pos % w)
+            ckv_all = cache.ckv.float()                      # (B, W, r)
+            kr_all = cache.krope.float()                     # (B, W, rd)
+        q_abs = torch.einsum("bhn,rhn->bhr", qn[:, 0].float(),
+                             p.w_uk.float())
+        scores = (torch.einsum("bhr,bwr->bhw", q_abs, ckv_all)
+                  + torch.einsum("bhd,bwd->bhw", qr[:, 0].float(),
+                                 kr_all)) * scale
+        valid = torch.clamp(pos + 1, max=w)
+        mask = (torch.arange(w, device=x.device)[None, None]
+                < valid[:, None, None])
+        scores = torch.where(mask, scores,
+                             torch.tensor(-1e30, device=x.device))
+        attn = torch.softmax(scores, dim=-1)
+        ctx = torch.einsum("bhw,bwr->bhr", attn, ckv_all)
+        out = torch.einsum("bhr,rhv->bhv", ctx, p.w_uv.float())
+        out = out.reshape(b, 1, h * vd).to(x.dtype)
+    return out @ p.wo
+
+
 # ---------------------------------------------------------------------------
 # Layers and caches
 # ---------------------------------------------------------------------------
 
 def _apply_layer(cfg, spec: LayerSpec, p, x, positions, *, mode, cache,
-                 pos=None, block_table=None):
-    """x after one layer (norm -> attention -> residual, norm -> MLP ->
-    residual); `cache` is updated in place."""
-    if spec.mixer not in ("attn", "local") or spec.ffn != "mlp" \
-            or spec.cross:
+                 pos=None, block_table=None, token_mask=None):
+    """(x after one layer, the layer's MoE aux loss): norm -> attention ->
+    residual, norm -> MLP or MoE -> residual; `cache` is updated in place.
+    token_mask: (B,) bool of live rows, which only an MoE layer reads (as
+    its routing mask); a dense layer's aux loss is 0.0."""
+    if spec.mixer not in ("attn", "local", "mla") \
+            or spec.ffn not in ("mlp", "moe") or spec.cross:
         raise _unsupported_layer(spec)
     h = apply_norm(cfg, p.ln1, x)
-    x = x + attn_mixer(cfg, p.mixer, h, positions, window=cfg.sliding_window,
-                       mode=mode, cache=cache, pos=pos,
-                       block_table=block_table)
-    return x + mlp(cfg, p.ffn, apply_norm(cfg, p.ln2, x))
+    if spec.mixer == "mla":
+        out = mla_mixer(cfg, p.mixer, h, positions, mode=mode, cache=cache,
+                        pos=pos, block_table=block_table)
+    else:
+        out = attn_mixer(cfg, p.mixer, h, positions,
+                         window=cfg.sliding_window, mode=mode, cache=cache,
+                         pos=pos, block_table=block_table)
+    x = x + out
+    if spec.ffn == "mlp":
+        return x + mlp(cfg, p.ffn, apply_norm(cfg, p.ln2, x)), 0.0
+    mask = (None if token_mask is None
+            else token_mask[:, None].expand(x.shape[:2]))
+    y, aux = moe.moe_block(cfg, p.ffn, apply_norm(cfg, p.ln2, x),
+                           token_mask=mask)
+    return x + y, aux
 
 
 def _unsupported_layer(spec: LayerSpec) -> NotImplementedError:
     return NotImplementedError(
-        f"layer {spec} is not ported yet: the port runs attention + MLP "
-        f"layers ({_ROADMAP})")
+        f"layer {spec} is not ported yet: the port runs attention or MLA "
+        f"layers with an MLP or MoE ({_ROADMAP})")
 
 
 def _empty_layer_cache(cfg, spec: LayerSpec, batch: int, width: int, *,
                        layers: Optional[int] = None, device=DEFAULT_DEVICE):
+    if spec.mixer == "mla":
+        return kvcache.init_mla_cache(batch, width, cfg.kv_lora_rank,
+                                      cfg.qk_rope_dim, layers=layers,
+                                      device=device)
     if spec.mixer not in ("attn", "local"):
         raise _unsupported_layer(spec)
     return kvcache.init_attn_cache(batch, cfg.num_kv_heads,
@@ -337,7 +488,8 @@ def _cache_width(cfg, spec: LayerSpec, width: int) -> int:
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
                device=DEFAULT_DEVICE) -> list:
-    """Per segment, {"l{i}": AttnCache} with (L, B, Hkv, W, hd) zeros on
+    """Per segment, {"l{i}": AttnCache} with (L, B, Hkv, W, hd) zeros (an
+    MLACache of (L, B, W, r) and (L, B, W, rd) for an MLA layer) on
     `device` (the card unless the caller asks for the CPU)."""
     check_supported(cfg)
     return [{f"l{i}": _empty_layer_cache(cfg, ls, batch, max_len,
@@ -361,8 +513,9 @@ def _logits(cfg, params, x):
 
 
 class ServeState(NamedTuple):
-    caches: Any           # per segment {"l{i}": AttnCache (L, B, Hkv, W, hd)
-    #                       or PagedAttnCache (L, Hkv, NB, BS, hd)}
+    caches: Any           # per segment {"l{i}": AttnCache (L, B, Hkv, W, hd),
+    #                       PagedAttnCache (L, Hkv, NB, BS, hd), MLACache
+    #                       (L, B, W, r | rd) or PagedMLACache}
     cross: Any            # per segment cross kv (encoder-decoder) or None
     pos: torch.Tensor     # (B,) int32: next position index per sequence
 
@@ -385,14 +538,17 @@ def forward_prefill(cfg: ArchConfig, params, tokens: torch.Tensor, *,
     real prompt lengths when `tokens` is right-padded. Logits come from
     position length - 1 of each row and pos starts at length; keys written
     for padded positions sit above the decode mask (kv_len = pos + 1) and
-    are overwritten before they become visible."""
+    are overwritten before they become visible. MoE layers route without a
+    token mask, as the JAX package's prefill does: padded rows of a
+    batched prefill claim expert capacity."""
     check_supported(cfg)
     x = _embed_tokens(cfg, params, tokens)
     b, s = tokens.shape
     positions = torch.arange(s, device=x.device)
     caches = init_cache(cfg, b, max_len, device=x.device)
     for ls, lp, lc in _layers(cfg, params, caches):
-        x = _apply_layer(cfg, ls, lp, x, positions, mode="prefill", cache=lc)
+        x, _ = _apply_layer(cfg, ls, lp, x, positions, mode="prefill",
+                            cache=lc)
     if length is None:
         last = x[:, -1:]
         next_pos = torch.full((b,), s, dtype=torch.int32, device=x.device)
@@ -417,21 +573,26 @@ def forward_decode(cfg: ArchConfig, params, token: torch.Tensor,
     The caches of `state` are updated in place and shared by the returned
     state, whose pos is state.pos + 1. block_tables: (B, max_blocks) int
     when the state holds paged pools, shared by every layer; None for a
-    contiguous state. token_mask: a (B,) bool of live rows, which only MoE
-    layers read (dense rows are independent)."""
-    del token_mask
+    contiguous state. A model whose layers are all windowed (Mixtral) has
+    no pool in a paged state either, and ignores the tables, as the JAX
+    package does. token_mask: a (B,) bool of live rows, which only MoE
+    layers read (dense rows are independent): a dead row claims no expert
+    capacity, so live rows' outputs do not depend on it."""
     check_supported(cfg)
-    paged = [isinstance(c, kvcache.PagedAttnCache)
+    paged = [isinstance(c, (kvcache.PagedAttnCache, kvcache.PagedMLACache))
              for seg in state.caches for c in seg.values()]
+    pageable = any(ls.mixer in ("attn", "mla")
+                   for seg in arch_segments(cfg) for ls in seg.layers)
     if any(paged) and block_tables is None:
         raise ValueError("a paged serving state needs block_tables")
-    if block_tables is not None and not any(paged):
+    if block_tables is not None and pageable and not any(paged):
         raise ValueError("block_tables given for a contiguous serving state")
     x = _embed_tokens(cfg, params, token)
     positions = state.pos[:, None]
     for ls, lp, lc in _layers(cfg, params, state.caches):
-        x = _apply_layer(cfg, ls, lp, x, positions, mode="decode", cache=lc,
-                         pos=state.pos, block_table=block_tables)
+        x, _ = _apply_layer(cfg, ls, lp, x, positions, mode="decode",
+                            cache=lc, pos=state.pos,
+                            block_table=block_tables, token_mask=token_mask)
     logits = _logits(cfg, params, x)
     return logits, ServeState(caches=state.caches, cross=state.cross,
                               pos=state.pos + 1)

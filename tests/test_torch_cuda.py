@@ -314,6 +314,142 @@ def test_flash_attention_kernel_equals_plain_version(full_fp32_matmul, b, h,
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("b,h,sq,sk,causal,window,q_offset", [
+    (4, 16, 1024, 1024, True, 0, 0),      # DeepSeek-V2-Lite prefill
+    (1, 16, 777, 777, True, 0, 0),        # ragged query and key tiles
+    (2, 16, 300, 300, True, 96, 0),       # windowed
+    (1, 16, 100, 400, True, 0, 300),      # past a cached prefix
+    (1, 16, 1, 1, True, 0, 0),            # Sq = 1
+    (2, 4, 200, 333, False, 0, 0),        # non-causal
+])
+def test_flash_attention_mla_head_dims_equal_plain_version(
+        full_fp32_matmul, b, h, sq, sk, causal, window, q_offset):
+    """The float32 route at (D_qk, D_v) = (192, 128), the first shape past
+    the square head dims: q as MLA's concatenated (B, S, H, 192) view, k
+    contiguous, v (B, Hkv, Sk, 128), within the float32 tolerance of
+    `ref.attention_ref` at MLA's scale 1/sqrt(192)."""
+    gen = full_fp32_matmul
+    q = torch.randn((b, sq, h, 192), generator=gen,
+                    device="cuda").transpose(1, 2)
+    k = torch.randn((b, h, sk, 192), generator=gen, device="cuda")
+    v = torch.randn((b, sk, h, 128), generator=gen,
+                    device="cuda").transpose(1, 2)
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              scale=192 ** -0.5)
+    before = kernels.flash_attention.launches
+    got = kernels.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert kernels.flash_attention.launches == before + 1
+    want = ref.attention_ref(q, k, v, **kw)
+    assert got.shape == want.shape == (b, h, sq, 128)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+def test_flash_attention_bf16_refuses_mla_head_dims(gen):
+    """The bf16 route has no (192, 128) instantiation: a ValueError naming
+    the pair, before any launch, and no padding."""
+    q = torch.randn((1, 4, 64, 192), generator=gen,
+                    device="cuda").bfloat16()
+    v = torch.randn((1, 4, 64, 128), generator=gen,
+                    device="cuda").bfloat16()
+    before = kernels.flash_attention.launches
+    with pytest.raises(ValueError, match=r"\(192, 128\)"):
+        kernels.flash_attention(q, q, v)
+    assert kernels.flash_attention.launches == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_long_band_equals_plain_version(full_fp32_matmul,
+                                                        dtype):
+    """Mixtral's banded prefill in small: a window of 512 over 1500 keys,
+    so query tiles start past the first key tile and skip the tiles
+    outside their band."""
+    gen = full_fp32_matmul
+    dt = getattr(torch, dtype)
+    q = torch.randn((1, 1500, 8, 128), generator=gen,
+                    device="cuda").to(dt).transpose(1, 2)
+    k = torch.randn((1, 1500, 2, 128), generator=gen,
+                    device="cuda").to(dt).transpose(1, 2)
+    v = torch.randn((1, 1500, 2, 128), generator=gen,
+                    device="cuda").to(dt).transpose(1, 2)
+    got = kernels.flash_attention(q, k, v, causal=True, window=512)
+    want = ref.attention_ref(q, k, v, causal=True, window=512)
+    tol = 2e-2 if dt == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def _mla_moe_config():
+    """DeepSeek's smoke config with the full-width MLA head dims (128 + 64
+    over 128), so the prefill takes the kernel's (192, 128) route."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(
+        get_config("deepseek_v2_lite_16b", smoke=True), qk_nope_dim=128,
+        qk_rope_dim=64, v_head_dim=128)
+
+
+def test_mla_mixer_prefill_and_decode_on_the_card_equal_the_cpu(
+        full_fp32_matmul):
+    """`mla_mixer` on the card (prefill through the flash kernel) against
+    the same layer on the CPU (the plain attention), then one absorbed
+    decode step from each side's cache: atol = rtol = 1e-4 (float32
+    products summed in another order)."""
+    from repro_torch.models import kvcache, transformer
+    cfg = _mla_moe_config()
+    gen = torch.Generator().manual_seed(3)
+    params = transformer.init_params(cfg, gen, device="cpu")
+    lp_cpu = params.segments[0].l0[0].mixer
+    lp_gpu = transformer.ParamTree(
+        {n: p.data.cuda() for n, p in lp_cpu.named_parameters()})
+    x = torch.randn((2, 40, cfg.d_model), generator=gen)
+    outs = []
+    for dev, lp in (("cpu", lp_cpu), ("cuda", lp_gpu)):
+        cache = kvcache.init_mla_cache(2, 48, cfg.kv_lora_rank,
+                                       cfg.qk_rope_dim, device=dev)
+        before = kernels.flash_attention.launches
+        y = transformer.mla_mixer(cfg, lp, x.to(dev),
+                                  torch.arange(40, device=dev),
+                                  mode="prefill", cache=cache)
+        if dev == "cuda":
+            assert kernels.flash_attention.launches == before + 1
+        pos = torch.full((2,), 40, dtype=torch.int32, device=dev)
+        yd = transformer.mla_mixer(cfg, lp, x[:, :1].to(dev) * 0.5,
+                                   pos[:, None], mode="decode",
+                                   cache=cache, pos=pos)
+        outs.append((y.cpu(), yd.cpu(), cache.ckv.cpu()))
+    for got, want in zip(outs[1], outs[0]):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_moe_dispatches_agree_on_the_card(full_fp32_matmul):
+    """Both dispatches of `moe_block` on the card, with and without a
+    token mask, against each other and against the CPU: the sorted
+    dispatch's indexed write takes each kept slot once."""
+    import dataclasses
+
+    from repro_torch.models import moe, transformer
+    cfg = _mla_moe_config()
+    gen = torch.Generator().manual_seed(4)
+    params = transformer.init_params(cfg, gen, device="cpu")
+    ffn_cpu = params.segments[1].l0[0].ffn
+    x = torch.randn((4, 160, cfg.d_model), generator=gen)
+    mask = torch.rand((4, 160), generator=gen) < 0.7
+    ffn_gpu = transformer.ParamTree(
+        {n: p.data.cuda() for n, p in ffn_cpu.named_parameters()})
+    for m in (None, mask):
+        outs = {}
+        for dispatch in ("sorted", "einsum"):
+            c = dataclasses.replace(cfg, moe_dispatch=dispatch)
+            outs[dispatch] = moe.moe_block(
+                c, ffn_gpu, x.cuda(), None if m is None else m.cuda())[0]
+            want = moe.moe_block(c, ffn_cpu, x, m)[0]
+            torch.testing.assert_close(outs[dispatch].cpu(), want,
+                                       atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(outs["sorted"], outs["einsum"],
+                                   atol=1e-4, rtol=1e-4)
+
+
 def test_flash_attention_takes_fused_projection_slices(gen):
     """q, k and v sliced out of one (B, S, (H + 2 Hkv) D) projection: rows
     (H + 2 Hkv) D apart, neither contiguous nor a plain transpose."""

@@ -51,7 +51,10 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
     assert {"repro_torch.data.synth", "repro_torch.core.head",
             "repro_torch.core.hwmodel", "repro_torch.examples.quickstart",
             "repro_torch.examples.uleen_edge_pipeline",
-            "repro_torch.examples.distill_uleen_head"} <= set(names.split())
+            "repro_torch.examples.distill_uleen_head",
+            "repro_torch.models.moe", "repro_torch.launch.loadgen",
+            "repro_torch.configs.mixtral_8x7b",
+            "repro_torch.configs.deepseek_v2_lite_16b"} <= set(names.split())
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -79,14 +82,14 @@ def _entry_points():
                                   one_shot, pruning)
     from repro_torch.kernels import ops
     from repro_torch.configs import get_config
-    from repro_torch.launch import serve
+    from repro_torch.launch import loadgen, serve
     from repro_torch.launch.scheduler import (Engine, WnnBatcher,
                                               WnnTenantBatcher)
     from repro_torch.core import head
     from repro_torch.data import synth
     from repro_torch.examples import (distill_uleen_head, quickstart,
                                       uleen_edge_pipeline)
-    from repro_torch.models import transformer
+    from repro_torch.models import kvcache, transformer
     from repro_torch.packed import layout, runtime
     art = export.load(GOLDEN)
     pt = layout.from_artifact(art, device="cpu")
@@ -179,7 +182,27 @@ def _entry_points():
         "quickstart_main": lambda: quickstart.main(),
         "uleen_edge_pipeline_main": lambda: uleen_edge_pipeline.main(),
         "distill_uleen_head_main": lambda: distill_uleen_head.main(),
+        "init_mla_cache": lambda: kvcache.init_mla_cache(1, 4, 8, 4),
+        "init_paged_mla_cache": lambda: kvcache.init_paged_mla_cache(
+            3, 4, 8, 4),
+        "serve_stream": lambda: serve.serve_stream(lm, lm_params, [],
+                                                   slots=2, max_len=16),
+        "moe_serve_main": lambda: serve.main(["--arch", "mixtral_8x7b",
+                                              "--smoke"]),
+        "mla_init_params": lambda: transformer.init_params(
+            get_config("deepseek_v2_lite_16b", smoke=True),
+            torch.Generator()),
+        "loadgen_run_scenario": lambda: loadgen.run_scenario(_SCENARIO),
+        "loadgen_main": lambda: loadgen.main([
+            "--suite", os.path.join(REPO, "tests", "golden", "scenarios"),
+            "--out", os.devnull]),
     }
+
+
+_SCENARIO = {
+    "schema": "scenario/v1", "name": "t", "arch": "deepseek_v2_lite_16b",
+    "engine": {"slots": 2, "max_len": 32, "paged": True, "block_size": 8},
+    "workload": {"requests": 2, "prompt_lens": [4], "gen_lens": [2]}}
 
 
 @pytest.mark.parametrize("name", [
@@ -196,7 +219,9 @@ def _entry_points():
     "apply_head", "head_loss", "head_state_from_numpy", "wnn_infer",
     "wnn_scores_tenant", "stacked_scores", "prepare_tenants",
     "WnnTenantBatcher", "quickstart_main", "uleen_edge_pipeline_main",
-    "distill_uleen_head_main"])
+    "distill_uleen_head_main", "init_mla_cache", "init_paged_mla_cache",
+    "serve_stream", "moe_serve_main", "mla_init_params",
+    "loadgen_run_scenario", "loadgen_main"])
 def test_entry_points_raise_without_a_gpu_unless_asked_for_the_cpu(name):
     _no_gpu()
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -308,13 +308,16 @@ def test_quantised_cache_waits_for_its_slice(dtype):
                                   "init_paged_mla_cache", "BlockAllocator",
                                   "block_tables"])
 def test_paged_structures_wait_for_their_slice(what):
-    """The paged GQA pool, the allocator and paged decode are ported
-    (`test_torch_paged.py` holds them to JAX); the paged MLA pool still
-    waits for its item, naming it."""
+    """The paged GQA and MLA pools, the allocator and paged decode are
+    ported (`test_torch_paged.py` and `test_torch_mla.py` hold them to
+    JAX); each pool lies on the card unless asked for the CPU."""
     cfg = cfgs.get_config("llama3p2_3b", smoke=True)
     p = transformer.init_params(cfg, torch.Generator(), device="cpu")
     if what == "init_paged_mla_cache":
-        with pytest.raises(NotImplementedError, match="ROADMAP.*4.2.*MLA"):
+        pool = kvcache.init_paged_mla_cache(8, 16, 32, 8, device="cpu")
+        assert tuple(pool.ckv.shape) == (8, 16, 32)
+        assert tuple(pool.krope.shape) == (8, 16, 8)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
             kvcache.init_paged_mla_cache(8, 16, 32, 8)
     elif what == "init_paged_attn_cache":
         pool = kvcache.init_paged_attn_cache(2, 8, 16, 16, device="cpu")
@@ -371,14 +374,21 @@ def test_init_params_follows_the_jax_schema(arch):
     jp = jt.param_shapes(jcfgs.get_config(arch, smoke=True))
     assert p.embed.shape == jp["embed"].shape
     assert p.lm_head.shape == jp["lm_head"].shape
-    seg, jseg = p.segments[0].l0, jp["segments"][0]["l0"]
-    assert len(seg) == cfg.num_layers
-    for path, leaf in jax.tree_util.tree_leaves_with_path(jseg):
-        names = [k.key for k in path]
-        t = seg[0]
-        for n in names:
-            t = getattr(t, n)
-        assert (cfg.num_layers, *t.shape) == leaf.shape, names
+    # every segment: the JAX package stacks a segment of more than one
+    # layer on a leading axis (DeepSeek's one dense layer is unstacked)
+    segs = transformer.arch_segments(cfg)
+    assert len(p.segments) == len(jp["segments"]) == len(segs)
+    assert sum(s.repeat for s in segs) == cfg.num_layers
+    for sp, seg_p, seg_j in zip(segs, p.segments, jp["segments"]):
+        seg, jseg = seg_p.l0, seg_j["l0"]
+        assert len(seg) == sp.repeat
+        for path, leaf in jax.tree_util.tree_leaves_with_path(jseg):
+            names = [k.key for k in path]
+            t = seg[0]
+            for n in names:
+                t = getattr(t, n)
+            lead = (sp.repeat,) if sp.repeat > 1 else ()
+            assert (*lead, *t.shape) == leaf.shape, names
     assert transformer.param_count(p) == sum(
         int(np.prod(x.shape)) for x in jax.tree.leaves(jp))
     # the schema's distributions: zero norm gains, 0.02 embeddings,

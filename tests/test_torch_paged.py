@@ -117,8 +117,17 @@ def test_paged_pool_layout_and_unported_pools():
     assert float(c.k[1, 0, 2, 1, 0]) == 1.0      # a view of the stack
     with pytest.raises(NotImplementedError, match="4.5"):
         kvcache.init_paged_attn_cache(2, 6, 4, 8, "int8", device="cpu")
-    with pytest.raises(NotImplementedError, match="4.2"):
-        kvcache.init_paged_mla_cache(6, 4, 16, 8)
+    # the paged MLA pool is ported (`test_torch_mla.py` holds it to JAX):
+    # float32 latents, bf16 rotary keys, stacked views, the card by default
+    m = kvcache.init_paged_mla_cache(6, 4, 16, 8, stack=3, device="cpu")
+    assert tuple(m.ckv.shape) == (3, 6, 4, 16) and m.ckv.dtype == torch.float32
+    assert tuple(m.krope.shape) == (3, 6, 4, 8)
+    assert m.krope.dtype == torch.bfloat16
+    m.layer(2).ckv[5, 3, 0] = 2.0
+    assert float(m.ckv[2, 5, 3, 0]) == 2.0
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            kvcache.init_paged_mla_cache(6, 4, 16, 8)
 
 
 @settings(deadline=None, max_examples=60)

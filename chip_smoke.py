@@ -65,11 +65,23 @@ submodels, M = 10) and one LM path:
   (D_qk, D_v) = (192, 128); serve() on 4 x 1024; the LM path's backlog
   through the contiguous Engine and the paged one (the worst-case pool:
   the same schedule, equal tokens; half of it; half at prefill_batch 4);
+* the SSM path: Mamba 2 2.7B at full width and depth (64 layers, d 2560,
+  80 SSD heads of 64, state 128, chunk 256; no attention, so no kernel
+  launch): serve() on 4 x 1024; the LM path's backlog through the
+  contiguous Engine (4 slots) and the paged one (no block pool: equal
+  tokens); one layer's prefill of 1024 tokens against 1024 decode steps;
+* the hybrid path: RecurrentGemma 2B at full width and depth (26 layers,
+  (rec, rec, local) x 8 + (rec, rec), RG-LRU width 2560, local MQA 10/1
+  heads of 256 over a window of 2048, vocabulary 256 000): the flash
+  kernel at the local layers' shape; serve() on 2 x 4096 (past the
+  window: the windowed flash kernel and the ring's wrap); 8 requests of
+  512-4096 tokens through both engines; one RG-LRU layer's log-depth
+  scan over 4096 tokens against 4096 steps;
 * the loadgen path: the golden scenarios `smoke_gqa`, `paged_mixed`
-  (Llama 3.2 3B) and `paged_mla` (DeepSeek) at full width through the
-  port's `loadgen.run_scenario`, written to `build/BENCH_serve.json`,
-  which the port's `check()` and `scripts/diff_serve.py` read;
-  `ssm_state` waits for its ROADMAP item and is named as waiting.
+  (Llama 3.2 3B), `paged_mla` (DeepSeek) and `ssm_state` (Mamba 2) at
+  full width through the port's `loadgen.run_scenario`, written to
+  `build/BENCH_serve.json`, which the port's `check()` and
+  `scripts/diff_serve.py` read.
 
 Each path resets the kernels' launch counts just before it and reads them
 just after (the sharded path in each rank process, summed over ranks). The tenant path's scoring is tensor code, as the JAX package's
@@ -2263,6 +2275,11 @@ FLASH_MOE_CASES = {
     "mla": dict(name="deepseek_mla_b4_s1024_d192_dv128", b=4, h=16,
                 hkv=16, sq=1024, sk=1024, d=192, dv=128,
                 scale=192 ** -0.5, dtype=torch.float32),
+    # RecurrentGemma's local layers: MQA (10 query heads over one KV head)
+    # at head dim 256, a window of 2048 over 4096 tokens
+    "hybrid": dict(name="recurrentgemma_local_b2_s4096_w2048_d256", b=2,
+                   h=10, hkv=1, sq=4096, sk=4096, d=256, window=2048,
+                   dtype=torch.float32),
 }
 
 
@@ -2591,7 +2608,263 @@ def mla_path(kernels, *, get_config, transformer, steps, scheduler,
 
 
 # ---------------------------------------------------------------------------
-# Phase 12: the golden load scenarios through the port's loadgen
+# Phase 12: the SSM and hybrid families at full width and depth
+# ---------------------------------------------------------------------------
+
+# Mamba 2 2.7B (`configs/mamba2_2p7b.py`): serve() on SSM_BATCH prompts of
+# SSM_PROMPT tokens, then the LM path's backlog (LM_REQUESTS requests of
+# LM_PROMPT_LENS / LM_GEN_LENS) through the contiguous and the paged Engine
+# with SSM_SLOTS slots. RecurrentGemma 2B (`configs/recurrentgemma_2b.py`):
+# serve() on HYBRID_BATCH prompts of HYBRID_PROMPT tokens (past the local
+# window of 2048: the windowed flash kernel skips tiles and the ring
+# wraps), then HYBRID_REQUESTS requests of 512-4096 tokens through both
+# engines.
+SSM_ARCH, HYBRID_ARCH = "mamba2_2p7b", "recurrentgemma_2b"
+SSM_BATCH, SSM_PROMPT, SSM_GEN, SSM_SLOTS = 4, 1024, 32, 4
+HYBRID_BATCH, HYBRID_PROMPT, HYBRID_GEN = 2, 4096, 32
+HYBRID_SLOTS, HYBRID_REQUESTS = 4, 8
+HYBRID_PROMPT_LENS, HYBRID_GEN_LENS = (512, 1024, 2048, 4096), (16, 32)
+RECURRENT_DECODE_TIMED_STEPS = 8
+# one layer's prefill against the same tokens stepped one at a time
+# through its decode recurrence (the card's own oracle: it has no JAX):
+# outputs and final states within STEP_CHECK_TOL x (1 + |prefill|), a
+# chunked or log-depth sum against a sequential one in float32
+STEP_CHECK_TOKENS = {"ssd": 1024, "rec": 4096}
+STEP_CHECK_TOL = 1e-3
+# the Engine's first-token logits for serve()'s prompts: against a batch-1
+# prefill of the same prompt (the same products: within
+# SAME_BATCH_LOGITS_TOL), and against serve()'s batched prefill (float32
+# GEMMs that cuBLAS splits otherwise for another batch, over 64 Mamba
+# layers: 1.1e-3 measured, past the 28-layer Llama path's 1e-3)
+SAME_BATCH_LOGITS_TOL = 1e-5
+CROSS_BATCH_LOGITS_TOL = 1e-2
+
+
+def stepwise_check(cfg, params, module, dev):
+    """The model's first layer (SSD or RG-LRU, of `module`): its prefill of
+    STEP_CHECK_TOKENS tokens (the normed embeddings of seeded tokens) with
+    the final state, against as many decode steps from a zero state.
+    Raises past STEP_CHECK_TOL; returns the errors and the two times."""
+    from repro_torch.models.layers import apply_norm
+    mixer = "ssd" if cfg.family == "ssm" else "rec"
+    n_tokens = STEP_CHECK_TOKENS[mixer]
+    lp = params.segments[0].l0[0]
+    rng = np.random.default_rng(20266)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, n_tokens),
+                                         dtype=np.int32)).to(dev)
+    if mixer == "ssd":
+        block, step, zero = (module.mamba2_block, module.mamba2_decode,
+                             module.init_ssm_state)
+    else:
+        block, step, zero = (module.recurrent_block,
+                             module.recurrent_block_decode,
+                             module.init_rg_state)
+    with torch.inference_mode():
+        h = apply_norm(cfg, lp.ln1, params.embed[toks.long()])
+        t0 = time.perf_counter()
+        out, want = block(cfg, lp.mixer, h, return_state=True)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        st = zero(cfg, 1, device=dev)
+        ys = []
+        t0 = time.perf_counter()
+        for i in range(n_tokens):
+            y, st = step(cfg, lp.mixer, h[:, i:i + 1], st)
+            ys.append(y)
+        torch.cuda.synchronize()
+        steps_s = time.perf_counter() - t0
+        pairs = [("outputs", torch.cat(ys, dim=1), out)]
+        pairs += [(f"state_{name}", got, ref_)
+                  for name, got, ref_ in zip(want._fields, st, want)]
+    errs = {}
+    for name, got, ref_ in pairs:
+        diff = (got.float() - ref_.float()).abs()
+        errs[name] = {"max_abs_err": float(diff.max()),
+                      "max_abs": float(ref_.float().abs().max())}
+        if not bool((diff <= STEP_CHECK_TOL * (1 + ref_.float().abs()))
+                    .all()):
+            raise AssertionError(f"{cfg.name} {mixer} layer: {name} of the "
+                                 f"prefill and of {n_tokens} decode steps "
+                                 f"differ by {float(diff.max())}")
+    return {"mixer": mixer, "tokens": n_tokens, "tolerance": STEP_CHECK_TOL,
+            "prefill_s": prefill_s, "steps_s": steps_s, **errs}
+
+
+def recurrent_path(kernels, *, family, get_config, transformer, steps,
+                   scheduler, serve_fn, module, ref, flash_attention, plan,
+                   device="cuda"):
+    """Mamba 2 (`family="ssm"`) or RecurrentGemma (`"hybrid"`) at full
+    width and depth, float32 parameters drawn on the card: (hybrid) the
+    flash kernel at the local layers' shape against its plain version;
+    serve(); a backlog through the contiguous Engine and the paged one
+    (the same schedule, no block pool: equal tokens); then, outside the
+    counted run, one recurrent layer's prefill against its decode steps.
+    Returns (launches, the flash row or None)."""
+    ssm_family = family == "ssm"
+    dev = torch.device(device)
+    # the previous model's engines sit in reference cycles (`tap_engine`):
+    # free its parameters before this model's are drawn
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(20267 if ssm_family
+                                                  else 20268)
+    flash = None
+    if not ssm_family:
+        flash = flash_case_row(gen, ref, flash_attention, plan,
+                               FLASH_MOE_CASES["hybrid"], device)
+        torch.cuda.empty_cache()
+    cfg = get_config(SSM_ARCH if ssm_family else HYBRID_ARCH)
+    batch, prompt, gen_n = ((SSM_BATCH, SSM_PROMPT, SSM_GEN) if ssm_family
+                            else (HYBRID_BATCH, HYBRID_PROMPT, HYBRID_GEN))
+    slots, n_req, plens, glens = (
+        (SSM_SLOTS, LM_REQUESTS, LM_PROMPT_LENS, LM_GEN_LENS) if ssm_family
+        else (HYBRID_SLOTS, HYBRID_REQUESTS, HYBRID_PROMPT_LENS,
+              HYBRID_GEN_LENS))
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, gen, dtype=torch.float32,
+                                     device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(20267)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (batch, prompt), dtype=np.int32)).to(dev)
+    max_len = -(-(max(prompt + gen_n, max(plens) + max(glens)) + 1)
+                // PAGED_BLOCK) * PAGED_BLOCK
+    reqs = scheduler.synth_request_stream(cfg, n_req, seed=20267,
+                                          prompt_lens=plens, gen_lens=glens)
+    for i in range(batch):             # these requests carry serve()'s prompts
+        reqs[i].tokens = prompts[i].cpu().numpy()
+        reqs[i].max_new = gen_n
+    attn_layers = sum(seg.repeat for seg in transformer.arch_segments(cfg)
+                      for ls in seg.layers if ls.mixer in ("attn", "local"))
+    prefill = steps.make_prefill_step(cfg, max_len=max_len)
+    decode = steps.make_decode_step(cfg)
+    prefill(params, {"tokens": prompts[:1, :128]})      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    kernels.reset_launch_counts()          # the path's run starts here
+    t_path = time.perf_counter()
+    ref_logits, prefill_ms, decode_ms = timed_prefill_and_decode(
+        prefill, decode, params, prompts, RECURRENT_DECODE_TIMED_STEPS)
+    t0 = time.perf_counter()
+    served = serve_fn(cfg, params, prompts, max_len=max_len, gen=gen_n).cpu()
+    serve_s = time.perf_counter() - t0
+    runs, prefills = [], 2
+    for paged in (False, True):
+        kw = dict(paged=True, block_size=PAGED_BLOCK) if paged else {}
+        eng = scheduler.Engine(cfg, params, slots=slots, max_len=max_len,
+                               device=dev, **kw)
+        pooled = [type(c).__name__ for seg in eng.state.caches
+                  for c in seg.values()
+                  if "Paged" in type(c).__name__]
+        if pooled:
+            raise AssertionError(f"{cfg.name}: the paged engine allocated "
+                                 f"block pools {pooled}")
+        state_bytes = sum(t.numel() * t.element_size()
+                          for seg in eng.state.caches for c in seg.values()
+                          for t in c if t is not None)
+        first_logits, margins = tap_engine(eng)
+        t0 = time.perf_counter()
+        results = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check_results(f"{cfg.name} Engine (paged={paged})", results, reqs)
+        st = eng.stats()
+        if st["requests"] != n_req or eng.trace_counts["decode"] != 1:
+            raise AssertionError(f"{cfg.name} engine stats {st}")
+        if paged:
+            eng.allocator.check()
+            if st["blocks_in_use"] != 0:
+                raise AssertionError(f"paged engine kept blocks: {st}")
+        prefills += eng.prefill_launches
+        runs.append({"paged": paged, "wall_s": wall,
+                     "state_bytes_per_slot": state_bytes // slots,
+                     "prefill_launches": eng.prefill_launches,
+                     "tokens": [r.tokens for r in results],
+                     "first_logits": first_logits,
+                     **{k: st[k] for k in (
+                         "tok_per_s", "latency_p50_s", "latency_p99_s",
+                         "queue_wait_mean_s", "decode_steps", "peak_active",
+                         "peak_blocks")},
+                     "generated_tokens": st["tokens"]})
+        del eng
+    seconds = time.perf_counter() - t_path
+    launches = kernels.launch_counts()     # ... and ends here
+    peak_bytes = torch.cuda.max_memory_allocated()
+
+    check_launches(f"the {family} path", launches, attn_layers, prefills)
+    check_served(cfg.name, served, batch, gen_n, cfg.padded_vocab)
+    if not bool(torch.isfinite(ref_logits).all()):
+        raise AssertionError(f"{cfg.name}: non-finite prefill logits")
+    contiguous, paged_run = runs
+    if paged_run["tokens"] != contiguous["tokens"]:
+        raise AssertionError(f"{cfg.name}: paged Engine tokens differ from "
+                             "the contiguous Engine's")
+    # the Engine's first-token logits for serve()'s prompts against a
+    # batch-1 prefill of each prompt (and its first token that prefill's
+    # argmax), and against serve()'s batched prefill
+    logit_err = {"same_batch": [], "cross_batch": []}
+    for i in range(batch):
+        got = contiguous["first_logits"][i]
+        with torch.inference_mode():
+            one = prefill(params, {"tokens": prompts[i:i + 1]})[0][0, -1]
+        for key, want, tol in (("same_batch", one.float(),
+                                SAME_BATCH_LOGITS_TOL),
+                               ("cross_batch", ref_logits[i, -1].float(),
+                                CROSS_BATCH_LOGITS_TOL)):
+            err = (got - want).abs()
+            if not bool((err <= tol * (1 + want.abs())).all()):
+                raise AssertionError(
+                    f"{cfg.name}: Engine prefill logits of request {i} "
+                    f"differ from the {key} prefill's by {float(err.max())}")
+            logit_err[key].append(float(err.max()))
+        if contiguous["tokens"][i][0] != int(torch.argmax(one)):
+            raise AssertionError(f"{cfg.name} request {i}: first token "
+                                 "differs from the batch-1 prefill's")
+    agreement = [float(np.mean(np.asarray(contiguous["tokens"][i])
+                               == served[i].numpy())) for i in range(batch)]
+    want_tokens = contiguous["tokens"]
+    for r in runs:
+        r["tokens_equal_contiguous"] = r["tokens"] == want_tokens
+        del r["tokens"], r["first_logits"]
+    step_check = stepwise_check(cfg, params, module, dev)
+    emit(f"{family}_path", model=cfg.name, layers=cfg.num_layers,
+         d_model=cfg.d_model, vocab=cfg.vocab_size,
+         **({"ssm_state": cfg.ssm_state, "ssm_head_dim": cfg.ssm_head_dim,
+             "ssm_heads": cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim,
+             "ssm_chunk": cfg.ssm_chunk} if ssm_family else
+            {"block_pattern": cfg.block_pattern, "lru_width": cfg.lru_width,
+             "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+             "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+             "local_window": cfg.local_window,
+             "ring": min(max_len, cfg.local_window),
+             "attention_layers": attn_layers}),
+         params=transformer.param_count(params), param_dtype="float32",
+         init_s=init_s, max_len=max_len,
+         serve={"batch": batch, "prompt": prompt, "gen": gen_n,
+                "prefill_ms": prefill_ms,
+                "prefill_tok_per_s": batch * prompt / prefill_ms * 1e3,
+                "decode_ms_per_step_median": float(np.median(decode_ms)),
+                "decode_ms_per_step": decode_ms, "serve_s": serve_s,
+                "serve_tok_per_s": batch * gen_n / serve_s},
+         engine={"slots": slots, "requests": n_req, "prompt_lens": plens,
+                 "gen_lens": glens,
+                 "prompt_tokens": int(sum(q.prompt_len for q in reqs))},
+         engines=runs, prefill_logits_max_abs_err=logit_err,
+         prefill_logits_tolerance={"same_batch": SAME_BATCH_LOGITS_TOL,
+                                   "cross_batch": CROSS_BATCH_LOGITS_TOL},
+         token_agreement_vs_serve=agreement, step_check=step_check,
+         prefill_calls=prefills, path_s=seconds,
+         max_memory_allocated_gib=peak_bytes / 2 ** 30, launches=launches,
+         flash=flash)
+    del params
+    gc.collect()
+    return launches, flash
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the golden load scenarios through the port's loadgen
 # ---------------------------------------------------------------------------
 
 # `tests/golden/scenarios/*.yaml` as dicts: the card has no pyyaml
@@ -2622,9 +2895,16 @@ LOADGEN_SCENARIOS = {
                      "arrival": {"process": "poisson", "rate": 32.0},
                      "prompt_lens": [6, 12, 24], "gen_lens": [4, 8]},
         "slo": {"p99_latency_s": 120.0}},
+    "ssm_state": {
+        "schema": "scenario/v1", "name": "ssm_state", "arch": "mamba2_2p7b",
+        "engine": {"slots": 2, "max_len": 32, "paged": False},
+        "workload": {"requests": 5, "seed": 3,
+                     "arrival": {"process": "uniform", "rate": 32.0},
+                     "prompt_lens": [8, 16], "gen_lens": [4, 8]},
+        "slo": {"p99_latency_s": 120.0}},
 }
-# golden scenarios whose architecture waits for its ROADMAP item
-LOADGEN_WAITING = {"ssm_state": "4.3"}
+# golden scenarios whose architecture waits for its ROADMAP item: none
+LOADGEN_WAITING: dict = {}
 
 
 def loadgen_path(kernels, loadgen, device="cuda"):
@@ -2733,7 +3013,7 @@ def main() -> int:
     from repro_torch.launch import scheduler, steps
     from repro_torch.launch.scheduler import WnnBatcher, WnnTenantBatcher
     from repro_torch.launch.serve import serve as lm_serve
-    from repro_torch.models import layers, moe, transformer
+    from repro_torch.models import layers, moe, rglru, ssm, transformer
     from repro_torch.packed import layout as packed_layout
     from repro_torch.packed import runtime
     from repro_torch.train import optimizer
@@ -2820,6 +3100,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     mla_launches, mla_flash = mla_path(kernels, **moe_kw)
     torch.cuda.empty_cache()
+    ssm_launches, _ = recurrent_path(kernels, family="ssm", module=ssm,
+                                     **moe_kw)
+    torch.cuda.empty_cache()
+    hybrid_launches, hybrid_flash = recurrent_path(
+        kernels, family="hybrid", module=rglru, **moe_kw)
+    torch.cuda.empty_cache()
     loadgen_launches = loadgen_path(kernels, loadgen)
     torch.cuda.empty_cache()
     by_path = {"uleen_serve": launches, "uleen_train": train_launches,
@@ -2827,15 +3113,17 @@ def main() -> int:
                "tenant": tenant_launches, "examples": example_launches,
                "sharded": sharded_launches, "paged": paged_launches,
                "moe": moe_launches, "mla": mla_launches,
+               "ssm": ssm_launches, "hybrid": hybrid_launches,
                "loadgen": loadgen_launches}
-    # the flash kernel's rows at the MoE paths' shapes, each with the
-    # launches of its path
+    # the flash kernel's rows at the MoE and hybrid paths' shapes, each
+    # with the launches of its path
     flash_shapes = [
         {"path": path, "case": row["case"], "d": row["d"], "dv": row["dv"],
          "window": row["window"], "launches": by_path[path][
              "flash_attention"],
          **{k: row[k] for k in MAIN_FLASH_KEYS}}
-        for path, row in (("moe", moe_flash), ("mla", mla_flash))]
+        for path, row in (("moe", moe_flash), ("mla", mla_flash),
+                          ("hybrid", hybrid_flash))]
     # each kernel's launches on the path that carries it: the ULEEN serve
     # path for the WNN and front-end kernels, the train path for the hash,
     # the LM serve path for flash attention; `launches_by_path` has every

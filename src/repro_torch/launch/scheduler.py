@@ -121,7 +121,9 @@ class Engine:
         -> prompts are right-padded to the next power-of-two bucket (at
         least 8) and the length-aware prefill reads the last real
         position. Padded prefill is only sound for full-width attention
-        caches, so "pow2" refuses a sliding-window model.
+        caches, so "pow2" refuses a model with any other state (a sliding
+        or local window, an SSM or RG-LRU layer, patch tokens): those
+        prefill at exact prompt length.
     greedy/seed/temperature: token selection, mirroring `serve()`. Greedy
         takes `torch.argmax` (the first maximum, as `jnp.argmax`). Sampled
         decode draws from one `torch.Generator` per request, seeded from
@@ -165,11 +167,11 @@ class Engine:
                 "paged=True: the contiguous engine admits one slot per "
                 "launch")
         transformer.check_supported(cfg)
-        if bucket == "pow2" and cfg.sliding_window:
+        if bucket == "pow2" and not self._bucket_eligible(cfg):
             raise ValueError(
                 "bucketed (padded) prefill needs full-width attention "
-                "caches: a sliding-window ring buffer folds padding in "
-                f"({cfg.name})")
+                "caches: a sliding-window ring buffer or an SSM or "
+                f"recurrent state folds padding in sequentially ({cfg.name})")
         if params.embed.device != self.device:
             raise ValueError(f"params lie on {params.embed.device}, the "
                              f"engine runs on {self.device}")
@@ -245,6 +247,15 @@ class Engine:
         self.prefill_launches = 0
 
     # -- scheduling ---------------------------------------------------------
+
+    @staticmethod
+    def _bucket_eligible(cfg: ArchConfig) -> bool:
+        """Padded prefill is exact only when every layer keeps a full-width
+        attention or MLA cache (the JAX `Engine._bucket_eligible`)."""
+        mixers = {ls.mixer for seg in transformer.arch_segments(cfg)
+                  for ls in seg.layers}
+        return (mixers <= {"attn", "mla"} and not cfg.sliding_window
+                and not cfg.block_pattern and not cfg.patch_tokens)
 
     def submit(self, tokens, max_new: int, *, arrival: float = 0.0) -> int:
         """Queue one request; returns its rid. Never drops: a full engine

@@ -15,6 +15,10 @@ they free up mid-decode.
         --num-blocks 17 --prefill-batch 2
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral_8x7b \\
         --smoke --device cpu --prompt-len 24
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_2p7b \\
+        --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch recurrentgemma_2b --smoke --device cpu --prompt-len 24
 
 Without `--device` it runs on the GPU, and raises when there is none.
 `--paged` serves the stream from block-granular KV pools (`--block-size`,

@@ -1,12 +1,13 @@
 """Serving step functions of the LM zoo (port of `repro/launch/steps.py`,
-the contiguous serve steps).
+the contiguous and paged serve steps).
 
 The JAX package builds pure functions that `jax.jit` compiles; here the
 same factories return plain functions that run eagerly under
 `torch.inference_mode()`. States are updated in place: a prefill into a
 slot copies the fresh batch-1 state into that row of the engine's state,
 and a decode step writes one key and value per sequence into the caches it
-is given (see `models/transformer.py`).
+is given, and advances the SSM and RG-LRU states in place (see
+`models/transformer.py`).
 
 The paged steps serve from shared block pools: a batched prefill admits
 up to `admit` same-bucket requests in one forward (one flash-attention
@@ -77,8 +78,8 @@ def write_state_slot(full, one, index):
 
     Every tensor of the batch-1 tree is copied into the batch-wide tree
     along the one axis where their shapes differ (the batch axis: 0 for
-    pos, 1 for the (L, B, ...) caches). Equal shapes mean a single-slot
-    engine: the row is the whole state."""
+    pos, 1 for the (L, B, ...) caches and SSM / RG-LRU states). Equal
+    shapes mean a single-slot engine: the row is the whole state."""
     index = int(index)
     for f, o in zip(_leaves(full), _leaves(one), strict=True):
         diff = [a for a, (fd, od) in enumerate(zip(f.shape, o.shape))
@@ -160,7 +161,8 @@ def write_paged_state_slot(full, one, slot, table_row):
 
 def _state_row(state, j: int):
     """Batch row j of a batch-A contiguous prefill state, keeping the
-    batch axis (behind the layer axis of the stacked caches)."""
+    batch axis (behind the layer axis of the stacked caches and
+    states)."""
     def row(c):
         return type(c)(*(None if x is None else x[:, j:j + 1] for x in c))
 
@@ -215,9 +217,11 @@ def paged_serve_state_zeros(cfg: ArchConfig, params, slots: int,
     """`serve_state_zeros` with every full-width attention cache replaced
     by a shared block pool with no batch axis: (L, Hkv, num_blocks,
     block_size, hd) bf16 for GQA, (L, num_blocks, block_size, r) float32
-    and (..., rd) bf16 for MLA. Windowed (`local`) caches stay contiguous
-    per slot, already bounded by their window, so a sliding-window model
-    (Mixtral) has no pool at all, as in the JAX package."""
+    and (..., rd) bf16 for MLA. Windowed (`local`) caches and the SSM and
+    RG-LRU states stay contiguous per slot, already bounded by their
+    window or O(1) a sequence, so a sliding-window model (Mixtral), Mamba 2
+    and RecurrentGemma have no pool at all, as in the JAX package: their
+    paged engine only books blocks."""
     transformer.check_supported(cfg)
     device = params.embed.device
 

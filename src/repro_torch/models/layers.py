@@ -81,6 +81,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # MLP
 # ---------------------------------------------------------------------------
 
+def causal_conv(x: torch.Tensor, w: torch.Tensor,
+                bias: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, C); w: (K, C) depthwise causal conv (Mamba 2's and the
+    RG-LRU's), the JAX package's sum of shifted products in its order."""
+    k = w.shape[0]
+    xp = F.pad(x, (0, 0, k - 1, 0))
+    out = sum(xp[:, i:i + x.shape[1], :] * w[i][None, None]
+              for i in range(k))
+    return out + bias[None, None]
+
+
 def mlp(cfg, p, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU (w1/w3 gate) or GELU (w1 only; JAX's default tanh
     approximation), per cfg.act."""

@@ -1,5 +1,5 @@
-"""Model assembly of the LM zoo (port of `repro/models/transformer.py`, the
-dense and MoE families).
+"""Model assembly of the LM zoo (port of `repro/models/transformer.py`: the
+dense, MoE, SSM and hybrid families).
 
 A model is a list of *segments*, each a homogeneous group of layers; a
 layer is (mixer, ffn). The JAX package scans each segment over stacked
@@ -10,7 +10,11 @@ names: `params.embed`, `params.segments[0].l0[i]` for layer i (with `ln1`,
 and `params.lm_head`. An MoE layer's `ffn` holds `router` (D, E) and the
 experts' `w1`/`w3` (E, D, F) and `w2` (E, F, D), with DeepSeek's shared
 experts as `shared_w1`/`w3`/`w2`; an MLA layer's `mixer` holds `wq`,
-`w_dkv`, `kv_norm`, `w_uk` (r, H, nd), `w_uv` (r, H, vd) and `wo`.
+`w_dkv`, `kv_norm`, `w_uk` (r, H, nd), `w_uv` (r, H, vd) and `wo`. A
+Mamba 2 layer (`ssd`) has `ln1` and `mixer` only (`in_proj`, `conv_w`,
+`conv_b`, `dt_bias`, `a_log`, `d_skip`, `norm_scale`, `out_proj`); a
+RecurrentGemma recurrent layer (`rec`) holds `w_in_rec`, `w_in_gate`,
+`w_out`, `conv_w`, `conv_b`, `w_a`, `b_a`, `w_x`, `b_x` and `lam`.
 
 Serving state: the KV cache of a segment is one preallocated tensor per K
 and per V, (L, B, Hkv, W, hd) bf16 (stacked also for a one-layer segment),
@@ -22,7 +26,10 @@ them in a state with the advanced positions.
 An MLA layer caches its float32 latent and bf16 rotary key instead,
 (L, B, W, r) and (L, B, W, rd) (`kvcache.MLACache`), and decodes in the
 absorbed form over them. A sliding-window layer (Mixtral) keeps a ring of
-min(max_len, window) keys.
+min(max_len, window) keys; so does a hybrid's `local` layer, whose window
+is `cfg.local_window`. A Mamba 2 layer keeps `ssm.SSMState` (its conv
+window and SSD state) and an RG-LRU layer `rglru.RGState`, both with the
+layer axis first and updated in place like the caches.
 
 A paged serving state holds a shared block pool per segment instead
 (`kvcache.PagedAttnCache`, `kvcache.PagedMLACache`);
@@ -31,10 +38,10 @@ A paged serving state holds a shared block pool per segment instead
 gathered logical view under the same kv_len mask as the contiguous path.
 
 The dense and MoE families run here, with GQA (full or sliding-window)
-or MLA attention. SSM and recurrent (ROADMAP Queue 1 item 4.3),
-encoder-decoder and patch models (4.4) and the quantised cache (4.5)
-raise `NotImplementedError` naming their item; `forward_train` waits for
-the LM train steps (4.6).
+or MLA attention, and the SSM (Mamba 2) and hybrid (RecurrentGemma)
+families. Encoder-decoder and patch models (ROADMAP Queue 1 item 4.4) and
+the quantised cache (4.5) raise `NotImplementedError` naming their item;
+`forward_train` waits for the LM train steps (4.6).
 """
 from __future__ import annotations
 
@@ -45,7 +52,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
-from repro_torch.models import kvcache, moe
+from repro_torch.models import kvcache, moe, rglru, ssm
 from repro_torch.models.layers import (apply_norm, apply_rope,
                                        banded_attention, chunked_attention,
                                        decode_attention, mlp, rmsnorm)
@@ -97,24 +104,23 @@ def arch_segments(cfg: ArchConfig) -> list:
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise NotImplementedError naming the ROADMAP item for anything but a
-    dense or MoE model with GQA or MLA attention and a bf16 cache."""
+    dense, MoE, SSM or hybrid model with GQA or MLA attention (none for
+    SSM) and a bf16 cache."""
     waits = None
-    if cfg.family in ("ssm", "hybrid"):
-        waits = "SSM and hybrid (Mamba 2, RecurrentGemma)", ".3"
-    elif (cfg.encoder_layers or cfg.cross_attention or cfg.patch_tokens
-          or cfg.max_positions):
+    if (cfg.encoder_layers or cfg.cross_attention or cfg.patch_tokens
+            or cfg.max_positions):
         waits = ("the encoder-decoder and patch models (Whisper, InternVL2)",
                  ".4")
     elif cfg.kv_cache_dtype != "bf16":
         waits = "the int8/int4 KV cache (Qwen 1.5)", ".5"
-    elif cfg.family not in ("dense", "moe") or cfg.attn_kind not in ("gqa",
-                                                                    "mla"):
+    elif cfg.family not in ("dense", "moe", "ssm", "hybrid") or (
+            cfg.family != "ssm" and cfg.attn_kind not in ("gqa", "mla")):
         waits = f"the {cfg.family} family", ""
     if waits:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense and MoE families with GQA "
-            f"or MLA attention; {waits[0]} is not ported yet "
-            f"({_ROADMAP}{waits[1]})")
+            f"{cfg.name}: the port runs the dense, MoE, SSM and hybrid "
+            f"families with GQA or MLA attention; {waits[0]} is not ported "
+            f"yet ({_ROADMAP}{waits[1]})")
 
 
 # ---------------------------------------------------------------------------
@@ -232,16 +238,53 @@ def _moe_params(bld, cfg):
     return p
 
 
+def _ssd_params(bld, cfg):
+    d = cfg.d_model
+    d_in = cfg.ssm_expand * d
+    g, n = cfg.ssm_groups, cfg.ssm_state
+    nh = d_in // cfg.ssm_head_dim
+    conv_dim = d_in + 2 * g * n
+    return {
+        "in_proj": bld.param((d, 2 * d_in + 2 * g * n + nh)),
+        "conv_w": bld.param((cfg.conv_kernel, conv_dim)),
+        "conv_b": bld.param((conv_dim,), init="zeros"),
+        "dt_bias": bld.param((nh,), init="zeros"),
+        "a_log": bld.param((nh,), init="zeros"),
+        "d_skip": bld.param((nh,), init="ones"),
+        "norm_scale": bld.param((d_in,), init="zeros"),
+        "out_proj": bld.param((d_in, d)),
+    }
+
+
+def _rec_params(bld, cfg):
+    d = cfg.d_model
+    w = cfg.lru_width or d
+    return {
+        "w_in_rec": bld.param((d, w)),
+        "w_in_gate": bld.param((d, w)),
+        "w_out": bld.param((w, d)),
+        "conv_w": bld.param((cfg.conv_kernel, w)),
+        "conv_b": bld.param((w,), init="zeros"),
+        "w_a": bld.param((w,), init="ones"),
+        "b_a": bld.param((w,), init="zeros"),
+        "w_x": bld.param((w,), init="ones"),
+        "b_x": bld.param((w,), init="zeros"),
+        "lam": bld.param((w,), init="ones"),
+    }
+
+
 _MIXER_SCHEMA = {"attn": _attn_params, "local": _attn_params,
-                 "mla": _mla_params}
+                 "mla": _mla_params, "ssd": _ssd_params, "rec": _rec_params}
 _FFN_SCHEMA = {"mlp": _mlp_params, "moe": _moe_params}
 
 
 def _layer_params(bld, cfg, spec: LayerSpec):
-    return {"ln1": _norm_params(bld, cfg),
-            "mixer": _MIXER_SCHEMA[spec.mixer](bld, cfg),
-            "ln2": _norm_params(bld, cfg),
-            "ffn": _FFN_SCHEMA[spec.ffn](bld, cfg)}
+    p = {"ln1": _norm_params(bld, cfg),
+         "mixer": _MIXER_SCHEMA[spec.mixer](bld, cfg)}
+    if spec.ffn != "none":            # Mamba 2 has no FFN
+        p["ln2"] = _norm_params(bld, cfg)
+        p["ffn"] = _FFN_SCHEMA[spec.ffn](bld, cfg)
+    return p
 
 
 def _build(cfg: ArchConfig, bld: Builder) -> dict:
@@ -434,22 +477,35 @@ def mla_mixer(cfg, p, x, positions, *, mode: str, cache, pos=None,
 
 def _apply_layer(cfg, spec: LayerSpec, p, x, positions, *, mode, cache,
                  pos=None, block_table=None, token_mask=None):
-    """(x after one layer, the layer's MoE aux loss): norm -> attention ->
-    residual, norm -> MLP or MoE -> residual; `cache` is updated in place.
-    token_mask: (B,) bool of live rows, which only an MoE layer reads (as
-    its routing mask); a dense layer's aux loss is 0.0."""
-    if spec.mixer not in ("attn", "local", "mla") \
-            or spec.ffn not in ("mlp", "moe") or spec.cross:
+    """(x after one layer, the layer's MoE aux loss): norm -> mixer ->
+    residual, then (unless the layer has none) norm -> MLP or MoE ->
+    residual; `cache` (a KV cache, or an SSM or RG-LRU state) is updated
+    in place. token_mask: (B,) bool of live rows, which only an MoE layer
+    reads (as its routing mask); any other layer's aux loss is 0.0."""
+    if spec.mixer not in ("attn", "local", "mla", "ssd", "rec") \
+            or spec.ffn not in ("mlp", "moe", "none") or spec.cross:
         raise _unsupported_layer(spec)
     h = apply_norm(cfg, p.ln1, x)
     if spec.mixer == "mla":
         out = mla_mixer(cfg, p.mixer, h, positions, mode=mode, cache=cache,
                         pos=pos, block_table=block_table)
+    elif spec.mixer in ("ssd", "rec"):
+        block, step = ((ssm.mamba2_block, ssm.mamba2_decode)
+                       if spec.mixer == "ssd" else
+                       (rglru.recurrent_block, rglru.recurrent_block_decode))
+        if mode == "prefill":
+            out, new = block(cfg, p.mixer, h, return_state=True)
+        else:
+            out, new = step(cfg, p.mixer, h, cache)
+        for dst, src in zip(cache, new):
+            dst.copy_(src)
     else:
         out = attn_mixer(cfg, p.mixer, h, positions,
-                         window=cfg.sliding_window, mode=mode, cache=cache,
+                         window=_window(cfg, spec), mode=mode, cache=cache,
                          pos=pos, block_table=block_table)
     x = x + out
+    if spec.ffn == "none":
+        return x, 0.0
     if spec.ffn == "mlp":
         return x + mlp(cfg, p.ffn, apply_norm(cfg, p.ln2, x)), 0.0
     mask = (None if token_mask is None
@@ -461,8 +517,17 @@ def _apply_layer(cfg, spec: LayerSpec, p, x, positions, *, mode, cache,
 
 def _unsupported_layer(spec: LayerSpec) -> NotImplementedError:
     return NotImplementedError(
-        f"layer {spec} is not ported yet: the port runs attention or MLA "
-        f"layers with an MLP or MoE ({_ROADMAP})")
+        f"layer {spec} is not ported yet: the port runs attention, MLA, "
+        f"SSD or RG-LRU layers with an MLP, an MoE or no FFN ({_ROADMAP})")
+
+
+def _window(cfg, spec: LayerSpec) -> int:
+    """The attention window of a layer: a hybrid's `local` layer attends
+    over `cfg.local_window` keys, any other over `cfg.sliding_window` (0:
+    the whole causal prefix)."""
+    if spec.mixer == "local" and cfg.block_pattern:
+        return cfg.local_window
+    return cfg.sliding_window
 
 
 def _empty_layer_cache(cfg, spec: LayerSpec, batch: int, width: int, *,
@@ -471,6 +536,10 @@ def _empty_layer_cache(cfg, spec: LayerSpec, batch: int, width: int, *,
         return kvcache.init_mla_cache(batch, width, cfg.kv_lora_rank,
                                       cfg.qk_rope_dim, layers=layers,
                                       device=device)
+    if spec.mixer == "ssd":
+        return ssm.init_ssm_state(cfg, batch, layers=layers, device=device)
+    if spec.mixer == "rec":
+        return rglru.init_rg_state(cfg, batch, layers=layers, device=device)
     if spec.mixer not in ("attn", "local"):
         raise _unsupported_layer(spec)
     return kvcache.init_attn_cache(batch, cfg.num_kv_heads,
@@ -480,17 +549,18 @@ def _empty_layer_cache(cfg, spec: LayerSpec, batch: int, width: int, *,
 
 
 def _cache_width(cfg, spec: LayerSpec, width: int) -> int:
-    """A sliding-window layer keeps a ring buffer of its window."""
-    if cfg.sliding_window:
-        return min(width, cfg.sliding_window)
-    return width
+    """A windowed layer (sliding or a hybrid's `local`) keeps a ring buffer
+    of its window."""
+    window = _window(cfg, spec)
+    return min(width, window) if window else width
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
                device=DEFAULT_DEVICE) -> list:
     """Per segment, {"l{i}": AttnCache} with (L, B, Hkv, W, hd) zeros (an
-    MLACache of (L, B, W, r) and (L, B, W, rd) for an MLA layer) on
-    `device` (the card unless the caller asks for the CPU)."""
+    MLACache of (L, B, W, r) and (L, B, W, rd) for an MLA layer, an
+    SSMState or RGState for an SSD or RG-LRU layer) on `device` (the card
+    unless the caller asks for the CPU)."""
     check_supported(cfg)
     return [{f"l{i}": _empty_layer_cache(cfg, ls, batch, max_len,
                                          layers=seg.repeat, device=device)
@@ -515,7 +585,8 @@ def _logits(cfg, params, x):
 class ServeState(NamedTuple):
     caches: Any           # per segment {"l{i}": AttnCache (L, B, Hkv, W, hd),
     #                       PagedAttnCache (L, Hkv, NB, BS, hd), MLACache
-    #                       (L, B, W, r | rd) or PagedMLACache}
+    #                       (L, B, W, r | rd), PagedMLACache, SSMState or
+    #                       RGState}
     cross: Any            # per segment cross kv (encoder-decoder) or None
     pos: torch.Tensor     # (B,) int32: next position index per sequence
 
@@ -538,9 +609,11 @@ def forward_prefill(cfg: ArchConfig, params, tokens: torch.Tensor, *,
     real prompt lengths when `tokens` is right-padded. Logits come from
     position length - 1 of each row and pos starts at length; keys written
     for padded positions sit above the decode mask (kv_len = pos + 1) and
-    are overwritten before they become visible. MoE layers route without a
-    token mask, as the JAX package's prefill does: padded rows of a
-    batched prefill claim expert capacity."""
+    are overwritten before they become visible. Only sound for full-width
+    attention caches: a windowed, SSM or RG-LRU state folds the padding in,
+    so those models prefill at exact length (the Engine sees to it). MoE
+    layers route without a token mask, as the JAX package's prefill does:
+    padded rows of a batched prefill claim expert capacity."""
     check_supported(cfg)
     x = _embed_tokens(cfg, params, tokens)
     b, s = tokens.shape
@@ -573,9 +646,9 @@ def forward_decode(cfg: ArchConfig, params, token: torch.Tensor,
     The caches of `state` are updated in place and shared by the returned
     state, whose pos is state.pos + 1. block_tables: (B, max_blocks) int
     when the state holds paged pools, shared by every layer; None for a
-    contiguous state. A model whose layers are all windowed (Mixtral) has
-    no pool in a paged state either, and ignores the tables, as the JAX
-    package does. token_mask: a (B,) bool of live rows, which only MoE
+    contiguous state. A model with no full-width attention layer
+    (Mixtral's windowed layers, Mamba 2, RecurrentGemma) has no pool in a
+    paged state either, and ignores the tables, as the JAX package does. token_mask: a (B,) bool of live rows, which only MoE
     layers read (dense rows are independent): a dead row claims no expert
     capacity, so live rows' outputs do not depend on it."""
     check_supported(cfg)

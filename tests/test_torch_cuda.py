@@ -378,6 +378,62 @@ def test_flash_attention_long_band_equals_plain_version(full_fp32_matmul,
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+def test_flash_attention_recurrentgemma_local_shape(full_fp32_matmul):
+    """RecurrentGemma 2B's local layers at prefill: MQA (10 query heads
+    over one KV head) at head dim 256, a window of 2048 over 4096 tokens,
+    float32 through the 16-key tiles of the `mma_3xtf32` route."""
+    gen = full_fp32_matmul
+    b, h, s, d = 2, 10, 4096, 256
+    q = torch.randn((b, s, h, d), generator=gen,
+                    device="cuda").transpose(1, 2)
+    k = torch.randn((b, s, 1, d), generator=gen,
+                    device="cuda").transpose(1, 2)
+    v = torch.randn((b, s, 1, d), generator=gen,
+                    device="cuda").transpose(1, 2)
+    before = kernels.flash_attention.launches
+    got = kernels.flash_attention(q, k, v, causal=True, window=2048)
+    torch.cuda.synchronize()
+    assert kernels.flash_attention.launches == before + 1
+    want = ref.attention_ref(q, k, v, causal=True, window=2048)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("arch,n_tokens", [("mamba2_2p7b", 1024),
+                                           ("recurrentgemma_2b", 4096)])
+def test_recurrent_layer_prefill_equals_its_decode_steps(full_fp32_matmul,
+                                                         arch, n_tokens):
+    """One full-width Mamba 2 (SSD) or RG-LRU layer on the card: the
+    prefill's outputs and final state against the same tokens stepped
+    one at a time through the decode recurrence from a zero state,
+    within 1e-3 x (1 + |prefill|) (a chunked or log-depth sum against a
+    sequential one in float32)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import rglru, ssm, transformer
+    cfg = get_config(arch)
+    gen = full_fp32_matmul
+    bld = transformer.Builder(gen, device="cuda")
+    if cfg.family == "ssm":
+        p = transformer.ParamTree(transformer._ssd_params(bld, cfg))
+        block, step, zero = (ssm.mamba2_block, ssm.mamba2_decode,
+                             ssm.init_ssm_state)
+    else:
+        p = transformer.ParamTree(transformer._rec_params(bld, cfg))
+        block, step, zero = (rglru.recurrent_block,
+                             rglru.recurrent_block_decode,
+                             rglru.init_rg_state)
+    x = torch.randn((1, n_tokens, cfg.d_model), generator=gen,
+                    device="cuda")
+    with torch.inference_mode():
+        out, want = block(cfg, p, x, return_state=True)
+        st = zero(cfg, 1, device="cuda")
+        ys = []
+        for i in range(n_tokens):
+            y, st = step(cfg, p, x[:, i:i + 1], st)
+            ys.append(y)
+    for got, ref_ in ((torch.cat(ys, dim=1), out), *zip(st, want)):
+        assert bool(((got - ref_).abs() <= 1e-3 * (1 + ref_.abs())).all())
+
+
 def _mla_moe_config():
     """DeepSeek's smoke config with the full-width MLA head dims (128 + 64
     over 128), so the prefill takes the kernel's (192, 128) route."""

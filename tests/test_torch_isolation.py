@@ -54,7 +54,10 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
             "repro_torch.examples.distill_uleen_head",
             "repro_torch.models.moe", "repro_torch.launch.loadgen",
             "repro_torch.configs.mixtral_8x7b",
-            "repro_torch.configs.deepseek_v2_lite_16b"} <= set(names.split())
+            "repro_torch.configs.deepseek_v2_lite_16b",
+            "repro_torch.models.ssm", "repro_torch.models.rglru",
+            "repro_torch.configs.mamba2_2p7b",
+            "repro_torch.configs.recurrentgemma_2b"} <= set(names.split())
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -89,7 +92,7 @@ def _entry_points():
     from repro_torch.data import synth
     from repro_torch.examples import (distill_uleen_head, quickstart,
                                       uleen_edge_pipeline)
-    from repro_torch.models import kvcache, transformer
+    from repro_torch.models import kvcache, rglru, ssm, transformer
     from repro_torch.packed import layout, runtime
     art = export.load(GOLDEN)
     pt = layout.from_artifact(art, device="cpu")
@@ -192,6 +195,17 @@ def _entry_points():
         "mla_init_params": lambda: transformer.init_params(
             get_config("deepseek_v2_lite_16b", smoke=True),
             torch.Generator()),
+        "ssm_init_params": lambda: transformer.init_params(
+            get_config("mamba2_2p7b", smoke=True), torch.Generator()),
+        "hybrid_init_params": lambda: transformer.init_params(
+            get_config("recurrentgemma_2b", smoke=True), torch.Generator()),
+        "init_ssm_state": lambda: ssm.init_ssm_state(
+            get_config("mamba2_2p7b", smoke=True), 1),
+        "init_rg_state": lambda: rglru.init_rg_state(
+            get_config("recurrentgemma_2b", smoke=True), 1),
+        "hybrid_serve_main": lambda: serve.main(["--arch",
+                                                 "recurrentgemma_2b",
+                                                 "--smoke"]),
         "loadgen_run_scenario": lambda: loadgen.run_scenario(_SCENARIO),
         "loadgen_main": lambda: loadgen.main([
             "--suite", os.path.join(REPO, "tests", "golden", "scenarios"),
@@ -220,7 +234,9 @@ _SCENARIO = {
     "wnn_scores_tenant", "stacked_scores", "prepare_tenants",
     "WnnTenantBatcher", "quickstart_main", "uleen_edge_pipeline_main",
     "distill_uleen_head_main", "init_mla_cache", "init_paged_mla_cache",
-    "serve_stream", "moe_serve_main", "mla_init_params",
+    "serve_stream", "moe_serve_main", "mla_init_params", "ssm_init_params",
+    "hybrid_init_params", "init_ssm_state", "init_rg_state",
+    "hybrid_serve_main",
     "loadgen_run_scenario", "loadgen_main"])
 def test_entry_points_raise_without_a_gpu_unless_asked_for_the_cpu(name):
     _no_gpu()

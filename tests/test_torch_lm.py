@@ -374,29 +374,36 @@ def test_init_params_follows_the_jax_schema(arch):
     jp = jt.param_shapes(jcfgs.get_config(arch, smoke=True))
     assert p.embed.shape == jp["embed"].shape
     assert p.lm_head.shape == jp["lm_head"].shape
-    # every segment: the JAX package stacks a segment of more than one
-    # layer on a leading axis (DeepSeek's one dense layer is unstacked)
+    # every segment and every layer of its pattern: the JAX package stacks
+    # a segment of more than one repeat on a leading axis (DeepSeek's one
+    # dense layer and RecurrentGemma's tail are unstacked)
     segs = transformer.arch_segments(cfg)
     assert len(p.segments) == len(jp["segments"]) == len(segs)
-    assert sum(s.repeat for s in segs) == cfg.num_layers
+    assert sum(s.repeat * len(s.layers) for s in segs) == cfg.num_layers
     for sp, seg_p, seg_j in zip(segs, p.segments, jp["segments"]):
-        seg, jseg = seg_p.l0, seg_j["l0"]
-        assert len(seg) == sp.repeat
-        for path, leaf in jax.tree_util.tree_leaves_with_path(jseg):
-            names = [k.key for k in path]
-            t = seg[0]
-            for n in names:
-                t = getattr(t, n)
-            lead = (sp.repeat,) if sp.repeat > 1 else ()
-            assert (*lead, *t.shape) == leaf.shape, names
+        assert set(seg_j) == {f"l{i}" for i in range(len(sp.layers))}
+        for name, jseg in seg_j.items():
+            seg = getattr(seg_p, name)
+            assert len(seg) == sp.repeat
+            # a layer without an FFN (Mamba 2) has neither ln2 nor ffn
+            assert set(dict(seg[0].named_children())) == set(jseg)
+            for path, leaf in jax.tree_util.tree_leaves_with_path(jseg):
+                names = [k.key for k in path]
+                t = seg[0]
+                for n in names:
+                    t = getattr(t, n)
+                lead = (sp.repeat,) if sp.repeat > 1 else ()
+                assert (*lead, *t.shape) == leaf.shape, names
     assert transformer.param_count(p) == sum(
         int(np.prod(x.shape)) for x in jax.tree.leaves(jp))
     # the schema's distributions: zero norm gains, 0.02 embeddings,
     # fan-in-scaled projections
     assert float(p.final_norm.scale.abs().max()) == 0.0
     assert abs(float(p.embed.std()) - 0.02) < 0.002
-    w = p.segments[0].l0[0].ffn.w2
-    assert abs(float(w.std()) * cfg.d_ff ** 0.5 - 1.0) < 0.1
+    lp = p.segments[0].l0[0]
+    w, fan_in = ((lp.ffn.w2, cfg.d_ff) if hasattr(lp, "ffn")
+                 else (lp.mixer.out_proj, cfg.ssm_expand * cfg.d_model))
+    assert abs(float(w.std()) * fan_in ** 0.5 - 1.0) < 0.1
     if cfg.qkv_bias:
         assert float(p.segments[0].l0[1].mixer.bq.abs().max()) == 0.0
 

@@ -190,12 +190,14 @@ def test_chip_smoke_scenarios_equal_the_golden_files():
     finally:
         sys.path.remove(str(REPO))
     assert set(chip_smoke.LOADGEN_SCENARIOS) == {
-        "smoke_gqa", "paged_mixed", "paged_mla"}
+        p.stem for p in loadgen.scenario_files(GOLDEN)} == {
+        "smoke_gqa", "paged_mixed", "paged_mla", "ssm_state"}
     for name, spec in chip_smoke.LOADGEN_SCENARIOS.items():
         assert spec == loadgen.load_scenario(GOLDEN / f"{name}.yaml"), name
-    assert chip_smoke.LOADGEN_WAITING == {"ssm_state": "4.3"}
+    # every golden scenario runs: none waits for its slice any more
+    assert chip_smoke.LOADGEN_WAITING == {}
     ssm = loadgen.load_scenario(GOLDEN / "ssm_state.yaml")
-    assert WAITING_ARCH_IDS[ssm["arch"]] == "4.3"
+    assert ssm["arch"] in ARCH_IDS and ssm["arch"] not in WAITING_ARCH_IDS
 
 
 # ---------------------------------------------------------------------------
@@ -317,10 +319,11 @@ def rows():
     return {name: loadgen.run_scenario(
         loadgen.load_scenario(GOLDEN / f"{name}.yaml"), smoke=True,
         verbose=False, device="cpu")
-        for name in ("smoke_gqa", "paged_mixed", "paged_mla")}
+        for name in ("smoke_gqa", "paged_mixed", "paged_mla", "ssm_state")}
 
 
-@pytest.mark.parametrize("name", ["smoke_gqa", "paged_mixed", "paged_mla"])
+@pytest.mark.parametrize("name", ["smoke_gqa", "paged_mixed", "paged_mla",
+                                  "ssm_state"])
 def test_golden_scenario_rows(rows, name, tmp_path):
     row = rows[name]
     spec = loadgen.load_scenario(GOLDEN / f"{name}.yaml")
@@ -364,17 +367,31 @@ def test_port_rows_pass_diff_serve(rows, tmp_path):
     assert diff_serve.main([str(old), str(new)]) == 1
 
 
-def test_run_suite_names_the_waiting_scenario(capsys):
+def test_run_suite_names_the_waiting_scenario(capsys, tmp_path):
+    """`ssm_state` (Mamba 2) runs: its row passes the JAX `check()` and
+    `scripts/diff_serve.py`. A scenario naming an architecture that still
+    waits (Whisper, item 4.4) is named and left out."""
     _yaml_or_skip()
+    waiting = copy.deepcopy(BASE)
+    waiting.update(name="audio", arch="whisper_tiny")
+    src = tmp_path / "audio.json"
+    src.write_text(json.dumps(waiting))
     doc = loadgen.run_suite([GOLDEN / "smoke_gqa.yaml",
-                             GOLDEN / "ssm_state.yaml"], verbose=False,
+                             GOLDEN / "ssm_state.yaml", src], verbose=False,
                             device="cpu")
-    assert [r["scenario"] for r in doc["rows"]] == ["smoke_gqa"]
-    assert "ssm_state (mamba2_2p7b) waits for ROADMAP.md Queue 1 item 4.3" \
+    assert [r["scenario"] for r in doc["rows"]] == ["smoke_gqa", "ssm_state"]
+    assert "audio (whisper_tiny) waits for ROADMAP.md Queue 1 item 4.4" \
         in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="4.3"):
-        loadgen.run_scenario(loadgen.load_scenario(
-            GOLDEN / "ssm_state.yaml"), device="cpu")
+    ssm = doc["rows"][1]
+    assert ssm["arch"] == "mamba2_2p7b" and not ssm["paged"]
+    assert ssm["requests"] == 5 and ssm["platform"] == "cpu"
+    path = tmp_path / "new" / "BENCH_serve.json"
+    path.parent.mkdir()
+    path.write_text(json.dumps(doc))
+    assert loadgen.check(str(path)) == jloadgen.check(str(path)) == 0
+    assert diff_serve.main([str(path), str(path)]) == 0
+    with pytest.raises(NotImplementedError, match="4.4"):
+        loadgen.run_scenario(waiting, device="cpu")
 
 
 def test_main_runs_a_json_scenario_and_checks_it(tmp_path, capsys):

@@ -77,6 +77,23 @@ submodels, M = 10) and one LM path:
   window: the windowed flash kernel and the ring's wrap); 8 requests of
   512-4096 tokens through both engines; one RG-LRU layer's log-depth
   scan over 4096 tokens against 4096 steps;
+* the encoder-decoder path: Whisper tiny at full width and depth (4
+  encoder and 4 decoder layers, d 384, 6 heads of 64, 1500 frames,
+  learned positions, cross attention): the flash kernel at the encoder's
+  1500 x 1500 shape and the cross attention's at prefill (224 x 1500)
+  and decode (1 x 1500); serve() on 8 x 224 prompts over 8 x 1500
+  frames; 32 requests, each with its own frames, through the contiguous
+  Engine (8 slots) and the paged one (half and worst-case pools,
+  prefill_batch 1 and 4); flash launched 12 times a prefill and 4 times
+  a decode step;
+* the patch path: InternVL2 26B at full width (48/8 heads of 128, d
+  6144, vocabulary 92 553), depth cut to 12 of 48 layers: the flash
+  kernel at its prefill shape (256 patch rows + 1024 tokens, causal);
+  serve() on 4 x (256 + 1024); 8 requests of 128-1024 tokens behind
+  their patches through both engines. Both paths hold the Engine's
+  first-token logits to batch-1 prefills, its tokens to a batch-1
+  serve() of each request, and one decode step to a prefill over the
+  prompt and its token;
 * the loadgen path: the golden scenarios `smoke_gqa`, `paged_mixed`
   (Llama 3.2 3B), `paged_mla` (DeepSeek) and `ssm_state` (Mamba 2) at
   full width through the port's `loadgen.run_scenario`, written to
@@ -128,6 +145,7 @@ never calls it).
 from __future__ import annotations
 
 import collections
+import dataclasses
 import gc
 import json
 import math
@@ -758,6 +776,19 @@ def visible_pairs(sq: int, sk: int, causal: bool, window: int,
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
+# the wrapper's key of a launch in `flash_attention.shapes`
+FLASH_SHAPE_KEYS = ("b", "h", "hkv", "sq", "sk", "d", "dv", "causal",
+                    "window", "q_offset")
+
+
+def flash_shape(case) -> tuple:
+    """A FLASH_CASES case's (or its timed row's) key in the flash
+    wrapper's launch counts by shape."""
+    return (case["b"], case["h"], case["hkv"], case["sq"], case["sk"],
+            case["d"], case.get("dv", case["d"]), case.get("causal", True),
+            case.get("window", 0), case.get("q_offset", 0))
+
+
 FLASH_CASES = [
     # the LM path's prefill shape, float32 (the kernels line's row)
     dict(name="llama3p2_3b_prefill_b4_s1024", main=True, b=4, h=24, hkv=8,
@@ -796,14 +827,34 @@ FLASH_CASES = [
     # k is neither contiguous nor a plain transpose
     dict(name="bf16_fused_qkv_s512", b=2, h=24, hkv=8, sq=512, sk=512,
          d=128, fused=True, dtype=torch.bfloat16),
+    # the encoder-decoder and patch paths' shapes, float32 as their
+    # parameters are (each `path`'s launches go beside it in the kernels
+    # line). 6d: Whisper's encoder, non-causal over 1500 frames (not a
+    # multiple of the 64-key tile); 6e, 6e': its cross attention over the
+    # encoder's keys and values as the model keeps them, contiguous
+    # (B, Hkv, F, hd), at prefill (224 prompt rows) and at decode (one
+    # row a sequence); 6f: InternVL2's prefill, 256 patch rows ahead of
+    # 1024 prompt tokens, causal over all 1280
+    dict(name="whisper_encoder_b8_s1500_d64", row="6d", path="encdec", b=8,
+         h=6, hkv=6, sq=1500, sk=1500, d=64, causal=False,
+         dtype=torch.float32),
+    dict(name="whisper_cross_prefill_b8_sq224_sk1500", row="6e",
+         path="encdec", b=8, h=6, hkv=6, sq=224, sk=1500, d=64,
+         causal=False, kv_contiguous=True, dtype=torch.float32),
+    dict(name="whisper_cross_decode_b8_sq1_sk1500", row="6e'",
+         path="encdec", b=8, h=6, hkv=6, sq=1, sk=1500, d=64, causal=False,
+         kv_contiguous=True, dtype=torch.float32),
+    dict(name="internvl2_prefill_b4_s1280", row="6f", path="vlm", b=4,
+         h=48, hkv=8, sq=1280, sk=1280, d=128, dtype=torch.float32),
 ]
 
 
 def flash_inputs(gen, case, dev="cuda"):
     """q (B, H, Sq, D), k (B, Hkv, Sk, D) and v (B, Hkv, Sk, Dv) as the
     model has them: (B, S, H, D) projections viewed as (B, H, S, D); or
-    slices of one fused projection. Dv is the case's `dv` (D when
-    absent)."""
+    slices of one fused projection; or (`kv_contiguous`) k and v
+    contiguous (B, Hkv, Sk, D), as Whisper's cross keys and values lie.
+    Dv is the case's `dv` (D when absent)."""
     b, h, hkv, sq, sk, d, dt = (case[k] for k in
                                 ("b", "h", "hkv", "sq", "sk", "d", "dtype"))
     dv = case.get("dv", d)
@@ -817,6 +868,9 @@ def flash_inputs(gen, case, dev="cuda"):
         q = torch.randn((b, sq, h, d), generator=gen, device=dev).to(dt)
         k = torch.randn((b, sk, hkv, d), generator=gen, device=dev).to(dt)
         v = torch.randn((b, sk, hkv, dv), generator=gen, device=dev).to(dt)
+    if case.get("kv_contiguous"):
+        return (q.transpose(1, 2), k.transpose(1, 2).contiguous(),
+                v.transpose(1, 2).contiguous())
     return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
 
@@ -883,7 +937,8 @@ def flash_case_row(gen, ref, flash_attention, plan, case, dev="cuda"):
     rate = TF32X3_FLOP_PER_S if dt == torch.float32 else BF16_FLOP_PER_S
     bms, by = bound(bytes_moved, ops, rate)
     p = plan(dt, d, batch=b, heads=h, sq=sq, dv=dv)
-    row = {"case": name, "route": p.route, "b": b, "h": h, "hkv": hkv,
+    row = {"case": name, "row": case.get("row"), "route": p.route, "b": b,
+           "h": h, "hkv": hkv,
            "sq": sq, "sk": sk, "d": d, "dv": dv, "causal": causal,
            "window": window, "q_offset": q_offset,
            "dtype": str(dt).replace("torch.", ""),
@@ -905,15 +960,19 @@ def flash_case_row(gen, ref, flash_attention, plan, case, dev="cuda"):
 def check_flash_kernel(gen, ref, flash_attention, plan, *, device="cuda"):
     """The flash kernel against its plain version within FLASH_TOL at the
     cases of FLASH_CASES, each timed beside its plain version and one
-    SDPA call, and each naming the route its type takes."""
-    rows, main = [], None
+    SDPA call, and each naming the route its type takes. Returns the main
+    row's numbers and, as (path, row) pairs, the rows of the cases that
+    name a path."""
+    rows, main, by_path = [], None, []
     for case in FLASH_CASES:
         row = flash_case_row(gen, ref, flash_attention, plan, case, device)
         rows.append(row)
         if case.get("main", False):
             main = {k: row[k] for k in MAIN_FLASH_KEYS}
+        if "path" in case:
+            by_path.append((case["path"], row))
     emit("lm_kernel", cases=rows)
-    return {"flash_attention": main}
+    return {"flash_attention": main}, by_path
 
 
 # The Engine's batch-1 prefills (128-1024 prompt tokens) and two
@@ -1233,13 +1292,14 @@ def train_path(mods, kernels, *, device="cuda"):
 # Phase 7: the LM serve path at full width and depth
 # ---------------------------------------------------------------------------
 
-def timed_prefill_and_decode(prefill, decode, params, prompts, steps_n):
+def timed_prefill_and_decode(prefill, decode, params, prompts, steps_n,
+                             inputs=None):
     """(last-position logits, CUDA-event ms of one prefill, ms of each of
     `steps_n` greedy decode steps after it): prefill and decode calls of
-    the path's run."""
+    the path's run. `inputs`: the prefill batch's frames or patches."""
     a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     a.record()
-    first, state = prefill(params, {"tokens": prompts})
+    first, state = prefill(params, {"tokens": prompts, **(inputs or {})})
     b.record()
     b.synchronize()
     prefill_ms = a.elapsed_time(b)
@@ -1455,6 +1515,19 @@ def tap_engine(eng):
     return first_logits, margins
 
 
+def token_differences(tokens, want, *margins):
+    """Requests whose tokens differ from `want`'s: the first differing
+    position and the smallest top-2 margin of the logits behind it (each
+    of `margins` by rid, as `tap_engine` records them)."""
+    out = []
+    for rid, (got, ref_) in enumerate(zip(tokens, want, strict=True)):
+        if got != ref_:
+            t = next(i for i, (a, b) in enumerate(zip(got, ref_)) if a != b)
+            out.append({"rid": rid, "first_differing_token": t,
+                        "top2_margin": min(m[rid][t] for m in margins)})
+    return out
+
+
 def lm_profile(params, prefill, decode, prompts, top: int = 10) -> dict:
     """Where the device time of one batch-4 prefill and of decode steps
     goes: a torch.profiler trace (CPU and CUDA activities) of each, the
@@ -1590,15 +1663,8 @@ def paged_path(kernels, params, cfg, contiguous, *, scheduler,
         logit_err = max(
             float((first_logits[i] - contiguous["first_logits"][i]).abs()
                   .max()) for i in range(LM_REQUESTS))
-        differ = []
-        for rid, (got, want) in enumerate(zip(tokens,
-                                              contiguous["tokens"])):
-            if got == want:
-                continue
-            t = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
-            margin = min(margins[rid][t], contiguous["margins"][rid][t])
-            differ.append({"rid": rid, "first_differing_token": t,
-                           "top2_margin": margin})
+        differ = token_differences(tokens, contiguous["tokens"], margins,
+                                   contiguous["margins"])
         if pb == 1 and differ:
             raise AssertionError(f"batch-1 paged tokens differ from the "
                                  f"contiguous Engine's: {differ}")
@@ -2332,7 +2398,8 @@ def moe_path(kernels, *, get_config, transformer, steps, scheduler,
     against its plain version; serve() on MOE_BATCH x MOE_PROMPT; an
     Engine of MOE_SLOTS slots on MOE_REQUESTS requests; then, outside the
     counted run, the two dispatches on layer 0's input and the token
-    mask. Returns (launches, the flash row)."""
+    mask. Returns (launches, the flash row with the launches the run
+    made at its shape)."""
     import dataclasses
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(20264)
@@ -2375,6 +2442,7 @@ def moe_path(kernels, *, get_config, transformer, steps, scheduler,
     engine_s = time.perf_counter() - t0
     seconds = time.perf_counter() - t_path
     launches = kernels.launch_counts()     # ... and ends here
+    flash["launches"] = kernels.flash_attention.shapes[flash_shape(flash)]
     peak_bytes = torch.cuda.max_memory_allocated()
 
     check_launches("the MoE path", launches, cfg.num_layers,
@@ -2443,7 +2511,8 @@ def mla_path(kernels, *, get_config, transformer, steps, scheduler,
     backlog through the contiguous Engine, the paged Engine with the
     worst-case pool (the same schedule: tokens and first-token logits
     equal), with half of it (the pool binds) and with half of it at
-    prefill_batch MLA_PREFILL_BATCH. Returns (launches, the flash row)."""
+    prefill_batch MLA_PREFILL_BATCH. Returns (launches, the flash row
+    with the launches the run made at its shape)."""
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(20265)
     flash = flash_case_row(gen, ref, flash_attention, plan,
@@ -2528,6 +2597,7 @@ def mla_path(kernels, *, get_config, transformer, steps, scheduler,
         del eng
     seconds = time.perf_counter() - t_path
     launches = kernels.launch_counts()     # ... and ends here
+    flash["launches"] = kernels.flash_attention.shapes[flash_shape(flash)]
     peak_bytes = torch.cuda.max_memory_allocated()
 
     check_launches("the MLA path", launches, cfg.num_layers, prefills)
@@ -2699,7 +2769,8 @@ def recurrent_path(kernels, *, family, get_config, transformer, steps,
     serve(); a backlog through the contiguous Engine and the paged one
     (the same schedule, no block pool: equal tokens); then, outside the
     counted run, one recurrent layer's prefill against its decode steps.
-    Returns (launches, the flash row or None)."""
+    Returns (launches, the flash row with the launches the run made at
+    its shape, or None)."""
     ssm_family = family == "ssm"
     dev = torch.device(device)
     # the previous model's engines sit in reference cycles (`tap_engine`):
@@ -2791,6 +2862,9 @@ def recurrent_path(kernels, *, family, get_config, transformer, steps,
         del eng
     seconds = time.perf_counter() - t_path
     launches = kernels.launch_counts()     # ... and ends here
+    if flash is not None:
+        flash["launches"] = kernels.flash_attention.shapes[
+            flash_shape(flash)]
     peak_bytes = torch.cuda.max_memory_allocated()
 
     check_launches(f"the {family} path", launches, attn_layers, prefills)
@@ -2864,7 +2938,345 @@ def recurrent_path(kernels, *, family, get_config, transformer, steps,
 
 
 # ---------------------------------------------------------------------------
-# Phase 13: the golden load scenarios through the port's loadgen
+# Phase 13: the encoder-decoder and patch families
+# ---------------------------------------------------------------------------
+
+# Whisper tiny (`configs/whisper_tiny.py`) at full width and depth: serve()
+# on ENCDEC_BATCH prompts over as many 1500-frame encoder inputs, then
+# ENCDEC_REQUESTS requests, each with its own frames, through the
+# contiguous Engine and the paged one (PAGED_RUNS). InternVL2 26B
+# (`configs/internvl2_26b.py`) at full width, depth cut to VLM_LAYERS of
+# 48 (all 48 in float32, 79.5 GB, do not fit one card beside their
+# activations): serve() on VLM_BATCH x (256 patch rows + VLM_PROMPT
+# tokens), then VLM_REQUESTS requests with their patches through both
+# engines.
+ENCDEC_ARCH, VLM_ARCH = "whisper_tiny", "internvl2_26b"
+ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_GEN = 8, 224, 64
+ENCDEC_SLOTS, ENCDEC_REQUESTS = 8, 32
+ENCDEC_PROMPT_LENS, ENCDEC_GEN_LENS = (16, 32, 64, 128, 224), (16, 32, 64)
+VLM_LAYERS = 12
+VLM_BATCH, VLM_PROMPT, VLM_GEN = 4, 1024, 32
+VLM_SLOTS, VLM_REQUESTS = 4, 8
+VLM_PROMPT_LENS, VLM_GEN_LENS = (128, 256, 512, 1024), (16, 32)
+PREFIX_DECODE_TIMED_STEPS = 8
+# (prefill_batch, pool) of each family's paged runs, after the contiguous
+# one; a half pool holds half the slots' worst case
+PREFIX_PAGED_RUNS = {"encdec": PAGED_RUNS,
+                     "vlm": ((1, "worst_case"), (4, "half"))}
+# one decode step's logits against a prefill over the prompt and the
+# token it was given whose last row attends as the decode step does (over
+# keys and values rounded to the cache's bf16, with bf16 probabilities);
+# the rows before it are the prompt's, which the decode step reads from
+# its cache. Whisper's gap is ~1e-5 to 1e-4 (its float32 prefill's
+# ~1e-3); InternVL2's 12 random 6144-wide layers turn the bf16 roundings
+# that tiny float32 differences flip into gaps up to ~3e-3 (its float32
+# prefill's ~0.03). Each limit is held against a control: the same step
+# over a cache whose row 3 of layer 0 holds row 4's keys and values must
+# miss it (~0.02 and ~0.3)
+STEP_LOGITS_TOL = {"encdec": 1e-3, "vlm": 4e-3}
+
+
+def prefill_last_row_as_decode(transformer, prefill, params, batch):
+    """`prefill(params, batch)` with the last query row of every causal
+    attention layer through the model's `decode_attention` over that
+    layer's keys and values rounded to bf16."""
+    attend = transformer.chunked_attention
+
+    def last_row_as_decode(q, k, v, *, causal, **kw):
+        out = attend(q, k, v, causal=causal, **kw)
+        if causal:
+            b, s = k.shape[0], k.shape[2]
+            out[:, :, -1:] = transformer.decode_attention(
+                q[:, :, -1:], k.bfloat16(), v.bfloat16(),
+                kv_len=torch.full((b,), s, device=q.device))
+        return out
+    transformer.chunked_attention = last_row_as_decode
+    try:
+        return prefill(params, batch)
+    finally:
+        transformer.chunked_attention = attend
+
+
+def decode_step_check(cfg, family, params, prefill, decode, transformer,
+                      prompts, extra):
+    """The first decode step after each prompt (1, S) against
+    `prefill_last_row_as_decode` over the prompt and that token, within
+    STEP_LOGITS_TOL[family], and the first prompt's step over a stale
+    cache row outside it. `extra`: the frames or patches of batch 1.
+    Returns the errors, the control's and the plain float32 prefill's
+    gaps."""
+    tol = STEP_LOGITS_TOL[family]
+    errs, plain_errs, control = [], [], None
+    for toks in prompts:
+        one = {"tokens": toks, **extra}
+        with torch.inference_mode():
+            logits, state = prefill(params, one)
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+            stepped = decode(params, tok, state)[0][0, -1].float()
+            longer = {**one, "tokens": torch.cat([one["tokens"], tok], 1)}
+            want = prefill_last_row_as_decode(transformer, prefill, params,
+                                              longer)[0][0, -1].float()
+            plain = prefill(params, longer)[0][0, -1].float()
+            if control is None:
+                stale = prefill(params, one)[1]
+                c = stale.caches[0]["l0"]        # (L, B, Hkv, W, hd)
+                c.k[0, :, :, 3] = c.k[0, :, :, 4]
+                c.v[0, :, :, 3] = c.v[0, :, :, 4]
+                got = decode(params, tok, stale)[0][0, -1].float()
+                control = float((got - want).abs().max())
+        errs.append(float((stepped - want).abs().max()))
+        plain_errs.append(float((stepped - plain).abs().max()))
+    if max(errs) > tol:
+        raise AssertionError(f"{cfg.name}: a decode step's logits differ "
+                             f"from the prefill over prompt + token by "
+                             f"{errs} (limit {tol})")
+    if not control > tol:
+        raise AssertionError(f"{cfg.name}: a decode step over a stale "
+                             f"cache row passes the step check ({control} "
+                             f"<= {tol})")
+    return {"prompt_lens": [t.shape[1] for t in prompts],
+            "max_abs_err": errs, "tolerance": tol,
+            "stale_row_control_max_abs_err": control,
+            "float32_prefill_max_abs_err": plain_errs}
+
+
+def prefix_path(kernels, *, family, get_config, transformer, steps,
+                scheduler, serve_fn, device="cuda"):
+    """Whisper (`family="encdec"`: frames into the encoder, cross
+    attention at prefill and decode) or InternVL2 (`"vlm"`: patch rows
+    ahead of the prompt) with float32 parameters drawn on the card:
+    serve(); a backlog through the contiguous Engine and the paged ones;
+    flash launched once a layer a prefill (Whisper: encoder, self and
+    cross layers) and, for Whisper, once a cross layer a decode step.
+    Then, outside the counted run: the Engine's first-token logits
+    against batch-1 prefills, its tokens against a batch-1 serve() of each
+    request and one decode step against a prefill over the prompt and
+    its token. Returns the path's launches and, by its FLASH_CASES row,
+    the flash launches the run made at exactly that row's shape (counted
+    by the wrapper, `flash_attention.shapes`)."""
+    encdec = family == "encdec"
+    dev = torch.device(device)
+    # the previous model's engines sit in reference cycles (`tap_engine`)
+    gc.collect()
+    torch.cuda.empty_cache()
+    seed = 20269 if encdec else 20270
+    if encdec:
+        cfg = get_config(ENCDEC_ARCH)
+        batch, prompt, gen_n = ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_GEN
+        slots, n_req = ENCDEC_SLOTS, ENCDEC_REQUESTS
+        plens, glens = ENCDEC_PROMPT_LENS, ENCDEC_GEN_LENS
+        name, rows = "frames", cfg.encoder_frames
+    else:
+        cfg = dataclasses.replace(get_config(VLM_ARCH),
+                                  num_layers=VLM_LAYERS)
+        batch, prompt, gen_n = VLM_BATCH, VLM_PROMPT, VLM_GEN
+        slots, n_req = VLM_SLOTS, VLM_REQUESTS
+        plens, glens = VLM_PROMPT_LENS, VLM_GEN_LENS
+        name, rows = "patches", cfg.patch_tokens
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, gen, dtype=torch.float32,
+                                     device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (batch, prompt), dtype=np.int32)).to(dev)
+    inputs = {name: torch.randn((batch, rows, cfg.d_model), generator=gen,
+                                device=dev) * 0.02}
+    # patch rows take cache rows ahead of the prompt
+    max_len = -(-(cfg.patch_tokens + max(prompt + gen_n, max(plens)
+                                         + max(glens)) + 1)
+                // PAGED_BLOCK) * PAGED_BLOCK
+    reqs = scheduler.synth_request_stream(cfg, n_req, seed=seed,
+                                          prompt_lens=plens, gen_lens=glens)
+    for i in range(batch):    # these requests carry serve()'s inputs
+        reqs[i].tokens = prompts[i].cpu().numpy()
+        reqs[i].max_new = gen_n
+        setattr(reqs[i], name, inputs[name][i].cpu().numpy())
+    prefill = steps.make_prefill_step(cfg, max_len=max_len)
+    decode = steps.make_decode_step(cfg)
+    prefill(params, {"tokens": prompts[:1, :16], name: inputs[name][:1]})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    kernels.reset_launch_counts()          # the path's run starts here
+    t_path = time.perf_counter()
+    ref_logits, prefill_ms, decode_ms = timed_prefill_and_decode(
+        prefill, decode, params, prompts, PREFIX_DECODE_TIMED_STEPS, inputs)
+    prefills, decodes = 1, PREFIX_DECODE_TIMED_STEPS
+    t0 = time.perf_counter()
+    served = serve_fn(cfg, params, prompts, max_len=max_len, gen=gen_n,
+                      **inputs).cpu()
+    serve_s = time.perf_counter() - t0
+    prefills, decodes = prefills + 1, decodes + gen_n
+    per_slot = max_len // PAGED_BLOCK
+    runs = []
+    for pb, pool in ((1, None), *PREFIX_PAGED_RUNS[family]):
+        kw = {}
+        if pool is not None:
+            kw = dict(paged=True, block_size=PAGED_BLOCK, prefill_batch=pb,
+                      num_blocks=1 + (slots // 2 if pool == "half" else slots)
+                      * per_slot)
+        eng = scheduler.Engine(cfg, params, slots=slots, max_len=max_len,
+                               device=dev, **kw)
+        cross_bytes = sum(t.numel() * t.element_size()
+                          for seg in eng.state.cross if seg
+                          for c in seg.values() for t in c)
+        first_logits, margins = tap_engine(eng)
+        t0 = time.perf_counter()
+        results = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check_results(f"{cfg.name} Engine ({pool or 'contiguous'}, "
+                      f"prefill_batch {pb})", results, reqs)
+        st = eng.stats()
+        if st["requests"] != n_req or eng.trace_counts["decode"] != 1:
+            raise AssertionError(f"{cfg.name} engine stats {st}")
+        if pool is not None:
+            eng.allocator.check()
+            if st["blocks_in_use"] != 0:
+                raise AssertionError(f"paged engine kept blocks: {st}")
+        prefills += eng.prefill_launches
+        decodes += st["decode_steps"]
+        runs.append({"pool": pool or "contiguous", "prefill_batch": pb,
+                     "num_blocks": kw.get("num_blocks"), "wall_s": wall,
+                     "cross_kv_bytes_per_slot": cross_bytes // slots,
+                     "prefill_launches": eng.prefill_launches,
+                     "tokens": [r.tokens for r in results],
+                     "first_logits": first_logits, "margins": margins,
+                     **{k: st[k] for k in (
+                         "tok_per_s", "latency_p50_s", "latency_p99_s",
+                         "queue_wait_mean_s", "decode_steps", "peak_active",
+                         "peak_blocks")},
+                     "generated_tokens": st["tokens"]})
+        del eng
+    seconds = time.perf_counter() - t_path
+    launches = kernels.launch_counts()     # ... and ends here
+    shapes = dict(kernels.flash_attention.shapes)
+    peak_bytes = torch.cuda.max_memory_allocated()
+
+    # flash: once a layer a prefill (Whisper: its encoder's, self and
+    # cross layers), and once a cross layer a decode step
+    per_prefill = cfg.encoder_layers + cfg.num_layers * (2 if encdec else 1)
+    per_decode = cfg.num_layers if encdec else 0
+    want = per_prefill * prefills + per_decode * decodes
+    if launches["flash_attention"] != want:
+        raise AssertionError(
+            f"the {family} path: flash_attention launched "
+            f"{launches['flash_attention']} times, not {per_prefill} x "
+            f"{prefills} prefills + {per_decode} x {decodes} decode steps")
+    others = {k: v for k, v in launches.items()
+              if k != "flash_attention" and v}
+    if others:
+        raise AssertionError(f"the {family} path launched {others}")
+    at_row = {c["row"]: shapes.get(flash_shape(c), 0) for c in FLASH_CASES
+              if c.get("path") == family}
+    if not all(at_row.values()):
+        raise AssertionError(f"the {family} path ran no flash launch at "
+                             f"the shape of a FLASH_CASES row: {at_row}")
+    check_served(cfg.name, served, batch, gen_n, cfg.padded_vocab)
+    if not bool(torch.isfinite(ref_logits).all()):
+        raise AssertionError(f"{cfg.name}: non-finite prefill logits")
+
+    contiguous = runs[0]
+    # the Engine's first-token logits against a batch-1 prefill of each
+    # request (the same products), its first token that prefill's argmax
+    logit_err = []
+    for rid, r in enumerate(reqs):
+        one = {"tokens": torch.from_numpy(r.tokens[None]).to(dev),
+               name: torch.from_numpy(getattr(r, name)[None]).to(dev)}
+        with torch.inference_mode():
+            want_l = prefill(params, one)[0][0, -1].float()
+        err = (contiguous["first_logits"][rid] - want_l).abs()
+        if not bool((err <= SAME_BATCH_LOGITS_TOL * (1 + want_l.abs()))
+                    .all()):
+            raise AssertionError(f"{cfg.name}: Engine prefill logits of "
+                                 f"request {rid} differ from a batch-1 "
+                                 f"prefill's by {float(err.max())}")
+        logit_err.append(float(err.max()))
+        if contiguous["tokens"][rid][0] != int(torch.argmax(want_l)):
+            raise AssertionError(f"{cfg.name} request {rid}: first token "
+                                 "differs from the batch-1 prefill's")
+    # the paged runs against the contiguous one: batch-1 prefill token for
+    # token, batched prefill wherever the top-2 margin is PAGED_MARGIN or
+    # more
+    for r in runs[1:]:
+        differ = token_differences(r["tokens"], contiguous["tokens"],
+                                   r["margins"])
+        wide = [d for d in differ if r["prefill_batch"] == 1
+                or d["top2_margin"] >= PAGED_MARGIN]
+        if wide:
+            raise AssertionError(f"{cfg.name} paged Engine ({r['pool']}, "
+                                 f"prefill_batch {r['prefill_batch']}): "
+                                 f"tokens differ from the contiguous "
+                                 f"Engine's: {wide}")
+        r["tokens_equal_contiguous"] = not differ
+        r["differing_requests"] = differ
+    # each request through a batch-1 serve(): its decode steps at batch 1
+    # where the Engine's run at `slots` rows (float32 GEMMs that cuBLAS
+    # may split otherwise), so tokens are equal wherever the top-2 margin
+    # is PAGED_MARGIN or more
+    t0 = time.perf_counter()
+    alone = [serve_fn(cfg, params,
+                      torch.from_numpy(r.tokens[None]).to(dev),
+                      max_len=max_len, gen=r.max_new,
+                      **{name: torch.from_numpy(getattr(r, name)[None])
+                         .to(dev)})[0].cpu().tolist() for r in reqs]
+    alone_s = time.perf_counter() - t0
+    vs_serve = token_differences(contiguous["tokens"], alone,
+                                 contiguous["margins"])
+    wide = [d for d in vs_serve if d["top2_margin"] >= PAGED_MARGIN]
+    if wide:
+        raise AssertionError(f"{cfg.name}: Engine tokens differ from a "
+                             f"batch-1 serve() of each request: {wide}")
+    # one decode step against a prefill over the prompt and that token,
+    # for serve()'s first prompt cut to each of the backlog's lengths
+    step_check = decode_step_check(
+        cfg, family, params, prefill, decode, transformer,
+        [prompts[:1, :n] for n in sorted(plens, reverse=True)],
+        {name: inputs[name][:1]})
+    agreement = [float(np.mean(np.asarray(contiguous["tokens"][i])
+                               == served[i].numpy())) for i in range(batch)]
+    for r in runs:
+        del r["tokens"], r["first_logits"], r["margins"]
+    hd, hkv = cfg.resolved_head_dim, cfg.num_kv_heads
+    emit(f"{family}_path", model=cfg.name, layers=cfg.num_layers,
+         published_layers=get_config(ENCDEC_ARCH if encdec
+                                     else VLM_ARCH).num_layers,
+         encoder_layers=cfg.encoder_layers,
+         d_model=cfg.d_model, heads=cfg.num_heads, kv_heads=hkv,
+         head_dim=hd, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+         params=transformer.param_count(params), param_dtype="float32",
+         init_s=init_s, max_len=max_len, input=name, input_rows=rows,
+         kv_cache_bytes_per_token=cfg.num_layers * 2 * hkv * hd * 2,
+         serve={"batch": batch, "prompt": prompt, "gen": gen_n,
+                "prefill_ms": prefill_ms,
+                "prefill_tok_per_s": batch * prompt / prefill_ms * 1e3,
+                "decode_ms_per_step_median": float(np.median(decode_ms)),
+                "decode_ms_per_step": decode_ms, "serve_s": serve_s,
+                "serve_tok_per_s": batch * gen_n / serve_s},
+         engine={"slots": slots, "requests": n_req, "prompt_lens": plens,
+                 "gen_lens": glens, "block_size": PAGED_BLOCK,
+                 "prompt_tokens": int(sum(q.prompt_len for q in reqs))},
+         engines=runs, prefill_logits_max_abs_err=logit_err,
+         prefill_logits_tolerance=SAME_BATCH_LOGITS_TOL,
+         engine_vs_batch1_serve={"differing_requests": vs_serve,
+                                 "margin": PAGED_MARGIN, "seconds": alone_s},
+         step_check=step_check,
+         token_agreement_vs_serve=agreement, prefill_calls=prefills,
+         decode_calls=decodes, path_s=seconds,
+         max_memory_allocated_gib=peak_bytes / 2 ** 30, launches=launches,
+         flash_launches_at_row=at_row, flash_launches_by_shape=[
+             {**dict(zip(FLASH_SHAPE_KEYS, key)), "launches": n}
+             for key, n in sorted(shapes.items())])
+    del params
+    gc.collect()
+    return launches, at_row
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the golden load scenarios through the port's loadgen
 # ---------------------------------------------------------------------------
 
 # `tests/golden/scenarios/*.yaml` as dicts: the card has no pyyaml
@@ -3046,8 +3458,8 @@ def main() -> int:
     front = check_front_end_kernels(gen, ref, kernels.thermometer_encode,
                                     kernels.thermometer_decompress)
     h3 = check_h3_kernel(gen, ref, kernels.h3_hash)
-    flash = check_flash_kernel(gen, ref, kernels.flash_attention,
-                               flash_plan)
+    flash, flash_path_rows = check_flash_kernel(
+        gen, ref, kernels.flash_attention, flash_plan)
     flash_scaling(gen, ref, kernels.flash_attention, flash_plan)
     torch.cuda.empty_cache()
 
@@ -3106,6 +3518,16 @@ def main() -> int:
     hybrid_launches, hybrid_flash = recurrent_path(
         kernels, family="hybrid", module=rglru, **moe_kw)
     torch.cuda.empty_cache()
+    prefix_kw = {k: moe_kw[k] for k in ("get_config", "transformer", "steps",
+                                        "scheduler", "serve_fn")}
+    encdec_launches, at_row = prefix_path(kernels, family="encdec",
+                                          **prefix_kw)
+    torch.cuda.empty_cache()
+    vlm_launches, vlm_at_row = prefix_path(kernels, family="vlm",
+                                           **prefix_kw)
+    for _, row in flash_path_rows:
+        row["launches"] = {**at_row, **vlm_at_row}[row["row"]]
+    torch.cuda.empty_cache()
     loadgen_launches = loadgen_path(kernels, loadgen)
     torch.cuda.empty_cache()
     by_path = {"uleen_serve": launches, "uleen_train": train_launches,
@@ -3114,16 +3536,21 @@ def main() -> int:
                "sharded": sharded_launches, "paged": paged_launches,
                "moe": moe_launches, "mla": mla_launches,
                "ssm": ssm_launches, "hybrid": hybrid_launches,
+               "encdec": encdec_launches, "vlm": vlm_launches,
                "loadgen": loadgen_launches}
-    # the flash kernel's rows at the MoE and hybrid paths' shapes, each
-    # with the launches of its path
+    # the flash kernel's rows at the MoE, hybrid, encoder-decoder and
+    # patch paths' shapes, each with the launches its path's run made at
+    # exactly that shape and all of its path's flash launches
     flash_shapes = [
-        {"path": path, "case": row["case"], "d": row["d"], "dv": row["dv"],
-         "window": row["window"], "launches": by_path[path][
-             "flash_attention"],
+        {"path": path, "case": row["case"], "row": row["row"],
+         "b": row["b"], "h": row["h"], "hkv": row["hkv"],
+         "d": row["d"], "dv": row["dv"], "sq": row["sq"], "sk": row["sk"],
+         "causal": row["causal"], "window": row["window"],
+         "launches": row["launches"],
+         "path_launches": by_path[path]["flash_attention"],
          **{k: row[k] for k in MAIN_FLASH_KEYS}}
         for path, row in (("moe", moe_flash), ("mla", mla_flash),
-                          ("hybrid", hybrid_flash))]
+                          ("hybrid", hybrid_flash), *flash_path_rows)]
     # each kernel's launches on the path that carries it: the ULEEN serve
     # path for the WNN and front-end kernels, the train path for the hash,
     # the LM serve path for flash attention; `launches_by_path` has every

@@ -166,17 +166,19 @@ class ArchConfig:
 
 # The architectures the port runs: the dense full-attention models, the
 # MoE family (Mixtral with sliding-window attention, DeepSeek-V2-Lite with
-# MLA), Mamba 2 (SSD) and the RecurrentGemma hybrid (RG-LRU with local
-# MQA), all with a bf16 KV cache where they have one; in the JAX zoo's
-# order. The rest of the JAX package's zoo (whisper_tiny, qwen1p5_32b,
-# internvl2_26b) waits for its slice (ROADMAP.md, Queue 1 items 4.4-4.5).
-ARCH_IDS = ["mamba2_2p7b", "qwen2p5_14b", "llama3p2_3b", "minitron_8b",
-            "recurrentgemma_2b", "deepseek_v2_lite_16b", "mixtral_8x7b"]
+# MLA), Mamba 2 (SSD), the RecurrentGemma hybrid (RG-LRU with local MQA),
+# Whisper (encoder-decoder: an encoder over audio frames, cross attention,
+# learned positions) and InternVL2 (patch rows ahead of the prompt), all
+# with a bf16 KV cache where they have one; in the JAX zoo's order. The
+# rest of the JAX package's zoo (qwen1p5_32b) waits for its slice
+# (ROADMAP.md, Queue 1 item 4.5).
+ARCH_IDS = ["whisper_tiny", "mamba2_2p7b", "qwen2p5_14b", "llama3p2_3b",
+            "minitron_8b", "internvl2_26b", "recurrentgemma_2b",
+            "deepseek_v2_lite_16b", "mixtral_8x7b"]
 # The rest of the zoo, each with the ROADMAP.md Queue 1 item that ports
 # it: a scenario spec may name them (`launch/loadgen.py` validates against
 # the whole zoo); `get_config` refuses them naming the item.
-WAITING_ARCH_IDS = {"whisper_tiny": "4.4", "qwen1p5_32b": "4.5",
-                    "internvl2_26b": "4.4"}
+WAITING_ARCH_IDS = {"qwen1p5_32b": "4.5"}
 
 _ALIASES = {i.replace("_", "-"): i for i in [*ARCH_IDS, *WAITING_ARCH_IDS]}
 

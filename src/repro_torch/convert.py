@@ -124,7 +124,8 @@ def lm_params_from_numpy(cfg, tree, *, device=DEFAULT_DEVICE
     """The port's parameter tree from a JAX LM parameter pytree converted
     leaf by leaf with `np.asarray` (nested dicts; a segment of repeat > 1
     stacks its layers on a leading (L,) axis, which is unstacked into the
-    segment's list of layers). Dtypes are kept."""
+    segment's list of layers; so does Whisper's encoder, one segment of
+    `encoder_layers` layers beside its `final_norm`). Dtypes are kept."""
     dev = resolve_device(device)
     transformer.check_supported(cfg)
 
@@ -141,11 +142,20 @@ def lm_params_from_numpy(cfg, tree, *, device=DEFAULT_DEVICE
             return {k: layer(v, li, stacked) for k, v in node.items()}
         return t(np.asarray(node)[li] if stacked else node)
 
-    out = {k: tensors(v) for k, v in tree.items() if k != "segments"}
-    out["segments"] = [
-        {name: [layer(seg_tree[name], li, seg.repeat > 1)
-                for li in range(seg.repeat)]
-         for name in seg_tree}
-        for seg, seg_tree in zip(transformer.arch_segments(cfg),
-                                 tree["segments"])]
+    def segments(trees, repeats):
+        return [{name: [layer(seg_tree[name], li, repeat > 1)
+                        for li in range(repeat)]
+                 for name in seg_tree}
+                for repeat, seg_tree in zip(repeats, trees, strict=True)]
+
+    out = {k: tensors(v) for k, v in tree.items()
+           if k not in ("segments", "encoder")}
+    out["segments"] = segments(
+        tree["segments"],
+        [seg.repeat for seg in transformer.arch_segments(cfg)])
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        out["encoder"] = {
+            "segments": segments(enc["segments"], [cfg.encoder_layers]),
+            "final_norm": tensors(enc["final_norm"])}
     return transformer.ParamTree(out)

@@ -5,8 +5,9 @@ Each wrapper (`packed_wnn`, `fused_wnn` and their whole-ensemble entries
 `thermometer_decompress` on the ULEEN serve path, `h3_hash` on the ULEEN
 training path, `flash_attention` on the LM prefill path) launches its
 CUDA kernel on CUDA tensors and counts the launch in its `launches`
-attribute; on CPU tensors it runs its plain version from `ref.py` and
-counts nothing.
+attribute (`flash_attention` also by shape, in `flash_attention.shapes`);
+on CPU tensors it runs its plain version from `ref.py` and counts
+nothing.
 """
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_wnn import fused_wnn, fused_wnn_ensemble
@@ -27,3 +28,4 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+    flash_attention.shapes.clear()

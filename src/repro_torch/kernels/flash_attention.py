@@ -48,6 +48,7 @@ Sk keys uniformly on such rows, which the kernels do not reproduce.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
@@ -324,7 +325,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             launch.stream_handle(device))
     build.check_launch("flash_attention_launch", rc)
     flash_attention.launches += 1
+    flash_attention.shapes[(b, h, hkv, sq, sk, d, dv, bool(causal),
+                            int(window), int(q_offset))] += 1
     return out.transpose(1, 2)
 
 
 flash_attention.launches = 0
+# launches by (B, H, Hkv, Sq, Sk, D, Dv, causal, window, q_offset)
+flash_attention.shapes = collections.Counter()

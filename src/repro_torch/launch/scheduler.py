@@ -62,6 +62,8 @@ class Request:
     max_new: int
     rid: int = -1                      # assigned by Engine.submit
     arrival: float = 0.0               # stream offset (s) for run(realtime=)
+    frames: Optional[np.ndarray] = None    # (F, D) Whisper encoder frames
+    patches: Optional[np.ndarray] = None   # (P, D) patch embeddings
 
     @property
     def prompt_len(self) -> int:
@@ -116,7 +118,8 @@ class Engine:
 
     slots: batch width of the decode step == concurrent requests.
     max_len: cache width; every request needs prompt_len + max_new <=
-        max_len.
+        max_len, plus `cfg.patch_tokens` for a patch model (its patch
+        rows take cache rows ahead of the prompt).
     bucket: None -> each prompt is prefilled at its exact length; "pow2"
         -> prompts are right-padded to the next power-of-two bucket (at
         least 8) and the length-aware prefill reads the last real
@@ -257,27 +260,39 @@ class Engine:
         return (mixers <= {"attn", "mla"} and not cfg.sliding_window
                 and not cfg.block_pattern and not cfg.patch_tokens)
 
-    def submit(self, tokens, max_new: int, *, arrival: float = 0.0) -> int:
+    def submit(self, tokens, max_new: int, *, frames=None, patches=None,
+               arrival: float = 0.0) -> int:
         """Queue one request; returns its rid. Never drops: a full engine
-        only deepens the queue."""
+        only deepens the queue. frames (F, D) and patches (P, D): the
+        request's encoder input (Whisper) or patch rows (InternVL2), which
+        a model that reads them needs at exactly that shape; a request
+        without them is refused here, before it holds a slot."""
         tokens = np.asarray(tokens, np.int32).reshape(-1)
-        req = Request(tokens=tokens, max_new=int(max_new), arrival=arrival)
+        req = Request(tokens=tokens, max_new=int(max_new), arrival=arrival,
+                      frames=None if frames is None else np.asarray(frames),
+                      patches=None if patches is None else
+                      np.asarray(patches))
         if req.prompt_len < 1 or req.max_new < 1:
             raise ValueError("need prompt_len >= 1 and max_new >= 1")
-        # the decode budget is the REAL prompt length (a bucket's padded
-        # tail sits above the kv_len mask and is overwritten by decode
+        self._check_inputs(req)
+        # patch rows come ahead of the prompt and take cache rows. The
+        # decode budget is the REAL prompt length (a bucket's padded tail
+        # sits above the kv_len mask and is overwritten by decode
         # writes); the padded prefill itself must still fit the cache
-        need = req.prompt_len + req.max_new
+        patch = self.cfg.patch_tokens
+        need = patch + req.prompt_len + req.max_new
         if need > self.max_len:
             raise ValueError(
-                f"request needs {need} cache rows (prompt + max_new), "
-                f"engine max_len is {self.max_len}")
-        padded = self._padded_len(req.prompt_len)
+                f"request needs {need} cache rows (patches + prompt + "
+                f"max_new), engine max_len is {self.max_len}")
+        padded = patch + self._padded_len(req.prompt_len)
         if padded > self.max_len:
             raise ValueError(
-                f"prompt pads to the {padded} bucket, which exceeds engine "
-                f"max_len {self.max_len} even though the request itself "
-                f"fits ({need} rows) — raise max_len or drop bucketing")
+                f"prompt pads to the {self._padded_len(req.prompt_len)} "
+                f"bucket ({padded} cache rows with patches), which exceeds "
+                f"engine max_len {self.max_len} even though the request "
+                f"itself fits ({need} rows) — raise max_len or drop "
+                "bucketing")
         req.rid = self._next_rid
         self._next_rid += 1
         self.results[req.rid] = RequestResult(
@@ -285,6 +300,21 @@ class Engine:
             t_submit=self.clock())
         self.queue.append(req)
         return req.rid
+
+    def _check_inputs(self, req: Request):
+        cfg = self.cfg
+        for name, rows, read in (
+                ("frames", cfg.encoder_frames, cfg.encoder_layers),
+                ("patches", cfg.patch_tokens, cfg.patch_tokens)):
+            if not read:
+                continue
+            arr, want = getattr(req, name), (rows, cfg.d_model)
+            if arr is None:
+                raise ValueError(f"{cfg.name}: a request needs {name} "
+                                 f"{want}; none given")
+            if arr.shape != want:
+                raise ValueError(f"{cfg.name}: a request's {name} must be "
+                                 f"{want}, got {arr.shape}")
 
     def _padded_len(self, plen: int) -> int:
         return _bucket_pow2(plen) if self.bucket == "pow2" else plen
@@ -353,6 +383,10 @@ class Engine:
             toks = np.zeros((1, plen), np.int32)
             toks[0, :req.prompt_len] = req.tokens
             batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+            for name in ("frames", "patches"):
+                if getattr(req, name) is not None:
+                    batch[name] = torch.from_numpy(
+                        getattr(req, name)[None]).to(self.device)
             with rec.span("engine.prefill", rid=req.rid, slot=i, plen=plen):
                 logits, self.state = self._prefill(
                     self.params, batch, req.prompt_len, i, self.state)
@@ -360,7 +394,8 @@ class Engine:
                 self._first_token(i, sl, logits[0, -1])
 
     def _blocks_needed(self, req: Request) -> int:
-        return -(-(req.prompt_len + req.max_new) // self.block_size)
+        need = self.cfg.patch_tokens + req.prompt_len + req.max_new
+        return -(-need // self.block_size)
 
     def _admit_paged(self):
         """Group up to `prefill_batch` same-bucket queue heads (FIFO: a
@@ -397,14 +432,22 @@ class Engine:
         rows come FIRST and alias the first real request's slot with an
         all-null table row: their pos write is overwritten by the real
         row's, written after it, and their cache rows sink into the null
-        block."""
+        block, and their frames and patches are zero."""
         rec = obs_registry.get_recorder()
+        cfg = self.cfg
         a = self.prefill_batch
         pad = a - len(group)
         toks = np.zeros((a, bucket), np.int32)
         lengths = np.ones((a,), np.int32)
         slots_arr = np.full((a,), group[0][1], np.int64)
         tables = np.zeros((a, self.blocks_per_slot), np.int32)
+        extra = {}
+        if cfg.encoder_layers:
+            extra["frames"] = np.zeros((a, cfg.encoder_frames, cfg.d_model),
+                                       np.float32)
+        if cfg.patch_tokens:
+            extra["patches"] = np.zeros((a, cfg.patch_tokens, cfg.d_model),
+                                        np.float32)
         for j, (req, slot_i, blocks) in enumerate(group):
             r = pad + j
             self._start(slot_i, req)
@@ -415,12 +458,16 @@ class Engine:
             self.block_tables[slot_i, :] = 0
             self.block_tables[slot_i, :len(blocks)] = blocks
             tables[r] = self.block_tables[slot_i]
+            for name, rows in extra.items():
+                rows[r] = getattr(req, name)
         dev = self.device
+        batch = {"tokens": torch.from_numpy(toks).to(dev),
+                 **{k: torch.from_numpy(v).to(dev) for k, v in extra.items()}}
         with rec.span("engine.prefill", rids=[r.rid for r, _, _ in group],
                       slots=[s for _, s, _ in group], plen=bucket,
                       admitted=len(group)):
             logits, self.state = self._prefill(
-                self.params, {"tokens": torch.from_numpy(toks).to(dev)},
+                self.params, batch,
                 torch.from_numpy(lengths).to(dev),
                 torch.from_numpy(slots_arr),
                 torch.from_numpy(tables).to(dev), self.state)
@@ -497,7 +544,8 @@ class Engine:
             now = self.clock() - t0
             while pending and (not realtime or pending[0].arrival <= now):
                 r = pending.pop(0)
-                self.submit(r.tokens, r.max_new, arrival=r.arrival)
+                self.submit(r.tokens, r.max_new, frames=r.frames,
+                            patches=r.patches, arrival=r.arrival)
             if self.busy():
                 self.step()
             elif pending:
@@ -554,17 +602,26 @@ def synth_request_stream(cfg: ArchConfig, n: int, *, rate: float = 32.0,
     """n synthetic requests with Poisson arrivals (exponential gaps at
     `rate` req/s) and mixed prompt and generation lengths, drawn from
     numpy exactly as the JAX package draws them: the same seed gives the
-    same stream in both packages."""
+    same stream in both packages. An encoder model's requests carry
+    (F, D) frames and a patch model's (P, D) patches, normal x 0.02,
+    drawn after each request's tokens."""
     rng = np.random.default_rng(seed)
     t = 0.0
     out = []
     for _ in range(n):
         t += float(rng.exponential(1.0 / rate))
         plen = int(rng.choice(prompt_lens))
-        out.append(Request(
+        req = Request(
             tokens=rng.integers(0, cfg.vocab_size, size=(plen,),
                                 dtype=np.int32),
-            max_new=int(rng.choice(gen_lens)), arrival=t))
+            max_new=int(rng.choice(gen_lens)), arrival=t)
+        if cfg.encoder_layers:
+            req.frames = (rng.standard_normal(
+                (cfg.encoder_frames, cfg.d_model)) * 0.02).astype(np.float32)
+        if cfg.patch_tokens:
+            req.patches = (rng.standard_normal(
+                (cfg.patch_tokens, cfg.d_model)) * 0.02).astype(np.float32)
+        out.append(req)
     return out
 
 

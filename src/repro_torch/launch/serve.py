@@ -19,8 +19,16 @@ they free up mid-decode.
         --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch recurrentgemma_2b --smoke --device cpu --prompt-len 24
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper_tiny \\
+        --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2_26b \\
+        --smoke --device cpu --stream --paged
 
 Without `--device` it runs on the GPU, and raises when there is none.
+Whisper's requests carry (F, D) encoder frames and InternVL2's (P, D)
+patch rows, normal x 0.02: one batch draws them from a generator on the
+device, a stream with its requests (`synth_request_stream`); the patch
+rows count in `max_len`.
 `--paged` serves the stream from block-granular KV pools (`--block-size`,
 `--num-blocks`, `--prefill-batch`). `--profile` waits for its item in
 ROADMAP.md (Queue 1 item 4.8).
@@ -43,15 +51,21 @@ from repro_torch.obs import registry as obs_registry
 from repro_torch.obs.metrics import fmt_seconds as _fmt_s
 
 
-def serve(cfg, params, prompts, *, max_len: int, gen: int) -> torch.Tensor:
+def serve(cfg, params, prompts, *, max_len: int, gen: int, frames=None,
+          patches=None) -> torch.Tensor:
     """prompts: (B, S) int -> greedy tokens (B, gen) int32 on the
-    parameters' device."""
+    parameters' device. frames (B, F, D): an encoder-decoder model's
+    encoder input; patches (B, P, D): a patch model's rows ahead of the
+    prompt (they count in max_len)."""
     device = params.embed.device
     prefill = steps.make_prefill_step(cfg, max_len=max_len)
     decode = steps.make_decode_step(cfg)
+    batch = {"tokens": torch.as_tensor(prompts).to(device)}
+    for name, t in (("frames", frames), ("patches", patches)):
+        if t is not None:
+            batch[name] = torch.as_tensor(t).to(device)
     with torch.inference_mode():
-        logits, state = prefill(
-            params, {"tokens": torch.as_tensor(prompts).to(device)})
+        logits, state = prefill(params, batch)
         outs = []
         tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
         for _ in range(gen):
@@ -158,18 +172,21 @@ def main(argv=None) -> int:
     params = transformer.init_params(cfg, gen, dtype=torch.float32,
                                      device=dev)
 
+    # patch rows come ahead of the prompt and take cache rows
+    max_len = cfg.patch_tokens + args.prompt_len + args.gen + 1
+
     def _run() -> int:
         if args.stream:
             from repro_torch.launch.scheduler import synth_request_stream
-            max_len = args.prompt_len + args.gen + 1
             reqs = synth_request_stream(
                 cfg, args.requests, rate=args.rate, seed=args.seed,
                 prompt_lens=(max(1, args.prompt_len // 2), args.prompt_len),
                 gen_lens=(max(1, args.gen // 2), args.gen))
-            if args.paged and max_len % args.block_size:
-                max_len += args.block_size - max_len % args.block_size
+            width = max_len
+            if args.paged and width % args.block_size:
+                width += args.block_size - width % args.block_size
             serve_stream(cfg, params, reqs, slots=args.slots or args.batch,
-                         max_len=max_len, seed=args.seed, paged=args.paged,
+                         max_len=width, seed=args.seed, paged=args.paged,
                          block_size=args.block_size,
                          num_blocks=args.num_blocks,
                          prefill_batch=args.prefill_batch, device=dev)
@@ -177,9 +194,18 @@ def main(argv=None) -> int:
         rng = np.random.default_rng(args.seed)
         prompts = torch.from_numpy(rng.integers(
             0, cfg.vocab_size, (args.batch, args.prompt_len), dtype=np.int32))
+        # frames and patches from a generator of their own on the device
+        data_gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+        inputs = {}
+        for name, rows in (("frames", cfg.encoder_frames),
+                           ("patches", cfg.patch_tokens)):
+            if rows:
+                inputs[name] = torch.randn(
+                    (args.batch, rows, cfg.d_model), generator=data_gen,
+                    device=dev) * 0.02
         t0 = time.perf_counter()
-        toks = serve(cfg, params, prompts,
-                     max_len=args.prompt_len + args.gen + 1, gen=args.gen)
+        toks = serve(cfg, params, prompts, max_len=max_len, gen=args.gen,
+                     **inputs)
         toks = toks.cpu()          # waits for the device
         dt = time.perf_counter() - t0
         print(f"[serve] {cfg.name}: generated {tuple(toks.shape)} in "

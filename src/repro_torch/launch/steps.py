@@ -3,7 +3,9 @@ the contiguous and paged serve steps).
 
 The JAX package builds pure functions that `jax.jit` compiles; here the
 same factories return plain functions that run eagerly under
-`torch.inference_mode()`. States are updated in place: a prefill into a
+`torch.inference_mode()`. A prefill batch is a dict: `tokens`, and
+`frames` (Whisper's encoder input) or `patches` (InternVL2's rows ahead
+of the prompt) where the model takes them. States are updated in place: a prefill into a
 slot copies the fresh batch-1 state into that row of the engine's state,
 and a decode step writes one key and value per sequence into the caches it
 is given, and advances the SSM and RG-LRU states in place (see
@@ -48,8 +50,13 @@ def make_prefill_step(cfg: ArchConfig, *, max_len: int) -> Callable:
     @torch.inference_mode()
     def prefill_step(params, batch):
         return transformer.forward_prefill(cfg, params, batch["tokens"],
-                                           max_len=max_len)
+                                           max_len=max_len, **_inputs(batch))
     return prefill_step
+
+
+def _inputs(batch) -> dict:
+    """The prefill's frames and patches, where the batch has them."""
+    return {"frames": batch.get("frames"), "patches": batch.get("patches")}
 
 
 def make_decode_step(cfg: ArchConfig) -> Callable:
@@ -78,7 +85,8 @@ def write_state_slot(full, one, index):
 
     Every tensor of the batch-1 tree is copied into the batch-wide tree
     along the one axis where their shapes differ (the batch axis: 0 for
-    pos, 1 for the (L, B, ...) caches and SSM / RG-LRU states). Equal
+    pos, 1 for the (L, B, ...) caches, SSM / RG-LRU states and cross
+    keys and values). Equal
     shapes mean a single-slot engine: the row is the whole state."""
     index = int(index)
     for f, o in zip(_leaves(full), _leaves(one), strict=True):
@@ -103,7 +111,8 @@ def make_slot_prefill_step(cfg: ArchConfig, *, max_len: int) -> Callable:
     @torch.inference_mode()
     def slot_prefill_step(params, batch, length, slot, state):
         logits, one = transformer.forward_prefill(
-            cfg, params, batch["tokens"], max_len=max_len, length=length)
+            cfg, params, batch["tokens"], max_len=max_len, length=length,
+            **_inputs(batch))
         return logits, write_state_slot(state, one, slot)
     return slot_prefill_step
 
@@ -129,12 +138,20 @@ def serve_state_zeros(cfg: ArchConfig, params, slots: int,
                       max_len: int) -> transformer.ServeState:
     """All-zero batch-wide ServeState for an engine with `slots` cache
     rows, on the parameters' device: the structure a prefill of that
-    batch builds, without running one."""
+    batch builds, without running one (the cross keys and values of an
+    encoder-decoder model over `cfg.encoder_frames` frames, in the
+    parameters' dtype)."""
     device = params.embed.device
     caches = transformer.init_cache(cfg, slots, max_len, device=device)
     return transformer.ServeState(
-        caches=caches, cross=[None] * len(caches),
+        caches=caches, cross=_cross_zeros(cfg, params, slots),
         pos=torch.zeros((slots,), dtype=torch.int32, device=device))
+
+
+def _cross_zeros(cfg, params, slots: int) -> list:
+    return transformer.init_cross(cfg, slots, cfg.encoder_frames,
+                                  dtype=params.embed.dtype,
+                                  device=params.embed.device)
 
 
 
@@ -146,7 +163,8 @@ def write_paged_state_slot(full, one, slot, table_row):
     """`write_state_slot` for a paged state, in place: every paged pool
     (GQA or MLA) takes the batch-1 contiguous cache scattered into the
     blocks of `table_row` ((MB,) int); contiguous leaves (windowed caches,
-    pos) take row `slot` as before. Returns `full`."""
+    cross keys and values, pos) take row `slot` as before. Returns
+    `full`."""
     for seg_full, seg_one in zip(full.caches, one.caches, strict=True):
         for name, f in seg_full.items():
             if isinstance(f, kvcache.PagedAttnCache):
@@ -155,20 +173,23 @@ def write_paged_state_slot(full, one, slot, table_row):
                 kvcache.paged_scatter_mla(f, seg_one[name], table_row)
             else:
                 write_state_slot(f, seg_one[name], slot)
-    write_state_slot(full.pos, one.pos, slot)
+    write_state_slot((full.cross, full.pos), (one.cross, one.pos), slot)
     return full
 
 
 def _state_row(state, j: int):
     """Batch row j of a batch-A contiguous prefill state, keeping the
-    batch axis (behind the layer axis of the stacked caches and
-    states)."""
+    batch axis (behind the layer axis of the stacked caches, states and
+    cross keys and values)."""
     def row(c):
         return type(c)(*(None if x is None else x[:, j:j + 1] for x in c))
 
-    caches = [{name: row(c) for name, c in seg.items()}
-              for seg in state.caches]
-    return transformer.ServeState(caches=caches, cross=state.cross,
+    def rows(segs):
+        return [None if seg is None else
+                {name: row(c) for name, c in seg.items()} for seg in segs]
+
+    return transformer.ServeState(caches=rows(state.caches),
+                                  cross=rows(state.cross),
                                   pos=state.pos[j:j + 1])
 
 
@@ -187,7 +208,8 @@ def make_paged_prefill_step(cfg: ArchConfig, *, max_len: int,
     @torch.inference_mode()
     def paged_prefill_step(params, batch, lengths, slots, tables, state):
         logits, one = transformer.forward_prefill(
-            cfg, params, batch["tokens"], max_len=max_len, length=lengths)
+            cfg, params, batch["tokens"], max_len=max_len, length=lengths,
+            **_inputs(batch))
         for j in range(admit):
             write_paged_state_slot(state, _state_row(one, j), int(slots[j]),
                                    tables[j])
@@ -221,7 +243,8 @@ def paged_serve_state_zeros(cfg: ArchConfig, params, slots: int,
     RG-LRU states stay contiguous per slot, already bounded by their
     window or O(1) a sequence, so a sliding-window model (Mixtral), Mamba 2
     and RecurrentGemma have no pool at all, as in the JAX package: their
-    paged engine only books blocks."""
+    paged engine only books blocks. Whisper's cross keys and values stay
+    contiguous per slot too (F rows, whatever the prompt)."""
     transformer.check_supported(cfg)
     device = params.embed.device
 
@@ -242,5 +265,5 @@ def paged_serve_state_zeros(cfg: ArchConfig, params, slots: int,
                for i, ls in enumerate(seg.layers)}
               for seg in transformer.arch_segments(cfg)]
     return transformer.ServeState(
-        caches=caches, cross=[None] * len(caches),
+        caches=caches, cross=_cross_zeros(cfg, params, slots),
         pos=torch.zeros((slots,), dtype=torch.int32, device=device))

@@ -26,6 +26,11 @@ latent stays float32 because the w_uk / w_uv up-projections amplify a
 bf16 rounding enough to break decode = teacher forcing; the rotary key is
 read as it is, so it is bf16 like a GQA cache.
 
+An encoder-decoder model (Whisper) keeps beside its caches the keys and
+values of its cross-attention layers over the encoder's output:
+`CrossKV` ([L,] B, Hkv, F, hd) in the parameters' dtype, written once by
+the prefill and read by every decode step.
+
 The int8/int4 quantised cache (ROADMAP Queue 1 item 4.5) is not ported.
 """
 from __future__ import annotations
@@ -50,6 +55,28 @@ class AttnCache(NamedTuple):
         """Layer i's view of a stacked ([L, ...]) cache; writes through it
         land in the stacked tensors."""
         return AttnCache(self.k[i], self.v[i])
+
+
+class CrossKV(NamedTuple):
+    """Cross-attention keys and values over the encoder output of F
+    frames: ([L,] B, Hkv, F, hd), written at prefill, read at decode."""
+    k: torch.Tensor
+    v: torch.Tensor
+
+    def layer(self, i: int) -> "CrossKV":
+        """Layer i's view; a write through it lands in the stacked
+        tensors."""
+        return CrossKV(self.k[i], self.v[i])
+
+
+def init_cross_kv(batch: int, kv_heads: int, frames: int, head_dim: int, *,
+                  layers: int, dtype=torch.float32,
+                  device=DEFAULT_DEVICE) -> CrossKV:
+    """Zero (L, B, Hkv, F, hd) cross keys and values on `device`."""
+    shape = (layers, batch, kv_heads, frames, head_dim)
+    device = resolve_device(device)
+    return CrossKV(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device))
 
 
 def init_attn_cache(batch: int, kv_heads: int, window: int, head_dim: int,

@@ -9,11 +9,12 @@ RMSNorm gain as `1 + scale`, RoPE on split halves. Prefill attention
 window) goes through `kernels.ops.flash_attention`, the hand-written
 flash kernel on CUDA tensors and its plain version on CPU tensors; decode
 attention (`decode_attention`) is plain PyTorch over the whole cache, as
-the JAX package's is plain XLA. `sinusoidal_positions` (Whisper) waits
-for its slice (ROADMAP.md, Queue 1 item 4.4).
+the JAX package's is plain XLA. `sinusoidal_positions` gives Whisper's
+encoder its fixed positions.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -50,6 +51,18 @@ def apply_norm(cfg, p, x: torch.Tensor) -> torch.Tensor:
     if cfg.norm == "layernorm":
         return layernorm(x, p.scale, p.bias)
     return rmsnorm(x, p.scale)
+
+
+def sinusoidal_positions(seq: int, dim: int, dtype=torch.float32,
+                         device=None) -> torch.Tensor:
+    """(seq, dim) fixed positions: sin of position x 10000^(-2i/dim) in the
+    first dim/2 columns, cos in the rest, computed in float32 as the JAX
+    function does and cast to `dtype`."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    inv = torch.exp(-math.log(10000.0) * torch.arange(
+        0, dim, 2, dtype=torch.float32, device=device) / dim)
+    ang = pos * inv[None]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,12 @@ experts as `shared_w1`/`w3`/`w2`; an MLA layer's `mixer` holds `wq`,
 Mamba 2 layer (`ssd`) has `ln1` and `mixer` only (`in_proj`, `conv_w`,
 `conv_b`, `dt_bias`, `a_log`, `d_skip`, `norm_scale`, `out_proj`); a
 RecurrentGemma recurrent layer (`rec`) holds `w_in_rec`, `w_in_gate`,
-`w_out`, `conv_w`, `conv_b`, `w_a`, `b_a`, `w_x`, `b_x` and `lam`.
+`w_out`, `conv_w`, `conv_b`, `w_a`, `b_a`, `w_x`, `b_x` and `lam`. Whisper adds
+`params.pos_embed` (learned positions, max_positions x D), a decoder
+layer's `ln_cross` and `cross` (`wq`/`wk`/`wv`/`wo` with their biases)
+and the encoder: `params.encoder.segments[0].l0[i]` for its layer i
+(attention and MLP, as a decoder layer without cross attention) and
+`params.encoder.final_norm`.
 
 Serving state: the KV cache of a segment is one preallocated tensor per K
 and per V, (L, B, Hkv, W, hd) bf16 (stacked also for a one-layer segment),
@@ -37,11 +42,18 @@ A paged serving state holds a shared block pool per segment instead
 (block_table[b, pos // BS], pos % BS) and attends over the slot's
 gathered logical view under the same kv_len mask as the contiguous path.
 
+Whisper's prefill runs the encoder over the audio frames (non-causal
+self-attention, no cache) and fills `ServeState.cross` with each
+cross-attention layer's keys and values over its output (`CrossKV`, per
+segment); decode reads them there. InternVL2's prefill puts its patch
+rows ahead of the prompt: they take the first cache rows and positions,
+and `pos` starts past them.
+
 The dense and MoE families run here, with GQA (full or sliding-window)
-or MLA attention, and the SSM (Mamba 2) and hybrid (RecurrentGemma)
-families. Encoder-decoder and patch models (ROADMAP Queue 1 item 4.4) and
-the quantised cache (4.5) raise `NotImplementedError` naming their item;
-`forward_train` waits for the LM train steps (4.6).
+or MLA attention, the SSM (Mamba 2) and hybrid (RecurrentGemma) families,
+the encoder-decoder (Whisper) and the patch model (InternVL2). The
+quantised cache (ROADMAP Queue 1 item 4.5) raises `NotImplementedError`
+naming its item; `forward_train` waits for the LM train steps (4.6).
 """
 from __future__ import annotations
 
@@ -55,7 +67,8 @@ from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import kvcache, moe, rglru, ssm
 from repro_torch.models.layers import (apply_norm, apply_rope,
                                        banded_attention, chunked_attention,
-                                       decode_attention, mlp, rmsnorm)
+                                       decode_attention, mlp, rmsnorm,
+                                       sinusoidal_positions)
 
 _ROADMAP = "ROADMAP.md, Queue 1 item 4"
 
@@ -102,25 +115,24 @@ def arch_segments(cfg: ArchConfig) -> list:
                     cfg.num_layers)]
 
 
+_FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
+
+
 def check_supported(cfg: ArchConfig) -> None:
     """Raise NotImplementedError naming the ROADMAP item for anything but a
-    dense, MoE, SSM or hybrid model with GQA or MLA attention (none for
-    SSM) and a bf16 cache."""
+    dense, MoE, SSM, hybrid, encoder-decoder (audio) or patch (vlm) model
+    with GQA or MLA attention (none for SSM) and a bf16 cache."""
     waits = None
-    if (cfg.encoder_layers or cfg.cross_attention or cfg.patch_tokens
-            or cfg.max_positions):
-        waits = ("the encoder-decoder and patch models (Whisper, InternVL2)",
-                 ".4")
-    elif cfg.kv_cache_dtype != "bf16":
+    if cfg.kv_cache_dtype != "bf16":
         waits = "the int8/int4 KV cache (Qwen 1.5)", ".5"
-    elif cfg.family not in ("dense", "moe", "ssm", "hybrid") or (
+    elif cfg.family not in _FAMILIES or (
             cfg.family != "ssm" and cfg.attn_kind not in ("gqa", "mla")):
         waits = f"the {cfg.family} family", ""
     if waits:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense, MoE, SSM and hybrid "
-            f"families with GQA or MLA attention; {waits[0]} is not ported "
-            f"yet ({_ROADMAP}{waits[1]})")
+            f"{cfg.name}: the port runs the dense, MoE, SSM, hybrid, audio "
+            f"and vlm families with GQA or MLA attention; {waits[0]} is not "
+            f"ported yet ({_ROADMAP}{waits[1]})")
 
 
 # ---------------------------------------------------------------------------
@@ -273,6 +285,7 @@ def _rec_params(bld, cfg):
     }
 
 
+_ENCODER_LAYER = LayerSpec("attn", "mlp")
 _MIXER_SCHEMA = {"attn": _attn_params, "local": _attn_params,
                  "mla": _mla_params, "ssd": _ssd_params, "rec": _rec_params}
 _FFN_SCHEMA = {"mlp": _mlp_params, "moe": _moe_params}
@@ -284,16 +297,22 @@ def _layer_params(bld, cfg, spec: LayerSpec):
     if spec.ffn != "none":            # Mamba 2 has no FFN
         p["ln2"] = _norm_params(bld, cfg)
         p["ffn"] = _FFN_SCHEMA[spec.ffn](bld, cfg)
+    if spec.cross:                    # Whisper's decoder layers
+        p["ln_cross"] = _norm_params(bld, cfg)
+        p["cross"] = _attn_params(bld, cfg)
     return p
 
 
 def _build(cfg: ArchConfig, bld: Builder) -> dict:
     """The parameter tree as nested dicts; a segment's `l{i}` is the list
     of its `repeat` layers (the JAX package stacks them on a leading
-    axis)."""
+    axis), and so is the encoder's."""
     check_supported(cfg)
     d, v = cfg.d_model, cfg.padded_vocab
     params: dict = {"embed": bld.param((v, d), init="normal_1")}
+    if cfg.max_positions:
+        params["pos_embed"] = bld.param((cfg.max_positions, d),
+                                        init="normal_1")
     params["segments"] = [
         {f"l{i}": [_layer_params(bld, cfg, ls) for _ in range(seg.repeat)]
          for i, ls in enumerate(seg.layers)}
@@ -301,6 +320,11 @@ def _build(cfg: ArchConfig, bld: Builder) -> dict:
     params["final_norm"] = _norm_params(bld, cfg)
     if not cfg.tie_embeddings:
         params["lm_head"] = bld.param((d, v), init="normal_1")
+    if cfg.encoder_layers:
+        params["encoder"] = {
+            "segments": [{"l0": [_layer_params(bld, cfg, _ENCODER_LAYER)
+                                 for _ in range(cfg.encoder_layers)]}],
+            "final_norm": _norm_params(bld, cfg)}
     return params
 
 
@@ -335,13 +359,16 @@ def _qkv(cfg, p, x):
 
 
 def attn_mixer(cfg, p, x, positions, *, window: int, mode: str, cache,
-               pos=None, block_table=None):
-    """Causal GQA attention; a ring-buffer cache when window > 0.
+               pos=None, block_table=None, causal: bool = True):
+    """GQA attention, causal unless `causal=False`; a ring-buffer cache
+    when window > 0.
 
     prefill: attention over the prompt through `chunked_attention`, or
-    `banded_attention` for a banded sliding window (the flash kernel on
-    the card either way), and the prompt's last W keys and values
-    written into `cache` (width W). decode (x (B, 1, D), pos (B,)): one
+    `banded_attention` for a causal banded sliding window (the flash
+    kernel on the card either way), and the prompt's last W keys and
+    values written into `cache` (width W). encode: the same attention
+    with no cache (`cache` None; Whisper's encoder runs it with
+    causal=False). decode (x (B, 1, D), pos (B,)): one
     key and value per sequence written at pos % W, then `decode_attention`
     over the cache; on a paged pool at (block_table[b, pos // BS],
     pos % BS), then over the slot's gathered view, MB·BS == max_len wide,
@@ -353,20 +380,21 @@ def attn_mixer(cfg, p, x, positions, *, window: int, mode: str, cache,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    w = cache.k.shape[-2]
-    if mode == "prefill":
-        if window > 0 and cfg.banded_swa:
+    if mode in ("prefill", "encode"):
+        if window > 0 and causal and cfg.banded_swa:
             out = banded_attention(q, k, v, window=window,
                                    q_block=cfg.attn_chunk,
                                    remat_body=cfg.inner_remat)
         else:
-            out = chunked_attention(q, k, v, causal=True, window=window,
+            out = chunked_attention(q, k, v, causal=causal, window=window,
                                     chunk=cfg.attn_chunk,
                                     remat_body=cfg.inner_remat)
-        keep = min(w, s)
-        slots = torch.arange(s - keep, s, device=x.device) % w
-        kvcache.cache_write(cache, k[:, :, s - keep:], v[:, :, s - keep:],
-                            slots)
+        if mode == "prefill":
+            w = cache.k.shape[-2]
+            keep = min(w, s)
+            slots = torch.arange(s - keep, s, device=x.device) % w
+            kvcache.cache_write(cache, k[:, :, s - keep:],
+                                v[:, :, s - keep:], slots)
     elif isinstance(cache, kvcache.PagedAttnCache):
         bs = cache.k.shape[-2]
         mb = block_table.shape[1]
@@ -377,6 +405,7 @@ def attn_mixer(cfg, p, x, positions, *, window: int, mode: str, cache,
         kv_len = torch.clamp(pos + 1, max=mb * bs)
         out = decode_attention(q, kf, vf, kv_len=kv_len, window=0)
     else:
+        w = cache.k.shape[-2]
         kvcache.cache_write_at(cache, k, v, pos % w)
         kf, vf = kvcache.cache_read(cache, dtype=torch.bfloat16)
         kv_len = torch.clamp(pos + 1, max=w)
@@ -394,6 +423,33 @@ def _block_of(block_table, pos, bs: int):
     mb = block_table.shape[1]
     logical = torch.clamp(pos // bs, max=mb - 1).to(torch.long)
     return torch.gather(block_table.to(torch.long), 1, logical[:, None])[:, 0]
+
+
+def cross_mixer(cfg, p, x, *, cross, enc_out=None):
+    """Whisper's cross attention: queries from the decoder's x (B, S, D),
+    keys and values over the encoder's F frames, non-causal through
+    `chunked_attention` (the flash kernel on the card).
+
+    With `enc_out` (B, F, D), the prefill: K and V are projected from it
+    (with the biases where the layer has them) and written into `cross`
+    (a `CrossKV` view, (B, Hkv, F, hd)); without it, a decode step reads
+    them there. Returns the output projection (B, S, D)."""
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = x @ p.wq
+    if hasattr(p, "bq"):
+        q = q + p.bq
+    q = q.view(b, s, cfg.num_heads, hd).transpose(1, 2)
+    if enc_out is not None:
+        f = enc_out.shape[1]
+        for name, dst in (("k", cross.k), ("v", cross.v)):
+            y = enc_out @ getattr(p, "w" + name)
+            if hasattr(p, "b" + name):
+                y = y + getattr(p, "b" + name)
+            dst.copy_(y.view(b, f, cfg.num_kv_heads, hd).transpose(1, 2))
+    out = chunked_attention(q, cross.k, cross.v, causal=False,
+                            chunk=cfg.attn_chunk, remat_body=cfg.inner_remat)
+    return out.transpose(1, 2).reshape(b, s, -1) @ p.wo
 
 
 def mla_mixer(cfg, p, x, positions, *, mode: str, cache, pos=None,
@@ -476,14 +532,19 @@ def mla_mixer(cfg, p, x, positions, *, mode: str, cache, pos=None,
 # ---------------------------------------------------------------------------
 
 def _apply_layer(cfg, spec: LayerSpec, p, x, positions, *, mode, cache,
-                 pos=None, block_table=None, token_mask=None):
+                 pos=None, block_table=None, token_mask=None, cross=None,
+                 enc_out=None):
     """(x after one layer, the layer's MoE aux loss): norm -> mixer ->
-    residual, then (unless the layer has none) norm -> MLP or MoE ->
-    residual; `cache` (a KV cache, or an SSM or RG-LRU state) is updated
-    in place. token_mask: (B,) bool of live rows, which only an MoE layer
-    reads (as its routing mask); any other layer's aux loss is 0.0."""
+    residual, then (a cross layer) norm -> cross attention -> residual,
+    then (unless the layer has none) norm -> MLP or MoE -> residual;
+    `cache` (a KV cache, or an SSM or RG-LRU state) is updated in place.
+    mode "encode" (Whisper's encoder): non-causal attention, no cache.
+    cross: a cross layer's `CrossKV` view, written from `enc_out` at
+    prefill and read at decode. token_mask: (B,) bool of live rows, which
+    only an MoE layer reads (as its routing mask); any other layer's aux
+    loss is 0.0."""
     if spec.mixer not in ("attn", "local", "mla", "ssd", "rec") \
-            or spec.ffn not in ("mlp", "moe", "none") or spec.cross:
+            or spec.ffn not in ("mlp", "moe", "none"):
         raise _unsupported_layer(spec)
     h = apply_norm(cfg, p.ln1, x)
     if spec.mixer == "mla":
@@ -502,8 +563,13 @@ def _apply_layer(cfg, spec: LayerSpec, p, x, positions, *, mode, cache,
     else:
         out = attn_mixer(cfg, p.mixer, h, positions,
                          window=_window(cfg, spec), mode=mode, cache=cache,
-                         pos=pos, block_table=block_table)
+                         pos=pos, block_table=block_table,
+                         causal=mode != "encode")
     x = x + out
+    if spec.cross:
+        out = cross_mixer(cfg, p.cross, apply_norm(cfg, p.ln_cross, x),
+                          cross=cross, enc_out=enc_out)
+        x = x + out
     if spec.ffn == "none":
         return x, 0.0
     if spec.ffn == "mlp":
@@ -518,7 +584,8 @@ def _apply_layer(cfg, spec: LayerSpec, p, x, positions, *, mode, cache,
 def _unsupported_layer(spec: LayerSpec) -> NotImplementedError:
     return NotImplementedError(
         f"layer {spec} is not ported yet: the port runs attention, MLA, "
-        f"SSD or RG-LRU layers with an MLP, an MoE or no FFN ({_ROADMAP})")
+        f"SSD or RG-LRU layers (with or without cross attention) with an "
+        f"MLP, an MoE or no FFN ({_ROADMAP})")
 
 
 def _window(cfg, spec: LayerSpec) -> int:
@@ -568,12 +635,37 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
             for seg in arch_segments(cfg)]
 
 
+def init_cross(cfg: ArchConfig, batch: int, frames: int, *,
+               dtype=torch.float32, device=DEFAULT_DEVICE) -> list:
+    """Per segment, {"l{i}": CrossKV} of (L, B, Hkv, F, hd) zeros for each
+    cross-attention layer, or None for a segment without one (every
+    segment of a model without an encoder)."""
+    out = []
+    for seg in arch_segments(cfg):
+        names = [f"l{i}" for i, ls in enumerate(seg.layers) if ls.cross]
+        out.append({name: kvcache.init_cross_kv(
+            batch, cfg.num_kv_heads, frames, cfg.resolved_head_dim,
+            layers=seg.repeat, dtype=dtype, device=device)
+            for name in names} or None)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Forward passes
 # ---------------------------------------------------------------------------
 
-def _embed_tokens(cfg, params, tokens):
-    return params.embed[tokens.long()]
+def _embed_tokens(cfg, params, tokens, pos=None):
+    """Token embeddings, plus the learned positions of a model that has
+    them: rows 0..S-1 at prefill; at decode (`pos` (B,)) each sequence's
+    own row, clamped to the table's last."""
+    x = params.embed[tokens.long()]
+    if cfg.max_positions:
+        if pos is None:
+            x = x + params.pos_embed[:tokens.shape[1]][None]
+        else:
+            row = torch.clamp(pos, max=cfg.max_positions - 1).long()
+            x = x + params.pos_embed[row][:, None]
+    return x
 
 
 def _logits(cfg, params, x):
@@ -587,23 +679,68 @@ class ServeState(NamedTuple):
     #                       PagedAttnCache (L, Hkv, NB, BS, hd), MLACache
     #                       (L, B, W, r | rd), PagedMLACache, SSMState or
     #                       RGState}
-    cross: Any            # per segment cross kv (encoder-decoder) or None
+    cross: Any            # per segment {"l{i}": CrossKV (L, B, Hkv, F, hd)}
+    #                       of its cross layers (Whisper), or None
     pos: torch.Tensor     # (B,) int32: next position index per sequence
 
 
-def _layers(cfg, params, caches):
-    """(spec, layer params, layer cache view) in execution order."""
-    for seg, seg_p, seg_c in zip(arch_segments(cfg), params.segments,
-                                 caches):
+def _layers(cfg, params, caches, cross):
+    """(spec, layer params, layer cache view, layer cross view or None) in
+    execution order."""
+    for seg, seg_p, seg_c, seg_x in zip(arch_segments(cfg), params.segments,
+                                        caches, cross):
         for li in range(seg.repeat):
             for i, ls in enumerate(seg.layers):
-                yield ls, getattr(seg_p, f"l{i}")[li], seg_c[f"l{i}"].layer(li)
+                name = f"l{i}"
+                yield (ls, getattr(seg_p, name)[li], seg_c[name].layer(li),
+                       seg_x[name].layer(li) if ls.cross else None)
+
+
+def run_encoder(cfg: ArchConfig, params, frames: torch.Tensor):
+    """Whisper's encoder over precomputed front-end frames (B, F, D): plus
+    the fixed sinusoidal positions, `encoder_layers` non-causal attention
+    and MLP layers, then the encoder's final norm."""
+    _, f, d = frames.shape
+    x = frames + sinusoidal_positions(f, d, frames.dtype,
+                                      device=frames.device)[None]
+    positions = torch.arange(f, device=frames.device)
+    for lp in params.encoder.segments[0].l0:
+        x, _ = _apply_layer(cfg, _ENCODER_LAYER, lp, x, positions,
+                            mode="encode", cache=None)
+    return apply_norm(cfg, params.encoder.final_norm, x)
+
+
+def _check_inputs(cfg, b, frames, patches):
+    """An encoder model needs its frames and a patch model its patches,
+    (B, F, D) and (B, patch_tokens, D): the prefill reads them, and the
+    patch rows' count fixes where the prompt's last row and `pos` lie."""
+    needs = []
+    if cfg.encoder_layers:
+        needs.append(("frames", frames, None))
+    if cfg.patch_tokens:
+        needs.append(("patches", patches, cfg.patch_tokens))
+    for name, t, rows in needs:
+        if t is None:
+            raise ValueError(f"{cfg.name}: the prefill needs {name} "
+                             f"(B, {rows or 'F'}, {cfg.d_model}); none given")
+        if t.ndim != 3 or t.shape[0] != b or t.shape[2] != cfg.d_model or (
+                rows and t.shape[1] != rows):
+            raise ValueError(f"{cfg.name}: {name} must be (B={b}, "
+                             f"{rows or 'F'}, {cfg.d_model}), got "
+                             f"{tuple(t.shape)}")
 
 
 def forward_prefill(cfg: ArchConfig, params, tokens: torch.Tensor, *,
-                    max_len: int, length=None):
+                    max_len: int, frames=None, patches=None, length=None):
     """Process the prompt (B, S), build caches of width max_len; returns
     (last-position logits (B, 1, V), ServeState).
+
+    frames (B, F, D): an encoder-decoder model's encoder input; each
+    cross layer's keys and values over the encoder output go into
+    `ServeState.cross`. patches (B, P, D), P = cfg.patch_tokens: a patch
+    model's rows, put ahead of the prompt: positions, causal attention
+    and the cache run over P + S rows, and `length` counts prompt tokens
+    only (the last row is P + length - 1, pos starts at P + length).
 
     length: None, an int or 0-d tensor, or a (B,) vector of per-sequence
     real prompt lengths when `tokens` is right-padded. Logits come from
@@ -615,28 +752,37 @@ def forward_prefill(cfg: ArchConfig, params, tokens: torch.Tensor, *,
     layers route without a token mask, as the JAX package's prefill does:
     padded rows of a batched prefill claim expert capacity."""
     check_supported(cfg)
+    b = tokens.shape[0]
+    _check_inputs(cfg, b, frames, patches)
     x = _embed_tokens(cfg, params, tokens)
-    b, s = tokens.shape
+    enc_out = None
+    if cfg.encoder_layers:
+        enc_out = run_encoder(cfg, params, frames.to(x.device))
+    if cfg.patch_tokens:
+        x = torch.cat([patches.to(x.device, x.dtype), x], dim=1)
+    s = x.shape[1]
     positions = torch.arange(s, device=x.device)
     caches = init_cache(cfg, b, max_len, device=x.device)
-    for ls, lp, lc in _layers(cfg, params, caches):
+    cross = init_cross(cfg, b, 0 if enc_out is None else enc_out.shape[1],
+                       dtype=x.dtype, device=x.device)
+    for ls, lp, lc, lx in _layers(cfg, params, caches, cross):
         x, _ = _apply_layer(cfg, ls, lp, x, positions, mode="prefill",
-                            cache=lc)
+                            cache=lc, cross=lx, enc_out=enc_out)
+    off = cfg.patch_tokens
     if length is None:
         last = x[:, -1:]
         next_pos = torch.full((b,), s, dtype=torch.int32, device=x.device)
     elif not isinstance(length, torch.Tensor) or length.ndim == 0:
-        n = int(length)
+        n = off + int(length)
         last = x[:, n - 1:n]
         next_pos = torch.full((b,), n, dtype=torch.int32, device=x.device)
     else:
-        length = length.to(x.device)
+        length = length.to(x.device) + off
         idx = (length - 1).long()
         last = x[torch.arange(b, device=x.device)[:, None], idx[:, None]]
         next_pos = length.to(torch.int32)
     logits = _logits(cfg, params, last)
-    return logits, ServeState(caches=caches, cross=[None] * len(caches),
-                              pos=next_pos)
+    return logits, ServeState(caches=caches, cross=cross, pos=next_pos)
 
 
 def forward_decode(cfg: ArchConfig, params, token: torch.Tensor,
@@ -660,12 +806,13 @@ def forward_decode(cfg: ArchConfig, params, token: torch.Tensor,
         raise ValueError("a paged serving state needs block_tables")
     if block_tables is not None and pageable and not any(paged):
         raise ValueError("block_tables given for a contiguous serving state")
-    x = _embed_tokens(cfg, params, token)
+    x = _embed_tokens(cfg, params, token, pos=state.pos)
     positions = state.pos[:, None]
-    for ls, lp, lc in _layers(cfg, params, state.caches):
+    for ls, lp, lc, lx in _layers(cfg, params, state.caches, state.cross):
         x, _ = _apply_layer(cfg, ls, lp, x, positions, mode="decode",
                             cache=lc, pos=state.pos,
-                            block_table=block_tables, token_mask=token_mask)
+                            block_table=block_tables, token_mask=token_mask,
+                            cross=lx)
     logits = _logits(cfg, params, x)
     return logits, ServeState(caches=state.caches, cross=state.cross,
                               pos=state.pos + 1)

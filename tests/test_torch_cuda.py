@@ -434,6 +434,101 @@ def test_recurrent_layer_prefill_equals_its_decode_steps(full_fp32_matmul,
         assert bool(((got - ref_).abs() <= 1e-3 * (1 + ref_.abs())).all())
 
 
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal,kv", [
+    (8, 6, 6, 1500, 1500, 64, False, "transposed"),   # 6d: Whisper encoder
+    (8, 6, 6, 224, 1500, 64, False, "contiguous"),    # 6e: cross, prefill
+    (8, 6, 6, 224, 1500, 64, False, "transposed"),
+    (8, 6, 6, 1, 1500, 64, False, "contiguous"),      # 6e': cross, decode
+    (8, 6, 6, 1, 1500, 64, False, "transposed"),
+    (4, 48, 8, 1280, 1280, 128, True, "transposed"),  # 6f: InternVL2
+], ids=["6d", "6e", "6e_strided", "6e_decode", "6e_decode_strided", "6f"])
+def test_flash_attention_encdec_and_patch_shapes(full_fp32_matmul, b, h, hkv,
+                                                 sq, sk, d, causal, kv):
+    """The float32 route at the shapes the Whisper and InternVL2 paths give
+    it: 1500 keys (the last of 24 key tiles holds 28), one query row
+    against a 16-row query tile (a decode step's cross attention), keys
+    and values contiguous as the cross cache keeps them or as transposed
+    (B, S, H, D) projections, and 1280 causal rows at 48/8 heads."""
+    gen = full_fp32_matmul
+    q = torch.randn((b, sq, h, d), generator=gen,
+                    device="cuda").transpose(1, 2)
+    k, v = (torch.randn((b, sk, hkv, d), generator=gen,
+                        device="cuda").transpose(1, 2) for _ in range(2))
+    if kv == "contiguous":
+        k, v = k.contiguous(), v.contiguous()
+    before = kernels.flash_attention.launches
+    key = (b, h, hkv, sq, sk, d, d, causal, 0, 0)
+    at_shape = kernels.flash_attention.shapes[key]
+    got = kernels.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kernels.flash_attention.launches == before + 1
+    assert kernels.flash_attention.shapes[key] == at_shape + 1
+    want = ref.attention_ref(q, k, v, causal=causal)
+    assert got.shape == want.shape == (b, h, sq, d)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+def test_flash_launches_counted_by_shape_until_reset(gen):
+    """`flash_attention.shapes` counts each launch under its (B, H, Hkv,
+    Sq, Sk, D, Dv, causal, window, q_offset); a reset clears it with the
+    totals."""
+    q = torch.randn((2, 4, 8, 64), generator=gen, device="cuda")
+    k = torch.randn((2, 2, 12, 64), generator=gen, device="cuda")
+    kernels.reset_launch_counts()
+    for _ in range(2):
+        kernels.flash_attention(q, k, k, causal=False)
+    kernels.flash_attention(q, k, k, causal=True, q_offset=4)
+    assert dict(kernels.flash_attention.shapes) == {
+        (2, 4, 2, 8, 12, 64, 64, False, 0, 0): 2,
+        (2, 4, 2, 8, 12, 64, 64, True, 0, 4): 1}
+    kernels.reset_launch_counts()
+    assert not kernels.flash_attention.shapes
+    assert kernels.flash_attention.launches == 0
+
+
+def test_whisper_layers_on_the_card_equal_the_cpu(full_fp32_matmul):
+    """Whisper tiny at full width on the card against the CPU (the plain
+    attention): the encoder over 1500 frames, then the prefill and two
+    decode steps of a two-layer decoder with its cross attention. The
+    prefill's logits and cross keys within atol = rtol = 1e-4 (float32
+    products summed in another order); the decode steps' within 1e-3,
+    each side reading its own bf16 cache (an entry that rounds to the
+    other bf16 neighbour moves a logit by up to 2.5e-4 here); flash
+    launched once a layer a prefill (encoder, self and cross) and once a
+    cross layer a decode step."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    cfg = dataclasses.replace(get_config("whisper_tiny"), num_layers=2,
+                              encoder_layers=2)
+    gen = torch.Generator().manual_seed(4)
+    params = transformer.init_params(cfg, gen, device="cpu")
+    frames = torch.randn((2, cfg.encoder_frames, cfg.d_model),
+                         generator=gen) * 0.02
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen)
+    steps_in = torch.randint(0, cfg.vocab_size, (2, 2, 1), generator=gen,
+                             dtype=torch.int32)
+    outs = []
+    for dev in ("cpu", "cuda"):
+        p = params if dev == "cpu" else params.cuda()
+        before = kernels.flash_attention.launches
+        with torch.inference_mode():
+            logits, st = transformer.forward_prefill(
+                cfg, p, toks.to(dev), max_len=48, frames=frames.to(dev))
+            got = [logits]
+            for tok in steps_in.to(dev):
+                logits, st = transformer.forward_decode(cfg, p, tok, st)
+                got.append(logits)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert kernels.flash_attention.launches == before + 6 + 2 * 2
+        outs.append([g.cpu() for g in got] + [st.cross[0]["l0"].k.cpu()])
+    for i, (got, want) in enumerate(zip(outs[1], outs[0])):
+        tol = 1e-3 if i in (1, 2) else 1e-4       # the decode steps
+        torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
 def _mla_moe_config():
     """DeepSeek's smoke config with the full-width MLA head dims (128 + 64
     over 128), so the prefill takes the kernel's (192, 128) route."""

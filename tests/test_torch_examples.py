@@ -1,13 +1,16 @@
-"""The port's three examples run end to end on the CPU at their own
-sizes (the JAX examples' sizes), with their asserts."""
+"""The port's examples run end to end on the CPU at their own sizes (the
+JAX examples' sizes), with their asserts; `serve_lm`'s tokens are held
+against JAX `serve()` on parameters carried across."""
+import dataclasses
 import math
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.examples import (distill_uleen_head, quickstart,  # noqa: E402
-                                  uleen_edge_pipeline)
+                                  serve_lm, uleen_edge_pipeline)
 
 CPU = "cpu"
 
@@ -49,3 +52,36 @@ def test_distill_uleen_head_learns_and_deploys(capsys):
     assert out["deployed_scores"].dtype == torch.int32
     assert len(out["losses"]) == 150
     assert all(math.isfinite(v) for v in out["losses"])
+
+
+@pytest.mark.parametrize("arch", serve_lm.ARCHS)
+def test_serve_lm_tokens_equal_jax_serve(arch, capsys):
+    """The example's synchronous batch and its stream (the example asserts
+    each request equal to `serve()` of it alone) on the JAX package's
+    parameters: the batch's tokens equal JAX `serve()`'s where JAX's
+    top-2 margin allows (`tests/test_torch_ssm.py`'s rule)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import base as jcfgs
+    from repro.launch import serve as jserve
+    from repro.models import transformer as jt
+    from repro_torch import convert
+    from test_torch_encdec import jax_greedy
+    from test_torch_ssm import assert_tokens_match
+
+    cfg = serve_lm.smoke_config(arch)
+    jc = dataclasses.replace(jcfgs.get_config(arch, smoke=True),
+                             capacity_factor=cfg.capacity_factor)
+    jp = jt.init_params(jc, jax.random.PRNGKey(0))
+    p = convert.lm_params_from_numpy(cfg, jax.tree.map(np.asarray, jp),
+                                     device=CPU)
+    prompts = serve_lm.prompts_for(cfg)
+    out = serve_lm.serve_arch(cfg, p, prompts, device=CPU)
+    assert cfg.name in capsys.readouterr().out
+    want = np.asarray(jserve.serve(jc, jp, jnp.asarray(prompts),
+                                   max_len=serve_lm.MAX_LEN, gen=16))
+    _, margins = jax_greedy(jc, jp, prompts, {}, 16, serve_lm.MAX_LEN)
+    assert out["sync"].shape == want.shape == (4, 16)
+    assert_tokens_match(out["sync"].numpy(), want, margins)
+    assert out["stats"]["requests"] == 8 and len(out["stream"]) == 8

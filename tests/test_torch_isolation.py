@@ -57,7 +57,10 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
             "repro_torch.configs.deepseek_v2_lite_16b",
             "repro_torch.models.ssm", "repro_torch.models.rglru",
             "repro_torch.configs.mamba2_2p7b",
-            "repro_torch.configs.recurrentgemma_2b"} <= set(names.split())
+            "repro_torch.configs.recurrentgemma_2b",
+            "repro_torch.configs.whisper_tiny",
+            "repro_torch.configs.internvl2_26b",
+            "repro_torch.examples.serve_lm"} <= set(names.split())
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -91,7 +94,7 @@ def _entry_points():
     from repro_torch.core import head
     from repro_torch.data import synth
     from repro_torch.examples import (distill_uleen_head, quickstart,
-                                      uleen_edge_pipeline)
+                                      serve_lm, uleen_edge_pipeline)
     from repro_torch.models import kvcache, rglru, ssm, transformer
     from repro_torch.packed import layout, runtime
     art = export.load(GOLDEN)
@@ -206,6 +209,14 @@ def _entry_points():
         "hybrid_serve_main": lambda: serve.main(["--arch",
                                                  "recurrentgemma_2b",
                                                  "--smoke"]),
+        "encdec_init_params": lambda: transformer.init_params(
+            get_config("whisper_tiny", smoke=True), torch.Generator()),
+        "init_cross_kv": lambda: kvcache.init_cross_kv(1, 2, 3, 4, layers=1),
+        "encdec_serve_main": lambda: serve.main(["--arch", "whisper_tiny",
+                                                 "--smoke"]),
+        "vlm_serve_main": lambda: serve.main(["--arch", "internvl2_26b",
+                                              "--smoke"]),
+        "serve_lm_main": lambda: serve_lm.main(),
         "loadgen_run_scenario": lambda: loadgen.run_scenario(_SCENARIO),
         "loadgen_main": lambda: loadgen.main([
             "--suite", os.path.join(REPO, "tests", "golden", "scenarios"),
@@ -236,7 +247,8 @@ _SCENARIO = {
     "distill_uleen_head_main", "init_mla_cache", "init_paged_mla_cache",
     "serve_stream", "moe_serve_main", "mla_init_params", "ssm_init_params",
     "hybrid_init_params", "init_ssm_state", "init_rg_state",
-    "hybrid_serve_main",
+    "hybrid_serve_main", "encdec_init_params", "init_cross_kv",
+    "encdec_serve_main", "vlm_serve_main", "serve_lm_main",
     "loadgen_run_scenario", "loadgen_main"])
 def test_entry_points_raise_without_a_gpu_unless_asked_for_the_cpu(name):
     _no_gpu()

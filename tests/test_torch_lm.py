@@ -372,15 +372,27 @@ def test_init_params_follows_the_jax_schema(arch):
     p = transformer.init_params(cfg, torch.Generator().manual_seed(0),
                                 device="cpu")
     jp = jt.param_shapes(jcfgs.get_config(arch, smoke=True))
-    assert p.embed.shape == jp["embed"].shape
-    assert p.lm_head.shape == jp["lm_head"].shape
+    # the same top-level tree: Whisper ties its embeddings (no lm_head)
+    # and adds pos_embed and the encoder
+    assert set(dict(p.named_children())) | set(
+        dict(p.named_parameters(recurse=False))) == set(jp)
+    for name in ("embed", "lm_head", "pos_embed"):
+        if name in jp:
+            assert getattr(p, name).shape == jp[name].shape
     # every segment and every layer of its pattern: the JAX package stacks
     # a segment of more than one repeat on a leading axis (DeepSeek's one
-    # dense layer and RecurrentGemma's tail are unstacked)
+    # dense layer and RecurrentGemma's tail are unstacked); so is
+    # Whisper's encoder, one segment of `encoder_layers` layers
     segs = transformer.arch_segments(cfg)
     assert len(p.segments) == len(jp["segments"]) == len(segs)
     assert sum(s.repeat * len(s.layers) for s in segs) == cfg.num_layers
-    for sp, seg_p, seg_j in zip(segs, p.segments, jp["segments"]):
+    pairs = list(zip(segs, p.segments, jp["segments"]))
+    if cfg.encoder_layers:
+        enc = transformer.Segment("encoder", (transformer.LayerSpec(
+            "attn", "mlp"),), cfg.encoder_layers)
+        pairs.append((enc, p.encoder.segments[0],
+                      jp["encoder"]["segments"][0]))
+    for sp, seg_p, seg_j in pairs:
         assert set(seg_j) == {f"l{i}" for i in range(len(sp.layers))}
         for name, jseg in seg_j.items():
             seg = getattr(seg_p, name)
@@ -396,9 +408,14 @@ def test_init_params_follows_the_jax_schema(arch):
                 assert (*lead, *t.shape) == leaf.shape, names
     assert transformer.param_count(p) == sum(
         int(np.prod(x.shape)) for x in jax.tree.leaves(jp))
-    # the schema's distributions: zero norm gains, 0.02 embeddings,
+    # the schema's distributions: zero norm gains (RMSNorm's 1 + scale;
+    # a layernorm's unit gains and zero biases), 0.02 embeddings,
     # fan-in-scaled projections
-    assert float(p.final_norm.scale.abs().max()) == 0.0
+    if cfg.norm == "layernorm":
+        assert float((p.final_norm.scale - 1).abs().max()) == 0.0
+        assert float(p.final_norm.bias.abs().max()) == 0.0
+    else:
+        assert float(p.final_norm.scale.abs().max()) == 0.0
     assert abs(float(p.embed.std()) - 0.02) < 0.002
     lp = p.segments[0].l0[0]
     w, fan_in = ((lp.ffn.w2, cfg.d_ff) if hasattr(lp, "ffn")

@@ -370,18 +370,18 @@ def test_port_rows_pass_diff_serve(rows, tmp_path):
 def test_run_suite_names_the_waiting_scenario(capsys, tmp_path):
     """`ssm_state` (Mamba 2) runs: its row passes the JAX `check()` and
     `scripts/diff_serve.py`. A scenario naming an architecture that still
-    waits (Whisper, item 4.4) is named and left out."""
+    waits (Qwen 1.5, item 4.5) is named and left out."""
     _yaml_or_skip()
     waiting = copy.deepcopy(BASE)
-    waiting.update(name="audio", arch="whisper_tiny")
-    src = tmp_path / "audio.json"
+    waiting.update(name="int8_cache", arch="qwen1p5_32b")
+    src = tmp_path / "int8_cache.json"
     src.write_text(json.dumps(waiting))
     doc = loadgen.run_suite([GOLDEN / "smoke_gqa.yaml",
                              GOLDEN / "ssm_state.yaml", src], verbose=False,
                             device="cpu")
     assert [r["scenario"] for r in doc["rows"]] == ["smoke_gqa", "ssm_state"]
-    assert "audio (whisper_tiny) waits for ROADMAP.md Queue 1 item 4.4" \
-        in capsys.readouterr().out
+    assert "int8_cache (qwen1p5_32b) waits for ROADMAP.md Queue 1 item " \
+        "4.5" in capsys.readouterr().out
     ssm = doc["rows"][1]
     assert ssm["arch"] == "mamba2_2p7b" and not ssm["paged"]
     assert ssm["requests"] == 5 and ssm["platform"] == "cpu"
@@ -390,8 +390,27 @@ def test_run_suite_names_the_waiting_scenario(capsys, tmp_path):
     path.write_text(json.dumps(doc))
     assert loadgen.check(str(path)) == jloadgen.check(str(path)) == 0
     assert diff_serve.main([str(path), str(path)]) == 0
-    with pytest.raises(NotImplementedError, match="4.4"):
+    with pytest.raises(NotImplementedError, match="4.5"):
         loadgen.run_scenario(waiting, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["whisper_tiny", "internvl2_26b"])
+def test_run_scenario_serves_the_encoder_and_patch_archs(arch, tmp_path):
+    """A scenario of Whisper or InternVL2 runs, paged: each request
+    carries its frames or patches (`synth_request_stream`), InternVL2's 8
+    patch rows take blocks beside the prompt, and the row passes the JAX
+    `check()`."""
+    spec = copy.deepcopy(BASE)
+    spec.update(name=arch, arch=arch)
+    row = loadgen.run_scenario(spec, verbose=False, device="cpu")
+    assert row["arch"] == arch and row["paged"] and row["requests"] == 2
+    reqs = loadgen.build_requests(get_config(arch, smoke=True), spec)
+    assert row["tokens"] == sum(r.max_new for r in reqs)
+    patches = get_config(arch, smoke=True).patch_tokens
+    assert row["peak_cache_rows"] >= max(patches + r.prompt_len + r.max_new
+                                         for r in reqs)
+    path = _write(tmp_path, {"schema": "bench_serve/v1", "rows": [row]})
+    assert loadgen.check(path) == jloadgen.check(path) == 0
 
 
 def test_main_runs_a_json_scenario_and_checks_it(tmp_path, capsys):

@@ -94,11 +94,25 @@ submodels, M = 10) and one LM path:
   first-token logits to batch-1 prefills, its tokens to a batch-1
   serve() of each request, and one decode step to a prefill over the
   prompt and its token;
+* the Qwen path: Qwen 1.5 32B at full width (d 5120, MHA 40/40 heads of
+  128 with QKV bias, d_ff 27392, vocabulary 152 064), depth cut to 12 of
+  64 layers, on its int8 KV cache: the flash kernel at its prefill shape
+  (group 1, 1024 causal); serve() on 4 x 1024; 32 requests of 128-1024
+  tokens through the contiguous Engine (8 slots) and the paged ones;
+  serve() and the contiguous Engine again on the int4 cache; the checks
+  of the patch path, the decode step against a prefill whose last row
+  reads K and V quantised and dequantised as the cache does; the decode
+  under `obs.torchhooks.profile_trace` (device busy share); and 4
+  sequences at 32,768 positions decoded on bf16, int8 and int4 caches
+  (exact pool bytes, step ms, peak memory);
+* `serve.py --profile DIR --metrics-out PATH` on Whisper tiny at full
+  size: the trace names the flash kernel, the metrics hold the card's
+  memory gauges;
 * the loadgen path: the golden scenarios `smoke_gqa`, `paged_mixed`
-  (Llama 3.2 3B), `paged_mla` (DeepSeek) and `ssm_state` (Mamba 2) at
-  full width through the port's `loadgen.run_scenario`, written to
-  `build/BENCH_serve.json`, which the port's `check()` and
-  `scripts/diff_serve.py` read.
+  (Llama 3.2 3B), `paged_mla` (DeepSeek) and `ssm_state` (Mamba 2) and
+  `int8_cache` (Qwen 1.5 at 12 of 64 layers) at full width through the
+  port's `loadgen.run_scenario`, written to `build/BENCH_serve.json`,
+  which the port's `check()` and `scripts/diff_serve.py` read.
 
 Each path resets the kernels' launch counts just before it and reads them
 just after (the sharded path in each rank process, summed over ranks). The tenant path's scoring is tensor code, as the JAX package's
@@ -846,6 +860,10 @@ FLASH_CASES = [
          kv_contiguous=True, dtype=torch.float32),
     dict(name="internvl2_prefill_b4_s1280", row="6f", path="vlm", b=4,
          h=48, hkv=8, sq=1280, sk=1280, d=128, dtype=torch.float32),
+    # 6g: Qwen 1.5's prefill, multi-head (40 KV heads for 40 query heads,
+    # group 1) at 128, causal over 1024 tokens
+    dict(name="qwen1p5_prefill_b4_s1024_mha", row="6g", path="qwen", b=4,
+         h=40, hkv=40, sq=1024, sk=1024, d=128, dtype=torch.float32),
 ]
 
 
@@ -1536,12 +1554,7 @@ def lm_profile(params, prefill, decode, prompts, top: int = 10) -> dict:
     own host overhead stretches the wall time, so the busy share of a step
     is taken against the untraced CUDA-event step time by the caller.
     "not measured" where the trace holds no device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    def device_us(evt):
-        return getattr(evt, "self_device_time_total",
-                       getattr(evt, "self_cuda_time_total", 0.0))
 
     out = {}
     for name, steps_n in (("prefill_b4_s1024", 0), ("decode_b4", 4)):
@@ -1562,22 +1575,7 @@ def lm_profile(params, prefill, decode, prompts, top: int = 10) -> dict:
             wall_us = (time.perf_counter() - t0) * 1e6
         if steps_n:
             del state
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and device_us(e) > 0]
-        if not kernels:
-            out[name] = "not measured"
-            continue
-        calls = max(steps_n, 1)
-        busy_us = sum(device_us(e) for e in kernels)
-        kernels.sort(key=device_us, reverse=True)
-        out[name] = {
-            "calls": calls, "traced_wall_ms_per_call": wall_us / calls / 1e3,
-            "device_ms_per_call": busy_us / calls / 1e3,
-            "kernel_launches_per_call": sum(e.count for e in kernels) / calls,
-            "top": [{"name": e.key[:90], "launches": e.count,
-                     "device_ms": device_us(e) / 1e3,
-                     "share": device_us(e) / busy_us}
-                    for e in kernels[:top]]}
+        out[name] = device_kernel_times(prof, max(steps_n, 1), wall_us, top)
     return out
 
 # ---------------------------------------------------------------------------
@@ -2938,7 +2936,8 @@ def recurrent_path(kernels, *, family, get_config, transformer, steps,
 
 
 # ---------------------------------------------------------------------------
-# Phase 13: the encoder-decoder and patch families
+# Phase 13: the encoder-decoder and patch families, and Qwen 1.5's
+# quantised KV cache
 # ---------------------------------------------------------------------------
 
 # Whisper tiny (`configs/whisper_tiny.py`) at full width and depth: serve()
@@ -2949,8 +2948,14 @@ def recurrent_path(kernels, *, family, get_config, transformer, steps,
 # 48 (all 48 in float32, 79.5 GB, do not fit one card beside their
 # activations): serve() on VLM_BATCH x (256 patch rows + VLM_PROMPT
 # tokens), then VLM_REQUESTS requests with their patches through both
-# engines.
-ENCDEC_ARCH, VLM_ARCH = "whisper_tiny", "internvl2_26b"
+# engines. Qwen 1.5 32B (`configs/qwen1p5_32b.py`: MHA 40/40 x 128, QKV
+# bias, its int8 KV cache) at full width, depth cut to QWEN_LAYERS of 64
+# (all 64 in float32, 141 GB, are not one card): serve() on QWEN_BATCH x
+# QWEN_PROMPT, QWEN_REQUESTS requests through the contiguous Engine and
+# the paged ones (PAGED_RUNS), then serve() and the contiguous Engine
+# again on the int4 cache.
+ENCDEC_ARCH, VLM_ARCH, QWEN_ARCH = "whisper_tiny", "internvl2_26b", \
+    "qwen1p5_32b"
 ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_GEN = 8, 224, 64
 ENCDEC_SLOTS, ENCDEC_REQUESTS = 8, 32
 ENCDEC_PROMPT_LENS, ENCDEC_GEN_LENS = (16, 32, 64, 128, 224), (16, 32, 64)
@@ -2958,36 +2963,83 @@ VLM_LAYERS = 12
 VLM_BATCH, VLM_PROMPT, VLM_GEN = 4, 1024, 32
 VLM_SLOTS, VLM_REQUESTS = 4, 8
 VLM_PROMPT_LENS, VLM_GEN_LENS = (128, 256, 512, 1024), (16, 32)
+QWEN_LAYERS = 12
+QWEN_BATCH, QWEN_PROMPT, QWEN_GEN = 4, 1024, 32
+QWEN_SLOTS, QWEN_REQUESTS, QWEN_MAX_LEN = 8, 32, 2048
+QWEN_PROMPT_LENS, QWEN_GEN_LENS = (128, 256, 512, 1024), (32,)
 PREFIX_DECODE_TIMED_STEPS = 8
 # (prefill_batch, pool) of each family's paged runs, after the contiguous
 # one; a half pool holds half the slots' worst case
 PREFIX_PAGED_RUNS = {"encdec": PAGED_RUNS,
-                     "vlm": ((1, "worst_case"), (4, "half"))}
+                     "vlm": ((1, "worst_case"), (4, "half")),
+                     "qwen": PAGED_RUNS}
 # one decode step's logits against a prefill over the prompt and the
 # token it was given whose last row attends as the decode step does (over
-# keys and values rounded to the cache's bf16, with bf16 probabilities);
-# the rows before it are the prompt's, which the decode step reads from
-# its cache. Whisper's gap is ~1e-5 to 1e-4 (its float32 prefill's
-# ~1e-3); InternVL2's 12 random 6144-wide layers turn the bf16 roundings
-# that tiny float32 differences flip into gaps up to ~3e-3 (its float32
-# prefill's ~0.03). Each limit is held against a control: the same step
-# over a cache whose row 3 of layer 0 holds row 4's keys and values must
-# miss it (~0.02 and ~0.3)
-STEP_LOGITS_TOL = {"encdec": 1e-3, "vlm": 4e-3}
+# keys and values rounded to the cache's bf16, or quantised and
+# dequantised to bf16 as the int8 / int4 cache stores and reads them,
+# with bf16 probabilities); the rows before it are the prompt's, which the
+# decode step reads from its cache. Whisper's gap is ~1e-5 to 1e-4 (its
+# float32 prefill's ~1e-3); InternVL2's 12 random 6144-wide layers turn
+# the bf16 roundings that tiny float32 differences flip into gaps up to
+# ~3e-3 (its float32 prefill's ~0.03); on Qwen's 12 layers the same
+# differences flip int8 and int4 quantisation steps (a step is 1/127 or
+# 1/7 of a token's largest value), ~2e-3 to 5e-3 (int8) and to 1.5e-2
+# (int4). Each limit is held against a control: the same step over a
+# cache whose row 3 of layer 0 holds row 4's keys and values (payloads
+# and scales) must miss it (~0.02, ~0.3, ~0.3)
+STEP_LOGITS_TOL = {"encdec": 1e-3, "vlm": 4e-3, "qwen_int8": 2e-2,
+                   "qwen_int4": 2e-2}
 
 
-def prefill_last_row_as_decode(transformer, prefill, params, batch):
+def token_margin(cfg) -> float:
+    """The top-2 margin at or above which two runs of a request must give
+    the same token: PAGED_MARGIN over a bf16 cache (float32 products
+    split otherwise move logits by ~1e-4); over a quantised cache the
+    same differences flip quantisation steps of cached keys and values,
+    which move a step's logits as far as the decode-step check allows
+    (STEP_LOGITS_TOL)."""
+    if cfg.kv_cache_dtype == "bf16":
+        return PAGED_MARGIN
+    return STEP_LOGITS_TOL[f"qwen_{cfg.kv_cache_dtype}"]
+# Qwen's long context, the reason its config quantises the cache: 4
+# slots at 32,768 positions over the QWEN_LAYERS layers, the caches
+# filled with seeded normal keys and values by `cache_write` in chunks
+# (no 32k prefill), then LONG_STEPS decode steps each for bf16, int8 and
+# int4
+LONG_SLOTS, LONG_LEN, LONG_CHUNK, LONG_STEPS = 4, 32768, 4096, 8
+QWEN_PROFILE_STEPS = 4
+
+
+def kv_bytes_per_token(cfg) -> int:
+    """Cache bytes a token over all layers: K and V of every KV head, as
+    bf16, int8 or packed int4 payloads plus a float32 scale each."""
+    hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    per_head = {"bf16": 2 * hd, "int8": hd + 4,
+                "int4": hd // 2 + 4}[cfg.kv_cache_dtype]
+    return cfg.num_layers * 2 * hkv * per_head
+
+
+def prefill_last_row_as_decode(transformer, prefill, params, batch,
+                               quant=None):
     """`prefill(params, batch)` with the last query row of every causal
     attention layer through the model's `decode_attention` over that
-    layer's keys and values rounded to bf16."""
+    layer's keys and values as the cache returns them: rounded to bf16,
+    or with `quant` ("int8" / "int4") quantised by the port's
+    `kvcache._quantize` and dequantised to bf16 as `cache_read` does."""
     attend = transformer.chunked_attention
+
+    def as_cached(t):
+        if quant is None:
+            return t.bfloat16()
+        q, scale = transformer.kvcache._quantize(t, quant)
+        return (q.float() * scale).bfloat16()
 
     def last_row_as_decode(q, k, v, *, causal, **kw):
         out = attend(q, k, v, causal=causal, **kw)
         if causal:
             b, s = k.shape[0], k.shape[2]
             out[:, :, -1:] = transformer.decode_attention(
-                q[:, :, -1:], k.bfloat16(), v.bfloat16(),
+                q[:, :, -1:], as_cached(k), as_cached(v),
                 kv_len=torch.full((b,), s, device=q.device))
         return out
     transformer.chunked_attention = last_row_as_decode
@@ -2997,15 +3049,16 @@ def prefill_last_row_as_decode(transformer, prefill, params, batch):
         transformer.chunked_attention = attend
 
 
-def decode_step_check(cfg, family, params, prefill, decode, transformer,
+def decode_step_check(cfg, tol_key, params, prefill, decode, transformer,
                       prompts, extra):
     """The first decode step after each prompt (1, S) against
-    `prefill_last_row_as_decode` over the prompt and that token, within
-    STEP_LOGITS_TOL[family], and the first prompt's step over a stale
-    cache row outside it. `extra`: the frames or patches of batch 1.
-    Returns the errors, the control's and the plain float32 prefill's
-    gaps."""
-    tol = STEP_LOGITS_TOL[family]
+    `prefill_last_row_as_decode` over the prompt and that token (in the
+    cache's dtype), within STEP_LOGITS_TOL[tol_key], and the first
+    prompt's step over a stale cache row (payload and scale) outside it.
+    `extra`: the frames or patches of batch 1. Returns the errors, the
+    control's and the plain float32 prefill's gaps."""
+    tol = STEP_LOGITS_TOL[tol_key]
+    quant = None if cfg.kv_cache_dtype == "bf16" else cfg.kv_cache_dtype
     errs, plain_errs, control = [], [], None
     for toks in prompts:
         one = {"tokens": toks, **extra}
@@ -3015,64 +3068,133 @@ def decode_step_check(cfg, family, params, prefill, decode, transformer,
             stepped = decode(params, tok, state)[0][0, -1].float()
             longer = {**one, "tokens": torch.cat([one["tokens"], tok], 1)}
             want = prefill_last_row_as_decode(transformer, prefill, params,
-                                              longer)[0][0, -1].float()
+                                              longer, quant)[0][0, -1].float()
             plain = prefill(params, longer)[0][0, -1].float()
             if control is None:
                 stale = prefill(params, one)[1]
-                c = stale.caches[0]["l0"]        # (L, B, Hkv, W, hd)
-                c.k[0, :, :, 3] = c.k[0, :, :, 4]
-                c.v[0, :, :, 3] = c.v[0, :, :, 4]
+                # (L, B, Hkv, W, X): payloads, and scales where quantised
+                for t in stale.caches[0]["l0"][:4]:
+                    if t is not None:
+                        t[0, :, :, 3] = t[0, :, :, 4]
                 got = decode(params, tok, stale)[0][0, -1].float()
                 control = float((got - want).abs().max())
         errs.append(float((stepped - want).abs().max()))
         plain_errs.append(float((stepped - plain).abs().max()))
     if max(errs) > tol:
-        raise AssertionError(f"{cfg.name}: a decode step's logits differ "
-                             f"from the prefill over prompt + token by "
-                             f"{errs} (limit {tol})")
+        raise AssertionError(f"{cfg.name} ({cfg.kv_cache_dtype} cache): a "
+                             f"decode step's logits differ from the prefill "
+                             f"over prompt + token by {errs} (limit {tol})")
     if not control > tol:
-        raise AssertionError(f"{cfg.name}: a decode step over a stale "
-                             f"cache row passes the step check ({control} "
-                             f"<= {tol})")
-    return {"prompt_lens": [t.shape[1] for t in prompts],
+        raise AssertionError(f"{cfg.name} ({cfg.kv_cache_dtype} cache): a "
+                             f"decode step over a stale cache row passes the "
+                             f"step check ({control} <= {tol})")
+    return {"kv_cache_dtype": cfg.kv_cache_dtype,
+            "prompt_lens": [t.shape[1] for t in prompts],
             "max_abs_err": errs, "tolerance": tol,
             "stale_row_control_max_abs_err": control,
             "float32_prefill_max_abs_err": plain_errs}
 
 
+def prefix_family(family, get_config):
+    """(cfg, published layers, batch, prompt, gen, slots, requests, prompt
+    lengths, gen lengths, extra input's name or None, its rows) of a
+    family of this phase."""
+    if family == "encdec":
+        cfg = get_config(ENCDEC_ARCH)
+        return (cfg, cfg.num_layers, ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_GEN,
+                ENCDEC_SLOTS, ENCDEC_REQUESTS, ENCDEC_PROMPT_LENS,
+                ENCDEC_GEN_LENS, "frames", cfg.encoder_frames)
+    arch, layers = ((VLM_ARCH, VLM_LAYERS) if family == "vlm"
+                    else (QWEN_ARCH, QWEN_LAYERS))
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=layers)
+    if family == "vlm":
+        return (cfg, full.num_layers, VLM_BATCH, VLM_PROMPT, VLM_GEN,
+                VLM_SLOTS, VLM_REQUESTS, VLM_PROMPT_LENS, VLM_GEN_LENS,
+                "patches", cfg.patch_tokens)
+    return (cfg, full.num_layers, QWEN_BATCH, QWEN_PROMPT, QWEN_GEN,
+            QWEN_SLOTS, QWEN_REQUESTS, QWEN_PROMPT_LENS, QWEN_GEN_LENS, None,
+            0)
+
+
+def run_engine_backlog(scheduler, cfg, params, reqs, *, slots, max_len, dev,
+                       pool=None, prefill_batch=1):
+    """The backlog through one Engine (contiguous for `pool` None, else
+    paged on a "half" or "worst_case" pool of PAGED_BLOCK blocks), tapped
+    (`tap_engine`), its results and stats checked; returns the run's
+    record, its tokens, first-token logits and margins included."""
+    kw = {}
+    if pool is not None:
+        per_slot = max_len // PAGED_BLOCK
+        kw = dict(paged=True, block_size=PAGED_BLOCK,
+                  prefill_batch=prefill_batch,
+                  num_blocks=1 + (slots // 2 if pool == "half" else slots)
+                  * per_slot)
+    eng = scheduler.Engine(cfg, params, slots=slots, max_len=max_len,
+                           device=dev, **kw)
+    cross_bytes = sum(t.numel() * t.element_size()
+                      for seg in eng.state.cross if seg
+                      for c in seg.values() for t in c)
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for seg in eng.state.caches for c in seg.values()
+                      for t in c if isinstance(t, torch.Tensor))
+    first_logits, margins = tap_engine(eng)
+    t0 = time.perf_counter()
+    results = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    what = (f"{cfg.name} Engine ({pool or 'contiguous'}, prefill_batch "
+            f"{prefill_batch}, {cfg.kv_cache_dtype} cache)")
+    check_results(what, results, reqs)
+    st = eng.stats()
+    if st["requests"] != len(reqs) or eng.trace_counts["decode"] != 1:
+        raise AssertionError(f"{what}: engine stats {st}")
+    if pool is not None:
+        eng.allocator.check()
+        if st["blocks_in_use"] != 0:
+            raise AssertionError(f"{what} kept blocks: {st}")
+    run = {"pool": pool or "contiguous", "prefill_batch": prefill_batch,
+           "kv_cache_dtype": cfg.kv_cache_dtype,
+           "num_blocks": kw.get("num_blocks"), "wall_s": wall,
+           "cache_bytes": cache_bytes,
+           "cross_kv_bytes_per_slot": cross_bytes // slots,
+           "prefill_launches": eng.prefill_launches,
+           "tokens": [r.tokens for r in results],
+           "first_logits": first_logits, "margins": margins,
+           **{k: st[k] for k in (
+               "tok_per_s", "latency_p50_s", "latency_p99_s",
+               "queue_wait_mean_s", "decode_steps", "peak_active",
+               "peak_blocks")},
+           "generated_tokens": st["tokens"]}
+    del eng
+    return run
+
+
 def prefix_path(kernels, *, family, get_config, transformer, steps,
                 scheduler, serve_fn, device="cuda"):
     """Whisper (`family="encdec"`: frames into the encoder, cross
-    attention at prefill and decode) or InternVL2 (`"vlm"`: patch rows
-    ahead of the prompt) with float32 parameters drawn on the card:
-    serve(); a backlog through the contiguous Engine and the paged ones;
-    flash launched once a layer a prefill (Whisper: encoder, self and
-    cross layers) and, for Whisper, once a cross layer a decode step.
-    Then, outside the counted run: the Engine's first-token logits
-    against batch-1 prefills, its tokens against a batch-1 serve() of each
-    request and one decode step against a prefill over the prompt and
-    its token. Returns the path's launches and, by its FLASH_CASES row,
-    the flash launches the run made at exactly that row's shape (counted
-    by the wrapper, `flash_attention.shapes`)."""
-    encdec = family == "encdec"
+    attention at prefill and decode), InternVL2 (`"vlm"`: patch rows
+    ahead of the prompt) or Qwen 1.5 (`"qwen"`: MHA on its int8 KV cache,
+    then int4) with float32 parameters drawn on the card: serve(); a
+    backlog through the contiguous Engine and the paged ones (Qwen: then
+    serve() and the contiguous Engine on the int4 cache); flash launched
+    once a layer a prefill (Whisper: encoder, self and cross layers) and,
+    for Whisper, once a cross layer a decode step. Then, outside the
+    counted run: the Engine's first-token logits against batch-1
+    prefills, its tokens against a batch-1 serve() of each request and
+    one decode step against a prefill over the prompt and its token
+    (Qwen: for both cache dtypes; then `qwen_extras`). Returns the path's
+    launches and, by its FLASH_CASES row, the flash launches the run made
+    at exactly that row's shape (counted by the wrapper,
+    `flash_attention.shapes`)."""
+    encdec, qwen = family == "encdec", family == "qwen"
     dev = torch.device(device)
     # the previous model's engines sit in reference cycles (`tap_engine`)
     gc.collect()
     torch.cuda.empty_cache()
-    seed = 20269 if encdec else 20270
-    if encdec:
-        cfg = get_config(ENCDEC_ARCH)
-        batch, prompt, gen_n = ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_GEN
-        slots, n_req = ENCDEC_SLOTS, ENCDEC_REQUESTS
-        plens, glens = ENCDEC_PROMPT_LENS, ENCDEC_GEN_LENS
-        name, rows = "frames", cfg.encoder_frames
-    else:
-        cfg = dataclasses.replace(get_config(VLM_ARCH),
-                                  num_layers=VLM_LAYERS)
-        batch, prompt, gen_n = VLM_BATCH, VLM_PROMPT, VLM_GEN
-        slots, n_req = VLM_SLOTS, VLM_REQUESTS
-        plens, glens = VLM_PROMPT_LENS, VLM_GEN_LENS
-        name, rows = "patches", cfg.patch_tokens
+    seed = {"encdec": 20269, "vlm": 20270, "qwen": 20271}[family]
+    (cfg, published_layers, batch, prompt, gen_n, slots, n_req, plens, glens,
+     name, rows) = prefix_family(family, get_config)
     gen = torch.Generator(device=dev).manual_seed(seed)
     t0 = time.perf_counter()
     params = transformer.init_params(cfg, gen, dtype=torch.float32,
@@ -3082,21 +3204,28 @@ def prefix_path(kernels, *, family, get_config, transformer, steps,
     rng = np.random.default_rng(seed)
     prompts = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (batch, prompt), dtype=np.int32)).to(dev)
-    inputs = {name: torch.randn((batch, rows, cfg.d_model), generator=gen,
-                                device=dev) * 0.02}
+    inputs = {} if name is None else {
+        name: torch.randn((batch, rows, cfg.d_model), generator=gen,
+                          device=dev) * 0.02}
     # patch rows take cache rows ahead of the prompt
-    max_len = -(-(cfg.patch_tokens + max(prompt + gen_n, max(plens)
-                                         + max(glens)) + 1)
-                // PAGED_BLOCK) * PAGED_BLOCK
+    max_len = QWEN_MAX_LEN if qwen else -(
+        -(cfg.patch_tokens + max(prompt + gen_n, max(plens) + max(glens))
+          + 1) // PAGED_BLOCK) * PAGED_BLOCK
     reqs = scheduler.synth_request_stream(cfg, n_req, seed=seed,
                                           prompt_lens=plens, gen_lens=glens)
     for i in range(batch):    # these requests carry serve()'s inputs
         reqs[i].tokens = prompts[i].cpu().numpy()
         reqs[i].max_new = gen_n
-        setattr(reqs[i], name, inputs[name][i].cpu().numpy())
+        for k, v in inputs.items():
+            setattr(reqs[i], k, v[i].cpu().numpy())
+
+    def inputs_of(r):
+        return {k: torch.from_numpy(getattr(r, k)[None]).to(dev)
+                for k in inputs}
+    first = {k: v[:1] for k, v in inputs.items()}
     prefill = steps.make_prefill_step(cfg, max_len=max_len)
     decode = steps.make_decode_step(cfg)
-    prefill(params, {"tokens": prompts[:1, :16], name: inputs[name][:1]})
+    prefill(params, {"tokens": prompts[:1, :16], **first})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -3110,47 +3239,26 @@ def prefix_path(kernels, *, family, get_config, transformer, steps,
                       **inputs).cpu()
     serve_s = time.perf_counter() - t0
     prefills, decodes = prefills + 1, decodes + gen_n
-    per_slot = max_len // PAGED_BLOCK
     runs = []
     for pb, pool in ((1, None), *PREFIX_PAGED_RUNS[family]):
-        kw = {}
-        if pool is not None:
-            kw = dict(paged=True, block_size=PAGED_BLOCK, prefill_batch=pb,
-                      num_blocks=1 + (slots // 2 if pool == "half" else slots)
-                      * per_slot)
-        eng = scheduler.Engine(cfg, params, slots=slots, max_len=max_len,
-                               device=dev, **kw)
-        cross_bytes = sum(t.numel() * t.element_size()
-                          for seg in eng.state.cross if seg
-                          for c in seg.values() for t in c)
-        first_logits, margins = tap_engine(eng)
+        runs.append(run_engine_backlog(scheduler, cfg, params, reqs,
+                                       slots=slots, max_len=max_len, dev=dev,
+                                       pool=pool, prefill_batch=pb))
+        prefills += runs[-1]["prefill_launches"]
+        decodes += runs[-1]["decode_steps"]
+    int4 = None
+    if qwen:                  # serve() and the contiguous Engine on int4
+        cfg4 = dataclasses.replace(cfg, kv_cache_dtype="int4")
         t0 = time.perf_counter()
-        results = eng.run(reqs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        check_results(f"{cfg.name} Engine ({pool or 'contiguous'}, "
-                      f"prefill_batch {pb})", results, reqs)
-        st = eng.stats()
-        if st["requests"] != n_req or eng.trace_counts["decode"] != 1:
-            raise AssertionError(f"{cfg.name} engine stats {st}")
-        if pool is not None:
-            eng.allocator.check()
-            if st["blocks_in_use"] != 0:
-                raise AssertionError(f"paged engine kept blocks: {st}")
-        prefills += eng.prefill_launches
-        decodes += st["decode_steps"]
-        runs.append({"pool": pool or "contiguous", "prefill_batch": pb,
-                     "num_blocks": kw.get("num_blocks"), "wall_s": wall,
-                     "cross_kv_bytes_per_slot": cross_bytes // slots,
-                     "prefill_launches": eng.prefill_launches,
-                     "tokens": [r.tokens for r in results],
-                     "first_logits": first_logits, "margins": margins,
-                     **{k: st[k] for k in (
-                         "tok_per_s", "latency_p50_s", "latency_p99_s",
-                         "queue_wait_mean_s", "decode_steps", "peak_active",
-                         "peak_blocks")},
-                     "generated_tokens": st["tokens"]})
-        del eng
+        served4 = serve_fn(cfg4, params, prompts, max_len=max_len,
+                           gen=gen_n).cpu()
+        int4 = {"cfg": cfg4, "served": served4,
+                "serve_s": time.perf_counter() - t0,
+                "run": run_engine_backlog(scheduler, cfg4, params, reqs,
+                                          slots=slots, max_len=max_len,
+                                          dev=dev)}
+        prefills += 1 + int4["run"]["prefill_launches"]
+        decodes += gen_n + int4["run"]["decode_steps"]
     seconds = time.perf_counter() - t_path
     launches = kernels.launch_counts()     # ... and ends here
     shapes = dict(kernels.flash_attention.shapes)
@@ -3185,7 +3293,7 @@ def prefix_path(kernels, *, family, get_config, transformer, steps,
     logit_err = []
     for rid, r in enumerate(reqs):
         one = {"tokens": torch.from_numpy(r.tokens[None]).to(dev),
-               name: torch.from_numpy(getattr(r, name)[None]).to(dev)}
+               **inputs_of(r)}
         with torch.inference_mode():
             want_l = prefill(params, one)[0][0, -1].float()
         err = (contiguous["first_logits"][rid] - want_l).abs()
@@ -3199,13 +3307,14 @@ def prefix_path(kernels, *, family, get_config, transformer, steps,
             raise AssertionError(f"{cfg.name} request {rid}: first token "
                                  "differs from the batch-1 prefill's")
     # the paged runs against the contiguous one: batch-1 prefill token for
-    # token, batched prefill wherever the top-2 margin is PAGED_MARGIN or
-    # more
+    # token, batched prefill wherever the top-2 margin is the cache's
+    # `token_margin` or more
+    margin = token_margin(cfg)
     for r in runs[1:]:
         differ = token_differences(r["tokens"], contiguous["tokens"],
                                    r["margins"])
         wide = [d for d in differ if r["prefill_batch"] == 1
-                or d["top2_margin"] >= PAGED_MARGIN]
+                or d["top2_margin"] >= margin]
         if wide:
             raise AssertionError(f"{cfg.name} paged Engine ({r['pool']}, "
                                  f"prefill_batch {r['prefill_batch']}): "
@@ -3216,40 +3325,44 @@ def prefix_path(kernels, *, family, get_config, transformer, steps,
     # each request through a batch-1 serve(): its decode steps at batch 1
     # where the Engine's run at `slots` rows (float32 GEMMs that cuBLAS
     # may split otherwise), so tokens are equal wherever the top-2 margin
-    # is PAGED_MARGIN or more
+    # is the cache's `token_margin` or more
     t0 = time.perf_counter()
     alone = [serve_fn(cfg, params,
                       torch.from_numpy(r.tokens[None]).to(dev),
                       max_len=max_len, gen=r.max_new,
-                      **{name: torch.from_numpy(getattr(r, name)[None])
-                         .to(dev)})[0].cpu().tolist() for r in reqs]
+                      **inputs_of(r))[0].cpu().tolist() for r in reqs]
     alone_s = time.perf_counter() - t0
     vs_serve = token_differences(contiguous["tokens"], alone,
                                  contiguous["margins"])
-    wide = [d for d in vs_serve if d["top2_margin"] >= PAGED_MARGIN]
+    wide = [d for d in vs_serve if d["top2_margin"] >= margin]
     if wide:
         raise AssertionError(f"{cfg.name}: Engine tokens differ from a "
                              f"batch-1 serve() of each request: {wide}")
     # one decode step against a prefill over the prompt and that token,
     # for serve()'s first prompt cut to each of the backlog's lengths
+    step_prompts = [prompts[:1, :n] for n in sorted(plens, reverse=True)]
     step_check = decode_step_check(
-        cfg, family, params, prefill, decode, transformer,
-        [prompts[:1, :n] for n in sorted(plens, reverse=True)],
-        {name: inputs[name][:1]})
+        cfg, f"qwen_{cfg.kv_cache_dtype}" if qwen else family, params,
+        prefill, decode, transformer, step_prompts, first)
     agreement = [float(np.mean(np.asarray(contiguous["tokens"][i])
                                == served[i].numpy())) for i in range(batch)]
+    extras = {}
+    if qwen:
+        extras = qwen_extras(cfg, int4, params, prompts, served, runs,
+                             step_prompts, decode_ms, transformer=transformer,
+                             steps=steps, dev=dev)
     for r in runs:
         del r["tokens"], r["first_logits"], r["margins"]
     hd, hkv = cfg.resolved_head_dim, cfg.num_kv_heads
     emit(f"{family}_path", model=cfg.name, layers=cfg.num_layers,
-         published_layers=get_config(ENCDEC_ARCH if encdec
-                                     else VLM_ARCH).num_layers,
+         published_layers=published_layers,
          encoder_layers=cfg.encoder_layers,
          d_model=cfg.d_model, heads=cfg.num_heads, kv_heads=hkv,
          head_dim=hd, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
          params=transformer.param_count(params), param_dtype="float32",
          init_s=init_s, max_len=max_len, input=name, input_rows=rows,
-         kv_cache_bytes_per_token=cfg.num_layers * 2 * hkv * hd * 2,
+         kv_cache_dtype=cfg.kv_cache_dtype,
+         kv_cache_bytes_per_token=kv_bytes_per_token(cfg),
          serve={"batch": batch, "prompt": prompt, "gen": gen_n,
                 "prefill_ms": prefill_ms,
                 "prefill_tok_per_s": batch * prompt / prefill_ms * 1e3,
@@ -3262,25 +3375,256 @@ def prefix_path(kernels, *, family, get_config, transformer, steps,
          engines=runs, prefill_logits_max_abs_err=logit_err,
          prefill_logits_tolerance=SAME_BATCH_LOGITS_TOL,
          engine_vs_batch1_serve={"differing_requests": vs_serve,
-                                 "margin": PAGED_MARGIN, "seconds": alone_s},
+                                 "margin": margin, "seconds": alone_s},
          step_check=step_check,
          token_agreement_vs_serve=agreement, prefill_calls=prefills,
          decode_calls=decodes, path_s=seconds,
          max_memory_allocated_gib=peak_bytes / 2 ** 30, launches=launches,
          flash_launches_at_row=at_row, flash_launches_by_shape=[
              {**dict(zip(FLASH_SHAPE_KEYS, key)), "launches": n}
-             for key, n in sorted(shapes.items())])
+             for key, n in sorted(shapes.items())], **extras)
     del params
     gc.collect()
     return launches, at_row
 
 
+def qwen_extras(cfg, int4, params, prompts, served, runs, step_prompts,
+                decode_ms, *, transformer, steps, dev):
+    """Qwen's checks and measurements past the shared ones: the int4
+    serve() and Engine (the Engine's tokens for serve()'s prompts against
+    serve()'s under the margin rule; its first-token logits equal the
+    int8 Engine's, prefill being independent of the cache's dtype; one
+    decode step against the prefill over prompt + token on int4), the
+    profiled int8 decode (`profile_trace`) and the 32k decode steps on
+    bf16, int8 and int4 caches."""
+    cfg4, run4 = int4["cfg"], int4["run"]
+    contiguous = runs[0]
+    for rid, logits in run4["first_logits"].items():
+        if not torch.equal(logits, contiguous["first_logits"][rid]):
+            raise AssertionError(f"request {rid}: the int4 Engine's "
+                                 "first-token logits differ from the int8 "
+                                 "Engine's")
+    vs_serve4 = token_differences(run4["tokens"][:QWEN_BATCH],
+                                  int4["served"].tolist(),
+                                  run4["margins"])
+    wide = [d for d in vs_serve4 if d["top2_margin"] >= token_margin(cfg4)]
+    if wide:
+        raise AssertionError(f"{cfg4.name} (int4): Engine tokens differ from "
+                             f"serve()'s: {wide}")
+    prefill4 = steps.make_prefill_step(cfg4, max_len=QWEN_MAX_LEN)
+    step_check4 = decode_step_check(
+        cfg4, "qwen_int4", params, prefill4, steps.make_decode_step(cfg4),
+        transformer, step_prompts, {})
+    agreement = [float(np.mean(np.asarray(run4["tokens"][i])
+                               == int4["served"][i].numpy()))
+                 for i in range(QWEN_BATCH)]
+    int8_vs_int4 = [float(np.mean(np.asarray(a) == np.asarray(b)))
+                    for a, b in zip(contiguous["tokens"], run4["tokens"])]
+    del run4["tokens"], run4["first_logits"], run4["margins"]
+    profile = qwen_profile(cfg, params, prompts, decode_ms,
+                           transformer=transformer, steps=steps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    long = [long_context_decode(cfg, params, quant, transformer=transformer,
+                                steps=steps, dev=dev)
+            for quant in ("bf16", "int8", "int4")]
+    return {"int4": {"serve_s": int4["serve_s"],
+                     "serve_tok_per_s": QWEN_BATCH * QWEN_GEN
+                     / int4["serve_s"],
+                     "engine": run4,
+                     "engine_vs_serve": {"differing_requests": vs_serve4,
+                                         "margin": token_margin(cfg4)},
+                     "token_agreement_vs_serve": agreement,
+                     "token_agreement_vs_int8_engine": int8_vs_int4,
+                     "step_check": step_check4,
+                     "kv_cache_bytes_per_token": kv_bytes_per_token(cfg4)},
+            "int8_served_equals_int4_served_share": float(
+                (served == int4["served"]).float().mean()),
+            "profile": profile, "long_context": long}
+
+
+def device_kernel_times(prof, calls: int, wall_us: float,
+                        top: int = 10):
+    """The device kernels of a `torch.profiler` trace summed by name: the
+    device time per call, launches per call and the `top` kernels; "not
+    measured" where the trace holds no device time. Kernels run on one
+    stream, so their times do not overlap."""
+    from torch.autograd import DeviceType
+
+    def device_us(evt):
+        return getattr(evt, "self_device_time_total",
+                       getattr(evt, "self_cuda_time_total", 0.0))
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and device_us(e) > 0]
+    if not kernels:
+        return "not measured"
+    busy_us = sum(device_us(e) for e in kernels)
+    kernels.sort(key=device_us, reverse=True)
+    return {
+        "calls": calls, "traced_wall_ms_per_call": wall_us / calls / 1e3,
+        "device_ms_per_call": busy_us / calls / 1e3,
+        "kernel_launches_per_call": sum(e.count for e in kernels) / calls,
+        "top": [{"name": e.key[:90], "launches": e.count,
+                 "device_ms": device_us(e) / 1e3,
+                 "share": device_us(e) / busy_us}
+                for e in kernels[:top]]}
+
+
+def qwen_profile(cfg, params, prompts, decode_ms, *, transformer, steps):
+    """QWEN_PROFILE_STEPS decode steps of serve()'s batch on the int8
+    cache under `obs.torchhooks.profile_trace` (a Chrome trace under the
+    git-ignored build/): the device time a step, its busy share of the
+    untraced CUDA-event step time, and the trace file."""
+    from repro_torch.obs import torchhooks
+    prefill = steps.make_prefill_step(cfg, max_len=QWEN_MAX_LEN)
+    decode = steps.make_decode_step(cfg)
+    _, state = prefill(params, {"tokens": prompts})
+    tok = torch.zeros((prompts.shape[0], 1), dtype=torch.int32,
+                      device=prompts.device)
+    log_dir = ROOT / "build" / "qwen_decode_trace"
+    for old in log_dir.glob("trace_*.json"):
+        old.unlink()
+    torch.cuda.synchronize()
+    with torchhooks.profile_trace(log_dir) as prof:
+        t0 = time.perf_counter()
+        for _ in range(QWEN_PROFILE_STEPS):
+            _, state = decode(params, tok, state)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    del state
+    out = device_kernel_times(prof, QWEN_PROFILE_STEPS, wall_us)
+    traces = sorted(log_dir.glob("trace_*.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"profile_trace wrote {traces}")
+    if isinstance(out, dict):
+        out["device_busy_share_of_untraced_step"] = (
+            out["device_ms_per_call"] / float(np.median(decode_ms)))
+    return {"decode_b4_int8": out,
+            "trace": str(traces[0].relative_to(ROOT)),
+            "trace_bytes": traces[0].stat().st_size}
+
+
+def long_context_decode(cfg, params, quant, *, transformer, steps, dev):
+    """LONG_SLOTS sequences at LONG_LEN positions on a `quant` cache: the
+    caches filled by `kvcache.cache_write` with seeded normal keys and
+    values, LONG_CHUNK positions at a time; then one warm-up and
+    LONG_STEPS CUDA-event timed decode steps up to the last position.
+    The cache's bytes must be exactly its shapes' (`kv_bytes_per_token`)."""
+    kvcache = transformer.kvcache
+    cfg_q = dataclasses.replace(cfg, kv_cache_dtype=quant)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = steps.serve_state_zeros(cfg_q, params, LONG_SLOTS, LONG_LEN)
+    seg = state.caches[0]["l0"]
+    gen = torch.Generator(device=dev).manual_seed(20272)
+    hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for li in range(cfg.num_layers):
+            lay = seg.layer(li)
+            for lo in range(0, LONG_LEN, LONG_CHUNK):
+                k, v = (torch.randn((LONG_SLOTS, hkv, LONG_CHUNK, hd),
+                                    generator=gen, device=dev)
+                        for _ in range(2))
+                kvcache.cache_write(lay, k, v, torch.arange(
+                    lo, lo + LONG_CHUNK, device=dev))
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    cache_bytes = sum(t.numel() * t.element_size() for t in seg[:4]
+                      if t is not None)
+    want = LONG_SLOTS * LONG_LEN * kv_bytes_per_token(cfg_q)
+    if cache_bytes != want:
+        raise AssertionError(f"{quant} cache of {cache_bytes} bytes, not "
+                             f"{want}")
+    decode = steps.make_decode_step(cfg_q)
+    state = state._replace(pos=torch.full(
+        (LONG_SLOTS,), LONG_LEN - LONG_STEPS - 1, dtype=torch.int32,
+        device=dev))
+    tok = torch.zeros((LONG_SLOTS, 1), dtype=torch.int32, device=dev)
+    logits, state = decode(params, tok, state)          # warm-up
+    ms = []
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for _ in range(LONG_STEPS):
+        a.record()
+        logits, state = decode(params, tok, state)
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+    if int(state.pos[0]) != LONG_LEN or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"{quant} long-context decode: pos "
+                             f"{state.pos.tolist()}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    peak = torch.cuda.max_memory_allocated()
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in params.parameters())
+    del state, seg, logits
+    return {"kv_cache_dtype": quant, "slots": LONG_SLOTS,
+            "positions": LONG_LEN, "cache_bytes": cache_bytes,
+            "fill_s": fill_s, "decode_ms_per_step": ms,
+            "decode_ms_per_step_median": float(np.median(ms)),
+            "bytes_bound_ms": (weight_bytes + cache_bytes)
+            / HBM_BYTES_PER_S * 1e3,
+            "max_memory_allocated_gib": peak / 2 ** 30}
+
+
+def serve_profile_path(kernels, serve_mod, device="cuda"):
+    """`serve.main` on Whisper tiny at full size with `--profile DIR` and
+    `--metrics-out PATH` under the git-ignored build/: the trace names a
+    kernel of the flash extension and the metrics hold the card's memory
+    gauges (`obs.torchhooks.record_device_memory`). Returns the run's
+    launches."""
+    import contextlib
+    import io
+    out_dir = ROOT / "build" / "serve_profile"
+    trace_dir, metrics = out_dir / "trace", out_dir / "METRICS.json"
+    for old in trace_dir.glob("trace_*.json"):
+        old.unlink()
+    kernels.reset_launch_counts()          # the run starts here
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_mod.main(["--arch", ENCDEC_ARCH, "--batch", "4",
+                             "--prompt-len", "224", "--gen", "16",
+                             "--device", device, "--profile", str(trace_dir),
+                             "--metrics-out", str(metrics)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernels.launch_counts()     # ... and ends here
+    traces = sorted(trace_dir.glob("trace_*.json"))
+    if rc or len(traces) != 1:
+        raise AssertionError(f"serve.main --profile: rc {rc}, traces "
+                             f"{traces}")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    flash = sorted({e["name"] for e in events
+                    if e.get("cat") == "kernel" and "flash" in e["name"]})
+    if not flash:
+        raise AssertionError("the --profile trace names no flash kernel")
+    gauges = json.loads(metrics.read_text())["gauges"]
+    want = {f"torch.cuda0.{g}" for g in ("bytes_allocated", "bytes_reserved",
+                                        "live_blocks")}
+    if not want <= set(gauges) or not gauges["torch.cuda0.bytes_allocated"]:
+        raise AssertionError(f"--metrics-out gauges {sorted(gauges)}")
+    if not launches["flash_attention"]:
+        raise AssertionError("serve.main --profile never launched flash")
+    emit("serve_profile", argv_arch=ENCDEC_ARCH, seconds=seconds,
+         trace=str(traces[0].relative_to(ROOT)),
+         trace_bytes=traces[0].stat().st_size, trace_events=len(events),
+         flash_kernels=flash,
+         gauges={k: gauges[k] for k in sorted(want)},
+         stdout=buf.getvalue().strip().splitlines(), launches=launches)
+    return launches
+
+
 # ---------------------------------------------------------------------------
-# Phase 14: the golden load scenarios through the port's loadgen
+# Phase 14: the load scenarios through the port's loadgen
 # ---------------------------------------------------------------------------
 
-# `tests/golden/scenarios/*.yaml` as dicts: the card has no pyyaml
-# (`tests/test_torch_loadgen.py` holds them equal to the files' parse)
+# `tests/golden/scenarios/*.yaml` as dicts, and Qwen 1.5's `int8_cache`:
+# the card has no pyyaml (`tests/test_torch_loadgen.py` holds them equal
+# to the files' parse)
 LOADGEN_SCENARIOS = {
     "smoke_gqa": {
         "schema": "scenario/v1", "name": "smoke_gqa", "arch": "llama3p2_3b",
@@ -3314,17 +3658,28 @@ LOADGEN_SCENARIOS = {
                      "arrival": {"process": "uniform", "rate": 32.0},
                      "prompt_lens": [8, 16], "gen_lens": [4, 8]},
         "slo": {"p99_latency_s": 120.0}},
+    # Qwen 1.5 on its int8 cache, paged with batched prefill (no golden
+    # file: the JAX suite globs that directory)
+    "int8_cache": {
+        "schema": "scenario/v1", "name": "int8_cache", "arch": "qwen1p5_32b",
+        "engine": {"slots": 4, "max_len": 64, "paged": True,
+                   "block_size": 8, "prefill_batch": 2},
+        "workload": {"requests": 8, "seed": 4,
+                     "arrival": {"process": "poisson", "rate": 64.0},
+                     "prompt_lens": [8, 16, 32], "gen_lens": [4, 8, 16]},
+        "slo": {"p99_latency_s": 120.0}},
 }
-# golden scenarios whose architecture waits for its ROADMAP item: none
-LOADGEN_WAITING: dict = {}
+# scenarios whose model's published depth one card cannot hold, with the
+# depth they run at (their width kept): Qwen 1.5 32B as in `qwen_path`
+LOADGEN_LAYERS = {"int8_cache": 12}
 
 
 def loadgen_path(kernels, loadgen, device="cuda"):
     """LOADGEN_SCENARIOS through the port's `run_scenario` at full width
-    (`smoke=False`), on the card; the rows as a bench_serve/v1 file under
-    the git-ignored build/, which the port's `check()` accepts and
-    `scripts/diff_serve.py` reads (the file against itself). Returns the
-    path's launches."""
+    (`smoke=False`; the depth of LOADGEN_LAYERS), on the card; the rows
+    as a bench_serve/v1 file under the git-ignored build/, which the
+    port's `check()` accepts and `scripts/diff_serve.py` reads (the file
+    against itself). Returns the path's launches."""
     kernels.reset_launch_counts()          # the loadgen run starts here
     rows, seconds = [], {}
     for name, spec in LOADGEN_SCENARIOS.items():
@@ -3333,7 +3688,8 @@ def loadgen_path(kernels, loadgen, device="cuda"):
             raise AssertionError(f"scenario {name}: {defects}")
         t0 = time.perf_counter()
         rows.append(loadgen.run_scenario(spec, smoke=False, verbose=False,
-                                         device=device))
+                                         device=device,
+                                         layers=LOADGEN_LAYERS.get(name)))
         torch.cuda.synchronize()
         seconds[name] = time.perf_counter() - t0
         gc.collect()
@@ -3370,8 +3726,7 @@ def loadgen_path(kernels, loadgen, device="cuda"):
          bench=str(path.relative_to(ROOT)), check_rc=rc,
          diff_serve_rc=diff.returncode,
          diff_serve=diff.stdout.strip().splitlines()[-1:],
-         waiting={k: f"ROADMAP.md Queue 1 item {v}"
-                  for k, v in LOADGEN_WAITING.items()},
+         layers=LOADGEN_LAYERS,
          launches=launches)
     return launches
 
@@ -3423,6 +3778,7 @@ def main() -> int:
     from repro_torch.launch import loadgen
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch import scheduler, steps
+    from repro_torch.launch import serve as serve_mod
     from repro_torch.launch.scheduler import WnnBatcher, WnnTenantBatcher
     from repro_torch.launch.serve import serve as lm_serve
     from repro_torch.models import layers, moe, rglru, ssm, transformer
@@ -3525,8 +3881,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     vlm_launches, vlm_at_row = prefix_path(kernels, family="vlm",
                                            **prefix_kw)
+    torch.cuda.empty_cache()
+    qwen_launches, qwen_at_row = prefix_path(kernels, family="qwen",
+                                             **prefix_kw)
     for _, row in flash_path_rows:
-        row["launches"] = {**at_row, **vlm_at_row}[row["row"]]
+        row["launches"] = {**at_row, **vlm_at_row,
+                           **qwen_at_row}[row["row"]]
+    torch.cuda.empty_cache()
+    profile_launches = serve_profile_path(kernels, serve_mod)
+    gc.collect()
     torch.cuda.empty_cache()
     loadgen_launches = loadgen_path(kernels, loadgen)
     torch.cuda.empty_cache()
@@ -3537,9 +3900,10 @@ def main() -> int:
                "moe": moe_launches, "mla": mla_launches,
                "ssm": ssm_launches, "hybrid": hybrid_launches,
                "encdec": encdec_launches, "vlm": vlm_launches,
+               "qwen": qwen_launches, "serve_profile": profile_launches,
                "loadgen": loadgen_launches}
-    # the flash kernel's rows at the MoE, hybrid, encoder-decoder and
-    # patch paths' shapes, each with the launches its path's run made at
+    # the flash kernel's rows at the MoE, hybrid, encoder-decoder, patch
+    # and Qwen paths' shapes, each with the launches its path's run made at
     # exactly that shape and all of its path's flash launches
     flash_shapes = [
         {"path": path, "case": row["case"], "row": row["row"],

@@ -82,7 +82,7 @@ class ArchConfig:
                                     # when heads divide `model` (§Perf it.8)
 
     # serving
-    kv_cache_dtype: str = "bf16"    # bf16 | int8 (quantised cache)
+    kv_cache_dtype: str = "bf16"    # bf16 | int8 | int4 (quantised cache)
     kv_shard: str = "heads"         # heads | seq (context-parallel cache)
 
     # sub-quadratic? (controls long_500k applicability)
@@ -164,32 +164,23 @@ class ArchConfig:
         return "attn"
 
 
-# The architectures the port runs: the dense full-attention models, the
-# MoE family (Mixtral with sliding-window attention, DeepSeek-V2-Lite with
-# MLA), Mamba 2 (SSD), the RecurrentGemma hybrid (RG-LRU with local MQA),
-# Whisper (encoder-decoder: an encoder over audio frames, cross attention,
-# learned positions) and InternVL2 (patch rows ahead of the prompt), all
-# with a bf16 KV cache where they have one; in the JAX zoo's order. The
-# rest of the JAX package's zoo (qwen1p5_32b) waits for its slice
-# (ROADMAP.md, Queue 1 item 4.5).
-ARCH_IDS = ["whisper_tiny", "mamba2_2p7b", "qwen2p5_14b", "llama3p2_3b",
-            "minitron_8b", "internvl2_26b", "recurrentgemma_2b",
-            "deepseek_v2_lite_16b", "mixtral_8x7b"]
-# The rest of the zoo, each with the ROADMAP.md Queue 1 item that ports
-# it: a scenario spec may name them (`launch/loadgen.py` validates against
-# the whole zoo); `get_config` refuses them naming the item.
-WAITING_ARCH_IDS = {"qwen1p5_32b": "4.5"}
+# The zoo, in the JAX package's order: the dense full-attention models
+# (Qwen 1.5 with its int8 KV cache), the MoE family (Mixtral with
+# sliding-window attention, DeepSeek-V2-Lite with MLA), Mamba 2 (SSD), the
+# RecurrentGemma hybrid (RG-LRU with local MQA), Whisper (encoder-decoder:
+# an encoder over audio frames, cross attention, learned positions) and
+# InternVL2 (patch rows ahead of the prompt).
+ARCH_IDS = [
+    "whisper_tiny", "mamba2_2p7b", "qwen2p5_14b", "llama3p2_3b",
+    "minitron_8b", "qwen1p5_32b", "internvl2_26b", "recurrentgemma_2b",
+    "deepseek_v2_lite_16b", "mixtral_8x7b",
+]
 
-_ALIASES = {i.replace("_", "-"): i for i in [*ARCH_IDS, *WAITING_ARCH_IDS]}
+_ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
 
 
 def get_config(arch: str, smoke: bool = False) -> ArchConfig:
     arch = _ALIASES.get(arch, arch)
-    if arch not in ARCH_IDS:
-        item = WAITING_ARCH_IDS.get(arch, "4")
-        raise NotImplementedError(
-            f"architecture {arch!r} is not ported yet (ROADMAP.md, Queue 1 "
-            f"item {item}); the port runs {ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{arch}")
     return mod.SMOKE if smoke else mod.CONFIG
 

@@ -18,11 +18,10 @@ JAX package's keys and types, so `scripts/diff_serve.py` and the JAX
         --check build/BENCH_serve.json
 
 Without `--device` the scenarios run on the GPU, and raise when there is
-none; `--full` takes the published configs instead of the smoke ones.
-YAML specs need `pyyaml`; JSON specs never do. A scenario may name any
-architecture of the zoo; one the port does not run yet raises
-`NotImplementedError` naming its ROADMAP item when it is run, and
-`--suite` names it and leaves it out.
+none; `--full` takes the published configs instead of the smoke ones
+(`run_scenario(layers=)` cuts a published depth one card cannot hold,
+its width kept). YAML specs need `pyyaml`; JSON specs never do. A
+scenario may name any architecture of the zoo.
 
 Differences from the JAX module: parameters are drawn from a
 `torch.Generator` seeded 0 on the device (not `PRNGKey(0)`), so rows agree
@@ -110,10 +109,8 @@ def _is_number(v) -> bool:
 def validate_scenario(spec) -> List[str]:
     """Every `scenario/v1` defect in `spec` (an empty list: valid), all at
     once, so a malformed spec reports everything wrong with it. `arch`
-    may be any architecture of the zoo, ported or waiting for its
-    slice."""
-    from repro_torch.configs.base import ARCH_IDS, WAITING_ARCH_IDS
-    zoo = [*ARCH_IDS, *WAITING_ARCH_IDS]
+    may be any architecture of the zoo."""
+    from repro_torch.configs.base import ARCH_IDS as zoo
     out: List[str] = []
     if not isinstance(spec, dict):
         return [f"spec must be a mapping, got {type(spec).__name__}"]
@@ -257,10 +254,13 @@ def evaluate_slo(slo: dict, row: dict) -> dict:
 
 
 def run_scenario(spec: dict, *, smoke: bool = True, verbose: bool = True,
-                 device=DEFAULT_DEVICE) -> dict:
+                 device=DEFAULT_DEVICE, layers=None) -> dict:
     """Drive one validated scenario through the stream engine on `device`
     (all requests queued at once: `realtime=False`); returns its
-    bench_serve/v1 row."""
+    bench_serve/v1 row. `layers`: the model's depth, where it must be cut
+    below the config's (its width kept)."""
+    import dataclasses
+
     import torch
 
     from repro_torch.configs.base import get_config
@@ -270,6 +270,8 @@ def run_scenario(spec: dict, *, smoke: bool = True, verbose: bool = True,
 
     dev = resolve_device(device)
     cfg = get_config(spec["arch"], smoke=smoke)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=int(layers))
     eng_spec = spec["engine"]
     gen = torch.Generator(device=dev).manual_seed(0)
     params = transformer.init_params(cfg, gen, dtype=torch.float32,
@@ -321,18 +323,10 @@ def run_scenario(spec: dict, *, smoke: bool = True, verbose: bool = True,
 
 def run_suite(paths, *, smoke: bool = True, verbose: bool = True,
               device=DEFAULT_DEVICE) -> dict:
-    """Run every scenario file; returns the BENCH_serve document. A
-    scenario whose architecture waits for its slice of the port is named
-    with its ROADMAP item and left out of the document."""
-    from repro_torch.configs.base import WAITING_ARCH_IDS
+    """Run every scenario file; returns the BENCH_serve document."""
     rows = []
     for p in paths:
         spec = load_scenario(p)
-        if spec["arch"] in WAITING_ARCH_IDS:
-            print(f"[loadgen] scenario {spec['name']} ({spec['arch']}) "
-                  f"waits for ROADMAP.md Queue 1 item "
-                  f"{WAITING_ARCH_IDS[spec['arch']]}: not run")
-            continue
         if verbose:
             print(f"[loadgen] scenario {spec['name']} ({spec['arch']}) "
                   f"from {p}")

@@ -23,6 +23,9 @@ they free up mid-decode.
         --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2_26b \\
         --smoke --device cpu --stream --paged
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1p5_32b \\
+        --smoke --device cpu --stream --paged --profile build/trace \\
+        --metrics-out build/METRICS.json
 
 Without `--device` it runs on the GPU, and raises when there is none.
 Whisper's requests carry (F, D) encoder frames and InternVL2's (P, D)
@@ -30,8 +33,11 @@ patch rows, normal x 0.02: one batch draws them from a generator on the
 device, a stream with its requests (`synth_request_stream`); the patch
 rows count in `max_len`.
 `--paged` serves the stream from block-granular KV pools (`--block-size`,
-`--num-blocks`, `--prefill-batch`). `--profile` waits for its item in
-ROADMAP.md (Queue 1 item 4.8).
+`--num-blocks`, `--prefill-batch`). Qwen 1.5 serves from its int8 KV
+cache (`kv_cache_dtype` of its config). `--profile DIR` wraps the run in
+a `torch.profiler` trace written into DIR (`obs.torchhooks.profile_trace`);
+`--metrics-out PATH` writes the run's metrics, the card's memory gauges
+(`obs.torchhooks.record_device_memory`) among them.
 """
 from __future__ import annotations
 
@@ -48,6 +54,7 @@ from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.launch import steps
 from repro_torch.models import transformer
 from repro_torch.obs import registry as obs_registry
+from repro_torch.obs import torchhooks
 from repro_torch.obs.metrics import fmt_seconds as _fmt_s
 
 
@@ -156,6 +163,10 @@ def main(argv=None) -> int:
     ap.add_argument("--prefill-batch", type=int, default=1,
                     help="[--paged] admit up to this many same-bucket "
                          "requests in one batched prefill launch")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="wrap the run in a torch.profiler trace (host and "
+                         "CUDA activities) written into DIR as a Chrome "
+                         "trace (Perfetto viewable)")
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="write an obsmetrics/v1 METRICS.json snapshot of "
                          "the run (latency histograms, shape counters, "
@@ -217,8 +228,10 @@ def main(argv=None) -> int:
         rec = None
         if args.metrics_out:
             rec = stack.enter_context(obs_registry.recording())
+        stack.enter_context(torchhooks.profile_trace(args.profile))
         rc = _run()
         if rec is not None:
+            torchhooks.record_device_memory(rec)
             rec.write(args.metrics_out)
             print(f"[serve] metrics: {len(rec.spans)} spans, "
                   f"{sum(c.value for c in rec.counters.values())} counter "

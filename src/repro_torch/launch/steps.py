@@ -85,8 +85,8 @@ def write_state_slot(full, one, index):
 
     Every tensor of the batch-1 tree is copied into the batch-wide tree
     along the one axis where their shapes differ (the batch axis: 0 for
-    pos, 1 for the (L, B, ...) caches, SSM / RG-LRU states and cross
-    keys and values). Equal
+    pos, 1 for the (L, B, ...) caches and their (L, B, Hkv, W, 1) scales,
+    SSM / RG-LRU states and cross keys and values). Equal
     shapes mean a single-slot engine: the row is the whole state."""
     index = int(index)
     for f, o in zip(_leaves(full), _leaves(one), strict=True):
@@ -182,7 +182,9 @@ def _state_row(state, j: int):
     batch axis (behind the layer axis of the stacked caches, states and
     cross keys and values)."""
     def row(c):
-        return type(c)(*(None if x is None else x[:, j:j + 1] for x in c))
+        # tensors sliced; a cache's `quant` tag (a str or None) kept
+        return type(c)(*(x[:, j:j + 1] if isinstance(x, torch.Tensor) else x
+                         for x in c))
 
     def rows(segs):
         return [None if seg is None else
@@ -238,8 +240,9 @@ def paged_serve_state_zeros(cfg: ArchConfig, params, slots: int,
                             num_blocks: int) -> transformer.ServeState:
     """`serve_state_zeros` with every full-width attention cache replaced
     by a shared block pool with no batch axis: (L, Hkv, num_blocks,
-    block_size, hd) bf16 for GQA, (L, num_blocks, block_size, r) float32
-    and (..., rd) bf16 for MLA. Windowed (`local`) caches and the SSM and
+    block_size, hd) in `cfg.kv_cache_dtype` for GQA (a quantised pool with
+    its (L, Hkv, num_blocks, block_size, 1) float32 scales), (L,
+    num_blocks, block_size, r) float32 and (..., rd) bf16 for MLA. Windowed (`local`) caches and the SSM and
     RG-LRU states stay contiguous per slot, already bounded by their
     window or O(1) a sequence, so a sliding-window model (Mixtral), Mamba 2
     and RecurrentGemma have no pool at all, as in the JAX package: their

@@ -31,7 +31,15 @@ values of its cross-attention layers over the encoder's output:
 `CrossKV` ([L,] B, Hkv, F, hd) in the parameters' dtype, written once by
 the prefill and read by every decode step.
 
-The int8/int4 quantised cache (ROADMAP Queue 1 item 4.5) is not ported.
+Quantised caches (`kv_cache_dtype` "int8" or "int4", Qwen 1.5) store
+integer payloads with a float32 scale per token and head, ([L,] B, Hkv, W,
+1) or ([L,] Hkv, NB, BS, 1) in a pool, as the JAX package does: a write
+quantises (`_quantize`: scale = max|x| / qmax + 1e-8, q = round(x / scale)
+clipped to ±qmax, qmax 127 or 7), a read dequantises as
+(q.float() * scale).to(dtype). PyTorch has no int4 dtype: an int4 payload
+holds two values a byte along hd, ([L,] ..., hd / 2) int8, so it takes
+half the int8 payload's bytes on the card; `AttnCache.quant` and
+`PagedAttnCache.quant` name the payload's kind ("int8", "int4" or None).
 """
 from __future__ import annotations
 
@@ -41,20 +49,24 @@ import torch
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 
-_QUANTISED_TODO = ("the int8/int4 KV cache is not ported yet (ROADMAP.md, "
-                   "Queue 1 item 4.5: the int8/int4 KV cache, Qwen 1.5)")
+QMAX = {"int8": 127.0, "int4": 7.0}
 
 
 class AttnCache(NamedTuple):
-    k: torch.Tensor                   # ([L,] B, Hkv, W, hd) bf16
-    v: torch.Tensor
-    k_scale: Optional[torch.Tensor] = None    # int8 caches only (not ported)
-    v_scale: Optional[torch.Tensor] = None
+    k: torch.Tensor                   # ([L,] B, Hkv, W, hd) bf16 or int8,
+    v: torch.Tensor                   # ([L,] B, Hkv, W, hd / 2) int8 (int4)
+    k_scale: Optional[torch.Tensor] = None    # ([L,] B, Hkv, W, 1) float32
+    v_scale: Optional[torch.Tensor] = None    # when quantised
+    quant: Optional[str] = None       # "int8" | "int4" | None (bf16)
 
     def layer(self, i: int) -> "AttnCache":
-        """Layer i's view of a stacked ([L, ...]) cache; writes through it
-        land in the stacked tensors."""
-        return AttnCache(self.k[i], self.v[i])
+        """Layer i's view of a stacked ([L, ...]) cache, scales included;
+        writes through it land in the stacked tensors."""
+        return AttnCache(*_layer_views(self, i), quant=self.quant)
+
+
+def _layer_views(cache, i: int) -> list:
+    return [None if t is None else t[i] for t in cache[:4]]
 
 
 class CrossKV(NamedTuple):
@@ -79,37 +91,101 @@ def init_cross_kv(batch: int, kv_heads: int, frames: int, head_dim: int, *,
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
 
+def _zeros(shape: tuple, head_dim: int, dtype: str, device):
+    """(k, v, k_scale, v_scale, quant) zeros of a cache or pool whose
+    token rows have `shape` (all but hd): bf16 payloads, or int8 payloads
+    (hd / 2 wide for int4) with float32 scales."""
+    device = resolve_device(device)
+    if dtype == "bf16":
+        return (torch.zeros((*shape, head_dim), dtype=torch.bfloat16,
+                            device=device),
+                torch.zeros((*shape, head_dim), dtype=torch.bfloat16,
+                            device=device), None, None, None)
+    if dtype not in QMAX:
+        raise ValueError(f"kv_cache_dtype must be bf16, int8 or int4, got "
+                         f"{dtype!r}")
+    if dtype == "int4" and head_dim % 2:
+        raise ValueError(f"an int4 cache packs two values a byte: head dim "
+                         f"{head_dim} is odd")
+    width = head_dim // 2 if dtype == "int4" else head_dim
+
+    def z(last, dt):
+        return torch.zeros((*shape, last), dtype=dt, device=device)
+    return (z(width, torch.int8), z(width, torch.int8),
+            z(1, torch.float32), z(1, torch.float32), dtype)
+
+
 def init_attn_cache(batch: int, kv_heads: int, window: int, head_dim: int,
                     dtype: str = "bf16", *, layers: Optional[int] = None,
                     device=DEFAULT_DEVICE) -> AttnCache:
-    """Zero cache (B, Hkv, W, hd) bf16, or (L, B, Hkv, W, hd) with
-    `layers`, on `device` (the card unless the caller asks for the CPU).
-    Only dtype="bf16" is ported."""
-    if dtype != "bf16":
-        raise NotImplementedError(f"kv_cache_dtype={dtype!r}: "
-                                  + _QUANTISED_TODO)
-    device = resolve_device(device)
-    shape = (batch, kv_heads, window, head_dim)
+    """Zero cache (B, Hkv, W, hd), or (L, B, Hkv, W, hd) with `layers`, on
+    `device` (the card unless the caller asks for the CPU): bf16, or
+    dtype "int8" / "int4" payloads (hd / 2 wide for int4) with float32
+    scales (..., W, 1)."""
+    shape = (batch, kv_heads, window)
     if layers is not None:
         shape = (layers, *shape)
-    return AttnCache(
-        k=torch.zeros(shape, dtype=torch.bfloat16, device=device),
-        v=torch.zeros(shape, dtype=torch.bfloat16, device=device))
+    return AttnCache(*_zeros(shape, head_dim, dtype, device))
 
 
-def _check_unquantised(cache: AttnCache) -> None:
-    if cache.k_scale is not None:
-        raise NotImplementedError(_QUANTISED_TODO)
+def _quantize(x: torch.Tensor, quant: str = "int8"):
+    """(q, scale): q = round(x / scale) clipped to ±qmax, int8 (one value
+    an element, before any packing), scale = max|x| / qmax + 1e-8 over
+    the last axis, float32 (..., 1); the JAX package's `_quantize`."""
+    qmax = QMAX[quant]
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    # qmax as a tensor: CUDA turns division by a Python scalar into a
+    # product with its reciprocal, which rounds otherwise
+    scale = amax / torch.full_like(amax, qmax) + 1e-8
+    q = torch.round(xf / scale).clamp_(-qmax, qmax).to(torch.int8)
+    return q, scale
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """(..., hd) int8 values in [-8, 7] -> (..., hd / 2) int8: value 2j in
+    the low nibble of byte j, value 2j + 1 in the high one."""
+    lo, hi = q[..., 0::2], q[..., 1::2]
+    return (lo & 0x0F) | (hi << 4)
+
+
+def unpack_int4(p: torch.Tensor) -> torch.Tensor:
+    """`pack_int4`'s inverse: arithmetic shifts sign-extend each nibble."""
+    lo = (p << 4) >> 4
+    hi = p >> 4
+    return torch.stack([lo, hi], dim=-1).flatten(-2)
+
+
+def _encode(cache, x: torch.Tensor):
+    """x in the cache's storage: (payload, scale), scale None for bf16."""
+    if cache.quant is None:
+        return x.to(cache.k.dtype), None
+    q, scale = _quantize(x, cache.quant)
+    return (pack_int4(q) if cache.quant == "int4" else q), scale
+
+
+def _decode(quant: Optional[str], payload: torch.Tensor,
+            scale: Optional[torch.Tensor], dtype) -> torch.Tensor:
+    """Stored values in `dtype`: bf16 payloads cast (no copy when already
+    `dtype`), quantised ones (q.float() * scale).to(dtype), the JAX
+    package's dequantisation order."""
+    if quant is None:
+        return payload.to(dtype)
+    q = unpack_int4(payload) if quant == "int4" else payload
+    return (q.float() * scale).to(dtype)
 
 
 def cache_write(cache: AttnCache, k_new: torch.Tensor, v_new: torch.Tensor,
                 slots: torch.Tensor) -> AttnCache:
     """Write T new entries at positions `slots` ((T,) int, shared by the
-    batch), in place; k_new/v_new: (B, Hkv, T, hd). Returns `cache`."""
-    _check_unquantised(cache)
+    batch), in place, quantised if the cache is; k_new/v_new: (B, Hkv, T,
+    hd). Returns `cache`."""
     slots = slots.to(torch.long)
-    cache.k[:, :, slots] = k_new.to(cache.k.dtype)
-    cache.v[:, :, slots] = v_new.to(cache.v.dtype)
+    for name, x in (("k", k_new), ("v", v_new)):
+        payload, scale = _encode(cache, x)
+        getattr(cache, name)[:, :, slots] = payload
+        if scale is not None:
+            getattr(cache, name + "_scale")[:, :, slots] = scale
     return cache
 
 
@@ -117,18 +193,21 @@ def cache_write_at(cache: AttnCache, k_new: torch.Tensor,
                    v_new: torch.Tensor, slot: torch.Tensor) -> AttnCache:
     """Decode write: one new entry per sequence, at its own position, in
     place. k_new/v_new: (B, Hkv, 1, hd); slot: (B,) int. Returns `cache`."""
-    _check_unquantised(cache)
     rows = torch.arange(cache.k.shape[0], device=cache.k.device)
     slot = slot.to(torch.long)
-    cache.k[rows, :, slot] = k_new[:, :, 0].to(cache.k.dtype)
-    cache.v[rows, :, slot] = v_new[:, :, 0].to(cache.v.dtype)
+    for name, x in (("k", k_new), ("v", v_new)):
+        payload, scale = _encode(cache, x)
+        getattr(cache, name)[rows, :, slot] = payload[:, :, 0]
+        if scale is not None:
+            getattr(cache, name + "_scale")[rows, :, slot] = scale[:, :, 0]
     return cache
 
 
 def cache_read(cache: AttnCache, dtype=torch.bfloat16):
-    """(k, v) in `dtype`; no copy when the cache already has it."""
-    _check_unquantised(cache)
-    return cache.k.to(dtype), cache.v.to(dtype)
+    """(k, v) in `dtype`, dequantised if the cache is quantised; no copy
+    when a bf16 cache already has `dtype`."""
+    return (_decode(cache.quant, cache.k, cache.k_scale, dtype),
+            _decode(cache.quant, cache.v, cache.v_scale, dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -138,33 +217,31 @@ def cache_read(cache: AttnCache, dtype=torch.bfloat16):
 
 class PagedAttnCache(NamedTuple):
     """The shared GQA block pool: no batch axis; slots index it through a
-    block table. k/v: ([L,] Hkv, num_blocks, block_size, hd) bf16."""
+    block table. k/v: ([L,] Hkv, num_blocks, block_size, hd) bf16, or the
+    quantised payloads and ([L,] Hkv, NB, BS, 1) float32 scales of
+    `AttnCache`."""
     k: torch.Tensor
     v: torch.Tensor
-    k_scale: Optional[torch.Tensor] = None    # int8 pools only (not ported)
+    k_scale: Optional[torch.Tensor] = None
     v_scale: Optional[torch.Tensor] = None
+    quant: Optional[str] = None
 
     def layer(self, i: int) -> "PagedAttnCache":
-        """Layer i's view of a stacked pool; writes land in the pool."""
-        return PagedAttnCache(self.k[i], self.v[i])
+        """Layer i's view of a stacked pool, scales included; writes land
+        in the pool."""
+        return PagedAttnCache(*_layer_views(self, i), quant=self.quant)
 
 
 def init_paged_attn_cache(kv_heads: int, num_blocks: int, block_size: int,
                           head_dim: int, dtype: str = "bf16",
                           stack: Optional[int] = None, *,
                           device=DEFAULT_DEVICE) -> PagedAttnCache:
-    """Zero pool (Hkv, NB, BS, hd) bf16 on `device`; `stack` prepends a
-    layer axis. Only dtype="bf16" is ported."""
-    if dtype != "bf16":
-        raise NotImplementedError(f"kv_cache_dtype={dtype!r}: "
-                                  + _QUANTISED_TODO)
-    device = resolve_device(device)
-    shape = (kv_heads, num_blocks, block_size, head_dim)
+    """Zero pool (Hkv, NB, BS, hd) on `device`, bf16 or quantised as
+    `init_attn_cache`; `stack` prepends a layer axis."""
+    shape = (kv_heads, num_blocks, block_size)
     if stack:
         shape = (stack, *shape)
-    return PagedAttnCache(
-        k=torch.zeros(shape, dtype=torch.bfloat16, device=device),
-        v=torch.zeros(shape, dtype=torch.bfloat16, device=device))
+    return PagedAttnCache(*_zeros(shape, head_dim, dtype, device))
 
 
 def paged_cache_write_at(cache: PagedAttnCache, k_new: torch.Tensor,
@@ -174,55 +251,62 @@ def paged_cache_write_at(cache: PagedAttnCache, k_new: torch.Tensor,
     offset[b]). k_new/v_new: (B, Hkv, 1, hd); block/offset: (B,) int.
     Inactive slots carry an all-null block table, so their (masked,
     frozen-pos) writes collide harmlessly in block 0. Returns `cache`."""
-    _check_unquantised(cache)
     block, offset = block.to(torch.long), offset.to(torch.long)
-    # pool (Hkv, NB, BS, hd) <- (Hkv, B, hd) at the B (block, offset) pairs
-    cache.k[:, block, offset] = k_new[:, :, 0].transpose(0, 1).to(
-        cache.k.dtype)
-    cache.v[:, block, offset] = v_new[:, :, 0].transpose(0, 1).to(
-        cache.v.dtype)
+    for name, x in (("k", k_new), ("v", v_new)):
+        # pool (Hkv, NB, BS, X) <- (Hkv, B, X) at the B (block, offset)
+        # pairs, X the payload's width or the scale's 1
+        payload, scale = _encode(cache, x)
+        getattr(cache, name)[:, block, offset] = payload[:, :, 0].transpose(
+            0, 1)
+        if scale is not None:
+            getattr(cache, name + "_scale")[:, block, offset] = \
+                scale[:, :, 0].transpose(0, 1)
     return cache
 
 
 def paged_gather(cache: PagedAttnCache, table: torch.Tensor,
                  dtype=torch.bfloat16):
     """Each slot's logical view for the decode attention read: table
-    (B, MB) -> k, v (B, Hkv, MB·BS, hd). Unallocated logical blocks read
-    the null block, which sits above the kv_len mask like the dead tail
-    of a contiguous cache."""
-    _check_unquantised(cache)
+    (B, MB) -> k, v (B, Hkv, MB·BS, hd), dequantised in `cache_read`'s
+    order. Unallocated logical blocks read the null block, which sits
+    above the kv_len mask like the dead tail of a contiguous cache."""
     table = table.to(torch.long)
 
     def gather(pool):
-        x = pool[:, table]                    # (Hkv, B, MB, BS, hd)
+        x = pool[:, table]                    # (Hkv, B, MB, BS, X)
         h, b, mb, bs, d = x.shape
+        return x.transpose(0, 1).reshape(b, h, mb * bs, d)
+
+    def read(payload, scale):
         # contiguous, as a contiguous cache's layer view is: on the card
         # the decode attention's products take another (differently
         # rounded) route on the transposed view
-        return x.transpose(0, 1).reshape(b, h, mb * bs, d).to(
-            dtype).contiguous()
+        return _decode(cache.quant, gather(payload),
+                       None if scale is None else gather(scale),
+                       dtype).contiguous()
 
-    return gather(cache.k), gather(cache.v)
+    return read(cache.k, cache.k_scale), read(cache.v, cache.v_scale)
 
 
 def paged_scatter_attn(pool_cache: PagedAttnCache, one: AttnCache,
                        table_row: torch.Tensor) -> PagedAttnCache:
     """Move a freshly prefilled batch-1 contiguous cache ([L,] 1, Hkv, W,
-    hd), W = MB·BS, into the blocks of `table_row` ((MB,) int), in place.
-    The whole width moves: logical blocks past the slot's allocation map
-    to the null block in the table and collide there. Returns
-    `pool_cache`."""
-    _check_unquantised(pool_cache)
+    X), W = MB·BS, into the blocks of `table_row` ((MB,) int), in place,
+    payloads and scales alike. The whole width moves: logical blocks past
+    the slot's allocation map to the null block in the table and collide
+    there. Returns `pool_cache`."""
     table_row = table_row.to(torch.long)
 
     def put(pool, src):
-        src = src.squeeze(-4)                 # ([L,] Hkv, W, hd)
+        if pool is None:
+            return
+        src = src.squeeze(-4)                 # ([L,] Hkv, W, X)
         bs, mb = pool.shape[-2], table_row.shape[0]
         src = src.reshape(*src.shape[:-2], mb, bs, src.shape[-1])
         pool[..., table_row, :, :] = src.to(pool.dtype)
 
-    put(pool_cache.k, one.k)
-    put(pool_cache.v, one.v)
+    for pool, src in zip(pool_cache[:4], one[:4]):
+        put(pool, src)
     return pool_cache
 
 

@@ -23,10 +23,14 @@ and the encoder: `params.encoder.segments[0].l0[i]` for its layer i
 
 Serving state: the KV cache of a segment is one preallocated tensor per K
 and per V, (L, B, Hkv, W, hd) bf16 (stacked also for a one-layer segment),
-written in place — prefill writes the prompt's keys, each decode step one
-key per sequence — where the JAX package returns new arrays. So
+or, with `kv_cache_dtype` "int8" or "int4", integer payloads and float32
+scales a token (`kvcache.AttnCache`), written in place — prefill writes
+the prompt's keys, each decode step one key per sequence — where the JAX
+package returns new arrays. So
 `forward_decode` updates the caches of the state it is given and returns
-them in a state with the advanced positions.
+them in a state with the advanced positions. Prefill attends over the
+float keys and values and then writes them, quantised where the cache is;
+decode attends over the cache read back (dequantised) in bf16.
 
 An MLA layer caches its float32 latent and bf16 rotary key instead,
 (L, B, W, r) and (L, B, W, rd) (`kvcache.MLACache`), and decodes in the
@@ -49,11 +53,11 @@ segment); decode reads them there. InternVL2's prefill puts its patch
 rows ahead of the prompt: they take the first cache rows and positions,
 and `pos` starts past them.
 
-The dense and MoE families run here, with GQA (full or sliding-window)
-or MLA attention, the SSM (Mamba 2) and hybrid (RecurrentGemma) families,
-the encoder-decoder (Whisper) and the patch model (InternVL2). The
-quantised cache (ROADMAP Queue 1 item 4.5) raises `NotImplementedError`
-naming its item; `forward_train` waits for the LM train steps (4.6).
+Every family of the zoo runs here: the dense and MoE families, with GQA
+(full or sliding-window) or MLA attention, the SSM (Mamba 2) and hybrid
+(RecurrentGemma) families, the encoder-decoder (Whisper) and the patch
+model (InternVL2), with a bf16, int8 or int4 KV cache; `forward_train`
+waits for the LM train steps (ROADMAP.md, Queue 1 item 4.6).
 """
 from __future__ import annotations
 
@@ -69,8 +73,6 @@ from repro_torch.models.layers import (apply_norm, apply_rope,
                                        banded_attention, chunked_attention,
                                        decode_attention, mlp, rmsnorm,
                                        sinusoidal_positions)
-
-_ROADMAP = "ROADMAP.md, Queue 1 item 4"
 
 # ---------------------------------------------------------------------------
 # Segments
@@ -119,20 +121,16 @@ _FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise NotImplementedError naming the ROADMAP item for anything but a
-    dense, MoE, SSM, hybrid, encoder-decoder (audio) or patch (vlm) model
-    with GQA or MLA attention (none for SSM) and a bf16 cache."""
-    waits = None
-    if cfg.kv_cache_dtype != "bf16":
-        waits = "the int8/int4 KV cache (Qwen 1.5)", ".5"
-    elif cfg.family not in _FAMILIES or (
+    """Raise NotImplementedError for a config outside the zoo's families:
+    anything but a dense, MoE, SSM, hybrid, encoder-decoder (audio) or
+    patch (vlm) model with GQA or MLA attention (none for SSM). Any KV
+    cache dtype the cache takes (bf16, int8, int4) runs."""
+    if cfg.family not in _FAMILIES or (
             cfg.family != "ssm" and cfg.attn_kind not in ("gqa", "mla")):
-        waits = f"the {cfg.family} family", ""
-    if waits:
         raise NotImplementedError(
             f"{cfg.name}: the port runs the dense, MoE, SSM, hybrid, audio "
-            f"and vlm families with GQA or MLA attention; {waits[0]} is not "
-            f"ported yet ({_ROADMAP}{waits[1]})")
+            f"and vlm families with GQA or MLA attention, not the "
+            f"{cfg.family} family with {cfg.attn_kind!r} attention")
 
 
 # ---------------------------------------------------------------------------
@@ -583,9 +581,9 @@ def _apply_layer(cfg, spec: LayerSpec, p, x, positions, *, mode, cache,
 
 def _unsupported_layer(spec: LayerSpec) -> NotImplementedError:
     return NotImplementedError(
-        f"layer {spec} is not ported yet: the port runs attention, MLA, "
-        f"SSD or RG-LRU layers (with or without cross attention) with an "
-        f"MLP, an MoE or no FFN ({_ROADMAP})")
+        f"layer {spec} is not a layer of the zoo: the port runs attention, "
+        f"MLA, SSD or RG-LRU layers (with or without cross attention) with "
+        f"an MLP, an MoE or no FFN")
 
 
 def _window(cfg, spec: LayerSpec) -> int:
@@ -624,10 +622,10 @@ def _cache_width(cfg, spec: LayerSpec, width: int) -> int:
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
                device=DEFAULT_DEVICE) -> list:
-    """Per segment, {"l{i}": AttnCache} with (L, B, Hkv, W, hd) zeros (an
-    MLACache of (L, B, W, r) and (L, B, W, rd) for an MLA layer, an
-    SSMState or RGState for an SSD or RG-LRU layer) on `device` (the card
-    unless the caller asks for the CPU)."""
+    """Per segment, {"l{i}": AttnCache} with (L, B, Hkv, W, hd) zeros in
+    `cfg.kv_cache_dtype` (an MLACache of (L, B, W, r) and (L, B, W, rd) for
+    an MLA layer, an SSMState or RGState for an SSD or RG-LRU layer) on
+    `device` (the card unless the caller asks for the CPU)."""
     check_supported(cfg)
     return [{f"l{i}": _empty_layer_cache(cfg, ls, batch, max_len,
                                          layers=seg.repeat, device=device)
@@ -676,6 +674,7 @@ def _logits(cfg, params, x):
 
 class ServeState(NamedTuple):
     caches: Any           # per segment {"l{i}": AttnCache (L, B, Hkv, W, hd),
+    #                       with (L, B, Hkv, W, 1) scales when quantised,
     #                       PagedAttnCache (L, Hkv, NB, BS, hd), MLACache
     #                       (L, B, W, r | rd), PagedMLACache, SSMState or
     #                       RGState}

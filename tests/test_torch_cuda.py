@@ -441,14 +441,17 @@ def test_recurrent_layer_prefill_equals_its_decode_steps(full_fp32_matmul,
     (8, 6, 6, 1, 1500, 64, False, "contiguous"),      # 6e': cross, decode
     (8, 6, 6, 1, 1500, 64, False, "transposed"),
     (4, 48, 8, 1280, 1280, 128, True, "transposed"),  # 6f: InternVL2
-], ids=["6d", "6e", "6e_strided", "6e_decode", "6e_decode_strided", "6f"])
+    (4, 40, 40, 1024, 1024, 128, True, "transposed"),  # 6g: Qwen 1.5
+], ids=["6d", "6e", "6e_strided", "6e_decode", "6e_decode_strided", "6f",
+        "6g"])
 def test_flash_attention_encdec_and_patch_shapes(full_fp32_matmul, b, h, hkv,
                                                  sq, sk, d, causal, kv):
-    """The float32 route at the shapes the Whisper and InternVL2 paths give
-    it: 1500 keys (the last of 24 key tiles holds 28), one query row
-    against a 16-row query tile (a decode step's cross attention), keys
-    and values contiguous as the cross cache keeps them or as transposed
-    (B, S, H, D) projections, and 1280 causal rows at 48/8 heads."""
+    """The float32 route at the shapes the Whisper, InternVL2 and Qwen 1.5
+    paths give it: 1500 keys (the last of 24 key tiles holds 28), one
+    query row against a 16-row query tile (a decode step's cross
+    attention), keys and values contiguous as the cross cache keeps them
+    or as transposed (B, S, H, D) projections, 1280 causal rows at 48/8
+    heads, and 1024 causal rows multi-head (40/40, group 1)."""
     gen = full_fp32_matmul
     q = torch.randn((b, sq, h, d), generator=gen,
                     device="cuda").transpose(1, 2)
@@ -466,6 +469,44 @@ def test_flash_attention_encdec_and_patch_shapes(full_fp32_matmul, b, h, hkv,
     want = ref.attention_ref(q, k, v, causal=causal)
     assert got.shape == want.shape == (b, h, sq, d)
     torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_kv_quantisation_on_the_card_equals_the_cpu(gen, quant):
+    """`_quantize`, the int4 packing and a quantised cache's write and
+    dequantised read (contiguous and paged) at Qwen's 40 heads of 128:
+    bit-equal on the card and on the CPU."""
+    from repro_torch.models import kvcache
+    x = torch.randn((4, 40, 96, 128), generator=gen, device="cuda") * 3
+    q, s = kvcache._quantize(x, quant)
+    qc, sc = kvcache._quantize(x.cpu(), quant)
+    assert int((s.cpu() != sc).sum()) == 0, "scales differ"
+    assert int((q.cpu() != qc).sum()) == 0, "payloads differ"
+    if quant == "int4":
+        packed = kvcache.pack_int4(q)
+        assert torch.equal(packed.cpu(), kvcache.pack_int4(qc))
+        assert torch.equal(kvcache.unpack_int4(packed), q)
+    for dev in ("cuda", "cpu"):
+        c = kvcache.init_attn_cache(4, 40, 128, 128, quant, device=dev)
+        kvcache.cache_write(c, x[:, :, :64].to(dev), x[:, :, 32:].to(dev),
+                            torch.arange(0, 128, 2, device=dev))
+        kvcache.cache_write_at(c, x[:, :, :1].to(dev), x[:, :, 1:2].to(dev),
+                               torch.tensor([1, 3, 5, 7], device=dev))
+        pool = kvcache.init_paged_attn_cache(40, 9, 16, 128, quant, stack=1,
+                                             device=dev)
+        # eight distinct blocks: a block written twice in one scatter
+        # (the null block's collisions) may keep either write on the card
+        table = torch.tensor([3, 5, 7, 1, 4, 6, 2, 8], device=dev)
+        kvcache.paged_scatter_attn(
+            pool, kvcache.AttnCache(*(t[None, :1] for t in c[:4]),
+                                    quant=quant), table)
+        got = (kvcache.cache_read(c),
+               kvcache.paged_gather(pool.layer(0), table[None]))
+        if dev == "cuda":
+            on_card = [t.cpu() for pair in got for t in pair]
+    on_cpu = [t for pair in got for t in pair]
+    for a, b in zip(on_card, on_cpu, strict=True):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)
 
 
 def test_flash_launches_counted_by_shape_until_reset(gen):

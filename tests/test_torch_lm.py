@@ -300,8 +300,19 @@ def test_kv_caches_default_to_the_card():
 
 @pytest.mark.parametrize("dtype", ["int8", "int4"])
 def test_quantised_cache_waits_for_its_slice(dtype):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kvcache.init_attn_cache(1, 1, 4, 8, dtype, device="cpu")
+    """The quantised cache is ported (`test_torch_kvquant.py` holds it to
+    JAX): int8 payloads, two int4 values a byte, float32 scales a token;
+    a config with it builds its caches and params."""
+    c = kvcache.init_attn_cache(1, 1, 4, 8, dtype, device="cpu")
+    assert c.quant == dtype and c.k.dtype == torch.int8
+    assert tuple(c.k.shape) == (1, 1, 4, 8 if dtype == "int8" else 4)
+    assert tuple(c.k_scale.shape) == (1, 1, 4, 1)
+    assert c.k_scale.dtype == torch.float32
+    cfg = dataclasses.replace(cfgs.get_config("llama3p2_3b", smoke=True),
+                              kv_cache_dtype=dtype)
+    transformer.check_supported(cfg)
+    caches = transformer.init_cache(cfg, 2, 8, device="cpu")
+    assert caches[0]["l0"].quant == dtype
 
 
 @pytest.mark.parametrize("what", ["init_paged_attn_cache",
@@ -356,14 +367,17 @@ def test_configs_equal_the_jax_packages(arch):
 
 
 def test_unported_architectures_raise_naming_the_roadmap():
-    assert set(cfgs.registry()) == set(cfgs.ARCH_IDS)
-    for arch in set(jcfgs.ARCH_IDS) - set(cfgs.ARCH_IDS):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cfgs.get_config(arch)
-        jc = jcfgs.get_config(arch, smoke=True)
-        cfg = cfgs.ArchConfig(**dataclasses.asdict(jc))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            transformer.init_params(cfg, torch.Generator(), device="cpu")
+    """The zoo is complete: the port's architectures are the JAX
+    package's, in its order; a config outside the zoo's families is
+    refused by name, as an unknown architecture is."""
+    assert cfgs.ARCH_IDS == jcfgs.ARCH_IDS
+    assert set(cfgs.registry()) == set(jcfgs.registry())
+    with pytest.raises(ModuleNotFoundError):
+        cfgs.get_config("gpt2")
+    cfg = dataclasses.replace(cfgs.get_config("llama3p2_3b", smoke=True),
+                              attn_kind="none")
+    with pytest.raises(NotImplementedError, match="'none' attention"):
+        transformer.init_params(cfg, torch.Generator(), device="cpu")
 
 
 @pytest.mark.parametrize("arch", cfgs.ARCH_IDS)

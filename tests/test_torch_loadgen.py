@@ -24,8 +24,7 @@ torch = pytest.importorskip("torch")
 
 from repro.configs.base import get_config as jget_config  # noqa: E402
 from repro.launch import loadgen as jloadgen  # noqa: E402
-from repro_torch.configs.base import (ARCH_IDS, WAITING_ARCH_IDS,  # noqa: E402
-                                      get_config)
+from repro_torch.configs.base import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.launch import loadgen  # noqa: E402
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -75,11 +74,12 @@ def test_formats_equal_the_jax_packages():
 
 
 def test_the_zoo_is_the_jax_packages():
-    """A spec may name any architecture of the zoo: the ported ones and
-    those waiting for their item."""
+    """A spec may name any architecture of the zoo, and the port runs
+    every one."""
     from repro.configs.base import ARCH_IDS as JAX_IDS
-    assert set(ARCH_IDS) | set(WAITING_ARCH_IDS) == set(JAX_IDS)
-    assert not set(ARCH_IDS) & set(WAITING_ARCH_IDS)
+    assert ARCH_IDS == JAX_IDS
+    for arch in JAX_IDS:
+        assert loadgen.validate_scenario(_mutated(("arch",), arch)) == []
 
 
 # ---------------------------------------------------------------------------
@@ -189,15 +189,21 @@ def test_chip_smoke_scenarios_equal_the_golden_files():
         import chip_smoke
     finally:
         sys.path.remove(str(REPO))
-    assert set(chip_smoke.LOADGEN_SCENARIOS) == {
-        p.stem for p in loadgen.scenario_files(GOLDEN)} == {
-        "smoke_gqa", "paged_mixed", "paged_mla", "ssm_state"}
-    for name, spec in chip_smoke.LOADGEN_SCENARIOS.items():
-        assert spec == loadgen.load_scenario(GOLDEN / f"{name}.yaml"), name
-    # every golden scenario runs: none waits for its slice any more
-    assert chip_smoke.LOADGEN_WAITING == {}
-    ssm = loadgen.load_scenario(GOLDEN / "ssm_state.yaml")
-    assert ssm["arch"] in ARCH_IDS and ssm["arch"] not in WAITING_ARCH_IDS
+    golden = {p.stem for p in loadgen.scenario_files(GOLDEN)}
+    assert golden == {"smoke_gqa", "paged_mixed", "paged_mla", "ssm_state"}
+    # the golden files, and Qwen 1.5's int8 cache, which is no golden
+    # file (the JAX suite globs that directory)
+    assert set(chip_smoke.LOADGEN_SCENARIOS) == golden | {"int8_cache"}
+    for name in golden:
+        assert chip_smoke.LOADGEN_SCENARIOS[name] == loadgen.load_scenario(
+            GOLDEN / f"{name}.yaml"), name
+    qwen = chip_smoke.LOADGEN_SCENARIOS["int8_cache"]
+    assert loadgen.validate_scenario(qwen) == \
+        jloadgen.validate_scenario(qwen) == []
+    assert qwen["arch"] == "qwen1p5_32b" and qwen["engine"]["paged"]
+    # every scenario runs: its architecture is in the port
+    assert all(spec["arch"] in ARCH_IDS
+               for spec in chip_smoke.LOADGEN_SCENARIOS.values())
 
 
 # ---------------------------------------------------------------------------
@@ -367,31 +373,40 @@ def test_port_rows_pass_diff_serve(rows, tmp_path):
     assert diff_serve.main([str(old), str(new)]) == 1
 
 
-def test_run_suite_names_the_waiting_scenario(capsys, tmp_path):
-    """`ssm_state` (Mamba 2) runs: its row passes the JAX `check()` and
-    `scripts/diff_serve.py`. A scenario naming an architecture that still
-    waits (Qwen 1.5, item 4.5) is named and left out."""
+def test_run_suite_names_the_waiting_scenario(tmp_path):
+    """`ssm_state` (Mamba 2) and `chip_smoke.py`'s `int8_cache` (Qwen 1.5
+    on its int8 cache, paged, batched prefill) run in one suite: no
+    architecture waits any more. Their rows pass the JAX `check()` and
+    `scripts/diff_serve.py`; the Qwen row's paged bookkeeping holds."""
     _yaml_or_skip()
-    waiting = copy.deepcopy(BASE)
-    waiting.update(name="int8_cache", arch="qwen1p5_32b")
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(REPO))
+    qwen = chip_smoke.LOADGEN_SCENARIOS["int8_cache"]
     src = tmp_path / "int8_cache.json"
-    src.write_text(json.dumps(waiting))
+    src.write_text(json.dumps(qwen))
     doc = loadgen.run_suite([GOLDEN / "smoke_gqa.yaml",
                              GOLDEN / "ssm_state.yaml", src], verbose=False,
                             device="cpu")
-    assert [r["scenario"] for r in doc["rows"]] == ["smoke_gqa", "ssm_state"]
-    assert "int8_cache (qwen1p5_32b) waits for ROADMAP.md Queue 1 item " \
-        "4.5" in capsys.readouterr().out
-    ssm = doc["rows"][1]
+    assert [r["scenario"] for r in doc["rows"]] == ["smoke_gqa", "ssm_state",
+                                                   "int8_cache"]
+    ssm, row = doc["rows"][1], doc["rows"][2]
     assert ssm["arch"] == "mamba2_2p7b" and not ssm["paged"]
     assert ssm["requests"] == 5 and ssm["platform"] == "cpu"
+    assert row["arch"] == "qwen1p5_32b" and row["paged"]
+    assert row["requests"] == qwen["workload"]["requests"]
+    assert row["prefill_batch"] == qwen["engine"]["prefill_batch"]
+    assert row["peak_cache_rows"] < row["reserved_rows_contiguous"]
     path = tmp_path / "new" / "BENCH_serve.json"
     path.parent.mkdir()
     path.write_text(json.dumps(doc))
     assert loadgen.check(str(path)) == jloadgen.check(str(path)) == 0
     assert diff_serve.main([str(path), str(path)]) == 0
-    with pytest.raises(NotImplementedError, match="4.5"):
-        loadgen.run_scenario(waiting, device="cpu")
+    # the depth cut (`layers=`) that the card's run of it takes
+    cut = loadgen.run_scenario(qwen, verbose=False, device="cpu", layers=1)
+    assert cut["requests"] == row["requests"]
 
 
 @pytest.mark.parametrize("arch", ["whisper_tiny", "internvl2_26b"])

@@ -115,8 +115,13 @@ def test_paged_pool_layout_and_unported_pools():
     lay = c.layer(1)
     lay.k[0, 2, 1, 0] = 1.0
     assert float(c.k[1, 0, 2, 1, 0]) == 1.0      # a view of the stack
-    with pytest.raises(NotImplementedError, match="4.5"):
-        kvcache.init_paged_attn_cache(2, 6, 4, 8, "int8", device="cpu")
+    # the int8 pool is ported (`test_torch_kvquant.py` holds it to JAX):
+    # int8 payloads, float32 scales a token, views that keep them
+    q = kvcache.init_paged_attn_cache(2, 6, 4, 8, "int8", stack=3,
+                                      device="cpu")
+    assert tuple(q.k.shape) == (3, 2, 6, 4, 8) and q.k.dtype == torch.int8
+    assert tuple(q.k_scale.shape) == (3, 2, 6, 4, 1)
+    assert q.layer(1).v_scale.data_ptr() == q.v_scale[1].data_ptr()
     # the paged MLA pool is ported (`test_torch_mla.py` holds it to JAX):
     # float32 latents, bf16 rotary keys, stacked views, the card by default
     m = kvcache.init_paged_mla_cache(6, 4, 16, 8, stack=3, device="cpu")

@@ -112,7 +112,21 @@ submodels, M = 10) and one LM path:
   (Llama 3.2 3B), `paged_mla` (DeepSeek) and `ssm_state` (Mamba 2) and
   `int8_cache` (Qwen 1.5 at 12 of 64 layers) at full width through the
   port's `loadgen.run_scenario`, written to `build/BENCH_serve.json`,
-  which the port's `check()` and `scripts/diff_serve.py` read.
+  which the port's `check()` and `scripts/diff_serve.py` read;
+* the LM train path: the flash kernel at the train steps' bf16 shapes
+  (Llama's 24/8 x 128 and DeepSeek's MLA (192, 128) on the bf16 route)
+  and its backward (the plain version) against autograd through the
+  plain forward; Llama 3.2 3B at full width, depth cut to 8 of 28 layers,
+  through `launch.train.train` (bf16 compute over float32 master weights,
+  AdamW, warm-up-cosine, clipping) for 8 steps of 2 x 1024 tokens: the
+  first loss near ln V + σ²/2 of the random init, finite losses and
+  gradient norms, a bf16 step against a float32 step from the same
+  params and batch, 2 x layers flash launches a step (the forward and its
+  checkpointed recompute), timed steps and tokens/s, 8 steps on one
+  repeated batch at a constant lr that lower the loss, the peak device
+  memory; DeepSeek-V2-Lite at full width, its dense first layer and one
+  MoE layer (64 experts top-6, 2 shared), a bf16 and a float32 step; and
+  `launch.train.main` on the smoke Llama.
 
 Each path resets the kernels' launch counts just before it and reads them
 just after (the sharded path in each rank process, summed over ranks). The tenant path's scoring is tensor code, as the JAX package's
@@ -864,6 +878,10 @@ FLASH_CASES = [
     # group 1) at 128, causal over 1024 tokens
     dict(name="qwen1p5_prefill_b4_s1024_mha", row="6g", path="qwen", b=4,
          h=40, hkv=40, sq=1024, sk=1024, d=128, dtype=torch.float32),
+    # 6h: the bf16 route at DeepSeek MLA's (192, 128), its prefill shape
+    dict(name="bf16_deepseek_mla_b4_s1024_d192_dv128", row="6h", b=4, h=16,
+         hkv=16, sq=1024, sk=1024, d=192, dv=128, scale=192 ** -0.5,
+         dtype=torch.bfloat16),
 ]
 
 
@@ -3759,6 +3777,318 @@ def examples_path(kernels, examples):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: LM training at full width
+# ---------------------------------------------------------------------------
+
+# Llama 3.2 3B (`configs/llama3p2_3b.py`) at full width, depth cut to
+# TRAIN_LAYERS of 28 (all 28: 51 GB of float32 weights, moments and
+# gradients before the update's new trees), through `launch.train.train`
+# (bf16 compute over float32 master weights, AdamW under the warm-up-cosine
+# schedule, clipping at 1.0) for TRAIN_STEPS steps of TRAIN_BATCH x
+# TRAIN_SEQ tokens; DeepSeek-V2-Lite (`configs/deepseek_v2_lite_16b.py`) at
+# full width, its dense first layer and one MoE layer, one bf16 step at the
+# same batch (the flash kernel's bf16 (192, 128) route)
+TRAIN_ARCH, TRAIN_LAYERS = "llama3p2_3b", 8
+TRAIN_MLA_LAYERS = 2
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 1024, 8
+TRAIN_TIMED_STEPS = 3
+TRAIN_REPEAT_STEPS, TRAIN_REPEAT_LR = 8, 1e-3
+# the first loss against ln V + σ²/2: random-init logits are normal with
+# σ² = 0.02² · d_model (unit-RMS final activations through the 0.02-std
+# LM head), and E[logsumexp] over V of them is ln V + σ²/2
+TRAIN_FIRST_LOSS_TOL = 0.5
+# a bf16-compute step against a float32 one from the same params and batch
+TRAIN_BF16_LOSS_RTOL = 2e-2
+# the backward (the plain version, autograd through `attention_ref` in
+# query blocks) against autograd through `attention_ref` in one piece
+TRAIN_GRAD_TOL = {torch.float32: (1e-5, 1e-5),
+                  torch.bfloat16: (1e-2, 2 ** -7)}      # (atol, rtol)
+TRAIN_FLASH_CASES = [
+    # the train steps' shapes, bf16 as their compute copies are
+    dict(name="llama3p2_3b_train_b2_s1024_bf16", row="6i", b=2, h=24,
+         hkv=8, sq=1024, sk=1024, d=128, dtype=torch.bfloat16),
+    dict(name="deepseek_mla_train_b2_s1024_d192_dv128_bf16", row="6j", b=2,
+         h=16, hkv=16, sq=1024, sk=1024, d=192, dv=128, scale=192 ** -0.5,
+         dtype=torch.bfloat16),
+]
+TRAIN_BACKWARD_CASES = [
+    dict(b=2, h=24, hkv=8, s=1024, d=128, dv=128, dtype=torch.float32),
+    dict(b=2, h=24, hkv=8, s=1024, d=128, dv=128, dtype=torch.bfloat16),
+    dict(b=2, h=16, hkv=16, s=1024, d=192, dv=128, dtype=torch.bfloat16),
+]
+
+
+def check_flash_backward(gen, ops, ref, device="cuda"):
+    """`ops.flash_attention` under autograd (the kernel forward, the plain
+    backward) against autograd through `ref.attention_ref` in one piece,
+    at the train shapes: dq, dk and dv within TRAIN_GRAD_TOL, with the
+    forward's output within FLASH_TOL."""
+    rows = []
+    for case in TRAIN_BACKWARD_CASES:
+        b, h, hkv, s, d, dv, dt = (case[k] for k in
+                                   ("b", "h", "hkv", "s", "d", "dv", "dtype"))
+        q = torch.randn((b, s, h, d), generator=gen, device=device).to(dt)
+        q = q.transpose(1, 2).requires_grad_()
+        k = torch.randn((b, hkv, s, d), generator=gen,
+                        device=device).to(dt).requires_grad_()
+        v = torch.randn((b, hkv, s, dv), generator=gen,
+                        device=device).to(dt).requires_grad_()
+        dout = torch.randn((b, h, s, dv), generator=gen,
+                           device=device).to(dt)
+        kw = dict(causal=True, scale=d ** -0.5)
+        out = ops.flash_attention(q, k, v, **kw)
+        got = torch.autograd.grad(out, (q, k, v), dout)
+        want_out = ref.attention_ref(q, k, v, **kw)
+        want = torch.autograd.grad(want_out, (q, k, v), dout)
+        torch.cuda.synchronize()
+        out, want_out = out.detach(), want_out.detach()
+        out_err = float((out.float() - want_out.float()).abs().max())
+        if out_err > FLASH_TOL[dt] * (1 + float(want_out.float().abs().max())):
+            raise AssertionError(f"flash forward under autograd: max |diff| "
+                                 f"{out_err}")
+        atol, rtol = TRAIN_GRAD_TOL[dt]
+        errs = {}
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            diff = (g.float() - w.float()).abs()
+            if not bool((diff <= atol + rtol * w.float().abs()).all()):
+                raise AssertionError(f"flash backward {name} ({dt}, D {d}, "
+                                     f"Dv {dv}): max |diff| "
+                                     f"{float(diff.max())}")
+            errs[name] = float(diff.max())
+        rows.append({"b": b, "h": h, "hkv": hkv, "s": s, "d": d, "dv": dv,
+                     "dtype": str(dt).replace("torch.", ""), "causal": True,
+                     "forward_max_abs_err": out_err,
+                     "max_abs_err": errs, "atol": atol, "rtol": rtol})
+        del q, k, v, dout, out, got, want, want_out
+    return rows
+
+
+def expected_first_loss(cfg) -> float:
+    return math.log(cfg.vocab_size) + 0.5 * 0.02 ** 2 * cfg.d_model
+
+
+def check_finite(what, history):
+    bad = [h for h in history
+           if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]))]
+    if bad:
+        raise AssertionError(f"{what}: non-finite metrics {bad[:3]}")
+
+
+def bf16_against_f32_step(cfg, params, opt_state, batch, *, steps, optimizer):
+    """The loss of one bf16-compute step and of one float32 step taken from
+    the same params, state and batch, and their relative gap; raises past
+    TRAIN_BF16_LOSS_RTOL."""
+    out = {}
+    for name, dt in (("bf16", torch.bfloat16), ("float32", None)):
+        step = steps.make_train_step(cfg, optimizer, compute_dtype=dt)
+        new, _, m = step(params, opt_state, batch)
+        out[name] = {k: float(v) for k, v in m.items()}
+        del new
+    gap = abs(out["bf16"]["loss"] - out["float32"]["loss"]) / abs(
+        out["float32"]["loss"])
+    if not gap <= TRAIN_BF16_LOSS_RTOL:
+        raise AssertionError(f"{cfg.name}: bf16 step loss "
+                             f"{out['bf16']['loss']} vs float32 "
+                             f"{out['float32']['loss']} (rel {gap})")
+    check_finite(cfg.name, list(out.values()))
+    return {**out, "loss_rel_gap": gap, "tolerance": TRAIN_BF16_LOSS_RTOL}
+
+
+def lm_train_path(kernels, *, get_config, transformer, steps, train_mod,
+                  optimizer, ops, ref, flash_attention, plan,
+                  device="cuda"):
+    """LM training on the card. Kernel checks first (not counted): the
+    flash kernel at the train steps' bf16 shapes (rows 6i, 6j) and its
+    backward at those shapes. Then, counted: `launch.train.train` on
+    Llama 3.2 3B at full width and TRAIN_LAYERS layers; one bf16 and one
+    float32 step from its final params on one batch; TRAIN_TIMED_STEPS
+    timed bf16 steps; TRAIN_REPEAT_STEPS steps on one repeated batch at a
+    constant lr, whose loss must fall; one bf16 and one float32 step of
+    DeepSeek-V2-Lite at full width and TRAIN_MLA_LAYERS layers; and
+    `launch.train.main` on the smoke Llama. Returns (launches, the
+    flash rows with the launches the run made at their shapes)."""
+    import contextlib
+    import io
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(20267)
+    flash_rows = [flash_case_row(gen, ref, flash_attention, plan, case,
+                                 device) for case in TRAIN_FLASH_CASES]
+    backward = check_flash_backward(gen, ops, ref, device)
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              num_layers=TRAIN_LAYERS)
+    tokens_a_step = TRAIN_BATCH * TRAIN_SEQ
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    kernels.reset_launch_counts()          # the train path's run starts here
+    t_path = time.perf_counter()
+    t0 = time.perf_counter()
+    out = train_mod.train(cfg, steps_total=TRAIN_STEPS, batch=TRAIN_BATCH,
+                          seq=TRAIN_SEQ, seed=20267, verbose=False,
+                          device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    history = out["history"]
+    check_finite("Llama train", history)
+    first_want = expected_first_loss(cfg)
+    if abs(history[0]["loss"] - first_want) > TRAIN_FIRST_LOSS_TOL:
+        raise AssertionError(f"Llama first loss {history[0]['loss']} is not "
+                             f"within {TRAIN_FIRST_LOSS_TOL} of {first_want}")
+    params, opt_state = out["params"], out["opt_state"]
+    del out
+    _, batch = next(train_mod.data_iterator(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                            seed=20268, device=dev))
+    adamw = optimizer.chain_clip(optimizer.adamw(
+        optimizer.warmup_cosine_schedule(3e-4, train_mod.WARMUP_STEPS,
+                                         TRAIN_STEPS)), 1.0)
+    versus = bf16_against_f32_step(cfg, params, opt_state, batch,
+                                   steps=steps, optimizer=adamw)
+
+    # one bf16 step's launches at the train shape, then timed steps
+    step = steps.make_train_step(cfg, adamw)
+    shape = flash_shape(TRAIN_FLASH_CASES[0])
+    before = kernels.flash_attention.shapes[shape]
+    new, _, _ = step(params, opt_state, batch)
+    torch.cuda.synchronize()
+    per_step = kernels.flash_attention.shapes[shape] - before
+    if per_step != 2 * cfg.num_layers:
+        raise AssertionError(f"a train step launched flash {per_step} times "
+                             f"at {shape}, not 2 x {cfg.num_layers} (the "
+                             "forward and its recompute)")
+    del new
+    step_ms = cuda_ms(lambda: step(params, opt_state, batch),
+                      TRAIN_TIMED_STEPS, warmup=0)
+    # one step under torch.profiler: device time by kernel, busy share
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    step_profile = device_kernel_times(prof, 1, wall_us, top=12)
+    if isinstance(step_profile, dict):
+        step_profile["device_busy_share_of_untraced_step"] = (
+            step_profile["device_ms_per_call"] / step_ms)
+    del prof
+
+    # a repeated batch at a constant lr: the loss falls
+    fixed = optimizer.chain_clip(optimizer.adamw(TRAIN_REPEAT_LR), 1.0)
+    step_fixed = steps.make_train_step(cfg, fixed)
+    p, s = params, fixed.init(steps.tree_leaves(params))
+    del opt_state
+    repeat = []
+    for _ in range(TRAIN_REPEAT_STEPS):
+        p, s, m = step_fixed(p, s, batch)
+        repeat.append({k: float(v) for k, v in m.items()})
+    check_finite("Llama repeated batch", repeat)
+    if not repeat[-1]["loss"] < repeat[0]["loss"]:
+        raise AssertionError(f"the loss did not fall on a repeated batch: "
+                             f"{[r['loss'] for r in repeat]}")
+    llama_peak = torch.cuda.max_memory_allocated()
+    n_params = transformer.param_count(params)
+    del p, s, params, step, step_fixed, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # DeepSeek-V2-Lite, the dense first layer and one MoE layer
+    mla_cfg = dataclasses.replace(get_config(MLA_ARCH),
+                                  num_layers=TRAIN_MLA_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    mla_params = transformer.init_params(
+        mla_cfg, torch.Generator(device=dev).manual_seed(20269),
+        dtype=torch.float32, device=dev)
+    mla_opt = optimizer.chain_clip(optimizer.adamw(
+        optimizer.warmup_cosine_schedule(3e-4, 1, 2)), 1.0)
+    mla_state = mla_opt.init(steps.tree_leaves(mla_params))
+    _, mla_batch = next(train_mod.data_iterator(
+        mla_cfg, TRAIN_BATCH, TRAIN_SEQ, seed=20269, device=dev))
+    t0 = time.perf_counter()
+    mla_versus = bf16_against_f32_step(mla_cfg, mla_params, mla_state,
+                                       mla_batch, steps=steps,
+                                       optimizer=mla_opt)
+    torch.cuda.synchronize()
+    mla_pair_s = time.perf_counter() - t0
+    mla_first_want = expected_first_loss(mla_cfg)
+    if abs(mla_versus["bf16"]["loss"] - mla_first_want) \
+            > TRAIN_FIRST_LOSS_TOL:
+        raise AssertionError(f"DeepSeek first loss "
+                             f"{mla_versus['bf16']['loss']} is not within "
+                             f"{TRAIN_FIRST_LOSS_TOL} of {mla_first_want}")
+    # one bf16 step's launches at the train shape (the bf16 (192, 128)
+    # route), then timed steps
+    mla_step = steps.make_train_step(mla_cfg, mla_opt)
+    mla_shape = flash_shape(TRAIN_FLASH_CASES[1])
+    before = kernels.flash_attention.shapes[mla_shape]
+    new, _, _ = mla_step(mla_params, mla_state, mla_batch)
+    torch.cuda.synchronize()
+    mla_launches = kernels.flash_attention.shapes[mla_shape] - before
+    if mla_launches != 2 * mla_cfg.num_layers:
+        raise AssertionError(f"DeepSeek's bf16 step launched flash "
+                             f"{mla_launches} times at {mla_shape}, not 2 x "
+                             f"{mla_cfg.num_layers}")
+    del new
+    mla_step_ms = cuda_ms(lambda: mla_step(mla_params, mla_state, mla_batch),
+                          TRAIN_TIMED_STEPS, warmup=0)
+    mla_peak = torch.cuda.max_memory_allocated()
+    mla_n_params = transformer.param_count(mla_params)
+    del mla_params, mla_state, mla_batch, mla_step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the CLI on the smoke Llama, on the card
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = train_mod.main(["--arch", TRAIN_ARCH, "--smoke", "--steps",
+                             "6", "--batch", "2", "--seq", "32"])
+    if rc != 0 or "done: first loss" not in buf.getvalue():
+        raise AssertionError(f"launch.train.main: rc {rc}, "
+                             f"{buf.getvalue()[-500:]}")
+    seconds = time.perf_counter() - t_path
+    launches = kernels.launch_counts()     # ... and ends here
+    if launches["flash_attention"] == 0:
+        raise AssertionError("the train path never launched flash")
+    others = {k: v for k, v in launches.items()
+              if k != "flash_attention" and v}
+    if others:
+        raise AssertionError(f"the train path launched other kernels: "
+                             f"{others}")
+    for row in flash_rows:
+        row["launches"] = kernels.flash_attention.shapes[flash_shape(row)]
+    emit("lm_train_path", model=cfg.name, layers=cfg.num_layers,
+         of_layers=get_config(TRAIN_ARCH).num_layers, d_model=cfg.d_model,
+         heads=(cfg.num_heads, cfg.num_kv_heads), d_ff=cfg.d_ff,
+         vocab=cfg.vocab_size, params=n_params, master_dtype="float32",
+         compute_dtype="bfloat16", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+         steps=TRAIN_STEPS, train_s=train_s,
+         history=history, first_loss_expected=first_want,
+         first_loss_ln_vocab=math.log(cfg.vocab_size),
+         first_loss_tolerance=TRAIN_FIRST_LOSS_TOL,
+         bf16_vs_float32_step=versus, flash_launches_a_step=per_step,
+         step_ms=step_ms, tok_per_s=tokens_a_step / step_ms * 1e3,
+         step_profile=step_profile,
+         repeated_batch={"lr": TRAIN_REPEAT_LR,
+                         "losses": [r["loss"] for r in repeat],
+                         "grad_norms": [r["grad_norm"] for r in repeat]},
+         max_memory_allocated_gib=llama_peak / 2 ** 30,
+         mla={"model": mla_cfg.name, "layers": mla_cfg.num_layers,
+              "params": mla_n_params, "experts": mla_cfg.num_experts,
+              "top_k": mla_cfg.top_k, "dense_layers":
+              mla_cfg.first_dense_layers,
+              "first_loss_expected": mla_first_want,
+              "bf16_vs_float32_step": mla_versus,
+              "bf16_and_float32_steps_s": mla_pair_s,
+              "flash_launches_a_step": mla_launches,
+              "step_ms": mla_step_ms,
+              "tok_per_s": tokens_a_step / mla_step_ms * 1e3,
+              "max_memory_allocated_gib": mla_peak / 2 ** 30},
+         cli=buf.getvalue().strip().splitlines(), backward=backward,
+         flash=flash_rows, path_s=seconds, launches=launches)
+    return launches, flash_rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3779,6 +4109,7 @@ def main() -> int:
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch import scheduler, steps
     from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import train as train_mod
     from repro_torch.launch.scheduler import WnnBatcher, WnnTenantBatcher
     from repro_torch.launch.serve import serve as lm_serve
     from repro_torch.models import layers, moe, rglru, ssm, transformer
@@ -3892,6 +4223,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     loadgen_launches = loadgen_path(kernels, loadgen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_lm_launches, train_flash = lm_train_path(
+        kernels, get_config=get_config, transformer=transformer, steps=steps,
+        train_mod=train_mod, optimizer=optimizer, ops=ops, ref=ref,
+        flash_attention=kernels.flash_attention, plan=flash_plan)
     torch.cuda.empty_cache()
     by_path = {"uleen_serve": launches, "uleen_train": train_launches,
                "lm_serve": lm_launches, "head": head_launches,
@@ -3901,7 +4238,7 @@ def main() -> int:
                "ssm": ssm_launches, "hybrid": hybrid_launches,
                "encdec": encdec_launches, "vlm": vlm_launches,
                "qwen": qwen_launches, "serve_profile": profile_launches,
-               "loadgen": loadgen_launches}
+               "loadgen": loadgen_launches, "lm_train": train_lm_launches}
     # the flash kernel's rows at the MoE, hybrid, encoder-decoder, patch
     # and Qwen paths' shapes, each with the launches its path's run made at
     # exactly that shape and all of its path's flash launches
@@ -3912,9 +4249,10 @@ def main() -> int:
          "causal": row["causal"], "window": row["window"],
          "launches": row["launches"],
          "path_launches": by_path[path]["flash_attention"],
-         **{k: row[k] for k in MAIN_FLASH_KEYS}}
+         **{k: row[k] for k in MAIN_FLASH_KEYS if k in row}}
         for path, row in (("moe", moe_flash), ("mla", mla_flash),
-                          ("hybrid", hybrid_flash), *flash_path_rows)]
+                          ("hybrid", hybrid_flash), *flash_path_rows,
+                          *(("lm_train", row) for row in train_flash))]
     # each kernel's launches on the path that carries it: the ULEEN serve
     # path for the WNN and front-end kernels, the train path for the hash,
     # the LM serve path for flash attention; `launches_by_path` has every

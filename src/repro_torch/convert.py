@@ -5,10 +5,11 @@ Each `*_from_numpy` function takes what the JAX package holds (converted
 with `np.asarray`) and returns the port's object, and `params_to_numpy`
 goes back, so both packages can compute on the same artifact, statics,
 training state and thresholds; `lm_params_from_numpy` carries an LM's
-parameters across for the tests (the chip path initialises on the card);
-`head_state_from_numpy` carries a `UleenHead`'s statics, tables and
-thresholds. Tenant fleets cross artifact by artifact
-(`artifact_from_numpy`).
+parameters across for the tests (the chip path initialises on the card)
+and `lm_params_to_numpy` carries them, their gradients or a train step's
+update back, leaf by leaf; `head_state_from_numpy` carries a
+`UleenHead`'s statics, tables and thresholds. Tenant fleets cross
+artifact by artifact (`artifact_from_numpy`).
 """
 from __future__ import annotations
 
@@ -159,3 +160,53 @@ def lm_params_from_numpy(cfg, tree, *, device=DEFAULT_DEVICE
             "segments": segments(enc["segments"], [cfg.encoder_layers]),
             "final_norm": tensors(enc["final_norm"])}
     return transformer.ParamTree(out)
+
+
+def lm_params_to_numpy(cfg, params) -> dict:
+    """The inverse of `lm_params_from_numpy`: the JAX package's LM
+    parameter pytree (nested dicts of numpy arrays) from a port
+    `ParamTree` — or any tree of its structure, such as the gradients
+    or updated parameters of a train step (`steps.tree_with_leaves`). A
+    segment of repeat > 1 stacks its layers on a leading (L,) axis, as
+    does Whisper's encoder; dtypes are kept (bf16 as numpy's float32,
+    numpy having no bf16)."""
+    transformer.check_supported(cfg)
+
+    def a(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    def tree(mod):
+        out = {name: a(p) for name, p in mod.named_parameters(recurse=False)}
+        out.update({name: tree(child) for name, child in mod.named_children()
+                    if not isinstance(child, torch.nn.ModuleList)})
+        return out
+
+    def stacked(layers, stack):
+        trees = [tree(lp) for lp in layers]
+        if not stack:
+            return trees[0]
+
+        def merge(nodes):
+            if isinstance(nodes[0], dict):
+                return {k: merge([n[k] for n in nodes]) for k in nodes[0]}
+            return np.stack(nodes)
+        return merge(trees)
+
+    def segments(seg_mods, repeats):
+        return [{name: stacked(list(getattr(seg_mod, name)), repeat > 1)
+                 for name, _ in seg_mod.named_children()}
+                for repeat, seg_mod in zip(repeats, seg_mods, strict=True)]
+
+    out = tree(params)
+    out.pop("segments", None)
+    out.pop("encoder", None)
+    out["segments"] = segments(
+        list(params.segments),
+        [seg.repeat for seg in transformer.arch_segments(cfg)])
+    if hasattr(params, "encoder"):
+        out["encoder"] = {
+            "segments": segments(list(params.encoder.segments),
+                                 [cfg.encoder_layers]),
+            "final_norm": tree(params.encoder.final_norm)}
+    return out

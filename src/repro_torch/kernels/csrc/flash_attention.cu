@@ -18,8 +18,8 @@
 // 2e-5 float32 tolerance). The output is cast to the inputs' type.
 //
 // Query and key rows are D wide, value and output rows Dv (Dv = D except
-// for DeepSeek MLA's prefill, D = 192 over Dv = 128, which only the float32
-// route takes).
+// for DeepSeek MLA's prefill, D = 192 over Dv = 128, which both routes
+// take).
 //
 // What bounds it: at prefill shapes the multiply-adds, 2 (D + Dv) FLOP per
 // visible (query, key) pair (4 D where Dv = D), read from device memory
@@ -46,8 +46,12 @@
 //   under the other's products. With C = 2, setmaxnreg gives the consumers
 //   240 registers and the producer 24 (C = 1 leaves 255 to each thread
 //   without it). D = 256 takes one consumer and 64-key tiles to fit the
-//   128 accumulator registers of O. Rounding P to bf16 (the TPU kernel
-//   keeps it float32) changes an output by at most about 2^-9 of its size.
+//   128 accumulator registers of O. (D, Dv) = (192, 128) keeps Q and K as
+//   three 64-column panels and V as two, each with its own tensor map, in
+//   64-key tiles: Q 48 KB, and 40 KB of K and V a stage at 128 query rows
+//   (129 KB a block with the barriers and alignment). Rounding P to bf16
+//   (the TPU kernel keeps it float32) changes an output by at most about
+//   2^-9 of its size.
 // * float32, 3xTF32 `mma.sync.m16n8k8` (flash_f32_kernel). Each operand x
 //   is split as big = tf32(x), small = tf32(x - big) and a b is taken as
 //   small_a big_b + big_a small_b + big_a big_b, accumulated in float32:
@@ -400,10 +404,14 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // bf16: TMA producer, wgmma consumers
 // ---------------------------------------------------------------------------
 
-template <int D, int C>
+// DQ: the head dim of q and k; DV: that of v and the output (DQ = 192
+// over DV = 128 for MLA's prefill; DQ = DV for every other caller).
+template <int DQ, int DV, int C>
 struct Bf16Tile {
   static constexpr int kBlockQ = 64 * C;
-  static constexpr int kBlockK = D == 256 ? 64 : 128;
+  // 64-key tiles where O's accumulators (D = 256) or the wider Q and K rows
+  // (MLA's 192) need the room, 128 otherwise
+  static constexpr int kBlockK = (DQ == 256 || DQ != DV) ? 64 : 128;
   static constexpr int kStages = 2;
   static constexpr int kThreads = 128 * (C + 1);      // consumers, producer
   // With two consumers the launch bound leaves 168 registers a thread;
@@ -412,17 +420,24 @@ struct Bf16Tile {
   static constexpr bool kMoveRegs = C == 2;
   static constexpr int kConsumerRegs = 240;
   static constexpr int kProducerRegs = 24;
-  // A tile is stored as D / kPanelCols column panels of rows of kRowBytes,
-  // in the layout TMA writes with a swizzle as wide as the row.
-  static constexpr int kPanelCols = D < 64 ? D : 64;
-  static constexpr int kPanels = D / kPanelCols;
+  // A tile is stored as column panels of kPanelCols columns (DQ / kPanelCols
+  // for Q and K, DV / kPanelCols for V), rows of kRowBytes, in the layout
+  // TMA writes with a swizzle as wide as the row. DQ and DV share the panel
+  // width: both are at least 64 where they differ.
+  static constexpr int kPanelCols = DQ < 64 ? DQ : 64;
+  static_assert(DQ == DV || (DQ % 64 == 0 && DV % 64 == 0),
+                "unequal head dims need whole 64-column panels");
+  static constexpr int kPanelsQ = DQ / kPanelCols;
+  static constexpr int kPanelsV = DV / kPanelCols;
   static constexpr int kRowBytes = 2 * kPanelCols;
   static constexpr int kGroupBytes = 8 * kRowBytes;   // 8-row swizzle atom
   static constexpr uint64_t kLayout =                 // descriptor swizzle
       kRowBytes == 128 ? 1 : (kRowBytes == 64 ? 2 : 3);
-  static constexpr int kQBytes = kBlockQ * D * 2;
-  static constexpr int kTileBytes = kBlockK * D * 2;  // one K or V tile
-  static constexpr int kBarrierOffset = kQBytes + kStages * 2 * kTileBytes;
+  static constexpr int kQBytes = kBlockQ * DQ * 2;
+  static constexpr int kKTileBytes = kBlockK * DQ * 2;   // one K tile
+  static constexpr int kVTileBytes = kBlockK * DV * 2;   // one V tile
+  static constexpr int kStageBytes = kKTileBytes + kVTileBytes;
+  static constexpr int kBarrierOffset = kQBytes + kStages * kStageBytes;
   static constexpr size_t kSmem =
       1024 + kBarrierOffset + 8 * (1 + 2 * kStages);  // + 1024-B alignment
 };
@@ -726,19 +741,19 @@ template <> struct Wgmma<256> {
 };
 
 
-template <int D, int C>
-__global__ void __launch_bounds__(Bf16Tile<D, C>::kThreads, 1)
+template <int DQ, int DV, int C>
+__global__ void __launch_bounds__(Bf16Tile<DQ, DV, C>::kThreads, 1)
 flash_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
                   const __grid_constant__ CUtensorMap k_map,
                   const __grid_constant__ CUtensorMap v_map,
                   __nv_bfloat16* __restrict__ o, Strides os, Problem p,
                   int n_qtiles) {
-  using T = Bf16Tile<D, C>;
+  using T = Bf16Tile<DQ, DV, C>;
   constexpr int BK = T::kBlockK;
   extern __shared__ uint8_t smem_raw[];
   // swizzle atoms of TMA and wgmma are addressed from a 1024-byte boundary
   const uint32_t q_s = (smem_addr(smem_raw) + 1023u) & ~1023u;
-  const uint32_t kv_s = q_s + T::kQBytes;   // stage s: K tile 2 s, V 2 s + 1
+  const uint32_t kv_s = q_s + T::kQBytes;   // stage s: its K tile, then V
   const uint32_t q_full = q_s + T::kBarrierOffset;
   const uint32_t full0 = q_full + 8;                  // full[s]: K, V landed
   const uint32_t empty0 = full0 + 8 * T::kStages;     // empty[s]: released
@@ -768,22 +783,21 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
     if (threadIdx.x == 128 * C) {
       const int hk = h / p.group;
       mbar_expect_tx(q_full, T::kQBytes);
-      for (int pn = 0; pn < T::kPanels; ++pn)
+      for (int pn = 0; pn < T::kPanelsQ; ++pn)
         tma_load(q_s + pn * T::kBlockQ * T::kRowBytes, &q_map, q_full,
                  pn * T::kPanelCols, q0, h, b);
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % T::kStages;
         mbar_wait(empty0 + 8 * s, ((it / T::kStages) & 1) ^ 1);
-        mbar_expect_tx(full0 + 8 * s, 2 * T::kTileBytes);
+        mbar_expect_tx(full0 + 8 * s, T::kStageBytes);
         const int k0 = (tile0 + it) * BK;
-        const uint32_t k_dst = kv_s + 2 * s * T::kTileBytes;
-        for (int pn = 0; pn < T::kPanels; ++pn) {
-          const uint32_t off = pn * BK * T::kRowBytes;
-          tma_load(k_dst + off, &k_map, full0 + 8 * s, pn * T::kPanelCols,
-                   k0, hk, b);
-          tma_load(k_dst + T::kTileBytes + off, &v_map, full0 + 8 * s,
+        const uint32_t k_dst = kv_s + s * T::kStageBytes;
+        for (int pn = 0; pn < T::kPanelsQ; ++pn)
+          tma_load(k_dst + pn * BK * T::kRowBytes, &k_map, full0 + 8 * s,
                    pn * T::kPanelCols, k0, hk, b);
-        }
+        for (int pn = 0; pn < T::kPanelsV; ++pn)
+          tma_load(k_dst + T::kKTileBytes + pn * BK * T::kRowBytes, &v_map,
+                   full0 + 8 * s, pn * T::kPanelCols, k0, hk, b);
       }
     }
   } else {
@@ -803,9 +817,9 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
       it_lo = wk.begin / BK - tile0;
       it_hi = (wk.end + BK - 1) / BK - tile0;
     }
-    float o_acc[D / 2];
+    float o_acc[DV / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o_acc[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) o_acc[i] = 0.f;
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
     auto wait_full = [&](int it) {
@@ -816,13 +830,13 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
       if (lane == 0) mbar_arrive(empty0 + 8 * (it % T::kStages));
     };
     auto k_tile = [&](int it) {
-      return kv_s + 2 * (it % T::kStages) * T::kTileBytes;
+      return kv_s + (it % T::kStages) * T::kStageBytes;
     };
     // S = Q K^T of tile `it`, 16 dims a step: both K-major, SBO = one
     // 8-row swizzle atom (issued, not waited for)
     auto issue_s = [&](float (&sc)[BK / 2], int it) {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < DQ / 16; ++kk) {
         const int pn = 16 * kk / T::kPanelCols;
         const int col = 2 * (16 * kk % T::kPanelCols);
         const uint64_t da = smem_desc(
@@ -836,10 +850,10 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
     // O += P V of tile `it`, 16 keys a step: V MN-major, SBO = one 8-key
     // atom, LBO = one column panel (issued, not waited for)
     auto issue_pv = [&](uint32_t (&pa)[BK / 16][4], int it) {
-      const uint32_t v_tile = k_tile(it) + T::kTileBytes;
+      const uint32_t v_tile = k_tile(it) + T::kKTileBytes;
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        Wgmma<D>::rs(o_acc, pa[kk],
+        Wgmma<DV>::rs(o_acc, pa[kk],
                      smem_desc(v_tile + 16 * kk * T::kRowBytes,
                                BK * T::kRowBytes, T::kGroupBytes,
                                T::kLayout));
@@ -919,7 +933,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
         fence_regs(pa);
         release(it - 1);
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i)
+        for (int i = 0; i < DV / 2; ++i)
           o_acc[i] *= ((i >> 1) & 1) ? alpha.y : alpha.x;
         pack_p(sc, pa);
       }
@@ -947,7 +961,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
       if (row >= p.sq) continue;
       __nv_bfloat16* out = o + b * os.b + h * os.h + row * os.s + 2 * t;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
+      for (int j = 0; j < DV / 8; ++j)
         *reinterpret_cast<uint32_t*>(out + 8 * j) =
             pack_bf16(o_acc[4 * j + 2 * r] / den[r],
                       o_acc[4 * j + 2 * r + 1] / den[r]);
@@ -1049,27 +1063,28 @@ int launch_f32(const Args& a, int warps) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, int C>
+template <int DQ, int DV, int C>
 int launch_bf16(const Args& a) {
-  using T = Bf16Tile<D, C>;
+  using T = Bf16Tile<DQ, DV, C>;
   CUtensorMap q_map, k_map, v_map;
-  if (!encode_map(&q_map, a.q, D, a.p.sq, a.heads, a.batch, a.qs,
+  // V's map is DV wide: its boxes are the same 64-column panels
+  if (!encode_map(&q_map, a.q, DQ, a.p.sq, a.heads, a.batch, a.qs,
                   T::kPanelCols, T::kBlockQ, T::kRowBytes) ||
-      !encode_map(&k_map, a.k, D, a.p.sk, a.kv_heads, a.batch, a.ks,
+      !encode_map(&k_map, a.k, DQ, a.p.sk, a.kv_heads, a.batch, a.ks,
                   T::kPanelCols, T::kBlockK, T::kRowBytes) ||
-      !encode_map(&v_map, a.v, D, a.p.sk, a.kv_heads, a.batch, a.vs,
+      !encode_map(&v_map, a.v, DV, a.p.sk, a.kv_heads, a.batch, a.vs,
                   T::kPanelCols, T::kBlockK, T::kRowBytes))
     return static_cast<int>(cudaErrorInvalidValue);
   static bool opted_in = false;
   if (!opted_in) {
-    const int err = opt_in_shared(flash_bf16_kernel<D, C>, T::kSmem);
+    const int err = opt_in_shared(flash_bf16_kernel<DQ, DV, C>, T::kSmem);
     if (err) return err;
     opted_in = true;
   }
   const int n_qtiles = (a.p.sq + T::kBlockQ - 1) / T::kBlockQ;
   if (n_qtiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(a.heads, a.batch, n_qtiles);
-  flash_bf16_kernel<D, C><<<grid, T::kThreads, T::kSmem, a.stream>>>(
+  flash_bf16_kernel<DQ, DV, C><<<grid, T::kThreads, T::kSmem, a.stream>>>(
       q_map, k_map, v_map, static_cast<__nv_bfloat16*>(a.o), a.os, a.p,
       n_qtiles);
   return static_cast<int>(cudaGetLastError());
@@ -1077,7 +1092,7 @@ int launch_bf16(const Args& a) {
 
 // The instantiation of a (type, D, Dv, query tile, key tile) plan, or
 // cudaErrorInvalidValue when this file has none. Dv differs from D only
-// for the float32 route's (192, 128).
+// at (192, 128), MLA's prefill, on both routes.
 int dispatch(const Args& a, int dtype, int d, int dv, int block_q,
              int block_k) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
@@ -1087,14 +1102,21 @@ int dispatch(const Args& a, int dtype, int d, int dv, int block_q,
     return launch_f32<DIM, DIM>(a, block_q / 16);
 #define FLASH_BF16(DIM)                                                      \
   case DIM:                                                                  \
-    if (block_q == 128 && block_k == Bf16Tile<DIM, 2>::kBlockK)              \
-      return launch_bf16<DIM, 2>(a);                                         \
-    if (block_q == 64 && block_k == Bf16Tile<DIM, 1>::kBlockK)               \
-      return launch_bf16<DIM, 1>(a);                                         \
+    if (block_q == 128 && block_k == Bf16Tile<DIM, DIM, 2>::kBlockK)         \
+      return launch_bf16<DIM, DIM, 2>(a);                                    \
+    if (block_q == 64 && block_k == Bf16Tile<DIM, DIM, 1>::kBlockK)          \
+      return launch_bf16<DIM, DIM, 1>(a);                                    \
     return bad;
   if (dtype == 0 && d == 192 && dv == 128) {
     if (block_k != F32Tile<192, 128>::kBlockK || block_q % 16) return bad;
     return launch_f32<192, 128>(a, block_q / 16);
+  }
+  if (dtype == 1 && d == 192 && dv == 128) {
+    if (block_q == 128 && block_k == Bf16Tile<192, 128, 2>::kBlockK)
+      return launch_bf16<192, 128, 2>(a);
+    if (block_q == 64 && block_k == Bf16Tile<192, 128, 1>::kBlockK)
+      return launch_bf16<192, 128, 1>(a);
+    return bad;
   }
   if (dv != d) return bad;
   if (dtype == 0) {
@@ -1107,8 +1129,9 @@ int dispatch(const Args& a, int dtype, int d, int dv, int block_q,
     switch (d) {
       FLASH_BF16(16) FLASH_BF16(32) FLASH_BF16(64) FLASH_BF16(128)
       case 256:
-        if (block_q != 64 || block_k != Bf16Tile<256, 1>::kBlockK) return bad;
-        return launch_bf16<256, 1>(a);
+        if (block_q != 64 || block_k != Bf16Tile<256, 256, 1>::kBlockK)
+          return bad;
+        return launch_bf16<256, 256, 1>(a);
       default: return bad;
     }
   }
@@ -1124,7 +1147,7 @@ int dispatch(const Args& a, int dtype, int d, int dv, int block_q,
 // (batch, head, row) element strides with the last dimension contiguous,
 // all float32 (dtype 0) or bf16 (dtype 1) on the device of `stream`. H must
 // be a multiple of Hkv, D one of 16, 32, 64, 128, 256 with Dv = D, or
-// (float32 only) D = 192 with Dv = 128. (block_q, block_k) is
+// D = 192 with Dv = 128. (block_q, block_k) is
 // the host-side plan's tile (kernels/flash_attention.py::plan): float32
 // takes block_q = 16 x warps, bf16 block_q = 64 x consumer warpgroups.
 // bf16 tensors must meet TMA's rules (16-byte aligned base, strides in

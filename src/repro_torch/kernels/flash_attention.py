@@ -37,10 +37,11 @@ output is written into a (B, Sq, H, D) buffer and returned as its
 buffer as it lies. So a prefill layer makes no copy for attention.
 
 Head dims: q and k are D wide, v and the output Dv. Both routes take
-D = Dv in `HEAD_DIMS`; the float32 route also takes (D, Dv) = (192, 128),
-DeepSeek MLA's prefill (128 + 64 rotary query and key columns over
-128-wide values). The bf16 route refuses (192, 128) with a ValueError:
-it is not instantiated (ROADMAP.md, Queue 2), and nothing pads it.
+D = Dv in `HEAD_DIMS` and (D, Dv) = (192, 128), DeepSeek MLA's prefill
+(128 + 64 rotary query and key columns over 128-wide values): the float32
+route in 32-key tiles, the bf16 route in 64-key tiles with Q and K as
+three 64-column panels, V as two under a tensor map of its own width.
+Nothing pads a head dim; any other pair raises a ValueError.
 
 Rows with no visible key (only with `window > 0` and
 `Sq + q_offset >= Sk + window`) raise here: the plain version averages all
@@ -59,7 +60,8 @@ from repro_torch.kernels import build, launch, ref
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 # (D, Dv) pairs with Dv != D, per route (csrc: dispatch)
-UNEQUAL_HEAD_DIMS = {torch.float32: ((192, 128),), torch.bfloat16: ()}
+UNEQUAL_HEAD_DIMS = {torch.float32: ((192, 128),),
+                     torch.bfloat16: ((192, 128),)}
 ROUTES = {torch.float32: "mma_3xtf32", torch.bfloat16: "wgmma_bf16"}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
@@ -135,11 +137,16 @@ def check_head_dims(dtype: torch.dtype, d: int, dv: int) -> None:
         f"{ {ROUTES[t]: p for t, p in UNEQUAL_HEAD_DIMS.items()} }")
 
 
-def bf16_tiles(d: int) -> tuple:
+def bf16_tiles(d: int, dv: int | None = None) -> tuple:
     """(block_k, most consumer warpgroups) of the bf16 route (csrc:
     Bf16Tile): 128-key tiles and two consumers up to D = 128; D = 256 takes
-    64-key tiles and one consumer to fit O's 128 accumulator registers."""
-    return (64, 1) if d == 256 else (128, 2)
+    64-key tiles and one consumer to fit O's 128 accumulator registers;
+    (D, Dv) = (192, 128) 64-key tiles and two consumers, so that Q and two
+    stages of K and V take 128 KB."""
+    dv = d if dv is None else dv
+    if d == 256:
+        return 64, 1
+    return (64, 2) if dv != d else (128, 2)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -175,11 +182,11 @@ def plan(dtype: torch.dtype, d: int, *, batch: int, heads: int, sq: int,
                          32 * warps, smem, ((32 * warps, regs_cap),),
                          (heads, batch, -(-sq // block_q)))
     if dtype == torch.bfloat16:
-        block_k, consumers = bf16_tiles(d)
+        block_k, consumers = bf16_tiles(d, dv)
         if consumers == 2 and tiles(128) < n_sms:
             consumers = 1
         block_q, stages = 64 * consumers, 2
-        smem = (1024 + block_q * d * 2 + stages * 2 * block_k * d * 2
+        smem = (1024 + block_q * d * 2 + stages * block_k * (d + dv) * 2
                 + 8 * (1 + 2 * stages))
         # two consumers: setmaxnreg moves registers from the producer's 24
         # to the consumers' 240; one: the launch bound leaves 255 to all

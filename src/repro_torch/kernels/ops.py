@@ -269,16 +269,39 @@ def decompress(counts, bits: int, *, device=DEFAULT_DEVICE) -> torch.Tensor:
         _as(torch.as_tensor(counts).to(dev), torch.uint8), bits)
 
 
+class FlashAttention(torch.autograd.Function):
+    """`flash_attention` with a gradient. Forward: the flash kernel on
+    CUDA tensors, `ref.attention_ref` on CPU tensors. Backward: the plain
+    version on either device (`ref.attention_backward_ref`, autograd
+    through `attention_ref` recomputed a block of query rows at a time),
+    as the JAX package has no backward kernel either: it differentiates
+    XLA's chunked attention, and its Pallas flash kernel has no VJP."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, q_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = dict(causal=causal, window=window, scale=scale,
+                      q_offset=q_offset)
+        return flash_attention_kernel(q, k, v, **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = ref.attention_backward_ref(q, k, v, dout, **ctx.kw)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     scale: float | None = None,
                     q_offset: int = 0) -> torch.Tensor:
-    """q: (B, H, Sq, D); k, v: (B, Hkv, Sk, D) -> (B, H, Sq, D).
+    """q: (B, H, Sq, D); k: (B, Hkv, Sk, D), v: (B, Hkv, Sk, Dv) ->
+    (B, H, Sq, Dv).
 
     The JAX package repeats KV heads here and calls the TPU kernel on
     (B·H, S, D) blocks; the port's kernel reads each query head's KV head
     in place, so this only dispatches: the flash kernel on CUDA tensors,
-    its plain version (`ref.attention_ref`) on CPU tensors. It takes no
+    its plain version (`ref.attention_ref`) on CPU tensors, through
+    `FlashAttention`, whose backward is the plain version. It takes no
     `device=`: the model calls it on activations that already lie on the
     device the caller chose."""
-    return flash_attention_kernel(q, k, v, causal=causal, window=window,
-                                  scale=scale, q_offset=q_offset)
+    return FlashAttention.apply(q, k, v, causal, window, scale, q_offset)

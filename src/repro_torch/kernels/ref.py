@@ -192,3 +192,43 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = torch.where(mask, s, torch.tensor(-1e30, device=q.device))
     p = torch.softmax(s, dim=-1)
     return torch.matmul(p, v.float()).to(q.dtype)
+
+
+# scores of the query rows one step of `attention_backward_ref` holds
+BACKWARD_SCORE_BYTES = 1 << 28
+
+
+def attention_backward_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           dout: torch.Tensor, *, causal: bool = True,
+                           window: int = 0, scale: float | None = None,
+                           q_offset: int = 0,
+                           block_rows: int | None = None) -> tuple:
+    """The gradients (dq, dk, dv) of `attention_ref` at (q, k, v) for the
+    output gradient `dout` (B, H, Sq, Dv), in the inputs' dtypes.
+
+    Autograd through `attention_ref`, recomputed one block of query rows
+    at a time so that only that block's (B, H, rows, Sk) float32 scores
+    are alive: `block_rows` rows (by default as many as fit in
+    BACKWARD_SCORE_BYTES). Rows are independent, so a block's row i sits
+    at position q_offset + i0 + i. dk and dv sum over the blocks in
+    float32 (or the inputs' wider type) and, through the repeated KV
+    heads, over each KV head's query group."""
+    b, h, sq, _ = q.shape
+    sk = k.shape[2]
+    if block_rows is None:
+        block_rows = max(1, BACKWARD_SCORE_BYTES // max(1, 4 * b * h * sk))
+    kd = k.detach().requires_grad_()
+    vd = v.detach().requires_grad_()
+    acc = torch.promote_types(k.dtype, torch.float32)
+    dq, dk, dv = [], None, None
+    with torch.enable_grad():
+        for i0 in range(0, sq, block_rows):
+            qb = q[:, :, i0:i0 + block_rows].detach().requires_grad_()
+            out = attention_ref(qb, kd, vd, causal=causal, window=window,
+                                scale=scale, q_offset=q_offset + i0)
+            gq, gk, gv = torch.autograd.grad(
+                out, (qb, kd, vd), dout[:, :, i0:i0 + block_rows])
+            dq.append(gq)
+            dk = gk.to(acc) if dk is None else dk + gk.to(acc)
+            dv = gv.to(acc) if dv is None else dv + gv.to(acc)
+    return torch.cat(dq, dim=2), dk.to(k.dtype), dv.to(v.dtype)

@@ -1,22 +1,31 @@
-"""Serving step functions of the LM zoo (port of `repro/launch/steps.py`,
-the contiguous and paged serve steps).
+"""Step functions of the LM zoo (port of `repro/launch/steps.py`: the
+train step, the contiguous and paged serve steps).
 
 The JAX package builds pure functions that `jax.jit` compiles; here the
-same factories return plain functions that run eagerly under
-`torch.inference_mode()`. A prefill batch is a dict: `tokens`, and
-`frames` (Whisper's encoder input) or `patches` (InternVL2's rows ahead
-of the prompt) where the model takes them. States are updated in place: a prefill into a
-slot copies the fresh batch-1 state into that row of the engine's state,
-and a decode step writes one key and value per sequence into the caches it
-is given, and advances the SSM and RG-LRU states in place (see
-`models/transformer.py`).
+same factories return plain functions that run eagerly.
+
+`make_train_step` returns (params, opt_state, batch) -> (params,
+opt_state, metrics): a bf16 (or `compute_dtype`) copy of the float32
+master weights takes the gradients of `lm_loss` under autograd, over
+`microbatches` slices of the batch summed in float32, then global-norm
+clipping and the optimizer's update of the master weights. It returns a
+new parameter tree and state; the old ones are freed when the caller
+drops them. `lm_loss` is the mean next-token cross-entropy over the real
+vocabulary plus AUX_COEF times the MoE load-balance loss.
+
+The serve steps run under `torch.inference_mode()`. A prefill batch is a
+dict: `tokens`, and `frames` (Whisper's encoder input) or `patches`
+(InternVL2's rows ahead of the prompt) where the model takes them. States
+are updated in place: a prefill into a slot copies the fresh batch-1
+state into that row of the engine's state, and a decode step writes one
+key and value per sequence into the caches it is given, and advances the
+SSM and RG-LRU states in place (see `models/transformer.py`).
 
 The paged steps serve from shared block pools: a batched prefill admits
 up to `admit` same-bucket requests in one forward (one flash-attention
 launch a layer) and scatters each row's fresh cache into its slot's
 blocks (`write_paged_state_slot`); the paged decode step takes the slots'
-block tables beside the masked decode's arguments. `make_train_step` and
-`lm_loss` wait for their item in ROADMAP.md (Queue 1 item 4.6).
+block tables beside the masked decode's arguments.
 """
 from __future__ import annotations
 
@@ -26,23 +35,166 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import kvcache, transformer
+from repro_torch.train import optimizer as opt_lib
 
 
-def cast_tree(tree: torch.nn.Module, dtype) -> transformer.ParamTree:
-    """A copy of a parameter tree with every floating tensor cast to
-    `dtype` (integer tensors shared): the compute-dtype copy of float32
-    master weights."""
+AUX_COEF = 0.01
+
+
+def _map_tree(tree: torch.nn.Module, fn, *,
+              requires_grad: bool = False) -> transformer.ParamTree:
+    """A new parameter tree of the same structure whose every tensor is
+    `fn(parameter)`, visited in `tree.parameters()` order."""
     def walk(mod):
         out = {}
         for name, p in mod.named_parameters(recurse=False):
-            out[name] = p.to(dtype) if p.is_floating_point() else p.data
+            out[name] = fn(p)
         for name, child in mod.named_children():
             if isinstance(child, torch.nn.ModuleList):
                 out[name] = [walk(c) for c in child]
             else:
                 out[name] = walk(child)
         return out
-    return transformer.ParamTree(walk(tree))
+    return transformer.ParamTree(walk(tree), requires_grad=requires_grad)
+
+
+def cast_tree(tree: torch.nn.Module, dtype) -> transformer.ParamTree:
+    """A copy of a parameter tree with every floating tensor cast to
+    `dtype` (integer tensors shared): the compute-dtype copy of float32
+    master weights."""
+    return _map_tree(tree, lambda p: p.to(dtype) if p.is_floating_point()
+                     else p.data)
+
+
+def cast_params_pinned(cfg: ArchConfig, params,
+                       dtype) -> transformer.ParamTree:
+    """`cast_tree`. The JAX package pins each cast to its parameter's
+    sharding so that XLA does not move the convert past the FSDP
+    all-gather; that is a fact of the XLA program, and one card has no
+    all-gather to move it past."""
+    del cfg
+    return cast_tree(params, dtype)
+
+
+def tree_leaves(tree: torch.nn.Module) -> list:
+    """The tensors of a parameter tree in `parameters()` order: the order
+    of optimizer states, gradients and updates."""
+    return list(tree.parameters())
+
+
+def tree_with_leaves(tree: torch.nn.Module, leaves) -> transformer.ParamTree:
+    """A frozen parameter tree of `tree`'s structure holding `leaves`
+    (in `tree_leaves` order)."""
+    it = iter(leaves)
+    out = _map_tree(tree, lambda p: next(it))
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree has parameters")
+    return out
+
+
+def _compute_copy(params, compute_dtype) -> transformer.ParamTree:
+    """The tree autograd differentiates: detached copies of the master
+    weights in `compute_dtype` (aliases of them when None) that require
+    gradients; the master tree itself stays frozen."""
+    def leaf(p):
+        p = p.detach()
+        return p.to(compute_dtype) if (compute_dtype is not None
+                                       and p.is_floating_point()) else p
+    return _map_tree(params, leaf, requires_grad=True)
+
+
+def lm_loss(cfg: ArchConfig, params, tokens, labels, *, frames=None,
+            patches=None, remat: bool = True):
+    """(loss + AUX_COEF·aux, (loss, aux)): the mean next-token
+    cross-entropy of `forward_train`'s logits against `labels` (B, S),
+    over the real vocabulary (logits of the padded entries set to -1e30),
+    with the log-softmax in float32; a patch model's patch rows carry no
+    label."""
+    logits, aux = transformer.forward_train(cfg, params, tokens,
+                                            frames=frames, patches=patches,
+                                            remat=remat)
+    if cfg.patch_tokens:
+        logits = logits[:, cfg.patch_tokens:]
+    v = cfg.vocab_size
+    if logits.shape[-1] > v:
+        pad = torch.arange(logits.shape[-1], device=logits.device) >= v
+        logits = logits.masked_fill(pad, -1e30)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    loss = -torch.mean(ll)
+    return loss + AUX_COEF * aux, (loss, aux)
+
+
+def make_train_step(cfg: ArchConfig, optimizer, *, microbatches: int = 1,
+                    compute_dtype=torch.bfloat16, remat: bool = True,
+                    clip_norm: float = 1.0,
+                    cross_pod_mesh=None) -> Callable:
+    """(params, opt_state, batch) -> (params, opt_state, metrics).
+
+    params: the float32 master `ParamTree`; opt_state: the optimizer's
+    state over `tree_leaves(params)`; batch: `tokens` and `labels`
+    (B, S), and `frames` or `patches` where the model takes them.
+    Gradients are taken on the `compute_dtype` copy (the master weights
+    themselves when None), cast to float32 and, over `microbatches`
+    equal slices of the batch's rows, summed and scaled by
+    1/microbatches, as are the loss and aux metrics. Then global-norm
+    clipping at `clip_norm` (0: none, the norm still reported) and the
+    optimizer's update, given the master weights. metrics: `loss`, `aux`
+    and `grad_norm`, 0-d float32 tensors.
+
+    `cross_pod_mesh` (the JAX package's int8-compressed cross-pod
+    reduction) is training infrastructure the port has not taken yet."""
+    if cross_pod_mesh is not None:
+        raise NotImplementedError(
+            "make_train_step: compressed cross-pod gradient reduction is "
+            "training infrastructure (ROADMAP.md, Queue 1 item 5)")
+
+    def grads_of(params_c, leaves_c, mb):
+        total, (loss, aux) = lm_loss(
+            cfg, params_c, mb["tokens"], mb["labels"],
+            frames=mb.get("frames"), patches=mb.get("patches"), remat=remat)
+        grads = torch.autograd.grad(total, leaves_c)
+        return (tuple(g.float() for g in grads), loss.detach(),
+                aux.detach())
+
+    def local_grads(params_c, batch):
+        leaves_c = tree_leaves(params_c)
+        if microbatches == 1:
+            return grads_of(params_c, leaves_c, batch)
+        rows = next(iter(batch.values())).shape[0]
+        if rows % microbatches:
+            raise ValueError(f"make_train_step: a batch of {rows} rows does "
+                             f"not split into {microbatches} microbatches")
+        n = rows // microbatches
+        g_acc = tuple(torch.zeros(p.shape, dtype=torch.float32,
+                                  device=p.device) for p in leaves_c)
+        l_acc = a_acc = torch.zeros((), dtype=torch.float32,
+                                    device=leaves_c[0].device)
+        for i in range(microbatches):
+            mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+            g, l, a = grads_of(params_c, leaves_c, mb)
+            g_acc = tuple(ga + gi for ga, gi in zip(g_acc, g))
+            l_acc, a_acc = l_acc + l, a_acc + a
+            del g
+        inv = 1.0 / microbatches
+        return tuple(g * inv for g in g_acc), l_acc * inv, a_acc * inv
+
+    def train_step(params, opt_state, batch):
+        grads, loss, aux = local_grads(_compute_copy(params, compute_dtype),
+                                       batch)
+        if clip_norm:
+            grads, gnorm = opt_lib.clip_by_global_norm(grads, clip_norm)
+        else:
+            gnorm = opt_lib.global_norm(grads)
+        leaves = tree_leaves(params)
+        updates, opt_state = optimizer.update(grads, opt_state, leaves)
+        del grads
+        params = tree_with_leaves(params,
+                                  opt_lib.apply_updates(leaves, updates))
+        return params, opt_state, {"loss": loss, "aux": aux,
+                                   "grad_norm": gnorm}
+
+    return train_step
 
 
 def make_prefill_step(cfg: ArchConfig, *, max_len: int) -> Callable:

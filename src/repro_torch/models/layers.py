@@ -4,10 +4,11 @@
 Functions take plain tensors and parameter modules whose attribute names
 are the JAX package's dict keys (`p.scale`, `p.w1`, ...). Arithmetic
 follows the JAX functions step for step: norms and RoPE in float32, the
-RMSNorm gain as `1 + scale`, RoPE on split halves. Prefill attention
-(`chunked_attention`, and `banded_attention` for Mixtral's sliding
-window) goes through `kernels.ops.flash_attention`, the hand-written
-flash kernel on CUDA tensors and its plain version on CPU tensors; decode
+RMSNorm gain as `1 + scale`, RoPE on split halves. Prefill and training
+attention (`chunked_attention`, and `banded_attention` for Mixtral's
+sliding window) goes through `kernels.ops.flash_attention`, the
+hand-written flash kernel on CUDA tensors and its plain version on CPU
+tensors, differentiable (`ops.FlashAttention`, a plain backward); decode
 attention (`decode_attention`) is plain PyTorch over the whole cache, as
 the JAX package's is plain XLA. `sinusoidal_positions` gives Whisper's
 encoder its fixed positions.
@@ -137,9 +138,11 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     The JAX function streams the softmax over KV chunks in XLA; here the
     same streaming softmax is the flash kernel (`ops.flash_attention`) on
     CUDA tensors and its plain version on CPU tensors, GQA folded in
-    without repeating keys on the card. `chunk` (XLA's scan chunk) and
-    `remat_body` (checkpointing of the scan body for the backward pass)
-    are facts of the XLA program: they are accepted and ignored.
+    without repeating keys on the card; under autograd its gradient is
+    the plain version's (`ops.FlashAttention`). `chunk` (XLA's scan
+    chunk) and `remat_body` (checkpointing of the scan body for the
+    backward pass) are facts of the XLA program: they are accepted and
+    ignored.
     `kv_len` (an int or a 0-d tensor) masks keys at or past it, which is
     the same as dropping them.
     """

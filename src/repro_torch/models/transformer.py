@@ -56,8 +56,14 @@ and `pos` starts past them.
 Every family of the zoo runs here: the dense and MoE families, with GQA
 (full or sliding-window) or MLA attention, the SSM (Mamba 2) and hybrid
 (RecurrentGemma) families, the encoder-decoder (Whisper) and the patch
-model (InternVL2), with a bf16, int8 or int4 KV cache; `forward_train`
-waits for the LM train steps (ROADMAP.md, Queue 1 item 4.6).
+model (InternVL2), with a bf16, int8 or int4 KV cache.
+
+Training (`forward_train`) runs every family too, under autograd: the
+layers in mode "train" write no cache or state, the attention is the
+differentiable `ops.FlashAttention` (the flash kernel forward, a plain
+backward), and with `remat` each segment body is recomputed in the
+backward pass (`torch.utils.checkpoint`), as the JAX package's
+`jax.checkpoint(nothing_saveable)` does.
 """
 from __future__ import annotations
 
@@ -65,6 +71,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
@@ -139,21 +146,24 @@ def check_supported(cfg: ArchConfig) -> None:
 
 
 class ParamTree(nn.Module):
-    """A nested parameter dict as modules: tensors become (frozen)
-    parameters, dicts sub-trees and lists `nn.ModuleList`s, under the
-    dict's keys."""
+    """A nested parameter dict as modules: tensors become parameters,
+    dicts sub-trees and lists `nn.ModuleList`s, under the dict's keys.
+    Parameters are frozen (`requires_grad=False`) unless `requires_grad`
+    is set: the train step's compute copy takes gradients, the master
+    weights and every serving tree do not."""
 
-    def __init__(self, tree: dict):
+    def __init__(self, tree: dict, requires_grad: bool = False):
         super().__init__()
         for name, val in tree.items():
             if isinstance(val, torch.Tensor):
-                self.register_parameter(
-                    name, nn.Parameter(val, requires_grad=False))
+                self.register_parameter(name, nn.Parameter(
+                    val, requires_grad=(requires_grad
+                                        and val.is_floating_point())))
             elif isinstance(val, dict):
-                self.add_module(name, ParamTree(val))
+                self.add_module(name, ParamTree(val, requires_grad))
             else:
                 self.add_module(name, nn.ModuleList(
-                    ParamTree(x) for x in val))
+                    ParamTree(x, requires_grad) for x in val))
 
 
 class Builder:
@@ -364,13 +374,14 @@ def attn_mixer(cfg, p, x, positions, *, window: int, mode: str, cache,
     prefill: attention over the prompt through `chunked_attention`, or
     `banded_attention` for a causal banded sliding window (the flash
     kernel on the card either way), and the prompt's last W keys and
-    values written into `cache` (width W). encode: the same attention
-    with no cache (`cache` None; Whisper's encoder runs it with
-    causal=False). decode (x (B, 1, D), pos (B,)): one
-    key and value per sequence written at pos % W, then `decode_attention`
-    over the cache; on a paged pool at (block_table[b, pos // BS],
-    pos % BS), then over the slot's gathered view, MB·BS == max_len wide,
-    so the same kv_len mask makes paged decode equal to contiguous decode.
+    values written into `cache` (width W). train and encode: the same
+    attention with no cache (`cache` None; Whisper's encoder runs it with
+    causal=False), differentiable (`ops.FlashAttention`). decode
+    (x (B, 1, D), pos (B,)): one key and value per sequence written at
+    pos % W, then `decode_attention` over the cache; on a paged pool at
+    (block_table[b, pos // BS], pos % BS), then over the slot's gathered
+    view, MB·BS == max_len wide, so the same kv_len mask makes paged
+    decode equal to contiguous decode.
     Returns x @ wo; the cache is updated in place."""
     b, s, _ = x.shape
     q, k, v = _qkv(cfg, p, x)
@@ -378,7 +389,7 @@ def attn_mixer(cfg, p, x, positions, *, window: int, mode: str, cache,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    if mode in ("prefill", "encode"):
+    if mode in ("prefill", "encode", "train"):
         if window > 0 and causal and cfg.banded_swa:
             out = banded_attention(q, k, v, window=window,
                                    q_block=cfg.attn_chunk,
@@ -423,15 +434,17 @@ def _block_of(block_table, pos, bs: int):
     return torch.gather(block_table.to(torch.long), 1, logical[:, None])[:, 0]
 
 
-def cross_mixer(cfg, p, x, *, cross, enc_out=None):
+def cross_mixer(cfg, p, x, *, cross=None, enc_out=None):
     """Whisper's cross attention: queries from the decoder's x (B, S, D),
     keys and values over the encoder's F frames, non-causal through
     `chunked_attention` (the flash kernel on the card).
 
-    With `enc_out` (B, F, D), the prefill: K and V are projected from it
-    (with the biases where the layer has them) and written into `cross`
-    (a `CrossKV` view, (B, Hkv, F, hd)); without it, a decode step reads
-    them there. Returns the output projection (B, S, D)."""
+    With `enc_out` (B, F, D), K and V are projected from it (with the
+    biases where the layer has them): at prefill written into `cross` (a
+    `CrossKV` view, (B, Hkv, F, hd)) and read there; in training (`cross`
+    None) used as they are, with no write. Without `enc_out`, a decode
+    step reads them from `cross`. Returns the output projection
+    (B, S, D)."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     q = x @ p.wq
@@ -440,12 +453,17 @@ def cross_mixer(cfg, p, x, *, cross, enc_out=None):
     q = q.view(b, s, cfg.num_heads, hd).transpose(1, 2)
     if enc_out is not None:
         f = enc_out.shape[1]
-        for name, dst in (("k", cross.k), ("v", cross.v)):
+        kv = []
+        for name in ("k", "v"):
             y = enc_out @ getattr(p, "w" + name)
             if hasattr(p, "b" + name):
                 y = y + getattr(p, "b" + name)
-            dst.copy_(y.view(b, f, cfg.num_kv_heads, hd).transpose(1, 2))
-    out = chunked_attention(q, cross.k, cross.v, causal=False,
+            kv.append(y.view(b, f, cfg.num_kv_heads, hd).transpose(1, 2))
+        if cross is not None:
+            cross.k.copy_(kv[0])
+            cross.v.copy_(kv[1])
+    k, v = (kv if cross is None else (cross.k, cross.v))
+    out = chunked_attention(q, k, v, causal=False,
                             chunk=cfg.attn_chunk, remat_body=cfg.inner_remat)
     return out.transpose(1, 2).reshape(b, s, -1) @ p.wo
 
@@ -458,12 +476,12 @@ def mla_mixer(cfg, p, x, positions, *, mode: str, cache, pos=None,
     values w_uv·latent (vd) through `chunked_attention` (the flash
     kernel's (192, 128) instantiation at full width) with scale
     1/sqrt(nd + rd); the prompt's last W latents and rotary keys written
-    into `cache`. decode (x (B, 1, D), pos (B,)): the absorbed form in
-    float32, q_nope·w_uk scored against the latent cache plus q_rope
-    against the rotary keys, softmax under kv_len = min(pos + 1, W), and
-    the context's latent mapped through w_uv; on a paged pool over the
-    slot's gathered view. Returns x @ wo; the cache is updated in
-    place."""
+    into `cache`. train: the same attention, no cache. decode
+    (x (B, 1, D), pos (B,)): the absorbed form in float32, q_nope·w_uk
+    scored against the latent cache plus q_rope against the rotary keys,
+    softmax under kv_len = min(pos + 1, W), and the context's latent
+    mapped through w_uv; on a paged pool over the slot's gathered view.
+    Returns x @ wo; the cache is updated in place."""
     b, s, _ = x.shape
     h = cfg.num_heads
     r, nd, rd, vd = (cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim,
@@ -478,7 +496,7 @@ def mla_mixer(cfg, p, x, positions, *, mode: str, cache, pos=None,
     ckv = rmsnorm(ckv, p.kv_norm)
     kr = apply_rope(kr[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
 
-    if mode == "prefill":
+    if mode in ("prefill", "train"):
         # plain products over the latent (the JAX package's einsums), so
         # k and v come out contiguous with real strides for the kernel;
         # the shared rotary key is copied into every head's columns
@@ -491,11 +509,12 @@ def mla_mixer(cfg, p, x, positions, *, mode: str, cache, pos=None,
                                 chunk=cfg.attn_chunk, scale=scale,
                                 remat_body=cfg.inner_remat)
         out = out.transpose(1, 2).reshape(b, s, h * vd)
-        w = cache.ckv.shape[-2]
-        keep = min(w, s)
-        slots = torch.arange(s - keep, s, device=x.device) % w
-        kvcache.mla_cache_write(cache, ckv[:, s - keep:], kr[:, s - keep:],
-                                slots)
+        if mode == "prefill":
+            w = cache.ckv.shape[-2]
+            keep = min(w, s)
+            slots = torch.arange(s - keep, s, device=x.device) % w
+            kvcache.mla_cache_write(cache, ckv[:, s - keep:],
+                                    kr[:, s - keep:], slots)
     else:
         if isinstance(cache, kvcache.PagedMLACache):
             bs = cache.ckv.shape[-2]
@@ -529,7 +548,7 @@ def mla_mixer(cfg, p, x, positions, *, mode: str, cache, pos=None,
 # Layers and caches
 # ---------------------------------------------------------------------------
 
-def _apply_layer(cfg, spec: LayerSpec, p, x, positions, *, mode, cache,
+def _apply_layer(cfg, spec: LayerSpec, p, x, positions, *, mode, cache=None,
                  pos=None, block_table=None, token_mask=None, cross=None,
                  enc_out=None):
     """(x after one layer, the layer's MoE aux loss): norm -> mixer ->
@@ -537,6 +556,9 @@ def _apply_layer(cfg, spec: LayerSpec, p, x, positions, *, mode, cache,
     then (unless the layer has none) norm -> MLP or MoE -> residual;
     `cache` (a KV cache, or an SSM or RG-LRU state) is updated in place.
     mode "encode" (Whisper's encoder): non-causal attention, no cache.
+    mode "train": no cache and no state, nothing written in place (the
+    SSD and RG-LRU blocks run from a zero state, a cross layer projects
+    `enc_out` itself), so autograd can take the layer's gradient.
     cross: a cross layer's `CrossKV` view, written from `enc_out` at
     prefill and read at decode. token_mask: (B,) bool of live rows, which
     only an MoE layer reads (as its routing mask); any other layer's aux
@@ -552,12 +574,15 @@ def _apply_layer(cfg, spec: LayerSpec, p, x, positions, *, mode, cache,
         block, step = ((ssm.mamba2_block, ssm.mamba2_decode)
                        if spec.mixer == "ssd" else
                        (rglru.recurrent_block, rglru.recurrent_block_decode))
-        if mode == "prefill":
-            out, new = block(cfg, p.mixer, h, return_state=True)
+        if mode == "train":
+            out = block(cfg, p.mixer, h)
         else:
-            out, new = step(cfg, p.mixer, h, cache)
-        for dst, src in zip(cache, new):
-            dst.copy_(src)
+            if mode == "prefill":
+                out, new = block(cfg, p.mixer, h, return_state=True)
+            else:
+                out, new = step(cfg, p.mixer, h, cache)
+            for dst, src in zip(cache, new):
+                dst.copy_(src)
     else:
         out = attn_mixer(cfg, p.mixer, h, positions,
                          window=_window(cfg, spec), mode=mode, cache=cache,
@@ -727,6 +752,53 @@ def _check_inputs(cfg, b, frames, patches):
             raise ValueError(f"{cfg.name}: {name} must be (B={b}, "
                              f"{rows or 'F'}, {cfg.d_model}), got "
                              f"{tuple(t.shape)}")
+
+
+def forward_train(cfg: ArchConfig, params, tokens: torch.Tensor, *,
+                  frames=None, patches=None, remat: bool = True):
+    """Teacher-forced logits (B, S, V) — (B, P + S, V) for a patch model,
+    its P patch rows first — and the summed MoE aux loss (0-d float32).
+
+    frames (B, F, D): an encoder-decoder model's encoder input; patches
+    (B, P, D): a patch model's rows ahead of the tokens. Both are cast to
+    the parameters' dtype (the JAX package promotes float32 frames
+    against bf16 weights instead; the two agree in float32). Every layer
+    runs in mode "train", under autograd when the parameters require
+    gradients. With `remat` the body of each segment repetition (its
+    layers, one after the other) runs under `torch.utils.checkpoint`, so
+    the backward pass recomputes its activations, the flash kernel's
+    forward included, as `jax.checkpoint(nothing_saveable)` does; nothing
+    in a body draws random numbers, so no generator state is kept."""
+    check_supported(cfg)
+    b = tokens.shape[0]
+    _check_inputs(cfg, b, frames, patches)
+    x = _embed_tokens(cfg, params, tokens)
+    enc_out = None
+    if cfg.encoder_layers:
+        enc_out = run_encoder(cfg, params, frames.to(x.device, x.dtype))
+    if cfg.patch_tokens:
+        x = torch.cat([patches.to(x.device, x.dtype), x], dim=1)
+    positions = torch.arange(x.shape[1], device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def body(specs, lps, y, a):
+        for ls, lp in zip(specs, lps):
+            y, da = _apply_layer(cfg, ls, lp, y, positions, mode="train",
+                                 enc_out=enc_out)
+            a = a + da
+        return y, a
+
+    for seg, seg_p in zip(arch_segments(cfg), params.segments):
+        for li in range(seg.repeat):
+            lps = [getattr(seg_p, f"l{i}")[li]
+                   for i in range(len(seg.layers))]
+            if remat:
+                x, aux = checkpoint(body, seg.layers, lps, x, aux,
+                                    use_reentrant=False,
+                                    preserve_rng_state=False)
+            else:
+                x, aux = body(seg.layers, lps, x, aux)
+    return _logits(cfg, params, x), aux
 
 
 def forward_prefill(cfg: ArchConfig, params, tokens: torch.Tensor, *,

@@ -346,16 +346,92 @@ def test_flash_attention_mla_head_dims_equal_plain_version(
 
 
 def test_flash_attention_bf16_refuses_mla_head_dims(gen):
-    """The bf16 route has no (192, 128) instantiation: a ValueError naming
-    the pair, before any launch, and no padding."""
-    q = torch.randn((1, 4, 64, 192), generator=gen,
-                    device="cuda").bfloat16()
-    v = torch.randn((1, 4, 64, 128), generator=gen,
-                    device="cuda").bfloat16()
+    """The bf16 route takes MLA's (192, 128) and no other unequal pair: the
+    swapped (128, 192) and a narrower value (192, 64) raise a ValueError
+    naming the pair, before any launch, and nothing pads them."""
     before = kernels.flash_attention.launches
-    with pytest.raises(ValueError, match=r"\(192, 128\)"):
-        kernels.flash_attention(q, q, v)
+    for d, dv in ((128, 192), (192, 64)):
+        q = torch.randn((1, 4, 64, d), generator=gen,
+                        device="cuda").bfloat16()
+        v = torch.randn((1, 4, 64, dv), generator=gen,
+                        device="cuda").bfloat16()
+        with pytest.raises(ValueError, match=rf"\({d}, {dv}\)"):
+            kernels.flash_attention(q, q, v)
     assert kernels.flash_attention.launches == before
+
+
+@pytest.mark.parametrize("b,h,sq,sk,causal,window,q_offset", [
+    (4, 16, 1024, 1024, True, 0, 0),      # DeepSeek-V2-Lite prefill
+    (1, 16, 777, 777, True, 0, 0),        # ragged query and key tiles
+    (2, 16, 300, 300, True, 96, 0),       # windowed
+    (1, 16, 100, 400, True, 0, 300),      # past a cached prefix
+    (1, 16, 1, 1, True, 0, 0),            # Sq = 1
+    (2, 4, 200, 333, False, 0, 0),        # non-causal
+    (1, 4, 130, 130, True, 0, 0),         # one consumer warpgroup a block
+])
+def test_flash_attention_bf16_mla_head_dims_equal_plain_version(
+        full_fp32_matmul, b, h, sq, sk, causal, window, q_offset):
+    """The bf16 route at (D_qk, D_v) = (192, 128): Q and K in three
+    64-column panels, V in two under its own 128-wide tensor map, 64-key
+    tiles, one or two consumers; q as MLA's (B, S, H, 192) view, k
+    contiguous, v (B, Hkv, Sk, 128); within the bf16 tolerance (one
+    rounding of P and of the output) of `ref.attention_ref`."""
+    gen = full_fp32_matmul
+    q = torch.randn((b, sq, h, 192), generator=gen,
+                    device="cuda").bfloat16().transpose(1, 2)
+    k = torch.randn((b, h, sk, 192), generator=gen, device="cuda").bfloat16()
+    v = torch.randn((b, sk, h, 128), generator=gen,
+                    device="cuda").bfloat16().transpose(1, 2)
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              scale=192 ** -0.5)
+    before = kernels.flash_attention.launches
+    got = kernels.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert kernels.flash_attention.launches == before + 1
+    want = ref.attention_ref(q, k, v, **kw)
+    assert got.shape == want.shape == (b, h, sq, 128)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d,dv,dtype", [
+    (2, 24, 8, 1024, 128, 128, "float32"),   # Llama 3.2 3B's train shape
+    (2, 24, 8, 1024, 128, 128, "bfloat16"),
+    (2, 16, 16, 1024, 192, 128, "bfloat16"),  # DeepSeek MLA, bf16
+])
+def test_flash_attention_backward_on_the_card(full_fp32_matmul, b, h, hkv,
+                                              s, d, dv, dtype):
+    """`ops.flash_attention` under autograd on the card: the forward
+    launches the kernel once, and dq, dk and dv (the plain backward,
+    summed over each KV head's query group) equal autograd through
+    `ref.attention_ref` — float32 within 1e-5 (the same products), bf16
+    within one bf16 step (2^-7 relative, 1e-2 absolute: a float32 sum
+    of the group's rows rounded once)."""
+    from repro_torch.kernels import ops
+    gen = full_fp32_matmul
+    dt = getattr(torch, dtype)
+    q = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dt)
+    q = q.transpose(1, 2).requires_grad_()
+    k = torch.randn((b, hkv, s, d), generator=gen,
+                    device="cuda").to(dt).requires_grad_()
+    v = torch.randn((b, hkv, s, dv), generator=gen,
+                    device="cuda").to(dt).requires_grad_()
+    dout = torch.randn((b, h, s, dv), generator=gen, device="cuda").to(dt)
+    scale = d ** -0.5
+    before = kernels.flash_attention.launches
+    out = ops.flash_attention(q, k, v, causal=True, scale=scale)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert kernels.flash_attention.launches == before + 1
+    want = torch.autograd.grad(
+        ref.attention_ref(q, k, v, causal=True, scale=scale), (q, k, v),
+        dout)
+    tol = (dict(atol=1e-5, rtol=1e-5) if dt == torch.float32
+           else dict(atol=1e-2, rtol=2 ** -7))
+    for g, w in zip(got, want):
+        assert g.dtype == dt and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), **tol)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -10,7 +10,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.examples import (distill_uleen_head, quickstart,  # noqa: E402
-                                  serve_lm, uleen_edge_pipeline)
+                                  serve_lm, train_lm, uleen_edge_pipeline)
 
 CPU = "cpu"
 
@@ -85,3 +85,15 @@ def test_serve_lm_tokens_equal_jax_serve(arch, capsys):
     assert out["sync"].shape == want.shape == (4, 16)
     assert_tokens_match(out["sync"].numpy(), want, margins)
     assert out["stats"]["requests"] == 8 and len(out["stream"]) == 8
+
+
+def test_train_lm_trains_the_25m_model_for_three_steps(capsys):
+    """The example's ~25M-parameter model (the JAX example's CFG) through
+    `launch.train.train` in float32 for three steps of 2 x 64 tokens: the
+    example asserts that the loss fell."""
+    out = train_lm.main(steps=3, batch=2, seq=64, device=CPU)
+    printed = capsys.readouterr().out
+    assert "llama-25m" in printed and "over 3 steps" in printed
+    assert len(out["history"]) == 3 and not out["preempted"]
+    assert all(math.isfinite(h["loss"]) for h in out["history"])
+    assert all(p.dtype == torch.float32 for p in out["params"].parameters())

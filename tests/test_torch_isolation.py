@@ -60,7 +60,9 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
             "repro_torch.configs.recurrentgemma_2b",
             "repro_torch.configs.whisper_tiny",
             "repro_torch.configs.internvl2_26b",
-            "repro_torch.examples.serve_lm"} <= set(names.split())
+            "repro_torch.examples.serve_lm",
+            "repro_torch.launch.train", "repro_torch.train.fault",
+            "repro_torch.examples.train_lm"} <= set(names.split())
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -94,7 +96,9 @@ def _entry_points():
     from repro_torch.core import head
     from repro_torch.data import synth
     from repro_torch.examples import (distill_uleen_head, quickstart,
-                                      serve_lm, uleen_edge_pipeline)
+                                      serve_lm, train_lm,
+                                      uleen_edge_pipeline)
+    from repro_torch.launch import train
     from repro_torch.models import kvcache, rglru, ssm, transformer
     from repro_torch.packed import layout, runtime
     art = export.load(GOLDEN)
@@ -221,6 +225,11 @@ def _entry_points():
         "loadgen_main": lambda: loadgen.main([
             "--suite", os.path.join(REPO, "tests", "golden", "scenarios"),
             "--out", os.devnull]),
+        "train_lm": lambda: train.train(lm, steps_total=1, batch=1, seq=4),
+        "train_main": lambda: train.main(["--arch", "llama3p2_3b",
+                                          "--smoke", "--steps", "1"]),
+        "data_iterator": lambda: next(train.data_iterator(lm, 1, 4, 0)),
+        "train_lm_example_main": lambda: train_lm.main(steps=1),
     }
 
 
@@ -249,7 +258,8 @@ _SCENARIO = {
     "hybrid_init_params", "init_ssm_state", "init_rg_state",
     "hybrid_serve_main", "encdec_init_params", "init_cross_kv",
     "encdec_serve_main", "vlm_serve_main", "serve_lm_main",
-    "loadgen_run_scenario", "loadgen_main"])
+    "loadgen_run_scenario", "loadgen_main", "train_lm", "train_main",
+    "data_iterator", "train_lm_example_main"])
 def test_entry_points_raise_without_a_gpu_unless_asked_for_the_cpu(name):
     _no_gpu()
     with pytest.raises(RuntimeError, match="no CUDA device"):

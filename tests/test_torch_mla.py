@@ -155,9 +155,31 @@ def test_mla_plan_fits_its_budget(b, h, sq):
         fa.plan(torch.float32, 128, batch=b, heads=h, sq=sq, dv=128)
 
 
+@pytest.mark.parametrize("b,h,sq", [(4, 16, 1024), (1, 16, 128),
+                                    (1, 16, 6), (8, 16, 4096)])
+def test_bf16_mla_plan_fits_its_budget(b, h, sq):
+    """The bf16 route at (D_qk, D_v) = (192, 128): 64-key tiles, Q and two
+    stages of K (192 wide) and V (128 wide) in a block's shared memory
+    (128 KB at 128 query rows), two consumers where the grid fills the
+    card, one below it; the tiles the C side instantiates."""
+    p = fa.plan(torch.bfloat16, 192, batch=b, heads=h, sq=sq, dv=128)
+    assert (p.route, p.d, p.dv, p.block_k) == ("wgmma_bf16", 192, 128, 64)
+    assert fa.bf16_tiles(192, 128) == (64, 2)
+    assert p.smem_bytes == (1024 + p.block_q * 192 * 2
+                            + 2 * 64 * (192 + 128) * 2 + 8 * 5)
+    assert p.smem_bytes <= fa.SMEM_PER_BLOCK and p.blocks_per_sm >= 1
+    assert p.block_q == (128 if b * h * -(-sq // 128) >= fa.H100_SMS
+                         else 64)
+    assert p.threads == 128 * (p.block_q // 64 + 1)
+    assert p.grid == (h, b, -(-sq // p.block_q))
+    # the square bf16 plans are unchanged by the new pair
+    assert fa.bf16_tiles(128) == (128, 2) and fa.bf16_tiles(256) == (64, 1)
+
+
 @pytest.mark.parametrize("dtype,d,dv,ok", [
-    (torch.float32, 192, 128, True), (torch.bfloat16, 192, 128, False),
+    (torch.float32, 192, 128, True), (torch.bfloat16, 192, 128, True),
     (torch.float32, 128, 192, False), (torch.float32, 192, 192, False),
+    (torch.bfloat16, 128, 192, False), (torch.bfloat16, 192, 64, False),
     (torch.float32, 64, 64, True), (torch.bfloat16, 256, 256, True)])
 def test_head_dim_pairs_each_route_takes(dtype, d, dv, ok):
     if ok:

@@ -126,10 +126,23 @@ submodels, M = 10) and one LM path:
   repeated batch at a constant lr that lower the loss, the peak device
   memory; DeepSeek-V2-Lite at full width, its dense first layer and one
   MoE layer (64 experts top-6, 2 shared), a bf16 and a float32 step; and
-  `launch.train.main` on the smoke Llama.
+  `launch.train.main` on the smoke Llama;
+* the distributed ULEEN trainer (`launch/uleen_cell.py` through
+  `launch.train.train_uleen`) at ULN-L width: 16384 MNIST-shaped rows
+  encoded on the card, a global batch of 8192 in 8 blocks, mesh (pod 2,
+  data 2) in four rank processes sharing the card under gloo (with four
+  cards, one rank a card under NCCL too): the exact run bit-equal at
+  every step to the single-device blocked step the parent runs; the int8
+  compressed run within the bound two Adam runs can part by, its
+  gradient payloads int8 across `pod`, and the int8 mean of pod tensors
+  at the trainer's leaf shapes within `quantization_bound`; a run
+  preempted through `PreemptionGuard.request()` after step 2 resumed on
+  (data 2), bit-equal; and the smoke Llama restarted from a mid-run
+  checkpoint, bit-equal to the unbroken run.
 
 Each path resets the kernels' launch counts just before it and reads them
-just after (the sharded path in each rank process, summed over ranks). The tenant path's scoring is tensor code, as the JAX package's
+just after (the sharded and distributed-trainer paths in each rank
+process too, summed over ranks). The tenant path's scoring is tensor code, as the JAX package's
 is on every platform (no Pallas tenant kernel); its line puts that time
 beside the WNN kernel's on the same rows. Every phase prints one JSON line; any mismatch raises, so the
 exit code is nonzero. The last line is `{"ok": true, "device": {...}}`;
@@ -177,6 +190,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -4089,6 +4103,417 @@ def lm_train_path(kernels, *, get_config, transformer, steps, train_mod,
     return launches, flash_rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the distributed ULEEN trainer at ULN-L width
+# ---------------------------------------------------------------------------
+
+# ULN-L (`launch/uleen_cell.ULN_L_SPEC`: 784 x 7 bits, six submodels,
+# dropout shared across classes, bf16 tables) on DIST_ROWS MNIST-shaped
+# synthetic rows encoded on the card, a global batch of DIST_BATCH in
+# DIST_BLOCKS blocks (1024 rows a block), through `launch.train.
+# train_uleen` on DIST_MESH: four rank processes sharing the card under
+# gloo (and, with four cards or more, one rank a card under NCCL)
+DIST_ROWS, DIST_BATCH, DIST_BLOCKS = 16384, 8192, 8
+DIST_STEPS, DIST_LR, DIST_SEED = 5, 1e-3, 20270
+DIST_MESH = ((2, 2), ("pod", "data"))
+DIST_RESUME_MESH = ((2,), ("data",))
+DIST_PREEMPT_AT = 2              # a guard fires after this step
+DIST_TIMEOUT_S = 400
+# the JAX battery's envelope for the compressed run's distance from the
+# exact one after step t, lr·(t+1)·1.25, measured on its 2-submodel smoke
+# spec; reported here (ULN-L exceeds it), while the check holds the run
+# bit for bit to its one-device emulation
+DIST_JAX_ENVELOPE = 1.25
+# the smoke Llama's checkpoint drill: DIST_LM_STEPS steps unbroken, and
+# a run restarted from the checkpoint of step DIST_LM_STEPS / 2
+DIST_LM_STEPS, DIST_LM_BATCH, DIST_LM_SEQ = 6, 2, 32
+
+
+def wire_check(compression, collectives, mesh, shapes, dev) -> list:
+    """`compression.compressed_psum` across `pod` at the trainer's leaf
+    shapes: pod k's tensors are drawn from a generator seeded
+    DIST_SEED + k (so every rank can draw every pod's), and the int8 mean
+    is held to the exact mean of all pods within `quantization_bound`.
+    Returns (max |error|, bound) a leaf."""
+    npods = dict(zip(mesh.mesh_dim_names, mesh.shape))["pod"]
+
+    def draw(k):
+        gen = torch.Generator(device=dev).manual_seed(DIST_SEED + k)
+        return [torch.randn(s, generator=gen, device=dev) * 1e-3
+                for s in shapes]
+    pods = [draw(k) for k in range(npods)]
+    mean, _ = compression.compressed_psum(
+        pods[collectives.axis_index(mesh, ("pod",))], mesh, "pod")
+    out = []
+    for i, m in enumerate(mean):
+        stack = torch.stack([p[i] for p in pods]).double()
+        err = float((m.double() - stack.mean(0)).abs().max())
+        out.append((err, compression.quantization_bound([stack])))
+    return out
+
+
+def bytes_sent(mesh_sizes, axes, payload: float) -> float:
+    """Bytes one rank sends in an all-gather of `payload` bytes over
+    `axes`, innermost axis first (`dist.collectives.all_gather`): at each
+    stage it sends what it holds to the axis's other ranks, then holds
+    the stage's concatenation."""
+    sent = 0.0
+    for ax in reversed(axes):
+        n = mesh_sizes[ax]
+        sent += payload * (n - 1)
+        payload *= n
+    return sent
+
+
+def uleen_dist_rank(rank, world, plan):
+    """One rank of the distributed trainer's phase (run by
+    `launch.mesh.spawn_ranks`): rebuilds the ULN-L problem on its card
+    (the thermometer and hash kernels), runs `plan["runs"]` through
+    `launch.train.train_uleen` on `plan["mesh"]` and measures each step's
+    distance from the one-device reference `plan["ref"][o["ref"]]` (the
+    exact blocked step, or the compressed step's emulation; the parent
+    requires 0, `dist_failures`) and, for the compressed run, from the
+    exact one. A run with "threads" set runs on that many CPU threads.
+    Records the dtype and size of every
+    gradient payload that crosses the `pod` group, and runs `wire_check`
+    on a mesh with a `pod` axis. Returns its measurements and kernel
+    launches."""
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.dist import collectives
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch import uleen_cell
+    from repro_torch.train import checkpoint, compression, fault
+    dev = mesh_mod.rank_device(plan["device"])
+    kernels.reset_launch_counts()          # this rank's run starts here
+    t0 = time.perf_counter()
+    spec, statics, bits, labels = train_mod.uleen_problem(
+        uleen_cell.ULN_L_SPEC, DIST_SEED, DIST_ROWS, hw=28, device=dev)
+    refs = {name: [[torch.from_numpy(a).to(dev) for a in leaves]
+                   for leaves in snaps]
+            for name, snaps in plan["ref"].items()}
+    problem_s = time.perf_counter() - t0
+    mesh = mesh_mod.make_mesh(*plan["mesh"])
+    pod_ranks = (dist.get_process_group_ranks(mesh.get_group("pod"))
+                 if "pod" in plan["mesh"][1] else None)
+    wire = []
+    real_gather = dist.all_gather_into_tensor
+
+    def recording_gather(out, x, group=None, *a, **k):
+        # a gradient leaf has at least num_classes entries (the bias); the
+        # loss and accuracy scalars cross too, in float32
+        if (pod_ranks is not None and group is not None
+                and x.numel() >= spec.num_classes
+                and dist.get_process_group_ranks(group) == pod_ranks):
+            wire.append((str(x.dtype).replace("torch.", ""), x.numel()))
+        return real_gather(out, x, group, *a, **k)
+
+    dist.all_gather_into_tensor = recording_gather
+    out = {"rank": rank, "device": str(dev), "backend": dist.get_backend(),
+           "problem_s": problem_s, "runs": {}}
+    try:
+        for name, o in plan["runs"]:
+            guard = fault.PreemptionGuard()
+            stamps, diffs, from_exact = [], [], []
+            ref = refs[o.get("ref", "exact")]
+
+            def diff(params, leaves):
+                return max(float((a - b).abs().max()) for a, b in zip(
+                    (*params.tables, params.bias), leaves))
+
+            def hook(step, params, o=o, guard=guard, stamps=stamps,
+                     diffs=diffs, from_exact=from_exact, ref=ref):
+                torch.cuda.synchronize(dev)
+                stamps.append(time.perf_counter())
+                diffs.append(diff(params, ref[step]))
+                from_exact.append(diff(params, refs["exact"][step]))
+                if step == o.get("preempt_at") and rank == o.get(
+                        "preempt_rank", 0):
+                    guard.request()
+            wire.clear()
+            threads = torch.get_num_threads()
+            torch.set_num_threads(o.get("threads", threads))
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            res = train_mod.train_uleen(
+                spec, statics, bits, labels, steps_total=o["steps"],
+                global_batch=DIST_BATCH, lr=DIST_LR,
+                grad_blocks=DIST_BLOCKS, compress=o.get("compress", False),
+                seed=DIST_SEED, mesh=mesh, ckpt_dir=o.get("ckpt"),
+                ckpt_every=100, guard=guard, on_step=hook,
+                time_collectives=o.get("time", False), verbose=False,
+                device=dev)
+            torch.set_num_threads(threads)
+            steps_run = len(res["history"])
+            run_s = stamps[-1] - t0 if stamps else 0.0
+            out["runs"][name] = {
+                "steps": steps_run, "first_step": res["resumed_from"],
+                "latest_checkpoint": (checkpoint.latest_step(o["ckpt"])
+                                      if o.get("ckpt") else None),
+                "seconds": run_s,
+                "step_ms": [(b - a) * 1e3 for a, b in zip(stamps,
+                                                           stamps[1:])],
+                "first_step_ms": (stamps[0] - t0) * 1e3 if stamps else None,
+                "collective_s": [h["collective_s"] for h in res["history"]],
+                "losses": [h["loss"] for h in res["history"]],
+                "max_abs_diff": diffs, "max_abs_diff_from_exact": from_exact,
+                "threads": o.get("threads", threads),
+                "preempted": res["preempted"],
+                "pod_payloads": sorted(set(wire))}
+        if pod_ranks is not None:
+            out["wire_check"] = wire_check(
+                compression, collectives, mesh,
+                [t.shape for t in refs["exact"][0]], dev)
+    finally:
+        dist.all_gather_into_tensor = real_gather
+    out["launches"] = kernels.launch_counts()     # ... and ends here
+    return out
+
+
+def dist_failures(runs) -> list:
+    """Every rank's run held to its check: every run bit-equal at every
+    step to its one-device reference (the exact runs to the blocked step,
+    the compressed run to its emulation); the compressed run apart from
+    the exact one, its gradient payloads across `pod` int8, and
+    `wire_check` within `quantization_bound`; the preempted run stopped
+    after DIST_PREEMPT_AT with that checkpoint; the resumed run from it,
+    bit-equal at the end."""
+    bad = []
+    for r in runs:
+        for o in r["ranks"]:
+            for i, (err, lim) in enumerate(o.get("wire_check", [])):
+                if not err <= lim:
+                    bad.append(f"{r['mesh']} rank {o['rank']}: int8 mean of "
+                               f"leaf {i} off by {err} > {lim}")
+            for name, run in o["runs"].items():
+                what = f"{r['mesh']} {r['backend']} rank {o['rank']} {name}"
+                diffs = run["max_abs_diff"]
+                if any(d != 0.0 for d in diffs):
+                    bad.append(f"{what}: |Δparam| from its one-device "
+                               f"reference {diffs}")
+                if name == "compressed":
+                    if not any(d > 0 for d in run["max_abs_diff_from_exact"]):
+                        bad.append(f"{what}: equal to the exact run")
+                    if not run["pod_payloads"] or any(
+                            dt != "int8" for dt, _ in run["pod_payloads"]):
+                        bad.append(f"{what}: payloads across pod "
+                                   f"{run['pod_payloads']}")
+                if name == "preempted" and not (
+                        run["preempted"] and run["steps"] == DIST_PREEMPT_AT
+                        + 1 and run["latest_checkpoint"]
+                        == DIST_PREEMPT_AT + 1):
+                    bad.append(f"{what}: {run['steps']} steps, preempted "
+                               f"{run['preempted']}, checkpoint "
+                               f"{run['latest_checkpoint']}")
+                if name == "elastic_resume" and (
+                        run["first_step"] != DIST_PREEMPT_AT + 1
+                        or run["preempted"] or run["steps"]
+                        != DIST_STEPS - DIST_PREEMPT_AT - 1):
+                    bad.append(f"{what}: resumed from {run['first_step']} "
+                               f"for {run['steps']} steps")
+    return bad
+
+
+def lm_checkpoint_resume(train_mod, get_config, dev):
+    """The smoke Llama through `launch.train.train` on the card: an
+    unbroken DIST_LM_STEPS-step run (checkpoints every half of it) and a
+    run restarted from its mid-run checkpoint alone end on bit-equal
+    parameters and optimizer state."""
+    import shutil
+    from repro_torch.train import checkpoint
+    cfg = get_config(TRAIN_ARCH, smoke=True)
+    half = DIST_LM_STEPS // 2
+    kw = dict(steps_total=DIST_LM_STEPS, batch=DIST_LM_BATCH,
+              seq=DIST_LM_SEQ, seed=20271, ckpt_every=half, verbose=False,
+              device=dev)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        a, b = str(Path(tmp) / "unbroken"), str(Path(tmp) / "restarted")
+        full = train_mod.train(cfg, ckpt_dir=a, **kw)
+        os.makedirs(b)
+        mid = f"step_{half:010d}"
+        shutil.copytree(os.path.join(a, mid), os.path.join(b, mid))
+        resumed = train_mod.train(cfg, ckpt_dir=b, **kw)
+        steps_after = checkpoint.all_steps(b)
+    leaves = checkpoint.flatten((full["params"], full["opt_state"]))
+    again = checkpoint.flatten((resumed["params"], resumed["opt_state"]))
+    diff = max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(leaves, again))
+    if resumed["resumed_from"] != half or diff != 0.0 or \
+            steps_after != [half, DIST_LM_STEPS]:
+        raise AssertionError(f"LM restart: resumed from "
+                             f"{resumed['resumed_from']}, checkpoints "
+                             f"{steps_after}, max |Δ| {diff}")
+    return {"model": cfg.name, "steps": DIST_LM_STEPS, "restart_at": half,
+            "batch": DIST_LM_BATCH, "seq": DIST_LM_SEQ, "leaves": len(leaves),
+            "max_abs_diff": diff,
+            "losses_unbroken": [h["loss"] for h in full["history"]],
+            "losses_restarted": [h["loss"] for h in resumed["history"]]}
+
+
+def uleen_dist_train_path(kernels, *, train_mod, uleen_cell, compression,
+                          mesh_mod, get_config, device="cuda"):
+    """The distributed ULEEN trainer at ULN-L width. The parent builds the
+    problem (thermometer kernel) and runs two one-device references for
+    DIST_STEPS steps (`launch.train.uleen_reference_params`, the hash
+    kernel on every block): the blocked step, and the compressed step's
+    emulation on DIST_MESH. Then, in DIST_MESH ranks sharing the card
+    under gloo: the exact run (bit-equal to the blocked step every step),
+    the same on one CPU thread a rank (the thread count's cost), the
+    compressed run (bit-equal to its emulation every step, apart from the
+    exact run, int8 across `pod`; its ratio to the JAX battery's
+    lr·(t+1)·1.25 is reported), a run preempted through
+    `PreemptionGuard.request()` after step DIST_PREEMPT_AT that
+    checkpoints, and `wire_check`; then on DIST_RESUME_MESH the elastic
+    resume to DIST_STEPS (bit-equal). Last, the smoke Llama's checkpoint
+    restart (`lm_checkpoint_resume`). Returns the launches, the parent's
+    and every rank's summed."""
+    import shutil
+    dev = torch.device(device)
+    spec = uleen_cell.ULN_L_SPEC
+    kernels.reset_launch_counts()          # the path's run starts here
+    t_path = time.perf_counter()
+    t0 = time.perf_counter()
+    spec, statics, bits, labels = train_mod.uleen_problem(
+        spec, DIST_SEED, DIST_ROWS, hw=28, device=dev)
+    torch.cuda.synchronize()
+    problem_s = time.perf_counter() - t0
+    stamps = [time.perf_counter()]
+
+    def stamp(step, params):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    ref = train_mod.uleen_reference_params(
+        spec, statics, bits, labels, steps=DIST_STEPS,
+        global_batch=DIST_BATCH, lr=DIST_LR, grad_blocks=DIST_BLOCKS,
+        seed=DIST_SEED, on_step=stamp, device=dev)
+    ref_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    emulated = train_mod.uleen_reference_params(
+        spec, statics, bits, labels, steps=DIST_STEPS,
+        global_batch=DIST_BATCH, lr=DIST_LR, grad_blocks=DIST_BLOCKS,
+        seed=DIST_SEED, compress_mesh=DIST_MESH, device=dev)
+    ref_np = {name: [[t.cpu().numpy() for t in (*p.tables, p.bias)]
+                     for p in snaps]
+              for name, snaps in (("exact", ref), ("compressed", emulated))}
+    trainable = [*ref[-1].tables, ref[-1].bias]
+    elements = sum(t.numel() for t in trainable)
+    del ref, emulated
+    parent = kernels.launch_counts()
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    runs = []
+    cards = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        ckpt = str(Path(tmp) / "uleen")
+        plans = [
+            ("gloo", DIST_MESH, [
+                ("exact", {"steps": DIST_STEPS, "time": True}),
+                ("exact_threads_1", {"steps": DIST_STEPS, "time": True,
+                                     "threads": 1}),
+                ("compressed", {"steps": DIST_STEPS, "compress": True,
+                                "time": True, "ref": "compressed"}),
+                ("preempted", {"steps": DIST_STEPS, "ckpt": ckpt,
+                               "preempt_at": DIST_PREEMPT_AT,
+                               "preempt_rank": 1})]),
+            ("gloo", DIST_RESUME_MESH, [
+                ("elastic_resume", {"steps": DIST_STEPS, "ckpt": ckpt,
+                                    "resume_from": DIST_PREEMPT_AT + 1})])]
+        world4 = math.prod(DIST_MESH[0])
+        if cards >= world4:
+            plans.append((mesh_mod.collective_backend(dev, world4),
+                          DIST_MESH, [("exact_one_rank_a_card",
+                                       {"steps": DIST_STEPS,
+                                        "time": True})]))
+            nccl = f"ran: {world4} ranks, one a card"
+        else:
+            nccl = (f"not run: {cards} CUDA device; one rank per card under "
+                    f"NCCL needs {world4} or more")
+        for backend, mesh, rank_runs in plans:
+            world = math.prod(mesh[0])
+            t0 = time.perf_counter()
+            outs = mesh_mod.spawn_ranks(
+                uleen_dist_rank, world, {"mesh": mesh, "runs": rank_runs,
+                                         "ref": ref_np, "device": device},
+                backend=backend, timeout_s=DIST_TIMEOUT_S)
+            runs.append({"world": world, "backend": backend,
+                         "mesh": mesh_tag(*mesh),
+                         "seconds": time.perf_counter() - t0,
+                         "ranks": outs})
+        shutil.rmtree(ckpt, ignore_errors=True)
+    lm = lm_checkpoint_resume(train_mod, get_config, dev)
+    failures = dist_failures(runs)
+    seconds = time.perf_counter() - t_path
+    parent_all = kernels.launch_counts()   # ... and ends here
+    launches = {k: parent_all[k] + sum(o["launches"][k] for r in runs
+                                       for o in r["ranks"])
+                for k in KERNEL_INFO}
+    idle = [k for k in ("h3_hash", "thermometer_encode") if not launches[k]]
+    if idle:
+        raise AssertionError(f"the distributed trainer's path never "
+                             f"launched {idle}")
+
+    sizes = dict(zip(DIST_MESH[1], DIST_MESH[0]))
+    bpd = DIST_BLOCKS // math.prod(DIST_MESH[0])
+    grad_bytes = 4 * elements
+    summary = {}
+    for name in ("exact", "exact_threads_1", "compressed"):
+        r0 = runs[0]["ranks"][0]["runs"][name]
+        # steps after the first (its host and device warm-up), each ending
+        # in a synchronized hook: the share of their wall time spent in
+        # collectives (synchronized around each)
+        summary[name] = {
+            "ms_a_step_median_after_first": float(np.median(r0["step_ms"])),
+            "step_ms": r0["step_ms"], "first_step_ms": r0["first_step_ms"],
+            "collective_share_after_first": sum(r0["collective_s"][1:])
+            / (sum(r0["step_ms"]) / 1e3),
+            "collective_s": r0["collective_s"],
+            "threads": r0["threads"], "losses": r0["losses"],
+            "max_abs_diff": r0["max_abs_diff"],
+            "pod_payloads": r0["pod_payloads"]}
+    summary["exact"]["bytes_sent_a_step_per_rank"] = bytes_sent(
+        sizes, DIST_MESH[1], bpd * grad_bytes)
+    summary["compressed"]["bytes_sent_a_step_per_rank"] = (
+        bytes_sent(sizes, ("data",), grad_bytes)
+        + bytes_sent(sizes, ("pod",), elements))
+    summary["exact"]["cross_pod_bytes"] = compression.cross_pod_bytes(
+        trainable, compressed=False)
+    summary["compressed"]["cross_pod_bytes"] = compression.cross_pod_bytes(
+        trainable, compressed=True)
+    diffs = runs[0]["ranks"][0]["runs"]["compressed"][
+        "max_abs_diff_from_exact"]
+    summary["compressed"]["max_abs_diff_from_exact"] = diffs
+    summary["compressed"]["diff_over_lr_t_plus_1"] = [
+        d / (DIST_LR * (t + 1)) for t, d in enumerate(diffs)]
+    summary["compressed"]["jax_envelope_1_25_holds"] = all(
+        d <= DIST_LR * (t + 1) * DIST_JAX_ENVELOPE
+        for t, d in enumerate(diffs))
+    summary["compressed"]["wire_check"] = runs[0]["ranks"][0]["wire_check"]
+    emit("uleen_dist_train_path", model="ULN-L", total_bits=spec.total_bits,
+         submodels=len(spec.submodels), table_entries=elements - 10,
+         trainable_bytes_float32=grad_bytes, bf16_tables=spec.bf16_tables,
+         dropout_shared_classes=spec.dropout_shared_classes,
+         train_rows=DIST_ROWS, global_batch=DIST_BATCH,
+         grad_blocks=DIST_BLOCKS, rows_a_block=DIST_BATCH // DIST_BLOCKS,
+         steps=DIST_STEPS, lr=DIST_LR, mesh=mesh_tag(*DIST_MESH),
+         problem_s=problem_s,
+         single_device_reference={
+             "steps": DIST_STEPS, "step_ms": ref_ms,
+             "ms_a_step_median_after_first": float(np.median(ref_ms[1:])),
+             "launches": parent},
+         exact=summary["exact"], exact_threads_1=summary["exact_threads_1"],
+         compressed=summary["compressed"],
+         elastic={"preempted_after_step": DIST_PREEMPT_AT,
+                  "resumed_on": mesh_tag(*DIST_RESUME_MESH),
+                  "final_max_abs_diff": runs[1]["ranks"][0]["runs"][
+                      "elastic_resume"]["max_abs_diff"][-1]},
+         lm_checkpoint_resume=lm, nccl_one_rank_per_card=nccl,
+         runs=runs, path_s=seconds, launches=launches, failures=failures)
+    if failures:
+        raise AssertionError(f"uleen_dist_train_path: {failures}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -4110,12 +4535,13 @@ def main() -> int:
     from repro_torch.launch import scheduler, steps
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch import train as train_mod
+    from repro_torch.launch import uleen_cell
     from repro_torch.launch.scheduler import WnnBatcher, WnnTenantBatcher
     from repro_torch.launch.serve import serve as lm_serve
     from repro_torch.models import layers, moe, rglru, ssm, transformer
     from repro_torch.packed import layout as packed_layout
     from repro_torch.packed import runtime
-    from repro_torch.train import optimizer
+    from repro_torch.train import compression, optimizer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4229,6 +4655,11 @@ def main() -> int:
         kernels, get_config=get_config, transformer=transformer, steps=steps,
         train_mod=train_mod, optimizer=optimizer, ops=ops, ref=ref,
         flash_attention=kernels.flash_attention, plan=flash_plan)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist_launches = uleen_dist_train_path(
+        kernels, train_mod=train_mod, uleen_cell=uleen_cell,
+        compression=compression, mesh_mod=mesh_mod, get_config=get_config)
     torch.cuda.empty_cache()
     by_path = {"uleen_serve": launches, "uleen_train": train_launches,
                "lm_serve": lm_launches, "head": head_launches,
@@ -4238,7 +4669,8 @@ def main() -> int:
                "ssm": ssm_launches, "hybrid": hybrid_launches,
                "encdec": encdec_launches, "vlm": vlm_launches,
                "qwen": qwen_launches, "serve_profile": profile_launches,
-               "loadgen": loadgen_launches, "lm_train": train_lm_launches}
+               "loadgen": loadgen_launches, "lm_train": train_lm_launches,
+               "uleen_dist_train": dist_launches}
     # the flash kernel's rows at the MoE, hybrid, encoder-decoder, patch
     # and Qwen paths' shapes, each with the launches its path's run made at
     # exactly that shape and all of its path's flash launches

@@ -9,7 +9,9 @@ parameters across for the tests (the chip path initialises on the card)
 and `lm_params_to_numpy` carries them, their gradients or a train step's
 update back, leaf by leaf; `head_state_from_numpy` carries a
 `UleenHead`'s statics, tables and thresholds. Tenant fleets cross
-artifact by artifact (`artifact_from_numpy`).
+artifact by artifact (`artifact_from_numpy`); a ULEEN training state
+(params and Adam state, as a JAX checkpoint holds them) crosses with
+`uleen_train_state_from_numpy`.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from repro_torch.core import encoding, export, head, model, one_shot
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import transformer
 from repro_torch.packed import layout
+from repro_torch.train import optimizer
 
 
 def artifact_from_numpy(arrays: Mapping[str, np.ndarray]
@@ -80,6 +83,42 @@ def params_to_numpy(params: model.UleenParams) -> tuple:
 
     return (tuple(a(t) for t in params.tables), a(params.bias),
             tuple(a(m) for m in params.masks))
+
+
+def uleen_train_state_from_numpy(leaves: Sequence, *,
+                                 device=DEFAULT_DEVICE) -> tuple:
+    """(UleenParams, AdamState over (tables..., bias)) from the flat leaves
+    of the JAX package's `(UleenParams(tables, bias, masks),
+    AdamState(step, mu, nu))`, in the order of its `checkpoint.save`'s
+    `arrays.npz` (`a0`, `a1`, ...): tables, bias, masks, step, then mu and
+    nu each as (tables, bias, masks). With S submodels that is 6·S + 4
+    leaves. The masks' moments must be zero (`apply_mask` passes them no
+    gradient), and the port's Adam does not carry them."""
+    leaves = [np.asarray(x) for x in leaves]
+    n_sub, rem = divmod(len(leaves) - 4, 6)
+    if rem or n_sub < 1:
+        raise ValueError(f"{len(leaves)} leaves are not a ULEEN training "
+                         "state (6·S + 4 for S submodels)")
+    dev = resolve_device(device)
+    per = 2 * n_sub + 1                 # tables, bias, masks
+
+    def triple(flat):
+        return (flat[:n_sub], flat[n_sub], flat[n_sub + 1:per])
+
+    params = params_from_numpy(triple(leaves[:per]), device=dev)
+    step = leaves[per]
+    moments = []
+    for flat in (leaves[per + 1:2 * per + 1], leaves[2 * per + 1:]):
+        tables, bias, masks = triple(flat)
+        if any(np.any(m != 0) for m in masks):
+            raise ValueError("the masks' Adam moments are not zero: the "
+                             "state does not come from multi-shot training")
+        moments.append(tuple(torch.from_numpy(np.array(a, np.float32)).to(
+            dev) for a in (*tables, bias)))
+    state = optimizer.AdamState(
+        step=torch.tensor(int(step), dtype=torch.int32, device=dev),
+        mu=moments[0], nu=moments[1])
+    return params, state
 
 
 def one_shot_from_numpy(one_shot_model, *,

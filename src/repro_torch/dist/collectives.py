@@ -1,4 +1,5 @@
-"""The explicit collectives of the sharded serve paths, over the axes of a
+"""The explicit collectives of the sharded serve paths and of the
+distributed trainers, over the axes of a
 `torch.distributed.device_mesh.DeviceMesh`.
 
 The JAX package declares placement and lets GSPMD or `shard_map` insert
@@ -6,9 +7,13 @@ its one collective; the port runs SPMD — every rank makes the same calls
 on the same host inputs and holds only its slice — and calls the
 collective itself: an all-gather of score columns (class sharding), of
 rows (the batch axes), or one sum of ownership-masked scores (tenant
-sharding).
+sharding); the trainers gather per-block gradients (bit-preserving: no
+arithmetic on the wire), agree on one int8 scale with a MAX all-reduce,
+gather int8 payloads as int8, and sum gradients, losses and accuracies.
 
-An entry over several mesh axes is reduced one axis at a time, innermost
+An axis of size 1 needs no collective and gets none (so a one-process
+`launch.mesh.make_host_mesh()` passes through every function here). An
+entry over several mesh axes is reduced one axis at a time, innermost
 first: the mesh is row-major, so gathering along the innermost axis and
 then the next puts the blocks in the entry's linear shard order, which
 is the order `axis_index` assigns.
@@ -34,7 +39,8 @@ def axis_index(mesh, axes) -> int:
     sizes = mesh_sizes(mesh)
     idx = 0
     for ax in axes:
-        idx = idx * sizes[ax] + mesh.get_local_rank(ax)
+        if sizes[ax] > 1:
+            idx = idx * sizes[ax] + mesh.get_local_rank(ax)
     return idx
 
 
@@ -44,6 +50,8 @@ def host_staged(group) -> bool:
 
 
 def _gather_one(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
+    """`x` of every rank of `group`, concatenated along `dim`. The bytes
+    cross as they are, in `x`'s dtype (an int8 payload as int8)."""
     dev = x.device
     if host_staged(group):
         x = x.cpu()
@@ -67,19 +75,50 @@ def all_gather(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
     in linear shard order; the result is the same on every rank."""
     sizes = mesh_sizes(mesh)
     for ax in reversed(tuple(axes)):
-        x = _gather_one(x, mesh.get_group(ax), sizes[ax], dim)
+        if sizes[ax] > 1:
+            x = _gather_one(x, mesh.get_group(ax), sizes[ax], dim)
     return x
 
 
-def all_reduce_sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
-    """The elementwise sum of every shard's `x` over the mesh `axes`;
-    integer sums are exact, so the order does not matter."""
+def _all_reduce(x: torch.Tensor, mesh, axes, op) -> torch.Tensor:
     dev = x.device
+    sizes = mesh_sizes(mesh)
     for ax in tuple(axes):
+        if sizes[ax] == 1:
+            continue
         group = mesh.get_group(ax)
         x = x.cpu() if host_staged(group) else x.clone()
-        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+        dist.all_reduce(x, op=op, group=group)
     return x.to(dev)
+
+
+def all_reduce_sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The elementwise sum of every shard's `x` over the mesh `axes`.
+    Integer sums are exact; a float sum's order is the backend's, and
+    gloo's and NCCL's ring all-reduces reduce each chunk once and pass it
+    on, so every rank holds the same bits."""
+    return _all_reduce(x, mesh, axes, dist.ReduceOp.SUM)
+
+
+def all_reduce_max(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The elementwise maximum of every shard's `x` over the mesh `axes`:
+    exact, and the same on every rank."""
+    return _all_reduce(x, mesh, axes, dist.ReduceOp.MAX)
+
+
+def sum_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The sum of every shard's float `x` over the mesh `axes`, in a fixed
+    order: the shards gathered in linear shard order and added left to
+    right on each rank. Only where the bits must be those of a one-device
+    fold in that order: the compressed ULEEN step's sum over `data`, which
+    is held bit for bit to its one-device emulation
+    (`launch.train.uleen_reference_params(compress_mesh=)`). It sends
+    (n - 1) copies of `x`; other float sums take `all_reduce_sum`."""
+    stack = all_gather(x[None], mesh, axes, dim=0)
+    total = stack[0]
+    for part in stack[1:]:
+        total = total + part
+    return total
 
 
 def row_slice(n_rows: int, mesh, axes) -> slice:

@@ -2,14 +2,13 @@
 
 Trains a ~25M-parameter llama-family model on the synthetic token stream
 through the same driver as the zoo's archs (`launch.train.train`), in
-float32 compute, with straggler monitoring:
+float32 compute, with straggler monitoring and, given `--ckpt-dir`,
+step-atomic checkpoints every 50 steps and a restart from the newest:
 
     PYTHONPATH=src python -m repro_torch.examples.train_lm --device cpu \\
-        --steps 20 --batch 2 --seq 64
+        --steps 20 --batch 2 --seq 64 --ckpt-dir build/lm_ckpt
 
 Without `--device` it runs on the GPU, and raises when there is none.
-Checkpoints (the JAX example's `--ckpt-dir`) come with the port's
-checkpoints (ROADMAP.md, Queue 1 item 5).
 """
 import argparse
 
@@ -28,7 +27,7 @@ CFG = ArchConfig(
 
 
 def main(steps: int = 200, batch: int = 4, seq: int = 256,
-         device=DEFAULT_DEVICE) -> dict:
+         ckpt_dir: str | None = None, device=DEFAULT_DEVICE) -> dict:
     """Train CFG for `steps` steps; returns `train`'s dict. Raises unless
     the loss fell."""
     n_params = CFG.param_count()
@@ -37,7 +36,8 @@ def main(steps: int = 200, batch: int = 4, seq: int = 256,
     with fault.PreemptionGuard() as guard:
         out = train_mod.train(
             CFG, steps_total=steps, batch=batch, seq=seq, lr=1e-3,
-            compute_dtype=None, guard=guard, log_every=10, device=device)
+            ckpt_dir=ckpt_dir, ckpt_every=50, compute_dtype=None,
+            guard=guard, log_every=10, device=device)
     hist = out["history"]
     print(f"loss: {hist[0]['loss']:.3f} -> {hist[-1]['loss']:.3f} "
           f"over {len(hist)} steps "
@@ -52,8 +52,9 @@ if __name__ == "__main__":
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--device", default=DEFAULT_DEVICE,
                     help="cuda (the default) or cpu")
     args = ap.parse_args()
     main(steps=args.steps, batch=args.batch, seq=args.seq,
-         device=args.device)
+         ckpt_dir=args.ckpt_dir, device=args.device)

@@ -13,7 +13,7 @@ for several ranks sharing one card (its collectives then run on host
 copies, `dist.collectives`). `spawn_ranks` starts the processes, with a
 `file://` rendezvous in a temporary directory (never a fixed TCP port,
 so parallel test workers cannot collide), a timeout on every collective
-and a deadline on the whole run.
+and, but for a launcher's job, a deadline on the whole run.
 
     outs = spawn_ranks(fn, 4, arg, backend=collective_backend("cpu", 4))
     # fn(rank, world, arg) ran in 4 processes; outs[r] is rank r's return
@@ -24,8 +24,11 @@ import datetime
 import math
 import multiprocessing
 import os
+import pickle
 import queue as queue_mod
+import signal
 import tempfile
+import threading
 import time
 import traceback
 from typing import NamedTuple
@@ -98,8 +101,11 @@ def pods_in(mesh) -> int:
 # Rank processes
 # ---------------------------------------------------------------------------
 
-def _rank_main(fn, rank, world, args, backend, init_file, timeout_s, out):
+def _rank_main(fn, rank, world, args_file, backend, init_file, timeout_s,
+               out):
     try:
+        with open(args_file, "rb") as f:
+            args = pickle.load(f)
         dist.init_process_group(
             backend, init_method=f"file://{init_file}", rank=rank,
             world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
@@ -130,8 +136,30 @@ def _failures(out, failed: dict, grace_s: float = 3.0) -> str:
                      for r, tb in sorted(failed.items()))
 
 
+def _forward(signals, procs):
+    """From now on, each of `signals` that reaches this process is sent on
+    to every live process of `procs`; returns the function that restores
+    the previous handlers. Only the main thread may install handlers:
+    elsewhere nothing is forwarded."""
+    if threading.current_thread() is not threading.main_thread():
+        signals = ()
+
+    def forward(signum, frame):
+        for p in procs:
+            if p.pid is not None and p.is_alive():
+                os.kill(p.pid, signum)
+
+    prev = {sig: signal.signal(sig, forward) for sig in signals}
+
+    def restore():
+        for sig, handler in prev.items():
+            signal.signal(sig, handler)
+    return restore
+
+
 def spawn_ranks(fn, world: int, *args, backend: str = "gloo",
-                timeout_s: float = 120.0) -> list:
+                timeout_s: float = 120.0, whole_run_deadline: bool = True,
+                forward_signals: tuple = ()) -> list:
     """Run `fn(rank, world, *args)` in `world` fresh processes joined in
     one default process group; returns each rank's return value, in rank
     order.
@@ -139,22 +167,33 @@ def spawn_ranks(fn, world: int, *args, backend: str = "gloo",
     `fn` must be importable by name from a module that the children can
     import (they start from a fresh interpreter: the `spawn` method), and
     its arguments and return value picklable. Every collective times out
-    after `timeout_s` and the whole run has the same deadline: a rank
-    that fails or hangs makes the call raise with the failing rank's
-    traceback, and every child is stopped before it returns."""
+    after `timeout_s`, and with `whole_run_deadline` the whole run has
+    the same deadline (without it, a launcher's ranks run as long as
+    their job does): a rank that fails, dies or times out makes the call
+    raise with the failing rank's traceback, and every child is stopped
+    before it returns.
+    `forward_signals` (such as `(signal.SIGTERM,)`) are passed on to
+    every rank while they run: a preempted launcher preempts its ranks."""
     ctx = multiprocessing.get_context("spawn")
     out = ctx.Queue()
     with tempfile.TemporaryDirectory(prefix="repro_torch_rdv_") as tmp:
         init_file = os.path.join(tmp, "rendezvous")
+        # the arguments go through a file: handed to Process, each child's
+        # start would wait until that child had read them from its pipe
+        args_file = os.path.join(tmp, "args.pkl")
+        with open(args_file, "wb") as f:
+            pickle.dump(args, f, protocol=pickle.HIGHEST_PROTOCOL)
         procs = [ctx.Process(target=_rank_main,
-                             args=(fn, r, world, args, backend, init_file,
-                                   timeout_s, out), daemon=True)
+                             args=(fn, r, world, args_file, backend,
+                                   init_file, timeout_s, out), daemon=True)
                  for r in range(world)]
         for p in procs:
             p.start()
+        restore_signals = _forward(forward_signals, procs)
         results: dict = {}
         failure = None
-        deadline = time.monotonic() + timeout_s
+        deadline = (time.monotonic() + timeout_s if whole_run_deadline
+                    else math.inf)
         try:
             # drain the queue before joining: a child blocks on exit until
             # its result has been read
@@ -185,8 +224,10 @@ def spawn_ranks(fn, world: int, *args, backend: str = "gloo",
                 else:
                     failure = _failures(out, {rank: value})
             for p in procs:
-                p.join(timeout=max(0.0, deadline - time.monotonic()) + 5.0)
+                p.join(timeout=min(max(0.0, deadline - time.monotonic()),
+                                   timeout_s) + 5.0)
         finally:
+            restore_signals()
             for p in procs:
                 if p.is_alive():
                     p.kill()

@@ -29,6 +29,7 @@ block tables beside the masked decode's arguments.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
@@ -142,12 +143,14 @@ def make_train_step(cfg: ArchConfig, optimizer, *, microbatches: int = 1,
     optimizer's update, given the master weights. metrics: `loss`, `aux`
     and `grad_norm`, 0-d float32 tensors.
 
-    `cross_pod_mesh` (the JAX package's int8-compressed cross-pod
-    reduction) is training infrastructure the port has not taken yet."""
-    if cross_pod_mesh is not None:
-        raise NotImplementedError(
-            "make_train_step: compressed cross-pod gradient reduction is "
-            "training infrastructure (ROADMAP.md, Queue 1 item 5)")
+    `cross_pod_mesh` (a mesh of `torch.distributed` ranks) makes the step
+    SPMD data-parallel, as the JAX package's compressed cross-pod
+    reduction: every rank calls it with its own (pod, data) rows of the
+    batch; the float32 gradients of those rows are averaged over `data`
+    (`collectives.all_reduce_sum`, the same bits on every rank) and sent
+    across `pod` as int8 (`compression.compressed_psum`); the loss and
+    aux are means over every rank. Clipping and the optimizer follow, the
+    same on every rank, so the replicated weights stay equal."""
 
     def grads_of(params_c, leaves_c, mb):
         total, (loss, aux) = lm_loss(
@@ -179,9 +182,28 @@ def make_train_step(cfg: ArchConfig, optimizer, *, microbatches: int = 1,
         inv = 1.0 / microbatches
         return tuple(g * inv for g in g_acc), l_acc * inv, a_acc * inv
 
+    def reduce(grads, loss, aux):
+        """The mean over the ranks of `cross_pod_mesh` (see above)."""
+        from repro_torch.dist import collectives
+        from repro_torch.train import compression
+        mesh = cross_pod_mesh
+        names = tuple(mesh.mesh_dim_names)
+        sizes = dict(zip(names, mesh.shape))
+        if "data" in names:
+            grads = [collectives.all_reduce_sum(g, mesh, ("data",))
+                     / sizes["data"] for g in grads]
+        if "pod" in names:
+            grads, _ = compression.compressed_psum(grads, mesh, "pod")
+        world = math.prod(mesh.shape)
+        return (tuple(grads),
+                collectives.all_reduce_sum(loss, mesh, names) / world,
+                collectives.all_reduce_sum(aux, mesh, names) / world)
+
     def train_step(params, opt_state, batch):
         grads, loss, aux = local_grads(_compute_copy(params, compute_dtype),
                                        batch)
+        if cross_pod_mesh is not None:
+            grads, loss, aux = reduce(grads, loss, aux)
         if clip_norm:
             grads, gnorm = opt_lib.clip_by_global_norm(grads, clip_norm)
         else:

@@ -2,9 +2,9 @@
 monitoring (a copy of `repro/train/fault.py`; stdlib and the port's own
 `obs` only).
 
-* PreemptionGuard — SIGTERM/SIGINT set a flag; the train loop stops at the
-  next step boundary (a checkpoint before it stops comes with the port's
-  checkpoints, ROADMAP.md Queue 1 item 5).
+* PreemptionGuard — SIGTERM/SIGINT set a flag; the train loop checkpoints
+  at the next step boundary and exits cleanly (a restart resumes through
+  `checkpoint.restore_latest`).
 * StragglerMonitor — per-step wall-time EWMA; steps slower than
   `threshold x` the EWMA are flagged. On a real fleet the launcher feeds
   this into its replacement policy; here it raises structured events the

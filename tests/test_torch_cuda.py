@@ -811,3 +811,22 @@ def test_stacked_tenant_scores_equal_the_wnn_kernel_on_the_card(gen):
         assert torch.equal(scores[sel], want), t
     assert kernels.packed_wnn.launches == before + 6
     assert torch.equal(preds.long(), torch.argmax(scores, -1))
+
+
+def test_distributed_uleen_step_on_the_card_equals_the_blocked_step(gen):
+    """Two gloo ranks sharing the card take one exact distributed step of
+    the smoke problem; both hold the single-device blocked step's
+    parameters on the card, bit for bit."""
+    import test_torch_dist_ranks as ranks
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import train as train_mod
+    spec, statics, bits, labels = train_mod.uleen_smoke_problem(
+        0, 1024, device="cuda")
+    ref = train_mod.uleen_reference_params(spec, statics, bits, labels,
+                                           steps=1, device="cuda")[-1]
+    want = [t.cpu().numpy() for t in (*ref.tables, ref.bias)]
+    outs = mesh_mod.spawn_ranks(ranks.cuda_exact_step, 2, backend="gloo",
+                                timeout_s=300)
+    for rank, got in enumerate(outs):
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert np.array_equal(g, w), f"rank {rank} leaf {i}"

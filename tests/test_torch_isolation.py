@@ -62,7 +62,9 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
             "repro_torch.configs.internvl2_26b",
             "repro_torch.examples.serve_lm",
             "repro_torch.launch.train", "repro_torch.train.fault",
-            "repro_torch.examples.train_lm"} <= set(names.split())
+            "repro_torch.examples.train_lm", "repro_torch.train.checkpoint",
+            "repro_torch.train.compression", "repro_torch.launch.uleen_cell",
+            "repro_torch.dist.collectives"} <= set(names.split())
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -98,7 +100,7 @@ def _entry_points():
     from repro_torch.examples import (distill_uleen_head, quickstart,
                                       serve_lm, train_lm,
                                       uleen_edge_pipeline)
-    from repro_torch.launch import train
+    from repro_torch.launch import train, uleen_cell
     from repro_torch.models import kvcache, rglru, ssm, transformer
     from repro_torch.packed import layout, runtime
     art = export.load(GOLDEN)
@@ -230,6 +232,25 @@ def _entry_points():
                                           "--smoke", "--steps", "1"]),
         "data_iterator": lambda: next(train.data_iterator(lm, 1, 4, 0)),
         "train_lm_example_main": lambda: train_lm.main(steps=1),
+        "uleen_smoke_problem": lambda: train.uleen_smoke_problem(0, 64),
+        "train_uleen": lambda: train.train_uleen(
+            uleen_cell.ULEEN_EXEC_SPEC, [], np.zeros((8, 512), np.int8),
+            np.zeros(8, np.int64), steps_total=1, global_batch=8),
+        "uleen_reference_params": lambda: train.uleen_reference_params(
+            uleen_cell.ULEEN_EXEC_SPEC, [], np.zeros((8, 512), np.int8),
+            np.zeros(8, np.int64), steps=1, global_batch=8),
+        "uleen_parity_probe": lambda: train.uleen_parity_probe(),
+        "train_main_uleen": lambda: train.main(["--arch", "uleen",
+                                                "--steps", "1"]),
+        "train_main_uleen_mesh": lambda: train.main([
+            "--arch", "uleen", "--steps", "1", "--mesh", "pod=1,data=2"]),
+        "block_generator": lambda: multi_shot.block_generator(0, 0, 0),
+        "uleen_train_state_from_numpy":
+            lambda: convert.uleen_train_state_from_numpy(
+                [np.zeros((2, 3, 4), np.float32), np.zeros(2, np.float32),
+                 np.zeros((2, 3), np.float32), np.int32(0)]
+                + [np.zeros((2, 3, 4), np.float32), np.zeros(2, np.float32),
+                   np.zeros((2, 3), np.float32)] * 2),
     }
 
 
@@ -259,7 +280,10 @@ _SCENARIO = {
     "hybrid_serve_main", "encdec_init_params", "init_cross_kv",
     "encdec_serve_main", "vlm_serve_main", "serve_lm_main",
     "loadgen_run_scenario", "loadgen_main", "train_lm", "train_main",
-    "data_iterator", "train_lm_example_main"])
+    "data_iterator", "train_lm_example_main", "uleen_smoke_problem",
+    "train_uleen", "uleen_reference_params", "uleen_parity_probe",
+    "train_main_uleen", "train_main_uleen_mesh", "block_generator",
+    "uleen_train_state_from_numpy"])
 def test_entry_points_raise_without_a_gpu_unless_asked_for_the_cpu(name):
     _no_gpu()
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -292,9 +292,34 @@ def test_bf16_compute_step_matches_jax_bf16(archs):
 
 
 def test_cross_pod_reduction_waits_for_item_5(archs):
-    with pytest.raises(NotImplementedError, match="item 5"):
-        steps.make_train_step(archs("llama3p2_3b").c, opt.sgd(0.1),
-                              cross_pod_mesh=object())
+    """`make_train_step(cross_pod_mesh=)` on a one-process mesh (no
+    collective runs): a `data` axis alone leaves the step bit-equal to the
+    plain one; a `pod` axis quantises the gradient to int8 on the way, so
+    one SGD(1.0) step without clipping (update = -gradient) stays within
+    `quantization_bound` of each leaf's plain gradient, and moves it."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import compression
+    a = archs("llama3p2_3b")
+    sgd = opt.sgd(1.0)
+    params = a.params()
+    leaves0 = steps.tree_leaves(params)
+    out = {}
+    for name, mesh in (("plain", None), ("data", make_host_mesh(("data",))),
+                       ("pod", make_host_mesh(("pod", "data")))):
+        step = steps.make_train_step(a.c, sgd, compute_dtype=None,
+                                     clip_norm=0.0, cross_pod_mesh=mesh)
+        new, _, m = step(params, sgd.init(leaves0), a.torch_batch())
+        out[name] = ([x - y for x, y in zip(steps.tree_leaves(new), leaves0)],
+                     float(m["loss"]))
+    assert out["data"][1] == out["plain"][1] == out["pod"][1]
+    assert all(torch.equal(x, y) for x, y in zip(out["data"][0],
+                                                  out["plain"][0]))
+    moved = False
+    for q, g in zip(out["pod"][0], out["plain"][0]):
+        bound = compression.quantization_bound([g]) + 1e-7
+        assert float((q - g).abs().max()) <= bound
+        moved = moved or not torch.equal(q, g)
+    assert moved
 
 
 # ---------------------------------------------------------------------------
@@ -454,15 +479,38 @@ def test_train_stops_at_a_step_boundary_when_preempted():
 @pytest.mark.parametrize("flags", [
     ["--ckpt-dir", "ckpt"], ["--restore", "none"], ["--production-mesh"],
     ["--mesh", "pod=2,data=4"], ["--compress"]])
-def test_train_main_refuses_what_waits_for_item_5(flags, capsys):
-    with pytest.raises(SystemExit) as exc:
-        train_mod.main(["--arch", "llama3p2_3b", "--smoke", "--device",
-                        "cpu", *flags])
-    assert exc.value.code == 2
-    assert "item 5" in capsys.readouterr().err
+def test_train_main_refuses_what_waits_for_item_5(flags, capsys, tmp_path):
+    """The JAX driver's training-infrastructure flags on an LM arch: a
+    checkpoint directory gets its step-atomic checkpoints, `--restore
+    none` trains from scratch, `--mesh` and `--compress` are read by
+    `--arch uleen` only (the LM driver says so and trains, as the JAX
+    driver ignores them), and `--production-mesh` alone is refused, with
+    a message that names ROADMAP.md item 6."""
+    flags = [str(tmp_path / f) if prev == "--ckpt-dir" else f
+             for prev, f in zip([None, *flags], flags)]
+    argv = ["--arch", "llama3p2_3b", "--smoke", "--device", "cpu",
+            "--steps", "2", "--batch", "2", "--seq", "8", *flags]
+    if "--production-mesh" in flags:
+        with pytest.raises(SystemExit) as exc:
+            train_mod.main(argv)
+        assert exc.value.code == 2
+        assert "item 6" in capsys.readouterr().err
+        return
+    assert train_mod.main(argv) == 0
+    out = capsys.readouterr()
+    assert "done: first loss" in out.out
+    if "--ckpt-dir" in flags:
+        from repro_torch.train import checkpoint
+        assert checkpoint.all_steps(str(tmp_path / "ckpt")) == [2]
+    if "--mesh" in flags or "--compress" in flags:
+        assert "--arch uleen" in out.err
 
 
 def test_train_main_refuses_the_uleen_trainer(capsys):
-    with pytest.raises(SystemExit):
-        train_mod.main(["--arch", "uleen", "--device", "cpu"])
-    assert "--arch uleen" in capsys.readouterr().err
+    """`--arch uleen` trains the paper's model in one process (the
+    `--mesh` default, data=1): the multi-shot STE trainer on the smoke
+    problem, printing the JAX driver's lines."""
+    assert train_mod.main(["--arch", "uleen", "--device", "cpu", "--steps",
+                           "2", "--batch", "64"]) == 0
+    out = capsys.readouterr().out
+    assert "[train] step 0" in out and "done: first loss" in out

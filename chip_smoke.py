@@ -138,7 +138,16 @@ submodels, M = 10) and one LM path:
   at the trainer's leaf shapes within `quantization_bound`; a run
   preempted through `PreemptionGuard.request()` after step 2 resumed on
   (data 2), bit-equal; and the smoke Llama restarted from a mid-run
-  checkpoint, bit-equal to the unbroken run.
+  checkpoint, bit-equal to the unbroken run;
+* the dry run (`launch/dryrun.py`, in subprocesses): the six ULEEN cells
+  traced with fake tensors as rank 0 of the 256- and 512-rank production
+  meshes (the card's program: the kernels as `repro_torch::` operators,
+  the collectives as `c10d` nodes) and linted (`repro_torch.analysis`),
+  the executed cell's 8 ranks on the card; then rank 0's program of four
+  cells run for real at its shard shapes (the fake group's collectives
+  move nothing), its peak device memory held to the record's and its
+  kernel launches to the trace's operator nodes; and the WNN and hash
+  operators timed against their direct `ctypes` launches.
 
 Each path resets the kernels' launch counts just before it and reads them
 just after (the sharded and distributed-trainer paths in each rank
@@ -164,7 +173,7 @@ as many int32 lanes as fp32 lanes, so integer work (the WNN kernels'
 hash folds, shifts, masks, ANDs and votes; decompression's compares)
 issues at most 16.75 T/s; the H3 hash's 2·n·k select-and-XOR operations
 per tuple count there too. The WNN kernel's operations are those of the
-class-sliced formulation it runs (`wnn_ensemble_cost`: per row a gather
+class-sliced formulation it runs (`wnn_ensemble.wnn_ensemble_cost`: per row a gather
 per input bit of every filter, the hash fold, k probes and k + 1 ANDs a
 filter, a vote per class and 32-filter chunk); `bound_per_class_ms`
 keeps the bound of the first, per-class formulation (k lookups and an
@@ -188,6 +197,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import gc
+import importlib
 import json
 import math
 import os
@@ -370,32 +380,6 @@ def wnn_per_class_ops(batch, n_f, n, m, k):
     (b, f) n·k hash select-and-XORs; per (b, m, f) k bit lookups (load,
     shift, mask) and the AND, plus the vote."""
     return batch * n_f * n * k * 2 + batch * m * n_f * (3 * k + 1)
-
-
-def wnn_ensemble_cost(batch, row_bits, geoms, m, tables):
-    """Bytes and integer operations of the class-sliced formulation the
-    ensemble kernel runs, each term named, counted as the kernel issues
-    them. geoms: per submodel (N_f, n, k); tables: the flattened launch
-    arguments. Per row: for each input bit of every filter one select
-    (the gathered bit guards the fold) and the H3 fold, one XOR-AND a
-    hash (a single LOP3); per filter k probes and k + 1 ANDs (with the
-    mask word); per 32-filter chunk a vote per class (ballot and
-    popcount)."""
-    terms = {
-        "selects": batch * sum(n_f * n for n_f, n, _ in geoms),
-        "hash_fold": batch * sum(n_f * n * k for n_f, n, k in geoms),
-        "probes_and_ands": batch * sum(n_f * (2 * k + 1)
-                                       for n_f, _, k in geoms),
-        "votes": batch * sum(-(-n_f // 32) for n_f, _, _ in geoms) * m * 2,
-    }
-    bytes_terms = {
-        "rows": batch * row_bits,
-        "tables": sum(t.numel() * t.element_size() for t in
-                      (tables.perms, tables.params, tables.slices,
-                       tables.masks, tables.desc)),
-        "scores": batch * m * 4 + m * 4,
-    }
-    return bytes_terms, terms
 
 
 def check_wnn_kernels(gen, packed_layout, ref, packed_wnn, fused_wnn):
@@ -582,9 +566,9 @@ def check_wnn_ensemble(gen, export, ref, kernels, wnn_ensemble, *,
                 continue
             ms = cuda_ms(lambda: entry(bits, preps[kname]), 20)
             device_ms = graph_ms(lambda: entry(bits, preps[kname]))
-            by_terms, op_terms = wnn_ensemble_cost(
+            by_terms, op_terms = wnn_ensemble.wnn_ensemble_cost(
                 b, case["total_bits"], geoms, case["m"],
-                preps[kname].kernel_args)
+                preps[kname].kernel_args.nbytes())
             bms, by = bound(sum(by_terms.values()), sum(op_terms.values()),
                             INT32_OPS_PER_S)
             per_class_ops = sum(wnn_per_class_ops(b, n_f, n, case["m"], k)
@@ -608,43 +592,6 @@ def check_wnn_ensemble(gen, export, ref, kernels, wnn_ensemble, *,
         del bits, want, preps, pt
     emit("wnn_ensemble", cases=rows)
     return main
-
-
-def ptxas_report(log: str, name_of) -> list:
-    """Registers, stack and spills of each kernel instantiation in a
-    `-Xptxas -v` build log, named by `name_of(mangled name)`."""
-    out = []
-    for ln in log.splitlines():
-        hit = re.search(r"Compiling entry function '(\S+)'", ln)
-        if hit:
-            out.append({"kernel": name_of(hit.group(1))})
-            continue
-        if not out:
-            continue
-        spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
-                          r"stores, (\d+) bytes spill loads", ln)
-        if spill:
-            out[-1].update(stack=int(spill[1]), spill_stores=int(spill[2]),
-                           spill_loads=int(spill[3]))
-        regs = re.search(r"Used (\d+) registers", ln)
-        if regs:
-            out[-1]["registers"] = int(regs[1])
-    return out
-
-
-def wnn_kernel_name(mangled: str) -> str:
-    """wnn.cu's template arguments (class-word type, planes P, hashes K,
-    the global-gather route) read off a mangled name. Its shared memory
-    is dynamic, from the input columns the perms read
-    (`wnn_shared_bytes_uln_l`)."""
-    types = {"h": "uint8", "t": "uint16", "j": "uint32"}
-    args = re.search(r"wnn_ensemble_kernelI([htj])Li(\d+)ELi(\d+)ELb([01])E",
-                     mangled)
-    if not args:
-        return mangled
-    route = "global_gather" if args[4] == "1" else "shared_tile"
-    return (f"wnn_ensemble_kernel<{types[args[1]]}, P={args[2]}, "
-            f"K={args[3]}, {route}>")
 
 
 def front_end_kernel_name(mangled: str) -> str:
@@ -4514,6 +4461,211 @@ def uleen_dist_train_path(kernels, *, train_mod, uleen_cell, compression,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The dry run: the ULEEN cells traced on the production meshes, then rank
+# 0's program of four cells run for real on the card against its record
+# ---------------------------------------------------------------------------
+
+DRYRUN_OUT = ROOT / "build" / "dryrun"
+DRYRUN_TIMEOUT_S = 600
+# the record's peak a rank against the card's max_memory_allocated of the
+# same program at the same shapes: within this fraction of the record.
+# The trace sees every operator's output but not a CUDA kernel's own
+# workspace (the training step's index backward sorts its indices: +10 %
+# at ULN-L on an H100)
+DRYRUN_PEAK_TOL = 0.15
+# the one cell the dry run fails on, by the port's layout (ROADMAP
+# Queue 3): a rank's class slices of 2 classes take a byte an entry
+DRYRUN_KNOWN_FAULTS = ("infer_sharded_scale",)
+OP_TIMED_CALLS = 100
+
+
+def host_us_pair(op, direct, calls: int = OP_TIMED_CALLS,
+                 rounds: int = 7) -> tuple[float, float]:
+    """Host microseconds a call of `op` and of `direct`: `calls` calls
+    issued back to back (no synchronize between them: each only queues
+    its launch), in rounds that alternate which goes first; the medians
+    over rounds."""
+    def per_call(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) / calls * 1e6
+    op(), direct()
+    times = {"op": [], "direct": []}
+    for r in range(rounds):
+        order = (("op", op), ("direct", direct))
+        for name, fn in (order if r % 2 == 0 else order[::-1]):
+            times[name].append(per_call(fn))
+    return float(np.median(times["op"])), float(np.median(times["direct"]))
+
+
+def op_against_direct(export, wnn_ensemble, h3_mod, gen) -> dict:
+    """Rows 1, 2 and 5 through their operators against the direct ctypes
+    launch on the same inputs (ULN-L, 65536 rows; the output allocated,
+    then launched, as the wrappers did before the operators): per-call
+    ms (CUDA events) and host µs of issuing the call (`host_us_pair`)."""
+    art = uln_l_artifact(export, 20290)
+    bits = torch.randint(0, 2, (INFER_BATCH, ULN_L_BITS), generator=gen,
+                         device="cuda", dtype=torch.int8)
+    out = {}
+    for kname, backend in (("packed_wnn", "auto"), ("fused_wnn", "fused")):
+        prep = export.prepare_artifact(art, backend=backend, device="cuda")
+        a = prep.kernel_args
+        tensors = (bits, a.perms, a.params, a.slices, a.masks, a.desc,
+                   prep.bias)
+        extra = wnn_ensemble.op_arguments(a)
+        def op():
+            return torch.ops.repro_torch.wnn_ensemble.default(
+                *tensors, *extra, kname)
+
+        def direct():     # the launch as the wrapper made it before
+            res = torch.empty((INFER_BATCH, a.num_classes),
+                              dtype=torch.int32, device="cuda")
+            wnn_ensemble.launch_direct(*tensors, res, a.columns, a.chunks,
+                                       a.planes, a.max_hashes)
+            return res
+        want = op()
+        res = direct()
+        torch.cuda.synchronize()
+        assert_equal(f"{kname} op vs direct", want, res)
+        op_us, direct_us = host_us_pair(op, direct)
+        out[kname] = {"op_ms": cuda_ms(op, 20), "direct_ms": cuda_ms(direct, 20),
+                      "op_host_us": op_us, "direct_host_us": direct_us}
+        del prep, want
+    n_f, n = math.ceil(ULN_L_BITS / 12), 12
+    tuples = torch.randint(0, 2, (INFER_BATCH, n_f, n), generator=gen,
+                           device="cuda", dtype=torch.int8)
+    params = torch.randint(0, 64, (2, n), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    def op():
+        return torch.ops.repro_torch.h3_hash.default(tuples, params)
+
+    def direct():         # the launch as the wrapper made it before
+        res = torch.empty((INFER_BATCH, n_f, 2), dtype=torch.int32,
+                          device="cuda")
+        h3_mod.launch_direct(tuples, params, res)
+        return res
+    want = op()
+    res = direct()
+    torch.cuda.synchronize()
+    assert_equal("h3_hash op vs direct", want, res)
+    op_us, direct_us = host_us_pair(op, direct)
+    out["h3_hash"] = {"op_ms": cuda_ms(op, 20), "direct_ms": cuda_ms(direct, 20),
+                      "op_host_us": op_us, "direct_host_us": direct_us}
+    for row in out.values():
+        row["added_host_us"] = row["op_host_us"] - row["direct_host_us"]
+    return out
+
+
+def _json_lines(text: str) -> list:
+    return [json.loads(ln) for ln in text.splitlines()
+            if ln.startswith("{")]
+
+
+def dryrun_path(kernels, *, export, wnn_ensemble, h3_mod):
+    """`launch.dryrun --arch uleen --mesh both --analyze` in a subprocess
+    (it plays a fake world of 256 and 512 ranks; this process's later
+    phases start real groups), one line a cell; then `--rank-run` in a
+    subprocess: rank 0's program of infer_mnist_scale,
+    infer_packed_scale, infer_sharded_scale and train_mnist_scale run for
+    real on the card at its single-pod shard shapes, its
+    max_memory_allocated held to the record's peak within
+    DRYRUN_PEAK_TOL and its kernel launches to the trace's operator
+    nodes; then the operators against their direct launches (rows 1, 2,
+    5): per-call ms (CUDA events) and host µs a call. Returns (the op
+    timings by kernel, the rank runs' launches by kernel)."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+           "uleen", "--mesh", "both", "--analyze", "--out", str(DRYRUN_OUT)]
+    run = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                         cwd=ROOT, timeout=DRYRUN_TIMEOUT_S)
+    dry_s = time.perf_counter() - t0
+    records = {}
+    for path in sorted(DRYRUN_OUT.glob("*.json")):
+        rec = json.loads(path.read_text())
+        if isinstance(rec, dict) and "ok" in rec:
+            records[path.stem] = rec
+    if len(records) != 12 or not (DRYRUN_OUT / "ANALYSIS.json").exists() \
+            or not (DRYRUN_OUT / "METRICS.json").exists():
+        raise AssertionError(f"dryrun: {len(records)} records (want 12), "
+                             f"rc {run.returncode}:\n{run.stdout[-3000:]}"
+                             f"\n{run.stderr[-3000:]}")
+    bad = sorted(t for t, r in records.items() if not r["ok"]
+                 and r["shape"] not in DRYRUN_KNOWN_FAULTS)
+    if bad or run.returncode not in (0, 1):
+        raise AssertionError(f"dryrun: cells failed {bad}, rc "
+                             f"{run.returncode}:\n{run.stderr[-3000:]}")
+    cells = []
+    for tag, r in sorted(records.items()):
+        roof = r.get("roofline", {})
+        cells.append({"cell": tag, "ok": r["ok"],
+                      "peak_gib": r.get("memory", {}).get("peak_gib"),
+                      "compute_s": roof.get("compute_s"),
+                      "memory_s": roof.get("memory_s"),
+                      "collective_s": roof.get("collective_s"),
+                      "dominant": roof.get("dominant"),
+                      "traced_device": r.get("traced_device"),
+                      "op_nodes": r.get("op_nodes"),
+                      **({"error": r["error"]} if not r["ok"] else {})})
+        print(f"[dryrun] {tag}: peak {cells[-1]['peak_gib']} GiB a rank, "
+              f"terms {roof.get('compute_s')}/{roof.get('memory_s')}/"
+              f"{roof.get('collective_s')}, {roof.get('dominant')}, "
+              f"ok={r['ok']}", flush=True)
+    t1 = time.perf_counter()
+    rank = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                           "--rank-run"], capture_output=True, text=True,
+                          env=env, cwd=ROOT, timeout=DRYRUN_TIMEOUT_S)
+    if rank.returncode:
+        raise AssertionError(f"dryrun --rank-run rc {rank.returncode}:\n"
+                             f"{rank.stderr[-3000:]}")
+    checks = []
+    op_kernels = {"repro_torch::wnn_ensemble": ("packed_wnn", "fused_wnn"),
+                  "repro_torch::h3_hash": ("h3_hash",)}
+    for run_ in _json_lines(rank.stdout):
+        shape = run_["shape"]
+        tag = next(t for t in records if f".{shape}.pod1" in t)
+        rec = records[tag]
+        want_peak = rec["memory"]["peak_gib"] * 2 ** 30
+        ratio = run_["peak_bytes"] / want_peak
+        nodes = rec["op_nodes"]
+        launched = {op: sum(run_["launches"].get(k, 0) for k in ks)
+                    for op, ks in op_kernels.items()}
+        traced = {op: nodes.get(op, 0) for op in op_kernels}
+        checks.append({"cell": tag, "peak_bytes": run_["peak_bytes"],
+                       "record_peak_bytes": want_peak, "ratio": ratio,
+                       "args_bytes": run_["args_bytes"],
+                       "record_args_bytes": rec["memory"]["args_gib"]
+                       * 2 ** 30, "launches": run_["launches"],
+                       "op_nodes": traced,
+                       "traced_device": rec.get("traced_device")})
+        if abs(ratio - 1.0) > DRYRUN_PEAK_TOL:
+            raise AssertionError(f"{tag}: the card's peak {run_['peak_bytes']}"
+                                 f" B is {ratio:.3f} x the record's")
+        if launched != traced:
+            raise AssertionError(f"{tag}: launches {launched} != the "
+                                 f"trace's operator nodes {traced}")
+    if len(checks) != 4:
+        raise AssertionError(f"dryrun --rank-run: {len(checks)} cells ran")
+    rank_s = time.perf_counter() - t1
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    ops = op_against_direct(export, wnn_ensemble, h3_mod, gen)
+    total = time.perf_counter() - t0
+    emit("dryrun_path", seconds=total, dryrun_s=dry_s, rank_run_s=rank_s,
+         cells=cells, rank_checks=checks, op_vs_direct=ops,
+         peak_tolerance=DRYRUN_PEAK_TOL,
+         card_total_memory=torch.cuda.get_device_properties(0).total_memory,
+         analysis=json.loads((DRYRUN_OUT / "ANALYSIS.json").read_text())[
+             "errors"])
+    launches = {k: sum(c["launches"].get(k, 0) for c in checks)
+                for k in KERNEL_INFO}
+    return ops, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -4558,8 +4710,9 @@ def main() -> int:
              if "registers" in ln or "spill" in ln
              or "Performance Loss" in ln or "setmaxnreg" in ln]
     emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas,
-         wnn_ptxas=ptxas_report(build.build_log("wnn.cu"), wnn_kernel_name),
-         thermometer_ptxas=ptxas_report(build.build_log("thermometer.cu"),
+         wnn_ptxas=build.ptxas_report(build.build_log("wnn.cu"),
+                                      wnn_ensemble.instantiation_name),
+         thermometer_ptxas=build.ptxas_report(build.build_log("thermometer.cu"),
                                         front_end_kernel_name),
          wnn_shared_bytes_uln_l=wnn_ensemble.shared_bytes(
              ULN_L_BITS, ULN_L["num_classes"]))
@@ -4661,6 +4814,10 @@ def main() -> int:
         kernels, train_mod=train_mod, uleen_cell=uleen_cell,
         compression=compression, mesh_mod=mesh_mod, get_config=get_config)
     torch.cuda.empty_cache()
+    h3_mod = importlib.import_module("repro_torch.kernels.h3_hash")
+    op_rows, dryrun_launches = dryrun_path(
+        kernels, export=export, wnn_ensemble=wnn_ensemble, h3_mod=h3_mod)
+    torch.cuda.empty_cache()
     by_path = {"uleen_serve": launches, "uleen_train": train_launches,
                "lm_serve": lm_launches, "head": head_launches,
                "tenant": tenant_launches, "examples": example_launches,
@@ -4670,7 +4827,7 @@ def main() -> int:
                "encdec": encdec_launches, "vlm": vlm_launches,
                "qwen": qwen_launches, "serve_profile": profile_launches,
                "loadgen": loadgen_launches, "lm_train": train_lm_launches,
-               "uleen_dist_train": dist_launches}
+               "uleen_dist_train": dist_launches, "dryrun": dryrun_launches}
     # the flash kernel's rows at the MoE, hybrid, encoder-decoder, patch
     # and Qwen paths' shapes, each with the launches its path's run made at
     # exactly that shape and all of its path's flash launches
@@ -4707,6 +4864,8 @@ def main() -> int:
                                           for p, v in by_path.items()},
                      **({"shapes": flash_shapes}
                         if name == "flash_attention" else {}),
+                     **({"op_vs_direct": op_rows[name]}
+                        if name in op_rows else {}),
                      **{k: timing[k] for k in ("tolerance",
                                                "bound_cuda_core_ms",
                                                "bound_per_class_ms",

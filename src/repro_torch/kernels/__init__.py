@@ -7,7 +7,9 @@ training path, `flash_attention` on the LM prefill path) launches its
 CUDA kernel on CUDA tensors and counts the launch in its `launches`
 attribute (`flash_attention` also by shape, in `flash_attention.shapes`);
 on CPU tensors it runs its plain version from `ref.py` and counts
-nothing.
+nothing. The WNN and hash launches are the registered operators
+`repro_torch::wnn_ensemble` and `repro_torch::h3_hash`, which count in
+their bodies: a trace with fake tensors records them and counts none.
 """
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_wnn import fused_wnn, fused_wnn_ensemble

@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -112,3 +113,26 @@ def check_launch(symbol: str, rc: int) -> None:
     never runs, and a later synchronize would not report it."""
     if rc != 0:
         raise RuntimeError(f"{symbol}: CUDA launch failed with error {rc}")
+
+
+def ptxas_report(log: str, name_of=lambda mangled: mangled) -> list:
+    """Registers, stack and spills of each kernel instantiation in a
+    `-Xptxas -v` build log (`build_log`), named by `name_of(mangled
+    name)`."""
+    out = []
+    for ln in log.splitlines():
+        hit = re.search(r"Compiling entry function '(\S+)'", ln)
+        if hit:
+            out.append({"kernel": name_of(hit.group(1))})
+            continue
+        if not out:
+            continue
+        spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", ln)
+        if spill:
+            out[-1].update(stack=int(spill[1]), spill_stores=int(spill[2]),
+                           spill_loads=int(spill[3]))
+        regs = re.search(r"Used (\d+) registers", ln)
+        if regs:
+            out[-1]["registers"] = int(regs[1])
+    return out

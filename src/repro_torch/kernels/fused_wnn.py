@@ -55,3 +55,4 @@ def fused_wnn_ensemble(bits: torch.Tensor, prep) -> torch.Tensor:
 
 
 fused_wnn.launches = 0
+wnn_ensemble.register_counter(fused_wnn)

@@ -63,3 +63,4 @@ def packed_wnn_ensemble(bits: torch.Tensor, tables) -> torch.Tensor:
 
 
 packed_wnn.launches = 0
+wnn_ensemble.register_counter(packed_wnn)

@@ -26,6 +26,13 @@ splits the classes into groups of 128. Per-submodel slices are views of
 the concatenation (`EnsembleArgs.submodel_slices`). It runs once, where
 the tables are prepared, never per batch. Nothing here runs at import
 time or needs a GPU.
+
+The launch is the registered operator `repro_torch::wnn_ensemble`, so a
+trace with fake tensors (`launch.graph_cost.trace`) records it as one
+node with its (B, M) int32 output and the operations `wnn_ensemble_cost`
+counts, without building or launching anything. Its body is the
+`ctypes` launch and the only place a launch is counted, on the counter
+of the public wrapper that asked for it (`packed_wnn` or `fused_wnn`).
 """
 from __future__ import annotations
 
@@ -35,6 +42,7 @@ import math
 from typing import Sequence
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build, launch
 
@@ -85,6 +93,34 @@ def shared_bytes(columns: int, num_classes: int,
     return up16(columns) + ROWS_PER_TILE * slot + scores
 
 
+def instantiation_for(num_classes: int, k: int, route: str) -> str:
+    """The `csrc/wnn.cu` instantiation a launch of `num_classes` classes
+    and `k` hashes runs on `route`, named as `instantiation_name` names a
+    ptxas report's entries: the class-word type, the planes of a class
+    group (at most GROUP_PLANES), K = k on the shared tile and K = 8 (k
+    at run time) on the global gather."""
+    dtype, planes = slice_format(num_classes)
+    word = {torch.uint8: "uint8", torch.int16: "uint16",
+            torch.int32: "uint32"}[dtype]
+    kk = 8 if route == "global_gather" else k
+    return (f"wnn_ensemble_kernel<{word}, P={min(planes, GROUP_PLANES)}, "
+            f"K={kk}, {route}>")
+
+
+def instantiation_name(mangled: str) -> str:
+    """wnn.cu's template arguments (class-word type, planes P, hashes K,
+    the global-gather route) read off a mangled kernel name."""
+    import re
+    types = {"h": "uint8", "t": "uint16", "j": "uint32"}
+    args = re.search(r"wnn_ensemble_kernelI([htj])Li(\d+)ELi(\d+)ELb([01])E",
+                     mangled)
+    if not args:
+        return mangled
+    route = "global_gather" if args[4] == "1" else "shared_tile"
+    return (f"wnn_ensemble_kernel<{types[args[1]]}, P={args[2]}, "
+            f"K={args[3]}, {route}>")
+
+
 def perm_route(columns: int) -> str:
     """The kernel's route for perms that read `columns` input bits:
     `shared_tile` (uint16 indices) up to TILE_COLUMNS, else
@@ -109,6 +145,7 @@ class EnsembleArgs:
     route: str                # `perm_route(columns)`
     slice_shapes: tuple       # per submodel, for `submodel_slices`
     mask_shapes: tuple
+    geometry: tuple = ()      # per submodel (N_f, n, k), host-side
 
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in
@@ -128,22 +165,34 @@ class EnsembleArgs:
 def ensemble_args(perms: Sequence[torch.Tensor], h3s: Sequence[torch.Tensor],
                   slices: Sequence[torch.Tensor],
                   masks: Sequence[torch.Tensor],
-                  num_classes: int) -> EnsembleArgs:
+                  num_classes: int, *, columns: int | None = None
+                  ) -> EnsembleArgs:
     """Flatten per-submodel perms (N_f, n), H3 params (k, n), class slices
     (N_f, E[, P]) and mask words (N_f[, P]) for one launch, on their
-    device."""
+    device.
+
+    `columns` is the input bits the perms may read (1 + their largest
+    index), where the caller knows it without reading the perms: the
+    identity perm of `tuple_scores`, or a spec's `total_bits`. Without it
+    the perms are read on the host and range-checked, as perms that
+    arrive from a caller must be."""
     dtype, planes = slice_format(num_classes)
     if not perms:
         raise ValueError("an ensemble needs at least one submodel")
-    top = max(int(p.max()) if p.numel() else 0 for p in perms)
-    low = min(int(p.min()) if p.numel() else 0 for p in perms)
-    if low < 0 or top >= 2 ** 31:
-        raise ValueError(f"perm indices in [{low}, {top}]: outside the "
-                         "int32 input bits the kernel indexes")
-    route = perm_route(top + 1)
+    if columns is None:
+        top = max(int(p.max()) if p.numel() else 0 for p in perms)
+        low = min(int(p.min()) if p.numel() else 0 for p in perms)
+        if low < 0 or top >= 2 ** 31:
+            raise ValueError(f"perm indices in [{low}, {top}]: outside the "
+                             "int32 input bits the kernel indexes")
+        columns = top + 1
+    elif not 1 <= columns <= 2 ** 31:
+        raise ValueError(f"columns={columns} outside [1, 2^31]")
+    route = perm_route(columns)
     rows, perm_parts, param_parts, slice_parts, mask_parts = [], [], [], [], []
     offs = dict(perm=0, param=0, slice=0, mask=0, chunk=0)
     max_k = 1
+    geometry = []
     for i, (perm, h3, sl, mk) in enumerate(zip(perms, h3s, slices, masks)):
         n_f, n = perm.shape
         k = h3.shape[0]
@@ -160,6 +209,7 @@ def ensemble_args(perms: Sequence[torch.Tensor], h3s: Sequence[torch.Tensor],
             raise ValueError(f"submodel {i}: h3 {tuple(h3.shape)} against "
                              f"perm n={n}, k in [1, {launch.MAX_HASHES}]")
         max_k = max(max_k, k)
+        geometry.append((n_f, n, k))
         rows.append([n_f, n, k, entries, offs["perm"], offs["param"],
                      offs["slice"], offs["mask"], offs["chunk"]])
         index = perm.t().reshape(-1).to(torch.int32)
@@ -185,17 +235,126 @@ def ensemble_args(perms: Sequence[torch.Tensor], h3s: Sequence[torch.Tensor],
         masks=torch.cat(mask_parts).contiguous(),
         desc=torch.tensor(rows, dtype=torch.int32, device=dev),
         num_classes=int(num_classes), planes=planes, max_hashes=max_k,
-        chunks=offs["chunk"], columns=top + 1, route=route,
+        chunks=offs["chunk"], columns=int(columns), route=route,
         slice_shapes=tuple(tuple(s.shape) for s in slices),
-        mask_shapes=tuple(tuple(m.shape) for m in masks))
+        mask_shapes=tuple(tuple(m.shape) for m in masks),
+        geometry=tuple(geometry))
+
+
+def wnn_ensemble_cost(batch: int, row_bits: int, geoms, m: int,
+                      table_bytes: int) -> tuple[dict, dict]:
+    """(bytes, integer operations) of one ensemble launch, each term
+    named, counted as the kernel issues them. geoms: per submodel (N_f,
+    n, k); table_bytes: the flattened launch arguments' bytes
+    (`EnsembleArgs.nbytes()`). Per row: for each input bit of every
+    filter one select (the gathered bit guards the fold) and the H3 fold,
+    one XOR-AND a hash (a single LOP3); per filter k probes and k + 1
+    ANDs (with the mask word); per 32-filter chunk a vote per class
+    (ballot and popcount). Bytes: each row read once, the arguments once,
+    the scores written once."""
+    ops = {
+        "selects": batch * sum(n_f * n for n_f, n, _ in geoms),
+        "hash_fold": batch * sum(n_f * n * k for n_f, n, k in geoms),
+        "probes_and_ands": batch * sum(n_f * (2 * k + 1)
+                                       for n_f, _, k in geoms),
+        "votes": batch * sum(-(-n_f // 32) for n_f, _, _ in geoms) * m * 2,
+    }
+    bytes_terms = {"rows": batch * row_bits, "tables": int(table_bytes),
+                   "scores": batch * m * 4 + m * 4}
+    return bytes_terms, ops
+
+
+# The public wrappers whose `launches` the operator's body counts, by name.
+COUNTERS: dict = {}
+
+
+def register_counter(wrapper):
+    """Count launches made for `wrapper` (by its __name__) on it."""
+    COUNTERS[wrapper.__name__] = wrapper
+    return wrapper
+
+
+def launch_direct(bits: torch.Tensor, perms: torch.Tensor,
+                  params: torch.Tensor, slices: torch.Tensor,
+                  masks: torch.Tensor, desc: torch.Tensor,
+                  bias: torch.Tensor, out: torch.Tensor, columns: int,
+                  chunks: int, planes: int, max_hashes: int) -> None:
+    """The `ctypes` launch of `wnn_ensemble_launch` into `out` (B, M),
+    with no check and no count: the operator's body, and the yardstick
+    the operator's dispatch is timed against."""
+    fn = build.kernel_function("wnn.cu", "wnn_ensemble_launch", _ARGTYPES)
+    rc = fn(bits.data_ptr(), bits.shape[0], bits.shape[1], columns,
+            perms.data_ptr(), params.data_ptr(), slices.data_ptr(),
+            masks.data_ptr(), desc.data_ptr(), desc.shape[0], chunks,
+            bias.data_ptr(), out.data_ptr(), bias.shape[0],
+            slices.element_size(), planes, max_hashes, perms.element_size(),
+            launch.stream_handle(bits.device))
+    build.check_launch("wnn_ensemble_launch", rc)
+
+
+def wnn_ensemble_op(bits: torch.Tensor, perms: torch.Tensor,
+                    params: torch.Tensor, slices: torch.Tensor,
+                    masks: torch.Tensor, desc: torch.Tensor,
+                    bias: torch.Tensor, columns: int, chunks: int,
+                    planes: int, max_hashes: int, geometry: list,
+                    kernel: str) -> torch.Tensor:
+    """The CUDA body of `repro_torch::wnn_ensemble`: one `csrc/wnn.cu`
+    launch, scores (B, M) int32 of `bits` (B, row_bits) int8 through
+    flattened ensemble arguments (`EnsembleArgs`; `geometry` their
+    (N_f, n, k) per submodel, flat). Counts one launch on
+    `COUNTERS[kernel]`."""
+    del geometry
+    out = torch.empty((bits.shape[0], bias.shape[0]), dtype=torch.int32,
+                      device=bits.device)
+    launch_direct(bits, perms, params, slices, masks, desc, bias, out,
+                  columns, chunks, planes, max_hashes)
+    COUNTERS[kernel].launches += 1
+    return out
+
+
+# Registered through torch.library's dispatcher interface rather than
+# `torch.library.custom_op`, whose Python wrapper (input checks, aliasing
+# checks) added 44-97 µs of host time a call on an H100 machine
+# (`chip_smoke.op_against_direct`), against 5-12 µs for this one.
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("wnn_ensemble(Tensor bits, Tensor perms, Tensor params, "
+            "Tensor slices, Tensor masks, Tensor desc, Tensor bias, "
+            "int columns, int chunks, int planes, int max_hashes, "
+            "int[] geometry, str kernel) -> Tensor")
+_LIB.impl("wnn_ensemble", wnn_ensemble_op, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::wnn_ensemble", lib=_LIB)
+def _wnn_ensemble_fake(bits, perms, params, slices, masks, desc, bias,
+                       columns, chunks, planes, max_hashes, geometry, kernel):
+    return bits.new_empty((bits.shape[0], bias.shape[0]), dtype=torch.int32)
+
+
+@register_flop_formula(torch.ops.repro_torch.wnn_ensemble)
+def _wnn_ensemble_flops(bits_shape, perms_shape, params_shape, slices_shape,
+                        masks_shape, desc_shape, bias_shape, columns, chunks,
+                        planes, max_hashes, geometry, kernel, *,
+                        out_shape=None, **kwargs) -> int:
+    """The integer operations `wnn_ensemble_cost` counts (the tables'
+    bytes do not enter the operation count)."""
+    geoms = [tuple(geometry[i:i + 3]) for i in range(0, len(geometry), 3)]
+    _, ops = wnn_ensemble_cost(bits_shape[0], bits_shape[1], geoms,
+                               bias_shape[0], 0)
+    return sum(ops.values())
+
+
+def op_arguments(args: EnsembleArgs) -> tuple:
+    """The host-side arguments of `wnn_ensemble_op` after the tensors."""
+    return (args.columns, args.chunks, args.planes, args.max_hashes,
+            [v for g in args.geometry for v in g])
 
 
 def launch_ensemble(kernel: str, bits: torch.Tensor, args: EnsembleArgs,
                     bias: torch.Tensor) -> torch.Tensor:
     """Scores (B, M) int32 of `bits` (B, row_bits) bytes {0, 1} (int8,
-    uint8 or bool) through the ensemble kernel: one launch. Raises on
-    anything the kernel cannot take; counts nothing (the public wrappers
-    count)."""
+    uint8 or bool) through the ensemble kernel: one launch of
+    `repro_torch::wnn_ensemble`, counted on the wrapper named `kernel`.
+    Raises on anything the kernel cannot take."""
     if bits.dtype in (torch.uint8, torch.bool):
         bits = bits.view(torch.int8)
     if bits.ndim != 2:
@@ -215,19 +374,11 @@ def launch_ensemble(kernel: str, bits: torch.Tensor, args: EnsembleArgs,
         masks=(args.masks, args.slices.dtype, tuple(args.masks.shape)),
         desc=(args.desc, torch.int32, (args.desc.shape[0], len(DESC_FIELDS))),
         bias=(bias, torch.int32, (m,)))
-    out = torch.empty((b, m), dtype=torch.int32, device=device)
     if b == 0:
-        return out
-    fn = build.kernel_function("wnn.cu", "wnn_ensemble_launch", _ARGTYPES)
-    rc = fn(bits.data_ptr(), b, row_bits, args.columns,
-            args.perms.data_ptr(), args.params.data_ptr(),
-            args.slices.data_ptr(), args.masks.data_ptr(),
-            args.desc.data_ptr(), args.desc.shape[0], args.chunks,
-            bias.data_ptr(), out.data_ptr(), m,
-            args.slices.element_size(), args.planes, args.max_hashes,
-            args.perms.element_size(), launch.stream_handle(device))
-    build.check_launch("wnn_ensemble_launch", rc)
-    return out
+        return torch.empty((b, m), dtype=torch.int32, device=device)
+    return torch.ops.repro_torch.wnn_ensemble.default(
+        bits, args.perms, args.params, args.slices, args.masks, args.desc,
+        bias, *op_arguments(args), kernel)
 
 
 def ensemble_scores(counter, bits: torch.Tensor, tables) -> torch.Tensor:
@@ -241,25 +392,22 @@ def ensemble_scores(counter, bits: torch.Tensor, tables) -> torch.Tensor:
         slices, masks = tables.kernel_args.submodel_slices()
         return ref.wnn_ensemble_ref(bits, tables.perms, tables.h3s, slices,
                                     masks, tables.bias)
-    out = launch_ensemble(counter.__name__, bits, tables.kernel_args,
-                          tables.bias)
-    if out.shape[0]:
-        counter.launches += 1
-    return out
+    return launch_ensemble(counter.__name__, bits, tables.kernel_args,
+                           tables.bias)
 
 
 def tuple_scores(counter, tuples: torch.Tensor, params: torch.Tensor,
                  slices: torch.Tensor, mask: torch.Tensor,
                  bias: torch.Tensor) -> torch.Tensor:
     """One submodel's (B, N_f, n) tuples through the ensemble kernel: the
-    tuples are (B, N_f·n) rows and filter f reads bits f·n .. f·n + n - 1.
-    One launch, counted on `counter.launches`."""
+    tuples are (B, N_f·n) rows and filter f reads bits f·n .. f·n + n - 1
+    (an identity perm: its reach is known, so nothing is read on the
+    host). One launch, counted on `counter.launches`."""
     from repro_torch.packed import layout
     b, n_f, n = tuples.shape
     perm = torch.arange(n_f * n, device=tuples.device).view(n_f, n)
     args = ensemble_args([perm], [params], [slices],
-                         [layout.class_mask_words(mask)], mask.shape[0])
-    out = launch_ensemble(counter.__name__, tuples.view(b, n_f * n), args,
-                          bias)
-    counter.launches += 1
-    return out
+                         [layout.class_mask_words(mask)], mask.shape[0],
+                         columns=n_f * n)
+    return launch_ensemble(counter.__name__, tuples.view(b, n_f * n), args,
+                           bias)

@@ -17,9 +17,16 @@ and, but for a launcher's job, a deadline on the whole run.
 
     outs = spawn_ranks(fn, 4, arg, backend=collective_backend("cpu", 4))
     # fn(rank, world, arg) ran in 4 processes; outs[r] is rank r's return
+
+The production meshes (`make_production_mesh`: 16 x 16 (data, model) on
+one pod, 2 x 16 x 16 (pod, data, model) on two) exist for the dry run
+only: one process plays rank `rank` of a fake world of 256 or 512 ranks
+(`fake_world`), whose collectives record what they would send and move
+nothing, so the per-rank program is traced with no cluster and no card.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import math
 import multiprocessing
@@ -90,6 +97,52 @@ def make_mesh(shape: tuple, axes: tuple):
                            f"the process group has {dist.get_world_size()}")
     from torch.distributed.device_mesh import init_device_mesh
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+
+
+PRODUCTION_MESHES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+@contextlib.contextmanager
+def fake_world(world: int, rank: int = 0):
+    """This process as rank `rank` of a fake process group of `world`
+    ranks (torch's `fake` backend over a `FakeStore`): no process is
+    started and no collective moves data, so a trace under it records the
+    collectives rank `rank` would make. The group is destroyed on exit,
+    whatever happens inside."""
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialised; a fake "
+                           "world needs the process to itself")
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} outside a world of {world}")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def make_production_mesh(multi_pod: bool = False, rank: int = 0, *,
+                         device_type: str = "cuda"):
+    """The production DeviceMesh (the JAX package's `make_production_mesh`
+    shapes) as rank `rank` sees it. Needs an initialised group of the
+    mesh's size in which this process is `rank`: `fake_world(256 or 512,
+    rank)`."""
+    shape, axes = PRODUCTION_MESHES[bool(multi_pod)]
+    n = math.prod(shape)
+    if not dist.is_initialized():
+        raise RuntimeError(f"the production mesh needs a world of {n} ranks:"
+                           f" run inside launch.mesh.fake_world({n}, rank)")
+    if dist.get_world_size() != n or dist.get_rank() != rank:
+        raise RuntimeError(f"the production mesh {dict(zip(axes, shape))} "
+                           f"as rank {rank} needs a world of {n} with this "
+                           f"process as rank {rank}; the group has "
+                           f"{dist.get_world_size()} ranks, this is rank "
+                           f"{dist.get_rank()}")
+    from torch.distributed.device_mesh import init_device_mesh
     return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 

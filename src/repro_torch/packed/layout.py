@@ -180,12 +180,20 @@ class PackedTables:
     def kernel_args(self) -> wnn_ensemble.EnsembleArgs:
         """The ensemble's launch arguments, built on first use."""
         if self._kernel_args is None:
-            self._kernel_args = wnn_ensemble.ensemble_args(
-                self.perms, self.h3s,
-                [class_slices_from_words(w, e)
-                 for w, e in zip(self.words, self.entries)],
-                [class_mask_words(m) for m in self.masks], self.num_classes)
+            self.build_kernel_args()
         return self._kernel_args
+
+    def build_kernel_args(self, columns: int | None = None) -> "PackedTables":
+        """Build `kernel_args` now. `columns` (the input bits the perms may
+        read, such as the spec's total_bits) spares reading the perms on
+        the host; without it they are read and range-checked."""
+        self._kernel_args = wnn_ensemble.ensemble_args(
+            self.perms, self.h3s,
+            [class_slices_from_words(w, e)
+             for w, e in zip(self.words, self.entries)],
+            [class_mask_words(m) for m in self.masks], self.num_classes,
+            columns=columns)
+        return self
 
     @property
     def slices(self) -> tuple:

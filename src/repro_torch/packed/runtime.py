@@ -163,14 +163,22 @@ class ClassShardedTables:
         return self.num_classes // int(self.local.bias.shape[0])
 
 
-def class_sharded_scores(sp: ClassShardedTables, bits, score_local):
+def class_sharded_scores(sp: ClassShardedTables, bits, score_local, *,
+                         local_rows: bool = False):
     """(B, M) int32 scores of a class-sharded ensemble, whole on every
     rank. `score_local(local, rows)` scores this rank's classes (on a GPU
     one WNN kernel launch); the (rows, M/S) columns then cross the `model`
     group in ONE all-gather. Where the mesh also has batch axes (`data`)
     that divide B, each rank scores only its rows, and one more gather
-    over those axes makes the rows whole."""
+    over those axes makes the rows whole.
+
+    local_rows=True: `bits` are already this rank's rows and the scores
+    stay this rank's rows (B_loc, M): the columns' one gather and nothing
+    else, as the JAX package's program leaves its rows batch-sharded."""
     bits = torch.as_tensor(bits)
+    if local_rows:
+        part = score_local(sp.local, bits)
+        return collectives.all_gather(part, sp.mesh, sp.class_axes, dim=1)
     b_axes = batch_axes(sp.mesh, sp.rules, int(bits.shape[0]),
                         exclude=sp.class_axes)
     if b_axes:
@@ -202,7 +210,8 @@ class TenantShardedTables:
 
 def make_tenant_sharded_predict(st_spec, mesh, rules: sh.ShardingRules,
                                 global_batch: int, *, backend: str = "auto",
-                                device=DEFAULT_DEVICE):
+                                device=DEFAULT_DEVICE,
+                                local_rows: bool = False):
     """Build `predict(st, bits, tids) -> (scores, preds)` with the fleet
     partitioned over `mesh` by tenant.
 
@@ -219,7 +228,12 @@ def make_tenant_sharded_predict(st_spec, mesh, rules: sh.ShardingRules,
     The returned `predict` takes this rank's `TenantShardedTables`, or
     the `StackedPackedTables` of its shard. When the `tenants` axes
     resolve to replication (T does not divide them, or a one-process
-    mesh) it is `stacked_predict`."""
+    mesh) it is `stacked_predict`.
+
+    local_rows=True: `predict` takes this rank's rows of the batch (and
+    their tenant ids) and returns theirs, with no gather of rows: the
+    one sum and nothing else, as the JAX package's program leaves its
+    rows batch-sharded."""
     rules = rules if rules is not None else sh.SERVE_RULES
     num_tenants = st_spec.num_tenants
     entry, degree = sh.tenant_partition(mesh, num_tenants, rules)
@@ -234,6 +248,7 @@ def make_tenant_sharded_predict(st_spec, mesh, rules: sh.ShardingRules,
     t_loc = num_tenants // degree
     lo = collectives.axis_index(mesh, t_axes) * t_loc
     b_axes = batch_axes(mesh, rules, global_batch, exclude=t_axes)
+    b_loc = global_batch // sh.spec_degree(mesh, b_axes or None)
     dev = resolve_device(device)
 
     def predict(st, bits, tids):
@@ -244,17 +259,18 @@ def make_tenant_sharded_predict(st_spec, mesh, rules: sh.ShardingRules,
                              f"rank holds {t_loc} of {num_tenants}")
         bits = torch.as_tensor(bits).to(dev)
         tids = torch.as_tensor(tids).to(dev, torch.int64)
-        if bits.shape[0] != global_batch:
+        want = b_loc if local_rows else global_batch
+        if bits.shape[0] != want:
             raise ValueError(f"{bits.shape[0]} rows; this predict was "
-                             f"built for {global_batch}")
-        if b_axes:
+                             f"built for {want}")
+        if b_axes and not local_rows:
             rows = collectives.row_slice(global_batch, mesh, b_axes)
             bits, tids = bits[rows], tids[rows]
         own = (tids >= lo) & (tids < lo + t_loc)
         part = stacked_scores(st, bits, torch.clamp(tids - lo, 0, t_loc - 1),
                               backend=backend, valid=own, device=dev)
         scores = collectives.all_reduce_sum(part, mesh, t_axes)  # the ONE
-        if b_axes:
+        if b_axes and not local_rows:
             scores = collectives.all_gather(scores, mesh, b_axes, dim=0)
         from repro_torch.kernels import ops
         return ops.ensemble_predict(scores)

@@ -830,3 +830,103 @@ def test_distributed_uleen_step_on_the_card_equals_the_blocked_step(gen):
     for rank, got in enumerate(outs):
         for i, (g, w) in enumerate(zip(got, want)):
             assert np.array_equal(g, w), f"rank {rank} leaf {i}"
+
+
+def _fake_like(mode, tensors):
+    return [mode.from_tensor(t) for t in tensors]
+
+
+@pytest.mark.parametrize("kernel", ["packed_wnn", "fused_wnn"])
+def test_wnn_operator_equals_its_direct_launch_and_its_fake(gen, kernel):
+    """`repro_torch::wnn_ensemble` on a ULN-L-shaped ensemble equals the
+    direct `ctypes` launch bit for bit, counts one launch on its wrapper
+    (none under a fake trace), and its fake output has the real one's
+    shape and dtype."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels import wnn_ensemble
+    n_f, n, e, m, k = 458, 12, 64, 10, 2
+    perm = torch.randperm(n_f * n, generator=gen, device="cuda").view(n_f, n)
+    h3 = torch.randint(0, e, (k, n), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    table = (torch.rand((m, n_f, e), generator=gen, device="cuda") < 0.3
+             ).to(torch.int8)
+    mask = torch.ones((m, n_f), dtype=torch.int8, device="cuda")
+    args = wnn_ensemble.ensemble_args(
+        [perm], [h3], [layout.class_slices_from_table(table)],
+        [layout.class_mask_words(mask)], m)
+    bias = torch.zeros((m,), dtype=torch.int32, device="cuda")
+    bits = torch.randint(0, 2, (1031, n_f * n), generator=gen,
+                         device="cuda", dtype=torch.int8)
+    tensors = (bits, args.perms, args.params, args.slices, args.masks,
+               args.desc, bias)
+    extra = wnn_ensemble.op_arguments(args)
+    counter = getattr(kernels, kernel)
+    before = counter.launches
+    got = torch.ops.repro_torch.wnn_ensemble(*tensors, *extra, kernel)
+    assert counter.launches == before + 1
+    want = torch.empty_like(got)
+    wnn_ensemble.launch_direct(*tensors, want, args.columns, args.chunks,
+                               args.planes, args.max_hashes)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    with FakeTensorMode() as mode:
+        fake = torch.ops.repro_torch.wnn_ensemble(
+            *_fake_like(mode, tensors), *extra, kernel)
+    assert counter.launches == before + 1
+    assert (tuple(fake.shape), fake.dtype) == (tuple(got.shape), got.dtype)
+
+
+def test_h3_operator_equals_its_direct_launch_and_its_fake(gen):
+    import importlib
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    # the package's `h3_hash` is the wrapper; its module holds the launch
+    h3_mod = importlib.import_module("repro_torch.kernels.h3_hash")
+    tuples = torch.randint(0, 2, (4099, 229, 24), generator=gen,
+                           device="cuda", dtype=torch.int8)
+    params = torch.randint(0, 256, (9, 24), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    before = kernels.h3_hash.launches
+    got = torch.ops.repro_torch.h3_hash(tuples, params)
+    assert kernels.h3_hash.launches == before + 1
+    want = torch.empty_like(got)
+    h3_mod.launch_direct(tuples, params, want)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, ref.h3_hash_ref(tuples, params))
+    with FakeTensorMode() as mode:
+        fake = torch.ops.repro_torch.h3_hash(*_fake_like(mode,
+                                                         (tuples, params)))
+    assert kernels.h3_hash.launches == before + 1
+    assert (tuple(fake.shape), fake.dtype) == (tuple(got.shape), got.dtype)
+
+
+def test_fused_wnn_reads_no_perm_and_stays_bit_equal_at_uln_l(gen):
+    """`fused_wnn` passes its identity perm's reach to `ensemble_args`
+    (no host read of the perm): at every ULN-L geometry it equals the
+    launch built the old way (the perm read on the host) and the plain
+    version, bit for bit."""
+    from repro_torch.kernels import wnn_ensemble
+    for n, log2e in ((12, 6), (16, 7), (20, 7), (24, 8), (28, 8), (32, 9)):
+        n_f, e, m, k, b = -(-784 * 7 // n), 2 ** log2e, 10, 2, 4096
+        tuples = torch.randint(0, 2, (b, n_f, n), generator=gen,
+                               device="cuda", dtype=torch.int8)
+        params = torch.randint(0, e, (k, n), generator=gen, device="cuda",
+                               dtype=torch.int32)
+        table = (torch.rand((m, n_f, e), generator=gen, device="cuda") < 0.3
+                 ).to(torch.int8)
+        mask = torch.randint(0, 3, (m, n_f), generator=gen, device="cuda",
+                             dtype=torch.int8)
+        bias = torch.randint(-5, 6, (m,), generator=gen, device="cuda",
+                             dtype=torch.int32)
+        got = kernels.fused_wnn(tuples, params, table, mask, bias)
+        perm = torch.arange(n_f * n, device="cuda").view(n_f, n)
+        old = wnn_ensemble.ensemble_args(
+            [perm], [params], [layout.class_slices_from_table(table)],
+            [layout.class_mask_words(mask)], m)
+        assert old.columns == n_f * n
+        before = wnn_ensemble.launch_ensemble(
+            "fused_wnn", tuples.view(b, n_f * n), old, bias)
+        torch.cuda.synchronize()
+        assert torch.equal(got, before), n
+        assert torch.equal(got, ref.fused_wnn_ref(tuples, params, table,
+                                                  mask, bias)), n

@@ -4474,9 +4474,9 @@ DRYRUN_TIMEOUT_S = 600
 # workspace (the training step's index backward sorts its indices: +10 %
 # at ULN-L on an H100)
 DRYRUN_PEAK_TOL = 0.15
-# the one cell the dry run fails on, by the port's layout (ROADMAP
-# Queue 3): a rank's class slices of 2 classes take a byte an entry
-DRYRUN_KNOWN_FAULTS = ("infer_sharded_scale",)
+# cells the dry run is allowed to fail on: none (the class-sharded
+# cell's rank fits JAX's bound since its slices take 2 bits an entry)
+DRYRUN_KNOWN_FAULTS: tuple = ()
 OP_TIMED_CALLS = 100
 
 
@@ -4556,8 +4556,67 @@ def op_against_direct(export, wnn_ensemble, h3_mod, gen) -> dict:
     op_us, direct_us = host_us_pair(op, direct)
     out["h3_hash"] = {"op_ms": cuda_ms(op, 20), "direct_ms": cuda_ms(direct, 20),
                       "op_host_us": op_us, "direct_host_us": direct_us}
+    out.update(front_end_and_flash_ops(gen))
     for row in out.values():
         row["added_host_us"] = row["op_host_us"] - row["direct_host_us"]
+    return out
+
+
+def front_end_and_flash_ops(gen) -> dict:
+    """Rows 3, 4 and 6 through their operators (`repro_torch::
+    thermometer_encode`, `::thermometer_decompress`, `::flash_attention`)
+    against the direct ctypes launch on the same inputs: the front end at
+    the ULN-L serve batch (65536 x 784 features, 7 bits), flash at Llama
+    3.2 3B's prefill (B 4, 24/8 x 128, 1024, float32). Per-call ms (CUDA
+    events) and host µs a call."""
+    th = importlib.import_module("repro_torch.kernels.thermometer")
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    x = torch.rand((INFER_BATCH, 784), generator=gen, device="cuda")
+    thr = torch.sort(torch.rand((784, 7), generator=gen, device="cuda"),
+                     dim=1).values
+    counts = torch.randint(0, 8, (INFER_BATCH, 784), generator=gen,
+                           device="cuda", dtype=torch.uint8)
+    q = torch.randn((4, 24, 1024, 128), generator=gen, device="cuda")
+    k = torch.randn((4, 8, 1024, 128), generator=gen, device="cuda")
+    v = torch.randn((4, 8, 1024, 128), generator=gen, device="cuda")
+    scale = 128 ** -0.5
+
+    def enc_direct():
+        res = torch.empty((INFER_BATCH, 784, 7), dtype=torch.int8,
+                          device="cuda")
+        th.encode_direct(x, thr, res)
+        return res
+
+    def dec_direct():
+        res = torch.empty((INFER_BATCH, 784, 7), dtype=torch.int8,
+                          device="cuda")
+        th.decompress_direct(counts, res)
+        return res
+
+    def flash_direct():
+        res = torch.empty((4, 1024, 24, 128), device="cuda")
+        fa.launch_direct(q, k, v, res, True, 0, scale, 0)
+        return res
+    cases = {
+        "thermometer_encode": (
+            lambda: torch.ops.repro_torch.thermometer_encode.default(x, thr),
+            enc_direct),
+        "thermometer_decompress": (
+            lambda: torch.ops.repro_torch.thermometer_decompress.default(
+                counts, 7), dec_direct),
+        "flash_attention": (
+            lambda: torch.ops.repro_torch.flash_attention.default(
+                q, k, v, True, 0, scale, 0), flash_direct)}
+    out = {}
+    for name, (op, direct) in cases.items():
+        want, res = op(), direct()
+        torch.cuda.synchronize()
+        if not torch.equal(want, res):
+            raise AssertionError(f"{name} op vs direct: not bit-equal")
+        op_us, direct_us = host_us_pair(op, direct)
+        out[name] = {"op_ms": cuda_ms(op, 20),
+                     "direct_ms": cuda_ms(direct, 20),
+                     "op_host_us": op_us, "direct_host_us": direct_us}
     return out
 
 
@@ -4597,7 +4656,8 @@ def dryrun_path(kernels, *, export, wnn_ensemble, h3_mod):
                              f"\n{run.stderr[-3000:]}")
     bad = sorted(t for t, r in records.items() if not r["ok"]
                  and r["shape"] not in DRYRUN_KNOWN_FAULTS)
-    if bad or run.returncode not in (0, 1):
+    if bad or run.returncode != (1 if any(
+            not r["ok"] for r in records.values()) else 0):
         raise AssertionError(f"dryrun: cells failed {bad}, rc "
                              f"{run.returncode}:\n{run.stderr[-3000:]}")
     cells = []
@@ -4664,6 +4724,112 @@ def dryrun_path(kernels, *, export, wnn_ensemble, h3_mod):
     launches = {k: sum(c["launches"].get(k, 0) for c in checks)
                 for k in KERNEL_INFO}
     return ops, launches
+
+
+# ---------------------------------------------------------------------------
+# The LM dry run of the dense family: Llama 3.2 3B's six cells traced on
+# the production meshes (the card's program), then rank 0's program of
+# its three single-pod cells run for real against the records
+# ---------------------------------------------------------------------------
+
+LM_DRYRUN_OUT = ROOT / "build" / "lm_dryrun"
+LM_DRYRUN_ARCH = "llama3p2_3b"
+# layers of Llama 3.2 3B's 28 the phase traces and runs (full width): a
+# train cell's trace runs its 16 microbatches through every layer twice
+# (an eager pass for memory, one for the graph), tens of seconds a layer
+# on the host; the full-depth sweep of the four dense archs runs by hand
+# (`python -m repro_torch.launch.sweep`, PERF.md)
+LM_DRYRUN_LAYERS = 2
+LM_DRYRUN_TIMEOUT_S = 600
+
+
+def lm_dryrun_path(kernels):
+    """`launch.sweep --archs llama3p2_3b --layers LM_DRYRUN_LAYERS` in a
+    subprocess (six cells, one process each, in parallel), every record
+    ok with no wnnlint error; then `launch.dryrun --rank-run` of its
+    train_4k, prefill_32k and decode_32k cells on one pod: rank 0's real
+    program on the card at its shard shapes, its max_memory_allocated
+    held to the record's peak within DRYRUN_PEAK_TOL and its flash
+    launches to the trace's `repro_torch::flash_attention` nodes. Returns
+    the rank runs' launches by kernel."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    layers = str(LM_DRYRUN_LAYERS)
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.sweep", "--archs",
+         LM_DRYRUN_ARCH, "--layers", layers, "--jobs", "6", "--out",
+         str(LM_DRYRUN_OUT)], capture_output=True, text=True, env=env,
+        cwd=ROOT, timeout=LM_DRYRUN_TIMEOUT_S)
+    sweep_s = time.perf_counter() - t0
+    records = {}
+    for path in sorted(LM_DRYRUN_OUT.glob(f"{LM_DRYRUN_ARCH}.*.json")):
+        records[path.stem] = json.loads(path.read_text())
+    bad = sorted(t for t, r in records.items() if not r.get("ok")
+                 or r.get("analysis", {}).get("errors", 1))
+    if run.returncode or len(records) != 6 or bad:
+        raise AssertionError(f"lm_dryrun: {len(records)} records, failed "
+                             f"{bad}, rc {run.returncode}:\n"
+                             f"{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
+    cells = []
+    for tag, r in records.items():
+        roof, mem = r["roofline"], r["memory"]
+        cells.append({"cell": tag, "layers": r["layers"],
+                      "trace_s": r["trace_s"],
+                      "traced_device": r["traced_device"],
+                      "peak_gib": mem["peak_gib"], "args_gib": mem["args_gib"],
+                      "temp_gib": mem["temp_gib"],
+                      "args_bytes_by_kind": r["args_bytes_by_kind"],
+                      "compute_s": roof["compute_s"],
+                      "memory_s": roof["memory_s"],
+                      "collective_s": roof["collective_s"],
+                      "collectives": {k: int(d["count"]) for k, d in
+                                      roof["collectives_by_kind"].items()},
+                      "op_nodes": r["op_nodes"]})
+        print(f"[lm_dryrun] {tag}: peak {mem['peak_gib']:.4f} GiB a rank, "
+              f"terms {roof['compute_s']:.3e}/{roof['memory_s']:.3e}/"
+              f"{roof['collective_s']:.3e}, traced on {r['traced_device']}",
+              flush=True)
+    t1 = time.perf_counter()
+    rank = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         LM_DRYRUN_ARCH, "--layers", layers, "--rank-run"],
+        capture_output=True, text=True, env=env, cwd=ROOT,
+        timeout=LM_DRYRUN_TIMEOUT_S)
+    if rank.returncode:
+        raise AssertionError(f"lm dryrun --rank-run rc {rank.returncode}:\n"
+                             f"{rank.stderr[-3000:]}")
+    checks = []
+    for run_ in _json_lines(rank.stdout):
+        tag = f"{LM_DRYRUN_ARCH}.{run_['shape']}.pod1"
+        rec = records[tag]
+        want_peak = rec["memory"]["peak_gib"] * 2 ** 30
+        ratio = run_["peak_bytes"] / want_peak
+        launched = run_["launches"].get("flash_attention", 0)
+        traced = rec["op_nodes"].get("repro_torch::flash_attention", 0)
+        checks.append({"cell": tag, "peak_bytes": run_["peak_bytes"],
+                       "record_peak_bytes": want_peak, "ratio": ratio,
+                       "args_bytes": run_["args_bytes"],
+                       "record_args_bytes": rec["memory"]["args_gib"]
+                       * 2 ** 30, "launches": run_["launches"],
+                       "flash_nodes": traced,
+                       "traced_device": rec["traced_device"]})
+        print(f"[lm_dryrun] {tag} on the card: peak {run_['peak_bytes']} B "
+              f"= {ratio:.4f} x the record, flash launches {launched} "
+              f"against {traced} nodes", flush=True)
+        if abs(ratio - 1.0) > DRYRUN_PEAK_TOL:
+            raise AssertionError(f"{tag}: the card's peak {run_['peak_bytes']}"
+                                 f" B is {ratio:.3f} x the record's")
+        if launched != traced or set(run_["launches"]) - {"flash_attention"}:
+            raise AssertionError(f"{tag}: launches {run_['launches']} != "
+                                 f"the trace's flash nodes {traced}")
+    if len(checks) != 3:
+        raise AssertionError(f"lm dryrun --rank-run: {len(checks)} cells ran")
+    emit("lm_dryrun_path", seconds=time.perf_counter() - t0, sweep_s=sweep_s,
+         rank_run_s=time.perf_counter() - t1, arch=LM_DRYRUN_ARCH,
+         layers=LM_DRYRUN_LAYERS, cells=cells, rank_checks=checks,
+         peak_tolerance=DRYRUN_PEAK_TOL)
+    return {k: sum(c["launches"].get(k, 0) for c in checks)
+            for k in KERNEL_INFO}
 
 
 def main() -> int:
@@ -4818,6 +4984,8 @@ def main() -> int:
     op_rows, dryrun_launches = dryrun_path(
         kernels, export=export, wnn_ensemble=wnn_ensemble, h3_mod=h3_mod)
     torch.cuda.empty_cache()
+    lm_dryrun_launches = lm_dryrun_path(kernels)
+    torch.cuda.empty_cache()
     by_path = {"uleen_serve": launches, "uleen_train": train_launches,
                "lm_serve": lm_launches, "head": head_launches,
                "tenant": tenant_launches, "examples": example_launches,
@@ -4827,7 +4995,8 @@ def main() -> int:
                "encdec": encdec_launches, "vlm": vlm_launches,
                "qwen": qwen_launches, "serve_profile": profile_launches,
                "loadgen": loadgen_launches, "lm_train": train_lm_launches,
-               "uleen_dist_train": dist_launches, "dryrun": dryrun_launches}
+               "uleen_dist_train": dist_launches, "dryrun": dryrun_launches,
+               "lm_dryrun": lm_dryrun_launches}
     # the flash kernel's rows at the MoE, hybrid, encoder-decoder, patch
     # and Qwen paths' shapes, each with the launches its path's run made at
     # exactly that shape and all of its path's flash launches

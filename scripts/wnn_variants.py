@@ -19,7 +19,11 @@ ablations (which drop a part of the work) are timing only:
                    the probes' cost with their cache misses removed;
 * `no_hash_fold`   the gather and H3 fold skipped (every hash is 0);
 * `skeleton_only`  no votes, so the compiler drops hash and probes too:
-                   the tile copy, transpose and score stores alone.
+                   the tile copy, transpose and score stores alone;
+* `byte_entries`   (M <= 4 only) the slices a byte an entry, the layout
+                   before the sub-byte one, on the same rows and tables:
+                   the class-sharded rank of the ULN-XL ensemble (2 of
+                   its 32 classes, `uln_xl_ens_rank`) in both layouts.
 
 Prints one JSON line per (case, variant) and the card's name and power
 limit. Needs a CUDA device and nvcc; builds into build/wnn_variants/.
@@ -44,11 +48,16 @@ VARIANTS = {
     "probes_hit_l1": ["-DWNN_ABLATE=1"],
     "no_hash_fold": ["-DWNN_ABLATE=2"],
     "skeleton_only": ["-DWNN_ABLATE=3"],
+    "byte_entries": ["-DWNN_SUB_BYTE=0"],
 }
-EXACT = ("committed", "warps_8")
+EXACT = ("committed", "warps_8", "byte_entries")
+SUB_BYTE_ONLY = ("byte_entries",)
 CASES = {"uln_l": dict(m=10, subs=None, total_bits=784 * 7),
          "uln_xl_ensemble": dict(m=32, subs=((16, 11, 2), (24, 13, 2),
                                              (32, 15, 2)),
+                                 total_bits=784 * 8),
+         "uln_xl_ens_rank": dict(m=2, subs=((16, 11, 2), (24, 13, 2),
+                                            (32, 15, 2)),
                                  total_bits=784 * 8)}
 ROWS = 65536
 
@@ -99,16 +108,28 @@ def main() -> int:
             ROWS, bits)
         out = torch.empty((ROWS, spec["m"]), dtype=torch.int32,
                           device="cuda")
+        byte_args = None
+        if spec["m"] <= 4:      # the same tables a byte an entry
+            from repro_torch.kernels import wnn_ensemble
+            byte_args = wnn_ensemble.ensemble_args(
+                pt.perms, pt.h3s,
+                [wnn_ensemble.unpack_entries(s_, spec["m"])[:, :e]
+                 for s_, e in zip(pt.slices, pt.entries)],
+                pt.class_masks, 5, columns=args.columns)
         for name, fn in fns.items():
-            def call():
+            if name in SUB_BYTE_ONLY and byte_args is None:
+                continue
+            a = byte_args if name in SUB_BYTE_ONLY else args
+
+            def call(fn=fn, a=a):
                 rc = fn(bits.data_ptr(), ROWS, spec["total_bits"],
-                        args.columns, args.perms.data_ptr(),
-                        args.params.data_ptr(),
-                        args.slices.data_ptr(), args.masks.data_ptr(),
-                        args.desc.data_ptr(), args.desc.shape[0],
-                        args.chunks, pt.bias.data_ptr(), out.data_ptr(),
-                        spec["m"], args.slices.element_size(), args.planes,
-                        args.max_hashes, args.perms.element_size(),
+                        a.columns, a.perms.data_ptr(),
+                        a.params.data_ptr(),
+                        a.slices.data_ptr(), a.masks.data_ptr(),
+                        a.desc.data_ptr(), a.desc.shape[0],
+                        a.chunks, pt.bias.data_ptr(), out.data_ptr(),
+                        spec["m"], a.slices.element_size(), a.planes,
+                        a.max_hashes, a.perms.element_size(),
                         torch.cuda.current_stream().cuda_stream)
                 if rc:
                     raise RuntimeError(f"{name}: launch failed ({rc})")
@@ -119,6 +140,7 @@ def main() -> int:
                 raise AssertionError(f"{name}[{case}] not bit-equal")
             print(json.dumps({"case": case, "variant": name,
                               "bit_equal": equal,
+                              "slice_bytes": a.slices.numel(),
                               "device_ms": cs.graph_ms(call),
                               "ms": cs.cuda_ms(call, 20)}), flush=True)
     print(cs.nvidia_smi_line(), flush=True)

@@ -313,3 +313,14 @@ def uleen_cell_program(shape: str, mesh, *,
                 args, _global_args(shape, spec, mesh, batch, traced.device),
                 _degree_rule(shape, mesh, spec, batch))
     return prog
+
+
+def graph_cell_program(name: str, kind: str, traced) -> CellProgram:
+    """The program of one LM cell (train, prefill or decode; JAX's
+    `hlo_cell_program`): the traced graph alone, a serving program unless
+    `kind` is "train". The ULEEN-specific rules (tables, WNN launches,
+    budgets, coverage) find nothing of theirs in it; no-f64 and
+    no-host-callback read the graph and the trace's host reads."""
+    return CellProgram(name=name, kind=kind, serving=kind != "train",
+                       traced=traced,
+                       graph=traced.graph if traced is not None else None)

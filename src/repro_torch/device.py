@@ -35,6 +35,6 @@ def resolve_device(device=DEFAULT_DEVICE) -> torch.device:
                 "plain PyTorch versions on the CPU")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
     return dev

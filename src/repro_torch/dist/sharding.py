@@ -26,19 +26,32 @@ names (`mesh_dim_names`) and its shape (`shape`), so a
 same two attributes (`launch.mesh.make_host_mesh`, or one a test builds)
 resolve alike, with no process group.
 
-The JAX module's placement APIs — `shard_map`, `named_sharding`,
-`logical_constraint` and `tree_shardings` — have no counterpart here.
-PyTorch has no compiler that places arrays by annotation: the port's
-sharded paths run SPMD on `torch.distributed` (every rank makes the same
-calls, holds its own slice, and calls the one collective itself;
-`dist.collectives`), and use the resolved entries only to decide who
-holds what.
+Placement (the LM family's tensor and data parallelism) rides on
+`torch.distributed.tensor` (DTensor): `placements` turns one tensor's
+resolved entries into DTensor placements on a `DeviceMesh` (`Shard(dim)`
+on each mesh dim an entry names, `Replicate()` elsewhere);
+`distribute_tree` wraps each leaf of a tree as a DTensor from this
+rank's slice (`DTensor.from_local`, no collective); and
+`logical_constraint` — JAX's, inside `use_mesh` — redistributes a
+DTensor to the placements its logical axes resolve to (DTensor's
+propagation then emits the collectives, as GSPMD does for the JAX
+package). Outside a mesh context, or on a plain tensor, it is the
+identity, so the one-device paths run exactly as before. The entries
+always come from these rules and their divisibility sanitizer: DTensor
+never shards a dim the rules replicate, and never unevenly. A model
+constrains a tensor before a view that splits a sharded flat dim (the
+(B, S, H·hd) -> (B, S, H, hd) reshape of q, k and v): DTensor refuses to
+unflatten a dim sharded unevenly across the new dims, where GSPMD
+propagates through. The ULEEN sharded paths run SPMD on
+`torch.distributed` as before (every rank holds its own slice and calls
+the one collective itself, `dist.collectives`), and use the resolved
+entries only to decide who holds what.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-import threading
+import types
 from typing import Optional
 
 
@@ -180,12 +193,15 @@ def rules_key(rules: ShardingRules) -> tuple:
 # Mesh context
 # ---------------------------------------------------------------------------
 
-_STATE = threading.local()
+# process-wide, not a thread's: the autograd engine runs a backward pass
+# (and the forward a checkpointed segment recomputes there) on its own
+# device threads, which must see the placement the forward ran under
+_STATE = types.SimpleNamespace(ctx=None)
 
 
 @contextlib.contextmanager
 def use_mesh(mesh, rules: ShardingRules):
-    """Activate (mesh, rules) on this thread for `current_context`."""
+    """Activate (mesh, rules) for `current_context` (process-wide)."""
     prev = getattr(_STATE, "ctx", None)
     _STATE.ctx = (mesh, rules)
     try:
@@ -197,3 +213,111 @@ def use_mesh(mesh, rules: ShardingRules):
 def current_context():
     """(mesh, rules) of the innermost `use_mesh`, or None."""
     return getattr(_STATE, "ctx", None)
+
+
+# ---------------------------------------------------------------------------
+# Placement (DTensor)
+# ---------------------------------------------------------------------------
+
+def placements(entries, mesh) -> list:
+    """DTensor placements of a tensor whose dims resolved to `entries` on
+    `mesh` (a DeviceMesh): `Shard(d)` on every mesh dim that dim d's
+    entry names, `Replicate()` on the others. A dim sharded over several
+    mesh dims splits over them outermost first, as a JAX multi-axis entry
+    does."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = list(mesh.mesh_dim_names)
+    out = [Replicate() for _ in names]
+    for dim, entry in enumerate(entries):
+        for ax in entry_axes(entry):
+            out[names.index(ax)] = Shard(dim)
+    return out
+
+
+def local_shape(shape, entries, mesh) -> tuple:
+    """The shape of one rank's slice of a global `shape` under
+    `entries` (the rules' entries divide every sharded dim)."""
+    return tuple(n // spec_degree(mesh, e) for n, e in zip(shape, entries))
+
+
+def local_slice(t, entries, mesh):
+    """This rank's slice of a global tensor `t` under `entries`: each
+    sharded dim cut into the mesh axes' degree, at this rank's coordinate
+    (outermost axis first)."""
+    sizes = mesh_sizes(mesh)
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    for dim, entry in enumerate(entries):
+        axes = entry_axes(entry)
+        if not axes:
+            continue
+        index, degree = 0, 1
+        for ax in axes:
+            index = index * sizes[ax] + coord[ax]
+            degree *= sizes[ax]
+        n = t.shape[dim] // degree
+        t = t.narrow(dim, index * n, n)
+    return t
+
+
+def distribute_tensor(t, logical, mesh, rules: ShardingRules):
+    """`t` (this rank's copy of the global tensor, real or fake) as a
+    DTensor on `mesh`: its slice under the entries `logical` resolves to
+    on t's shape, wrapped with `DTensor.from_local` (no collective)."""
+    from torch.distributed.tensor import DTensor
+    entries = rules.resolve(logical, mesh, shape=tuple(t.shape))
+    return DTensor.from_local(
+        local_slice(t, entries, mesh).contiguous(), mesh,
+        placements(entries, mesh), run_check=False, shape=tuple(t.shape),
+        stride=contiguous_stride(tuple(t.shape)))
+
+
+def contiguous_stride(shape: tuple) -> tuple:
+    """The strides of a contiguous tensor of `shape`."""
+    stride, acc = [], 1
+    for n in reversed(shape):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))
+
+
+def distribute_tree(tree, logical_tree, mesh, rules: ShardingRules):
+    """A tree of nested dicts and lists whose leaves are global tensors
+    (each rank's copy, or fake ones), with `logical_tree` (the same
+    structure, logical tuples at the leaves) -> the same tree of DTensors,
+    each holding this rank's slice (`distribute_tensor`)."""
+    if isinstance(tree, dict):
+        return {k: distribute_tree(v, logical_tree[k], mesh, rules)
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [distribute_tree(v, lg, mesh, rules)
+                for v, lg in zip(tree, logical_tree, strict=True)]
+    return distribute_tensor(tree, logical_tree, mesh, rules)
+
+
+@contextlib.contextmanager
+def use_placement(mesh, rules: ShardingRules):
+    """`use_mesh` for a placed program: (mesh, rules) active, and plain
+    tensors that meet DTensors (positions, masks, constants) taken as
+    replicated (DTensor's `implicit_replication`)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    with use_mesh(mesh, rules), implicit_replication():
+        yield mesh
+
+
+def logical_constraint(x, logical):
+    """JAX's `logical_constraint`: inside `use_mesh` and on a DTensor,
+    `x` redistributed to the placements its logical axes resolve to on
+    its shape (DTensor emits the collectives); the identity otherwise,
+    so one-device code is unchanged."""
+    ctx = current_context()
+    if ctx is None:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    mesh, rules = ctx
+    entries = rules.resolve(logical, mesh, shape=tuple(x.shape))
+    want = placements(entries, mesh)
+    if list(x.placements) == want:
+        return x
+    return x.redistribute(mesh, want)

@@ -17,8 +17,12 @@
 // Layout (kernels/wnn_ensemble.py): the tables are class-sliced, entry
 // [f, h] of an (N_f, E) array holds the M class bits of table entry h of
 // filter f (uint8/uint16/uint32 for M <= 8/16/32, P = ceil(M/32) uint32
-// words past that), and a filter's mask is one M-bit word. So a filter's
-// k probes answer every class at once:
+// words past that), and a filter's mask is one M-bit word. Up to 4
+// classes an entry takes 1, 2 or 4 bits (the power of two >= M) and a
+// byte holds 8 / bits entries: entry h of filter f is
+//   (slices[f, h / epb] >> ((h % epb) * bits)) & ((1 << bits) - 1)
+// (the `Sub` instantiations; the width follows from M at run time). So a
+// filter's k probes answer every class at once:
 //   resp = mask_f & AND_j slices[f, h_j]        (k loads, not M·k)
 // and class m's vote is bit m of resp. Past 4 words (M > 128) the grid's
 // second axis splits the classes into groups of 128: block (x, g) reads
@@ -83,6 +87,12 @@
 #endif
 #ifndef WNN_WARPS
 #define WNN_WARPS 0
+#endif
+// WNN_SUB_BYTE=0 reads 1-byte slices of M <= 4 classes a byte an entry,
+// the layout before the sub-byte one (scripts/wnn_variants.py times the
+// two on the same rows); 1 in the port's own build.
+#ifndef WNN_SUB_BYTE
+#define WNN_SUB_BYTE 1
 #endif
 
 namespace {
@@ -199,8 +209,9 @@ __device__ __forceinline__ uint32_t load_word(const Elem* p) {
 
 // P: the class words a block reads (P < 4: the whole slice, one group;
 // P = 4: the group blockIdx.y of `planes` words an entry). Global: the
-// global-gather route (int32 perms, no tile in shared memory).
-template <class Elem, int P, int K, bool Global>
+// global-gather route (int32 perms, no tile in shared memory). Sub: the
+// sub-byte layout of M <= 4 classes (uint8 elements, P = 1).
+template <class Elem, int P, int K, bool Global, bool Sub>
 __global__ void __launch_bounds__(32 * warps_per_block<K, P>())
 wnn_ensemble_kernel(const int8_t* __restrict__ bits, int batch, int row_bits,
                     int cols, const void* __restrict__ perms,
@@ -221,6 +232,11 @@ wnn_ensemble_kernel(const int8_t* __restrict__ bits, int batch, int row_bits,
   const int mg = kGrouped ? min(32 * P, m - c_base) : m;
   const int pg = kGrouped ? min(P, planes - w_base) : P;
   const int mb = min(m, 32 * P);   // the scores' row stride in shared memory
+  // the sub-byte layout: log2 of the bits an entry and of the entries a
+  // byte, and the entry's bits
+  const int sub_log2 = !Sub ? 3 : m <= 1 ? 0 : m <= 2 ? 1 : 2;
+  const int epb_log2 = 3 - sub_log2;
+  const uint32_t entry_mask = (1u << (1 << sub_log2)) - 1u;
   extern __shared__ __align__(16) unsigned char smem[];
   const SharedLayout lay = shared_layout(cols, mb, Global);
   unsigned char* trans = smem + lay.trans;
@@ -350,8 +366,10 @@ wnn_ensemble_kernel(const int8_t* __restrict__ bits, int batch, int row_bits,
 #pragma unroll
         for (int p = 0; p < P; ++p) resp[r][p] = mk[p];
       if (any) {
-        const Elem* sl = slices + sm.slice_off +
-                         static_cast<size_t>(f) * sm.entries * stride + w_base;
+        const Elem* sl =
+            slices + sm.slice_off +
+            (Sub ? static_cast<size_t>(f) * (sm.entries >> epb_log2)
+                 : static_cast<size_t>(f) * sm.entries * stride + w_base);
 #pragma unroll
         for (int r = 0; r < kRows; ++r) {
 #pragma unroll
@@ -360,12 +378,21 @@ wnn_ensemble_kernel(const int8_t* __restrict__ bits, int batch, int row_bits,
               const int32_t hh = WNN_ABLATE == 1 ? h[r][j] & 1 : h[r][j];
               const bool ok = static_cast<uint32_t>(hh) <
                               static_cast<uint32_t>(sm.entries);
+              if constexpr (Sub) {
+                resp[r][0] &=
+                    ok ? (load_word(sl + (static_cast<uint32_t>(hh) >>
+                                          epb_log2)) >>
+                          ((hh & ((1 << epb_log2) - 1)) << sub_log2)) &
+                             entry_mask
+                       : 0u;
+              } else {
 #pragma unroll
-              for (int p = 0; p < P; ++p)
-                resp[r][p] &= ok && p < pg
-                                  ? load_word(sl + static_cast<size_t>(hh) *
-                                                       stride + p)
-                                  : 0u;
+                for (int p = 0; p < P; ++p)
+                  resp[r][p] &= ok && p < pg
+                                    ? load_word(sl + static_cast<size_t>(hh) *
+                                                         stride + p)
+                                    : 0u;
+              }
             }
           }
         }
@@ -415,13 +442,13 @@ wnn_ensemble_kernel(const int8_t* __restrict__ bits, int batch, int row_bits,
   if constexpr (!Global) cp_async_wait_all();
 }
 
-template <class Elem, int P, int K, bool Global>
+template <class Elem, int P, int K, bool Global, bool Sub>
 int launch_k(const void* bits, int batch, int row_bits, int cols,
              const void* perms, const void* params, const void* slices,
              const void* masks, const void* subs, int num_subs, int chunks,
              const void* bias, void* out, int m, int planes,
              cudaStream_t stream) {
-  auto kernel = wnn_ensemble_kernel<Elem, P, K, Global>;
+  auto kernel = wnn_ensemble_kernel<Elem, P, K, Global, Sub>;
   constexpr int kThreads = 32 * warps_per_block<K, P>();
   const int smem = shared_layout(cols, std::min(m, 32 * P), Global).total;
   const int groups = (planes + P - 1) / P;   // 1 unless P = 4 and M > 128
@@ -449,7 +476,7 @@ int launch_k(const void* bits, int batch, int row_bits, int cols,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class Elem, int P>
+template <class Elem, int P, bool Sub = false>
 int launch_p(int k, bool global_gather, const void* bits, int batch,
              int row_bits, int cols, const void* perms, const void* params,
              const void* slices, const void* masks, const void* subs,
@@ -460,10 +487,10 @@ int launch_p(int k, bool global_gather, const void* bits, int batch,
       num_subs, chunks, bias, out, m, planes, stream
   // the global-gather route: one instantiation, k at run time
   if (global_gather)
-    return launch_k<Elem, P, kMaxHashes, true>(WNN_LAUNCH_ARGS);
+    return launch_k<Elem, P, kMaxHashes, true, Sub>(WNN_LAUNCH_ARGS);
 #define WNN_LAUNCH_K(K) \
   case K:               \
-    return launch_k<Elem, P, K, false>(WNN_LAUNCH_ARGS);
+    return launch_k<Elem, P, K, false, Sub>(WNN_LAUNCH_ARGS);
   switch (k) {
     WNN_LAUNCH_K(1) WNN_LAUNCH_K(2) WNN_LAUNCH_K(3) WNN_LAUNCH_K(4)
     WNN_LAUNCH_K(5) WNN_LAUNCH_K(6) WNN_LAUNCH_K(7) WNN_LAUNCH_K(8)
@@ -482,7 +509,9 @@ int launch_p(int k, bool global_gather, const void* bits, int batch,
 // type and the route: 2, uint16 indices (cols <= 65536) through the
 // shared tile; 4, int32 indices gathered from global memory.
 // `elem_bytes` (1, 2 or 4) and `planes` (P >= 1 words an entry, P > 1
-// only with 4-byte words) name the class-slice layout, `max_k` the
+// only with 4-byte words) name the class-slice layout (1 byte and
+// M <= 4: the sub-byte layout, 1, 2 or 4 bits an entry; `entries` in
+// the descriptor is then the padded count, a multiple of 8 / bits), `max_k` the
 // largest submodel k (smaller ones skip the extra hashes). Returns the
 // CUDA error of the launch, 0 when the kernel was queued on `stream`.
 extern "C" int wnn_ensemble_launch(const void* bits, int batch, int row_bits,
@@ -505,7 +534,9 @@ extern "C" int wnn_ensemble_launch(const void* bits, int batch, int row_bits,
 #define WNN_ARGS                                                            \
   max_k, global_gather, bits, batch, row_bits, cols, perms, params, slices, \
       masks, subs, num_subs, chunks, bias, out, m, planes, stream
-  if (elem_bytes == 1) return launch_p<uint8_t, 1>(WNN_ARGS);
+  if (elem_bytes == 1)
+    return WNN_SUB_BYTE && m <= 4 ? launch_p<uint8_t, 1, true>(WNN_ARGS)
+                  : launch_p<uint8_t, 1>(WNN_ARGS);
   if (elem_bytes == 2) return launch_p<uint16_t, 1>(WNN_ARGS);
   if (elem_bytes != 4) return static_cast<int>(cudaErrorInvalidValue);
   switch (planes) {

@@ -46,6 +46,13 @@ Nothing pads a head dim; any other pair raises a ValueError.
 Rows with no visible key (only with `window > 0` and
 `Sq + q_offset >= Sk + window`) raise here: the plain version averages all
 Sk keys uniformly on such rows, which the kernels do not reproduce.
+
+The launch is the registered operator `repro_torch::flash_attention`
+(`Library.define/impl`, as `repro_torch::wnn_ensemble`): a trace with
+fake tensors records it as one node with its (B, Sq, H, Dv) output and
+2·(D + Dv) operations a visible (query, key) pair (`visible_pairs`),
+without building or launching anything. Its body is the `ctypes` launch
+and the only place a launch is counted.
 """
 from __future__ import annotations
 
@@ -55,6 +62,8 @@ import dataclasses
 import functools
 
 import torch
+
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build, launch, ref
 
@@ -307,11 +316,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     device = launch.check_cuda_args(
         "flash_attention", contiguous=False, q=(q, q.dtype, (b, h, sq, d)),
         k=(k, q.dtype, (b, hkv, sk, d)), v=(v, q.dtype, (b, hkv, sk, dv)))
-    out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=device)
-    if sq == 0 or b == 0:
-        return out.transpose(1, 2)
+    del device
+    scale = float(d ** -0.5 if scale is None else scale)
+    return torch.ops.repro_torch.flash_attention.default(
+        q, k, v, bool(causal), int(window), scale, int(q_offset)
+    ).transpose(1, 2)
+
+
+def launch_direct(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  out: torch.Tensor, causal: bool, window: int, scale: float,
+                  q_offset: int) -> None:
+    """The `ctypes` launch of `flash_attention_launch` into `out`
+    (B, Sq, H, Dv), its plan and layout checks, with no count: the
+    operator's body, and the yardstick it is timed against."""
+    b, h, sq, d = q.shape
+    hkv, sk, dv = k.shape[1], k.shape[2], v.shape[3]
     p = plan(q.dtype, d, batch=b, heads=h, sq=sq,
-             n_sms=_sm_count(device.index), dv=dv)
+             n_sms=_sm_count(q.device.index), dv=dv)
     strides = [kernel_strides(t) for t in (q, k, v)]
     if q.dtype == torch.bfloat16:
         for t, st, rows in zip((q, k, v), strides,
@@ -320,7 +341,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else:
         for t, st in zip((q, k, v), strides):
             check_cp_async(t, st)
-    scale = float(d ** -0.5 if scale is None else scale)
     fn = build.kernel_function("flash_attention.cu", "flash_attention_launch",
                                _ARGTYPES)
     out_strides = (sq * h * dv, dv, h * dv)  # (B, Sq, H, Dv) as (b, h, s)
@@ -329,12 +349,64 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             *strides[1],
             *strides[2], *out_strides, scale, int(bool(causal)), int(window),
             int(q_offset), p.block_q, p.block_k,
-            launch.stream_handle(device))
+            launch.stream_handle(q.device))
     build.check_launch("flash_attention_launch", rc)
-    flash_attention.launches += 1
-    flash_attention.shapes[(b, h, hkv, sq, sk, d, dv, bool(causal),
-                            int(window), int(q_offset))] += 1
-    return out.transpose(1, 2)
+
+
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool, window: int, scale: float,
+                       q_offset: int) -> torch.Tensor:
+    """The CUDA body of `repro_torch::flash_attention`: one
+    `csrc/flash_attention.cu` launch into a new (B, Sq, H, Dv) tensor.
+    Counts one launch, and one under its shape."""
+    b, h, sq, d = q.shape
+    hkv, sk, dv = k.shape[1], k.shape[2], v.shape[3]
+    out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
+    if sq and b:
+        launch_direct(q, k, v, out, causal, window, scale, q_offset)
+        flash_attention.launches += 1
+        flash_attention.shapes[(b, h, hkv, sq, sk, d, dv, bool(causal),
+                                int(window), int(q_offset))] += 1
+    return out
+
+
+def visible_pairs(sq: int, sk: int, causal: bool, window: int,
+                  q_offset: int = 0) -> int:
+    """(query, key) pairs the mask leaves visible for one (batch, head):
+    row i at position p = i + q_offset sees keys j <= p (causal) and
+    j > p - window (window > 0), of the Sk keys."""
+    if not causal:
+        return sq * sk
+    total = 0
+    for i in range(sq):
+        p = i + q_offset
+        hi = min(p, sk - 1)
+        lo = max(0, p - window + 1) if window > 0 else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, bool causal, "
+            "int window, float scale, int q_offset) -> Tensor")
+_LIB.impl("flash_attention", flash_attention_op, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::flash_attention", lib=_LIB)
+def _flash_attention_fake(q, k, v, causal, window, scale, q_offset):
+    b, h, sq, _ = q.shape
+    return q.new_empty((b, sq, h, v.shape[3]))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_attention_flops(q_shape, k_shape, v_shape, causal, window, scale,
+                           q_offset, *, out_shape=None, **kwargs) -> int:
+    """2·(D + Dv) operations a visible (query, key) pair and head: the
+    two products' multiply-adds, as `PERF.md`'s flash bound counts them."""
+    b, h, sq, d = q_shape
+    sk, dv = k_shape[2], v_shape[3]
+    return 2 * (d + dv) * b * h * visible_pairs(sq, sk, causal, window,
+                                                q_offset)
 
 
 flash_attention.launches = 0

@@ -122,8 +122,9 @@ def wnn_ensemble_ref(bits: torch.Tensor, perms, h3s, slices, masks,
 
     bits: (B, total_bits) {0,1}; per submodel perms (N_f, n), h3s (k, n),
     class slices (N_f, E) (or (N_f, E, P) uint32 planes) whose entry
-    [f, h] holds bit m of class m's table entry h, mask words (N_f) (or
-    (N_f, P)); bias (M,) int32 -> scores (B, M) int32:
+    [f, h] holds bit m of class m's table entry h ((N_f, E / epb) bytes of
+    1, 2 or 4-bit entries for M <= 4), mask words (N_f) (or (N_f, P));
+    bias (M,) int32 -> scores (B, M) int32:
 
         resp[b, f] = mask[f] & AND_j slices[f, h_j(bits[b, perm[f, :]])]
         scores[b, m] = bias[m] + sum_{s, f} bit m of resp_s[b, f]
@@ -133,7 +134,10 @@ def wnn_ensemble_ref(bits: torch.Tensor, perms, h3s, slices, masks,
     m = bias.shape[0]
     scores = torch.zeros((bits.shape[0], m), dtype=torch.int32,
                          device=bits.device)
+    from repro_torch.kernels.wnn_ensemble import unpack_entries
     for perm, h3, sl, mk in zip(perms, h3s, slices, masks):
+        if sl.ndim == 2:
+            sl = unpack_entries(sl, m)
         n_f, entries = sl.shape[0], sl.shape[1]
         words = _unsigned(sl).reshape(n_f, entries, -1)        # (N_f, E, P)
         hashes = h3_hash_ref(bits[:, perm.long()], h3).long()  # (B, N_f, k)

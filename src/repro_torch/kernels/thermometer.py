@@ -17,12 +17,20 @@ holds at most `STAGED_FLOATS` floats (`thresholds_staged`), else they
 are read from global memory. The wrappers take contiguous inputs only (a
 column slice of a wider tensor raises) and allocate the output, so its
 16-byte stores are aligned.
+
+Each launch is a registered operator, `repro_torch::thermometer_encode`
+and `repro_torch::thermometer_decompress` (`Library.define/impl`, as
+`repro_torch::wnn_ensemble`): a trace with fake tensors records one node
+with its (B, F, T) int8 output and its comparisons (one an output
+byte), and never builds or launches a kernel. The operator's body is the
+`ctypes` launch and the only place a launch is counted.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build, launch, ref
 
@@ -56,16 +64,9 @@ def thermometer_encode(x: torch.Tensor,
     device = launch.check_cuda_args(
         "thermometer_encode", x=(x, torch.float32, (b, f)),
         thresholds=(thresholds, torch.float32, (f, t)))
-    out = torch.empty((b, f, t), dtype=torch.int8, device=device)
     if b * f == 0 or t == 0:
-        return out
-    fn = build.kernel_function("thermometer.cu", "thermometer_encode_launch",
-                               _ENCODE_ARGTYPES)
-    rc = fn(x.data_ptr(), thresholds.data_ptr(), out.data_ptr(), b * f, f, t,
-            launch.stream_handle(device))
-    build.check_launch("thermometer_encode_launch", rc)
-    thermometer_encode.launches += 1
-    return out
+        return torch.empty((b, f, t), dtype=torch.int8, device=device)
+    return torch.ops.repro_torch.thermometer_encode.default(x, thresholds)
 
 
 def thermometer_decompress(counts: torch.Tensor, bits: int) -> torch.Tensor:
@@ -77,17 +78,89 @@ def thermometer_decompress(counts: torch.Tensor, bits: int) -> torch.Tensor:
     b, f = counts.shape
     device = launch.check_cuda_args(
         "thermometer_decompress", counts=(counts, torch.uint8, (b, f)))
-    out = torch.empty((b, f, bits), dtype=torch.int8, device=device)
     if b * f == 0 or bits == 0:
-        return out
+        return torch.empty((b, f, bits), dtype=torch.int8, device=device)
+    return torch.ops.repro_torch.thermometer_decompress.default(counts,
+                                                                int(bits))
+
+
+def encode_direct(x: torch.Tensor, thresholds: torch.Tensor,
+                  out: torch.Tensor) -> None:
+    """The `ctypes` launch of `thermometer_encode_launch` into `out`
+    (B, F, T), with no check and no count: the operator's body, and the
+    yardstick it is timed against."""
+    b, f = x.shape
+    fn = build.kernel_function("thermometer.cu", "thermometer_encode_launch",
+                               _ENCODE_ARGTYPES)
+    rc = fn(x.data_ptr(), thresholds.data_ptr(), out.data_ptr(), b * f, f,
+            thresholds.shape[1], launch.stream_handle(x.device))
+    build.check_launch("thermometer_encode_launch", rc)
+
+
+def decompress_direct(counts: torch.Tensor, out: torch.Tensor) -> None:
+    """The `ctypes` launch of `thermometer_decompress_launch` into `out`
+    (B, F, T), with no check and no count."""
+    b, f = counts.shape
     fn = build.kernel_function("thermometer.cu",
                                "thermometer_decompress_launch",
                                _DECOMPRESS_ARGTYPES)
-    rc = fn(counts.data_ptr(), out.data_ptr(), b * f, bits,
-            launch.stream_handle(device))
+    rc = fn(counts.data_ptr(), out.data_ptr(), b * f, out.shape[2],
+            launch.stream_handle(counts.device))
     build.check_launch("thermometer_decompress_launch", rc)
+
+
+def thermometer_encode_op(x: torch.Tensor,
+                          thresholds: torch.Tensor) -> torch.Tensor:
+    """The CUDA body of `repro_torch::thermometer_encode`: one launch into
+    a new (B, F, T) int8 tensor. Counts one launch."""
+    out = torch.empty((*x.shape, thresholds.shape[1]), dtype=torch.int8,
+                      device=x.device)
+    encode_direct(x, thresholds, out)
+    thermometer_encode.launches += 1
+    return out
+
+
+def thermometer_decompress_op(counts: torch.Tensor,
+                              bits: int) -> torch.Tensor:
+    """The CUDA body of `repro_torch::thermometer_decompress`: one launch
+    into a new (B, F, bits) int8 tensor. Counts one launch."""
+    out = torch.empty((*counts.shape, bits), dtype=torch.int8,
+                      device=counts.device)
+    decompress_direct(counts, out)
     thermometer_decompress.launches += 1
     return out
+
+
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("thermometer_encode(Tensor x, Tensor thresholds) -> Tensor")
+_LIB.define("thermometer_decompress(Tensor counts, int bits) -> Tensor")
+_LIB.impl("thermometer_encode", thermometer_encode_op, "CUDA")
+_LIB.impl("thermometer_decompress", thermometer_decompress_op, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::thermometer_encode", lib=_LIB)
+def _encode_fake(x, thresholds):
+    return x.new_empty((*x.shape, thresholds.shape[1]), dtype=torch.int8)
+
+
+@torch.library.register_fake("repro_torch::thermometer_decompress",
+                             lib=_LIB)
+def _decompress_fake(counts, bits):
+    return counts.new_empty((*counts.shape, bits), dtype=torch.int8)
+
+
+@register_flop_formula(torch.ops.repro_torch.thermometer_encode)
+def _encode_flops(x_shape, thresholds_shape, *, out_shape=None,
+                  **kwargs) -> int:
+    """One comparison an output bit: x[b, f] > thresholds[f, t]."""
+    return x_shape[0] * x_shape[1] * thresholds_shape[1]
+
+
+@register_flop_formula(torch.ops.repro_torch.thermometer_decompress)
+def _decompress_flops(counts_shape, bits, *, out_shape=None,
+                      **kwargs) -> int:
+    """One comparison an output bit: t < counts[b, f]."""
+    return counts_shape[0] * counts_shape[1] * bits
 
 
 thermometer_encode.launches = 0

@@ -6,8 +6,12 @@ A submodel's Bloom filters are stored class-sliced: entry `[f, h]` of an
 one load answers every class (bit m = class m). The element type is the
 narrowest that holds M: uint8 (M <= 8), uint16 (M <= 16), uint32
 (M <= 32); above 32 classes an entry is P = ceil(M / 32) uint32 words,
-(N_f, E, P). A filter's survival mask is one M-bit word of the same type
-(`(N_f,)` or `(N_f, P)`). uint16 and uint32 words travel as their int16
+(N_f, E, P). Up to 4 classes an entry is narrower than a byte: 1, 2 or 4
+bits (`entry_bits`, the power of two >= M), 8 / bits entries a byte,
+(N_f, E·bits/8) uint8 with entry h at bits [(h % epb)·bits, + bits) of
+byte h / epb, so a rank that holds 2 classes of a class-sharded ensemble
+spends 2 bits an entry, not 8. A filter's survival mask is one M-bit word
+of the element type (`(N_f,)` or `(N_f, P)`), whatever the entry width. uint16 and uint32 words travel as their int16
 and int32 bit patterns (torch has few unsigned ops; every consumer only
 shifts and masks).
 
@@ -63,7 +67,9 @@ _ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_int] * 3              # bits, B, row 
 
 
 def slice_format(num_classes: int) -> tuple[torch.dtype, int]:
-    """(element dtype, planes) of the class-sliced layout for M classes."""
+    """(element dtype, planes) of the class-sliced layout for M classes
+    (uint8 up to 8; up to 4 its bytes hold `entries_per_element`
+    entries)."""
     if num_classes < 1:
         raise ValueError(f"num_classes={num_classes} < 1")
     if num_classes <= 8:
@@ -75,6 +81,50 @@ def slice_format(num_classes: int) -> tuple[torch.dtype, int]:
 
 def element_bits(dtype: torch.dtype) -> int:
     return {torch.uint8: 8, torch.int16: 16, torch.int32: 32}[dtype]
+
+
+def entry_bits(num_classes: int) -> int:
+    """Bits a class-sliced entry takes for M classes: 1, 2 or 4 (the
+    power of two >= M) up to 4 classes, else the element's width."""
+    if num_classes <= 4:
+        return 1 if num_classes <= 1 else 2 if num_classes == 2 else 4
+    dtype, _ = slice_format(num_classes)
+    return element_bits(dtype)
+
+
+def entries_per_element(num_classes: int) -> int:
+    """Entries one slice element holds: 8 / `entry_bits` for M <= 4,
+    else 1."""
+    return 8 // entry_bits(num_classes) if num_classes <= 4 else 1
+
+
+def pack_entries(words: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """Class words (N_f, E) uint8 of M <= 4 classes -> the sub-byte slices
+    (N_f, ceil(E / epb)): entry h at bits [(h % epb)·bits, + bits) of
+    byte h // epb (`entry_bits`); the padding entries are 0.
+    Wider layouts pass through."""
+    epb = entries_per_element(num_classes)
+    if epb == 1:
+        return words
+    bits = 8 // epb
+    n_f, e = words.shape
+    pad = (-e) % epb
+    w = torch.nn.functional.pad(words.to(torch.int32), (0, pad))
+    shifts = torch.arange(epb, dtype=torch.int32, device=w.device) * bits
+    return torch.sum(w.reshape(n_f, -1, epb) << shifts, dim=-1,
+                     dtype=torch.int32).to(torch.uint8)
+
+
+def unpack_entries(slices: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """The inverse of `pack_entries`: (N_f, Eb) sub-byte slices ->
+    (N_f, Eb·epb) uint8 class words, padding entries included."""
+    epb = entries_per_element(num_classes)
+    if epb == 1:
+        return slices
+    bits = 8 // epb
+    shifts = torch.arange(epb, dtype=torch.int32, device=slices.device) * bits
+    w = (slices.to(torch.int32)[..., None] >> shifts) & ((1 << bits) - 1)
+    return w.reshape(*slices.shape[:-1], -1).to(torch.uint8)
 
 
 def shared_bytes(columns: int, num_classes: int,
@@ -102,6 +152,8 @@ def instantiation_for(num_classes: int, k: int, route: str) -> str:
     dtype, planes = slice_format(num_classes)
     word = {torch.uint8: "uint8", torch.int16: "uint16",
             torch.int32: "uint32"}[dtype]
+    if num_classes <= 4:
+        word = "uint8 sub-byte"
     kk = 8 if route == "global_gather" else k
     return (f"wnn_ensemble_kernel<{word}, P={min(planes, GROUP_PLANES)}, "
             f"K={kk}, {route}>")
@@ -109,15 +161,17 @@ def instantiation_for(num_classes: int, k: int, route: str) -> str:
 
 def instantiation_name(mangled: str) -> str:
     """wnn.cu's template arguments (class-word type, planes P, hashes K,
-    the global-gather route) read off a mangled kernel name."""
+    the global-gather route, the sub-byte layout) read off a mangled
+    kernel name."""
     import re
     types = {"h": "uint8", "t": "uint16", "j": "uint32"}
-    args = re.search(r"wnn_ensemble_kernelI([htj])Li(\d+)ELi(\d+)ELb([01])E",
-                     mangled)
+    args = re.search(r"wnn_ensemble_kernelI([htj])Li(\d+)ELi(\d+)ELb([01])"
+                     r"ELb([01])E", mangled)
     if not args:
         return mangled
     route = "global_gather" if args[4] == "1" else "shared_tile"
-    return (f"wnn_ensemble_kernel<{types[args[1]]}, P={args[2]}, "
+    word = types[args[1]] + (" sub-byte" if args[5] == "1" else "")
+    return (f"wnn_ensemble_kernel<{word}, P={args[2]}, "
             f"K={args[3]}, {route}>")
 
 
@@ -193,10 +247,11 @@ def ensemble_args(perms: Sequence[torch.Tensor], h3s: Sequence[torch.Tensor],
     offs = dict(perm=0, param=0, slice=0, mask=0, chunk=0)
     max_k = 1
     geometry = []
+    epb = entries_per_element(num_classes)
     for i, (perm, h3, sl, mk) in enumerate(zip(perms, h3s, slices, masks)):
         n_f, n = perm.shape
         k = h3.shape[0]
-        entries = sl.shape[1]
+        entries = sl.shape[1] * epb      # padded to whole elements
         if sl.dtype != dtype or mk.dtype != dtype:
             raise ValueError(f"submodel {i}: class slices are {sl.dtype}, "
                              f"masks {mk.dtype}; M={num_classes} needs "

@@ -33,13 +33,25 @@ chosen cell for real on the card at its single-pod shard shapes (the
 fake group makes the collectives no-ops), for the card's check of the
 records' memory and kernel launches (`chip_smoke.py`).
 
-The LM cells wait for tensor-parallel placement of the LM parameters
-(ROADMAP Queue 1, item 6's LM half with item 4.7): `--arch` with an LM
-arch exits 2 naming it.
+The LM cells (the JAX `lower_cell`) of the dense GQA family
+(`PLACED_ARCHS`: Llama 3.2 3B, Qwen 2.5 14B, Minitron 8B, Qwen 1.5 32B)
+trace the same way, placed on DTensor (`dist.sharding`, `dist.placed`):
+`trace_lm_cell` makes this rank's shards of the step's arguments as fake
+tensors (`launch/specs.py`: parameters, AdamW state, inputs, the decode
+state after a `seq_len` prefill), wraps them as DTensors inside the step
+and traces train (AdamW(1e-4), `microbatches_for`, float32 masters),
+prefill (bf16, the cache pinned to `cache_entries`) or decode (bf16).
+Records keep JAX's keys, with `trace_s`, `traced_device`, `layers` and
+`args_bytes_by_kind`; `--layers N` cuts the depth. `--rank-run --arch
+A` runs rank 0's program of A's single-pod cells for real on the card.
+`launch/sweep.py` runs one process a cell. The other families wait for
+DTensor rules of their operators: `--arch` with one of them exits 2
+naming the ROADMAP item (`LM_WAITS`).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -58,9 +70,13 @@ ULEEN_SHAPES = ("train_mnist_scale", "train_host_exec", "infer_mnist_scale",
                 "infer_packed_scale", "infer_sharded_scale",
                 "infer_multitenant_scale")
 RANK = 0            # the rank whose program a cell traces
-LM_WAITS = ("the LM cells' dry run is not ported yet: it waits for "
-            "tensor-parallel placement of the LM parameters (ROADMAP "
-            "Queue 1, item 6's LM half, with item 4.7 `launch/specs.py`)")
+# the archs whose placement the port has (the dense GQA family); the
+# other families wait for DTensor rules of their operators
+PLACED_ARCHS = ("llama3p2_3b", "qwen2p5_14b", "minitron_8b", "qwen1p5_32b")
+LM_WAITS = ("the dry run of this family is not ported yet: it waits for "
+            "the placement of its operators on DTensor (MoE dispatch, "
+            "MLA's absorbed decode, the SSD and RG-LRU scans, cross "
+            "attention, patch rows; ROADMAP Queue 1, item 6.5)")
 EXEC_STEPS, PARITY_STEPS = 3, 2
 RANK_TIMEOUT_S = 900
 _EXEC_RUNS: dict = {}     # rank device -> (first tag, the ranks' results)
@@ -420,11 +436,239 @@ def run_uleen_exec_cell(multi_pod: bool, out_dir, *, analyze: bool = False,
     return record
 
 
+# ---------------------------------------------------------------------------
+# The LM cells (JAX `lower_cell`): the dense family, placed on DTensor
+# ---------------------------------------------------------------------------
+
+def _pair_leaves(obj, ent) -> list:
+    """(tensor, entries) of every tensor of `obj`, in `graph_cost.flatten`
+    order, with `ent` a tree of the same structure whose leaves are
+    resolved entries (tuples)."""
+    if isinstance(obj, torch.Tensor):
+        return [(obj, ent)]
+    if isinstance(obj, dict):
+        return [x for k, v in obj.items() for x in _pair_leaves(v, ent[k])]
+    if isinstance(obj, (list, tuple)):
+        return [x for v, e in zip(obj, ent, strict=True)
+                for x in _pair_leaves(v, e)]
+    return []
+
+
+class _Placed:
+    """One argument of a placed step: this rank's local shards (the
+    traced or run arguments) and, per tensor, its global shape and
+    entries, to wrap the shards as DTensors inside the step. `spec` is
+    the argument with meta (or fake) tensors of the global shapes;
+    `make(shape, dtype, path)` makes each local shard."""
+
+    def __init__(self, spec, entries_obj, mesh, make, name: str):
+        from repro_torch.launch import graph_cost
+        pairs = _pair_leaves(spec, entries_obj)
+        paths = [p for p, _ in graph_cost.flatten(spec, name)]
+        self.meta = [(tuple(t.shape), e) for t, e in pairs]
+        self.local = graph_cost.rebuild(spec, iter(
+            make(sh.local_shape(t.shape, e, mesh), t.dtype, path)
+            for (t, e), path in zip(pairs, paths, strict=True)))
+        self.mesh = mesh
+
+    def wrap(self, local_obj):
+        """The same object with each local shard wrapped as a DTensor."""
+        from repro_torch.dist import placed
+        from repro_torch.launch import graph_cost
+        leaves = [t for _, t in graph_cost.flatten(local_obj)]
+        return graph_cost.rebuild(local_obj, iter(
+            placed.wrap(t, self.mesh, sh.placements(e, self.mesh), shape)
+            for t, (shape, e) in zip(leaves, self.meta, strict=True)))
+
+
+def _unplace(obj):
+    """`obj` with every DTensor replaced by its local shard."""
+    from repro_torch.launch import graph_cost
+    return graph_cost.rebuild(obj, iter(
+        t.to_local() if hasattr(t, "to_local") else t
+        for _, t in graph_cost.flatten(obj)))
+
+
+LM_DTYPES = {"train": torch.float32, "prefill": torch.bfloat16,
+             "decode": torch.bfloat16}
+
+
+def lm_cell_args(cfg, shape, mesh, make):
+    """(step, placed arguments, kinds) of one LM cell as this rank of
+    `mesh` runs it: the JAX `lower_cell`'s step and arguments, each a
+    `_Placed` whose local shards `make(shape, dtype, path)` makes (fake
+    tensors for a trace, seeded ones for a run). kinds names each
+    argument's part of the memory (params, opt, inputs, state)."""
+    from repro_torch.launch import specs, steps
+    from repro_torch.models import transformer
+    from repro_torch.train import optimizer as opt_lib
+    train = shape.kind == "train"
+    rules = sh.TRAIN_RULES if train else sh.SERVE_RULES
+    dtype = LM_DTYPES[shape.kind]
+    pmeta = specs.param_specs(cfg, dtype)
+    params = _Placed(pmeta, specs.param_shardings(cfg, mesh, rules, dtype),
+                     mesh, make, "params")
+    batch = _Placed(specs.input_specs(cfg, shape),
+                    specs.input_shardings(cfg, shape, mesh, rules), mesh,
+                    make, "inputs")
+    if train:
+        optimizer = opt_lib.adamw(1e-4)
+        opt = _Placed(optimizer.init(specs.tree_leaves(pmeta)),
+                      specs.opt_shardings(cfg, optimizer, mesh, rules),
+                      mesh, make, "opt")
+        step = steps.make_train_step(
+            cfg, optimizer, microbatches=specs.microbatches_for(
+                cfg, shape, mesh))
+
+        def run(p, o, b):
+            pt = transformer.ParamTree(params.wrap(p))
+            new, ostate, metrics = step(pt, opt.wrap(o), batch.wrap(b))
+            return _unplace((dict(new.named_parameters()), ostate, metrics))
+        return run, (params, opt, batch), ("params", "opt", "inputs")
+    if shape.kind == "prefill":
+        step = steps.make_prefill_step(cfg, max_len=shape.seq_len)
+
+        def run(p, b):
+            return _unplace(step(transformer.ParamTree(params.wrap(p)),
+                                 batch.wrap(b)))
+        return run, (params, batch), ("params", "inputs")
+    gstate = steps.serve_state_spec(cfg, shape.global_batch, shape.seq_len,
+                                    pmeta, device="cpu")
+    state = _Placed(gstate, specs.cache_entries(cfg, gstate, mesh, rules),
+                    mesh, make, "state")
+    step = steps.make_decode_step(cfg)
+
+    def run(p, b, st):
+        # the state's DTensors made as inference tensors, as a prefill
+        # under inference mode leaves them: a view of a normal DTensor
+        # cannot share its version counter inside inference mode
+        with torch.inference_mode():
+            return _unplace(step(transformer.ParamTree(params.wrap(p)),
+                                 batch.wrap(b)["token"], state.wrap(st)))
+    return run, (params, batch, state), ("params", "inputs", "state")
+
+
+def trace_lm_cell(cfg, shape, mesh, *, device="cuda"):
+    """Trace rank 0's program of one LM cell (`lm_cell_args`) on `mesh`:
+    (Traced, {part: argument bytes}, the device it traced). A training
+    cell traces the CPU program where this torch cannot run autograd on
+    fake CUDA tensors."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch import graph_cost, uleen_cell
+    dev = uleen_cell._trace_device(device)
+    if shape.kind == "train" and not uleen_cell.autograd_traceable(dev):
+        dev = torch.device("cpu")
+    if dev.type == "cuda":
+        graph_cost.ensure_fake_cuda_guard()
+    fake = FakeTensorMode()
+    with fake:
+        step, placed_args, kinds = lm_cell_args(
+            cfg, shape, mesh, lambda shp, dt, _: torch.empty(
+                shp, dtype=dt, device=dev))
+    args = tuple(a.local for a in placed_args)
+    by_kind = {k: sum(t.numel() * t.element_size()
+                      for _, t in graph_cost.flatten(a))
+               for k, a in zip(kinds, args)}
+    rules = sh.TRAIN_RULES if shape.kind == "train" else sh.SERVE_RULES
+
+    def fn(*a):
+        with sh.use_placement(mesh, rules):
+            return step(*a)
+    traced = graph_cost.trace(fn, args, fake_mode=fake, device=dev)
+    if traced.graph is not None:
+        # DTensor works out each operator's global output shape on fake
+        # tensors; torch 2.11's `make_fx` records those global-shaped
+        # calls as nodes nothing uses, which no rank runs
+        traced.graph.graph.eliminate_dead_code()
+        traced.graph.recompile()
+    return traced, by_kind, dev
+
+
+def _lm_tag(cfg_name: str, shape_name: str, multi_pod: bool) -> str:
+    return f"{cfg_name}.{shape_name}.{'pod2' if multi_pod else 'pod1'}"
+
+
+def run_lm_cell(arch: str, shape_name: str, multi_pod: bool, out_dir, *,
+                analyze: bool = False, device="cuda", cfg=None) -> dict:
+    """One LM cell traced as rank 0 of the production mesh: JAX's record
+    keys, the port's `trace_s`/`traced_device`, and `args_bytes_by_kind`.
+    `cfg` replaces the arch's config (a test's cut depth)."""
+    from repro_torch.analysis import cells as lint_cells
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import graph_cost, uleen_cell
+    from repro_torch.launch import mesh as mesh_mod
+    cfg = cfg or get_config(arch)
+    shape = SHAPES[shape_name]
+    tag = _lm_tag(arch, shape_name, multi_pod)
+    world = 512 if multi_pod else 256
+    rec = obs_registry.get_recorder()
+    trace_type = torch.device(device).type
+    if shape.kind == "train" and not uleen_cell.autograd_traceable(device):
+        trace_type = "cpu"
+    try:
+        with mesh_mod.fake_world(world, RANK):
+            mesh = mesh_mod.make_production_mesh(multi_pod, RANK,
+                                                 device_type=trace_type)
+            with rec.span("dryrun.trace", cell=tag) as sp:
+                traced, by_kind, dev = trace_lm_cell(cfg, shape, mesh,
+                                                     device=device)
+            rec.counter("dryrun.traces").inc()
+            roof = graph_cost.roofline(traced.graph, world,
+                                       graph_cost.model_flops_for(cfg, shape),
+                                       mesh=mesh)
+            record = {
+                "arch": arch, "shape": shape_name, "kind": shape.kind,
+                "mesh": _mesh_name(mesh), "chips": world,
+                "ok": traced.error is None,
+                "lower_s": 0.0, "compile_s": round(sp.dur_s, 2),
+                "trace_s": round(sp.dur_s, 2),
+                "memory": graph_cost.memory_gib(traced.memory),
+                "roofline": roof.summary(),
+                "layers": cfg.num_layers,
+                "args_bytes_by_kind": by_kind,
+                "rank": RANK, "device": str(torch.device(device)),
+                "traced_device": str(dev),
+                "op_nodes": {k: v for k, v in traced.op_counts().items()
+                             if k.startswith("repro_torch::")},
+                "host_reads": [r.to_json() for r in traced.host_reads],
+            }
+            if dev.type != torch.device(device).type:
+                record["note"] = ("traced as the CPU program: this torch "
+                                  "has no CUDA build, and autograd over "
+                                  "fake CUDA tensors needs one")
+            if traced.error:
+                record["error"] = f"trace: {traced.error}"
+            if analyze and traced.graph is not None:
+                analyze_traced(record, lint_cells.graph_cell_program(
+                    tag, shape.kind, traced))
+        roofs = record["roofline"]
+        print(f"[dryrun] {tag}: {'OK' if record['ok'] else 'FAIL'} "
+              f"trace={record['trace_s']}s "
+              f"peak={record['memory']['peak_gib']:.4f} GiB/rank "
+              f"args={record['memory']['args_gib']:.4f} "
+              f"terms(c/m/coll)={roofs['compute_s']:.3e}/"
+              f"{roofs['memory_s']:.3e}/{roofs['collective_s']:.3e} "
+              f"dominant={roofs['dominant']}"
+              + (f" error={record['error']}" if not record["ok"] else ""))
+    except Exception as e:
+        record = {"arch": arch, "shape": shape_name, "kind": shape.kind,
+                  "mesh": "pod2" if multi_pod else "pod1", "ok": False,
+                  "device": str(torch.device(device)),
+                  "error": f"{type(e).__name__}: {e}",
+                  "traceback": traceback.format_exc()[-4000:]}
+        print(f"[dryrun] {tag}: FAIL {record['error'][:300]}")
+    _write(out_dir, tag, record)
+    return record
+
+
 def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir, *,
              backend: str = "auto", analyze: bool = False,
              device="cuda") -> dict:
     if arch != "uleen":
-        raise NotImplementedError(LM_WAITS)
+        if arch not in PLACED_ARCHS:
+            raise NotImplementedError(LM_WAITS)
+        return run_lm_cell(arch, shape_name, multi_pod, out_dir,
+                           analyze=analyze, device=device)
     return run_uleen_cell(multi_pod, out_dir, shape=shape_name,
                           backend=backend, analyze=analyze, device=device)
 
@@ -508,17 +752,93 @@ def run_rank_program(shape: str, *, seed: int = 0, device="cuda",
     return result
 
 
+def run_lm_rank_program(arch: str, shape_name: str, *, cfg=None,
+                        seed: int = 0, device="cuda",
+                        multi_pod: bool = False) -> dict:
+    """Run rank 0's program of one LM cell for real on `device` at its
+    shard's shapes, inside a fake world (its collectives move nothing):
+    seeded shards (parameters and moments small normals, tokens in the
+    vocabulary, the decode state's positions at its last row), one
+    warm-up step, then one step with the allocator's peak reset after the
+    arguments exist. Returns the measured peak and argument bytes and the
+    kernel launches of the measured step."""
+    from repro_torch import kernels
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import mesh as mesh_mod
+    dev = torch.device(device)
+    cfg = cfg or get_config(arch)
+    shape = SHAPES[shape_name]
+    rules = sh.TRAIN_RULES if shape.kind == "train" else sh.SERVE_RULES
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def make(shp, dtype, path):
+        if dtype.is_floating_point:
+            if path.startswith(("opt", "state")):
+                return torch.zeros(shp, dtype=dtype, device=dev)
+            return (torch.randn(shp, generator=gen, device=dev) * 0.02).to(
+                dtype)
+        if path.endswith("pos"):
+            return torch.full(shp, shape.seq_len - 1, dtype=dtype,
+                              device=dev)
+        if path.startswith("inputs"):
+            return torch.randint(0, cfg.vocab_size, shp, generator=gen,
+                                 device=dev, dtype=dtype)
+        return torch.zeros(shp, dtype=dtype, device=dev)
+
+    world = 512 if multi_pod else 256
+    with mesh_mod.fake_world(world, RANK):
+        mesh = mesh_mod.make_production_mesh(multi_pod, RANK,
+                                             device_type=dev.type)
+        step, placed_args, _ = lm_cell_args(cfg, shape, mesh, make)
+        args = tuple(a.local for a in placed_args)
+        del placed_args
+
+        def call():
+            with sh.use_placement(mesh, rules):
+                return step(*args)
+        out = call()                       # warm-up: loads the kernels
+        del out
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            args_bytes = torch.cuda.memory_allocated(dev)
+        kernels.reset_launch_counts()
+        out = call()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        launches = {k: v for k, v in kernels.launch_counts().items() if v}
+        result = {"arch": arch, "shape": shape_name, "launches": launches,
+                  "layers": cfg.num_layers, "mesh": _mesh_name(mesh),
+                  "rank": RANK}
+        if dev.type == "cuda":
+            result.update(peak_bytes=torch.cuda.max_memory_allocated(dev),
+                          args_bytes=args_bytes)
+        del out
+    return result
+
+
+def _cut(cfg, layers):
+    """`cfg` cut to its first `layers` layers (None: whole)."""
+    return cfg if not layers else dataclasses.replace(cfg,
+                                                      num_layers=layers)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    from repro_torch.configs import SHAPES, get_config, shapes_for
     ap.add_argument("--arch", choices=ARCH_IDS + ["uleen"])
-    ap.add_argument("--shape", choices=list(ULEEN_SHAPES))
+    ap.add_argument("--shape", choices=list(ULEEN_SHAPES) + list(SHAPES))
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut an LM arch to its first N layers (full "
+                         "width; the record says `layers`)")
     ap.add_argument("--backend", choices=["fused", "gather", "packed", "auto"],
                     default="auto",
                     help="WNN kernel backend for the uleen infer cells")
     ap.add_argument("--mesh", choices=["single", "multi", "both"],
                     default="single")
     ap.add_argument("--all", action="store_true",
-                    help="every cell the port has (the ULEEN cells)")
+                    help="every cell the port has (the ULEEN cells and "
+                         "the placed LM archs' cells)")
     ap.add_argument("--analyze", action="store_true",
                     help="run the wnnlint rules (repro_torch.analysis) over "
                          "every traced cell; error findings flip the cell "
@@ -533,27 +853,46 @@ def main(argv=None) -> int:
                          "<--out>/METRICS.json, or ./METRICS.json")
     ap.add_argument("--rank-run", action="store_true",
                     help="instead of tracing, run rank 0's program of each "
-                         f"of {RANK_RUN_SHAPES} (or --shape) for real on "
-                         "--device and print one JSON line each")
+                         f"of {RANK_RUN_SHAPES} (or --shape; an LM arch's "
+                         "cells on one pod) for real on --device and print "
+                         "one JSON line each")
     args = ap.parse_args(argv)
 
-    if args.arch is not None and args.arch != "uleen":
+    lm = args.arch not in (None, "uleen")
+    if lm and args.arch not in PLACED_ARCHS:
         print(f"[dryrun] --arch {args.arch}: {LM_WAITS}", file=sys.stderr)
         return 2
+    if args.shape and (args.shape in ULEEN_SHAPES) == lm:
+        ap.error(f"--shape {args.shape} is not a cell of --arch {args.arch}")
     if args.rank_run:
+        if lm:
+            cfg = _cut(get_config(args.arch), args.layers)
+            for shp in ([args.shape] if args.shape else
+                        [s.name for s in shapes_for(cfg)]):
+                print(json.dumps(run_lm_rank_program(
+                    args.arch, shp, cfg=cfg, device=args.device)),
+                    flush=True)
+            return 0
         for shape in ([args.shape] if args.shape else RANK_RUN_SHAPES):
             print(json.dumps(run_rank_program(shape, device=args.device)),
                   flush=True)
         return 0
     if args.all:
-        print("[dryrun] --all: the ULEEN cells (the LM cells wait: "
+        print("[dryrun] --all: the ULEEN cells and the LM cells of "
+              f"{', '.join(PLACED_ARCHS)} (the other families wait: "
               f"{LM_WAITS})")
-        cells = [("uleen", shp) for shp in ULEEN_SHAPES]
+        cells = [("uleen", shp) for shp in ULEEN_SHAPES] + [
+            (a, s.name) for a in PLACED_ARCHS
+            for s in shapes_for(get_config(a))]
+    elif lm:
+        cells = [(args.arch, args.shape)] if args.shape else [
+            (args.arch, s.name) for s in shapes_for(get_config(args.arch))]
     elif args.arch == "uleen" and not args.shape:
         cells = [("uleen", shp) for shp in ULEEN_SHAPES]
     else:
         if not args.shape:
-            ap.error("--arch uleen (with or without --shape), or --all")
+            ap.error("--arch uleen or a placed LM arch (with or without "
+                     "--shape), or --all")
         cells = [("uleen", args.shape)]
 
     meshes = {"single": [False], "multi": [True],
@@ -563,8 +902,16 @@ def main(argv=None) -> int:
     with obs_registry.recording() as obs_rec:
         for arch, shp in cells:
             for mp in meshes:
-                rec = run_cell(arch, shp, mp, args.out, backend=args.backend,
-                               analyze=args.analyze, device=args.device)
+                if arch == "uleen":
+                    rec = run_cell(arch, shp, mp, args.out,
+                                   backend=args.backend,
+                                   analyze=args.analyze, device=args.device)
+                else:
+                    rec = run_lm_cell(arch, shp, mp, args.out,
+                                      analyze=args.analyze,
+                                      device=args.device,
+                                      cfg=_cut(get_config(arch),
+                                               args.layers))
                 tag = f"{rec['arch']}.{shp}.{'pod2' if mp else 'pod1'}"
                 records[tag] = rec
                 failures += 0 if rec.get("ok") else 1

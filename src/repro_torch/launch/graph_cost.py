@@ -17,8 +17,9 @@ on any device.
 From that graph and that run (`cost`):
 
 * operations by type: a registered flop formula where the operator has
-  one (the kernels' count their operations as they issue them; a matmul
-  its FLOP, float32 ones as multiply-adds), else one operation an
+  one (the integer kernels count their operations as they issue them,
+  as int32 work; flash its FLOP at its output's type; a matmul its FLOP,
+  float32 ones as multiply-adds), else one operation an
   element of the larger of its outputs and inputs; views and
   uninitialised allocations none;
 * the bytes each node reads and writes, each tensor input read once and
@@ -90,14 +91,21 @@ COLLECTIVE_KINDS = {
     "c10d::alltoall_": "all-to-all", "c10d::alltoall_base_": "all-to-all",
     "c10d::broadcast_": "broadcast", "c10d::send": "collective-permute",
     "c10d::recv_": "collective-permute",
+    # the functional collectives DTensor and `dist.placed` emit (their
+    # `wait_tensor` is bookkeeping: no collective, no bytes)
+    "_c10d_functional::all_gather_into_tensor": "all-gather",
+    "_c10d_functional::all_reduce": "all-reduce",
+    "_c10d_functional::reduce_scatter_tensor": "reduce-scatter",
+    "_c10d_functional::all_to_all_single": "all-to-all",
 }
+_FUNCTIONAL = "_c10d_functional::"
 # operators that read only what they gather
 _GATHERS = {"aten::index", "aten::gather", "aten::index_select",
             "aten::embedding", "aten::take"}
 # allocations that touch no memory
 _NO_TOUCH = {"aten::empty", "aten::empty_strided", "aten::empty_like",
              "aten::new_empty", "aten::new_empty_strided", "aten::lift_fresh",
-             "aten::lift_fresh_copy"}
+             "aten::lift_fresh_copy", "_c10d_functional::wait_tensor"}
 _HOST_METHODS = ("__int__", "__float__", "__bool__", "__index__", "item",
                  "tolist", "numpy")
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -256,15 +264,21 @@ class _Memory(TorchDispatchMode):
             self.reads.append(HostRead("_local_scalar_dense", _where()))
             return _zero_like(args[0])
         out = func(*args, **(kwargs or {}))
-        if not func.is_view:       # a view shares its input's storage
-            for t in _tensor_leaves(out):
-                self.hold(t)
+        # every output, views too: a view shares a storage that is held
+        # already, but an aliasing operator may copy (`aten.to` of a
+        # DTensor to another dtype) and then its output is new
+        for t in _tensor_leaves(out):
+            self.hold(t)
         return out
 
 
 def _tensor_leaves(val):
+    """The tensors of an operator's value; a DTensor (a placed program's
+    operators, as a mode sees them) by this rank's local shard, which is
+    what the rank holds."""
     if isinstance(val, torch.Tensor):
-        yield val
+        local = getattr(val, "_local_tensor", None)
+        yield val if local is None else local
     elif isinstance(val, (list, tuple)):
         for v in val:
             yield from _tensor_leaves(v)
@@ -328,9 +342,9 @@ def trace(fn, args: tuple, *, fake_mode, device) -> Traced:
     in_st = _storages(t for _, t in inputs)
     reads: list = []
     mem = _Memory(granule, reads)
-    for st in in_st.values():
-        n = _nbytes(st, granule)
-        mem.live += n
+    for key, st in in_st.items():   # held throughout, never released
+        mem.refs[key] = st
+        mem.live += _nbytes(st, granule)
     mem.peak = mem.live
     args_bytes = mem.live
     memory = dict(args=args_bytes, output=0, temp=0, alias=0, peak=0)
@@ -440,7 +454,7 @@ def node_bytes(node) -> tuple[int, int]:
         index = sum(t.numel() * t.element_size() for t in ins
                     if not t.is_floating_point() and t is not ins[0])
         return written + index, written
-    if name.startswith("c10d::"):
+    if name.startswith(("c10d::", _FUNCTIONAL)):
         return sum(t.numel() * t.element_size() for t in ins), written
     if name.endswith("_") and ins:          # in place: the result is an input
         written = _val_bytes(ins[0])
@@ -453,7 +467,8 @@ def node_operations(node) -> tuple[str, float]:
     from repro_torch.analysis.graph_walk import op_name
     name = op_name(node)
     if not name or getattr(node.target, "is_view", False) \
-            or name in _NO_TOUCH or name.startswith(("prim::", "c10d::")):
+            or name in _NO_TOUCH or name.startswith(("prim::", "c10d::",
+                                                     _FUNCTIONAL)):
         return "int32", 0.0
     out = list(_tensor_leaves(node.meta.get("val")))
     ins = _arg_tensors(node)
@@ -465,8 +480,9 @@ def node_operations(node) -> tuple[str, float]:
                   else v for k, v in node.kwargs.items()}
         flops = float(flop_registry[packet](*args, out_val=node.meta.get(
             "val"), **kwargs))
-        if name.startswith("repro_torch::"):
-            return "int32", flops
+        if name.startswith("repro_torch::") and not (
+                out and out[0].is_floating_point()):
+            return "int32", flops       # the WNN and hash kernels
         if out and out[0].dtype in (torch.bfloat16, torch.float16):
             return "bf16", flops
         return "float32", flops / 2.0        # multiply-adds on fp32 lanes
@@ -485,6 +501,7 @@ class Collective:
     output_bytes: float
     group_size: int
     inter_node: bool
+    axis: Optional[str] = None       # the mesh dim whose group it runs on
 
     @property
     def link_bytes(self) -> float:
@@ -505,8 +522,18 @@ class Collective:
 
 
 def _group_of(gm, node):
-    """The process group a c10d node runs on (None if not found)."""
+    """The process group a c10d node runs on (None if not found): a
+    boxed group argument, or a functional collective's `group_name`."""
     import torch.distributed as dist
+    from repro_torch.analysis.graph_walk import op_name
+    if op_name(node).startswith(_FUNCTIONAL):
+        from torch.distributed.distributed_c10d import \
+            _resolve_process_group
+        name = node.args[-1]
+        try:
+            return _resolve_process_group(name)
+        except (KeyError, RuntimeError, ValueError):
+            return None
     for a in node.args:
         if isinstance(a, torch.fx.Node) and a.op == "get_attr":
             obj = getattr(gm, a.target, None)
@@ -517,8 +544,22 @@ def _group_of(gm, node):
     return None
 
 
-def collectives(gm) -> list:
-    """Every collective node of the program, in order."""
+def _axis_of(group, mesh) -> Optional[str]:
+    """The name of `mesh`'s dim whose process group is `group`."""
+    if group is None or mesh is None:
+        return None
+    for i, name in enumerate(mesh.mesh_dim_names):
+        try:
+            if mesh.get_group(i).group_name == group.group_name:
+                return name
+        except (RuntimeError, AttributeError):
+            continue
+    return None
+
+
+def collectives(gm, mesh=None) -> list:
+    """Every collective node of the program, in order; with `mesh`, each
+    names the mesh dim its group spans."""
     import torch.distributed as dist
     from repro_torch.analysis.graph_walk import op_name
     out = []
@@ -527,7 +568,12 @@ def collectives(gm) -> list:
         if kind is None:
             continue
         ins = _arg_tensors(node)
-        if kind == "all-gather":
+        if op_name(node).startswith(_FUNCTIONAL):
+            # (input, ..., group name): the input is the operand, the
+            # node's value the output
+            operand = _val_bytes(ins[:1])
+            output = _val_bytes(node.meta.get("val"))
+        elif kind == "all-gather":
             # (output buffer, input, group, ...): the input is the operand
             operand = _val_bytes(ins[1:2])
             output = _val_bytes(ins[:1])
@@ -546,7 +592,7 @@ def collectives(gm) -> list:
             size = len(ranks)
             inter = len({r // RANKS_PER_NODE for r in ranks}) > 1
         out.append(Collective(kind, node.name, float(operand), float(output),
-                              size, inter))
+                              size, inter, _axis_of(group, mesh)))
     return out
 
 
@@ -584,8 +630,10 @@ class Roofline:
         return dataclasses.asdict(self)
 
 
-def roofline(gm, chips: int, model_flops: float) -> Roofline:
-    """The three roofline terms of one traced per-rank program."""
+def roofline(gm, chips: int, model_flops: float, mesh=None) -> Roofline:
+    """The three roofline terms of one traced per-rank program; with
+    `mesh`, each kind's collectives are also counted by mesh dim
+    (`collectives_by_kind[kind]["axes"]`)."""
     from repro_torch.analysis import graph_walk
     ops: dict = {}
     read = written = 0.0
@@ -600,7 +648,7 @@ def roofline(gm, chips: int, model_flops: float) -> Roofline:
         kind, n = node_operations(node)
         if n:
             ops[kind] = ops.get(kind, 0.0) + n
-    colls = collectives(gm)
+    colls = collectives(gm, mesh)
     by_kind: dict = {}
     for c in colls:
         d = by_kind.setdefault(c.kind, {"count": 0.0, "operand_bytes": 0.0,
@@ -611,6 +659,9 @@ def roofline(gm, chips: int, model_flops: float) -> Roofline:
         d["output_bytes"] += c.output_bytes
         d["link_bytes"] += c.link_bytes
         d["group_size"] = max(d["group_size"], c.group_size)
+        if c.axis is not None:
+            axes = d.setdefault("axes", {})
+            axes[c.axis] = axes.get(c.axis, 0) + 1
     compute_s = sum(n / OPS_PER_S[k] for k, n in ops.items())
     memory_s = (read + written) / HBM_BYTES_PER_S
     collective_s = sum(c.seconds for c in colls)
@@ -634,6 +685,18 @@ def memory_gib(memory: dict) -> dict:
     """JAX's record `memory` keys (GiB) from `Traced.memory` (bytes)."""
     return {f"{k}_gib": memory[k] / 2 ** 30
             for k in ("args", "output", "temp", "alias", "peak")}
+
+
+def model_flops_for(cfg, shape) -> float:
+    """JAX's `hlo_cost.model_flops_for`: 6·N·D (train), 2·N·D (prefill),
+    2·N_active·B (decode: one token a sequence), with N the parameters a
+    token touches."""
+    n_act = cfg.active_param_count()
+    if shape.kind == "train":
+        return 6.0 * n_act * shape.global_batch * shape.seq_len
+    if shape.kind == "prefill":
+        return 2.0 * n_act * shape.global_batch * shape.seq_len
+    return 2.0 * n_act * shape.global_batch
 
 
 def wnn_model_ops(spec) -> int:

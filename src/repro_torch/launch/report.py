@@ -42,13 +42,13 @@ def fmt_s(x: float) -> str:
 
 def dryrun_table(records: list) -> str:
     lines = ["| arch | shape | mesh | device | trace s | peak GiB/rank | "
-             f"args GiB | fits {CARD_MEMORY_GIB:.1f}G |",
-             "|---|---|---|---|---|---|---|---|"]
+             f"args GiB | temp GiB | fits {CARD_MEMORY_GIB:.1f}G |",
+             "|---|---|---|---|---|---|---|---|---|"]
     for r in records:
         if "memory" not in r:
             lines.append(f"| {r['arch']} | {r['shape']} | {r['mesh']} | "
                          f"{r.get('traced_device', '—')} | FAIL | — | — | "
-                         "— |")
+                         "— | — |")
             continue
         m = r["memory"]
         fits = "✓" if m["peak_gib"] <= CARD_MEMORY_GIB \
@@ -57,7 +57,26 @@ def dryrun_table(records: list) -> str:
         lines.append(
             f"| {r['arch']} | {r['shape']} | {r['mesh']} | "
             f"{r.get('traced_device', '—')} | {r['compile_s']}{status} | "
-            f"{m['peak_gib']:.4f} | {m['args_gib']:.4f} | {fits} |")
+            f"{m['peak_gib']:.4f} | {m['args_gib']:.4f} | "
+            f"{m['temp_gib']:.4f} | {fits} |")
+    return "\n".join(lines)
+
+
+def args_table(records: list) -> str:
+    """The LM cells' argument bytes a rank by part (`args_bytes_by_kind`:
+    params, opt, inputs, state), in GiB, with the traced depth."""
+    kinds = ("params", "opt", "inputs", "state")
+    lines = ["| arch | shape | mesh | layers | "
+             + " | ".join(f"{k} GiB" for k in kinds) + " |",
+             "|---|---|---|---|" + "---|" * len(kinds)]
+    for r in records:
+        by = r.get("args_bytes_by_kind")
+        if not by:
+            continue
+        lines.append(f"| {r['arch']} | {r['shape']} | {r['mesh']} | "
+                     f"{r.get('layers', '—')} | " + " | ".join(
+                         f"{by[k] / 2 ** 30:.4f}" if k in by else "—"
+                         for k in kinds) + " |")
     return "\n".join(lines)
 
 
@@ -109,6 +128,11 @@ def main(argv=None) -> int:
     if args.section in ("dryrun", "all"):
         print("### Dry-run (traced) results\n")
         print(dryrun_table(records))
+        print()
+    if args.section in ("dryrun", "all") and any(
+            "args_bytes_by_kind" in r for r in records):
+        print("### LM arguments a rank by part\n")
+        print(args_table(records))
         print()
     if args.section in ("roofline", "all"):
         print("### Roofline terms (single-pod 16×16, per rank)\n")

@@ -120,10 +120,30 @@ def lm_loss(cfg: ArchConfig, params, tokens, labels, *, frames=None,
     if logits.shape[-1] > v:
         pad = torch.arange(logits.shape[-1], device=logits.device) >= v
         logits = logits.masked_fill(pad, -1e30)
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    from repro_torch.dist import placed
+    if placed.is_placed(logits):     # the vocabulary stays sharded
+        ll = placed.log_likelihood(logits, labels)
+    else:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
     loss = -torch.mean(ll)
     return loss + AUX_COEF * aux, (loss, aux)
+
+
+def _microbatch(v, i: int, microbatches: int):
+    """Rows of microbatch i of `microbatches`: rows [i·n, (i+1)·n) of a
+    plain batch; of a placed one (rows sharded over d ranks), the same
+    local rows [i·m, (i+1)·m) of every rank's shard, so each microbatch
+    stays sharded as the batch is and no row crosses a rank."""
+    from repro_torch.dist import placed
+    rows = v.shape[0]
+    if not placed.is_placed(v):
+        n = rows // microbatches
+        return v[i * n:(i + 1) * n]
+    local = v.to_local()
+    d, m = rows // local.shape[0], local.shape[0] // microbatches
+    return placed.wrap(local[i * m:(i + 1) * m], v.device_mesh,
+                       v.placements, (d * m, *v.shape[1:]))
 
 
 def make_train_step(cfg: ArchConfig, optimizer, *, microbatches: int = 1,
@@ -169,12 +189,13 @@ def make_train_step(cfg: ArchConfig, optimizer, *, microbatches: int = 1,
             raise ValueError(f"make_train_step: a batch of {rows} rows does "
                              f"not split into {microbatches} microbatches")
         n = rows // microbatches
-        g_acc = tuple(torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device) for p in leaves_c)
+        g_acc = tuple(torch.zeros_like(p, dtype=torch.float32)
+                      for p in leaves_c)
         l_acc = a_acc = torch.zeros((), dtype=torch.float32,
                                     device=leaves_c[0].device)
         for i in range(microbatches):
-            mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+            mb = {k: _microbatch(v, i, microbatches)
+                  for k, v in batch.items()}
             g, l, a = grads_of(params_c, leaves_c, mb)
             g_acc = tuple(ga + gi for ga, gi in zip(g_acc, g))
             l_acc, a_acc = l_acc + l, a_acc + a
@@ -219,6 +240,28 @@ def make_train_step(cfg: ArchConfig, optimizer, *, microbatches: int = 1,
     return train_step
 
 
+def place_params(cfg: ArchConfig, params, mesh, rules) -> transformer.ParamTree:
+    """The parameter tree placed on `mesh`: each leaf a DTensor holding
+    this rank's slice under the entries its logical axes
+    (`transformer.param_logical`) resolve to by `rules` (every rank holds
+    the same global tree, or fake tensors of it)."""
+    from repro_torch.dist import sharding as sh
+    logical = transformer.param_logical(cfg)
+
+    def walk(mod, lg):
+        out = {}
+        for name, p in mod.named_parameters(recurse=False):
+            out[name] = sh.distribute_tensor(p.detach(), lg[name], mesh,
+                                             rules)
+        for name, child in mod.named_children():
+            out[name] = ([walk(c, x) for c, x in zip(child, lg[name],
+                                                     strict=True)]
+                         if isinstance(child, torch.nn.ModuleList)
+                         else walk(child, lg[name]))
+        return out
+    return transformer.ParamTree(walk(params, logical))
+
+
 def make_prefill_step(cfg: ArchConfig, *, max_len: int) -> Callable:
     """(params, batch) -> (last logits, ServeState)."""
     @torch.inference_mode()
@@ -226,6 +269,32 @@ def make_prefill_step(cfg: ArchConfig, *, max_len: int) -> Callable:
         return transformer.forward_prefill(cfg, params, batch["tokens"],
                                            max_len=max_len, **_inputs(batch))
     return prefill_step
+
+
+def serve_state_spec(cfg: ArchConfig, batch: int, seq_len: int,
+                     param_spec, *, device="cpu"):
+    """The ServeState after a `seq_len` prefill, for decode dry runs: the
+    port's prefill step run under `FakeTensorMode` on fake parameters of
+    `param_spec`'s shapes and dtypes (a tree of meta tensors,
+    `launch.specs.param_specs`), so its leaves are fake tensors on
+    `device` and nothing is allocated."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch import specs
+    with FakeTensorMode():
+        params = transformer.ParamTree(specs.map_tree(
+            lambda t: torch.empty(t.shape, dtype=t.dtype, device=device),
+            param_spec))
+        inputs = {"tokens": torch.zeros((batch, seq_len), dtype=torch.int32,
+                                        device=device)}
+        if cfg.encoder_layers:
+            inputs["frames"] = torch.zeros(
+                (batch, cfg.encoder_frames, cfg.d_model), device=device)
+        if cfg.patch_tokens:
+            inputs["patches"] = torch.zeros(
+                (batch, cfg.patch_tokens, cfg.d_model), device=device)
+        _, state = make_prefill_step(cfg, max_len=seq_len)(params, inputs)
+    return state
 
 
 def _inputs(batch) -> dict:

@@ -479,7 +479,10 @@ def uleen_sharded_infer_specs(spec: UleenSpec, mesh, *,
     classes = (0, spec.num_classes) if global_view else (lo, lo + m_loc)
     rows = global_batch if global_view else rows
     local = packed_table_specs(spec, classes=classes, device=dev,
-                               generator=generator)
+                               generator=generator, kernel_args=False)
+    # the slices, then the words released (`ClassShardedTables`): the
+    # rank holds its classes' slices only
+    local.build_kernel_args(columns=spec.total_bits)
     sp = runtime.ClassShardedTables(
         local=local, mesh=mesh, rules=sh.SERVE_RULES, class_axes=c_axes,
         num_classes=spec.num_classes, lo=0 if global_view else lo)

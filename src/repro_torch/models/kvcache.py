@@ -189,10 +189,41 @@ def cache_write(cache: AttnCache, k_new: torch.Tensor, v_new: torch.Tensor,
     return cache
 
 
+def cache_write_span(cache: AttnCache, k_new: torch.Tensor,
+                     v_new: torch.Tensor, start: int,
+                     width: int) -> AttnCache:
+    """`cache_write` at slots (start + i) % width for the T new entries,
+    the ring a prefill fills; on a placed cache (`dist.placed`) each rank
+    writes the slots its slice holds. Returns `cache`."""
+    from repro_torch.dist import placed
+    t = k_new.shape[2]
+    if not placed.is_placed(cache.k):
+        return cache_write(cache, k_new, v_new, torch.arange(
+            start, start + t, device=cache.k.device) % width)
+    for name, x in (("k", k_new), ("v", v_new)):
+        payload, scale = _encode(cache, x)
+        placed.cache_write(getattr(cache, name), payload, start, t, width)
+        if scale is not None:
+            placed.cache_write(getattr(cache, name + "_scale"), scale, start,
+                               t, width)
+    return cache
+
+
 def cache_write_at(cache: AttnCache, k_new: torch.Tensor,
                    v_new: torch.Tensor, slot: torch.Tensor) -> AttnCache:
     """Decode write: one new entry per sequence, at its own position, in
-    place. k_new/v_new: (B, Hkv, 1, hd); slot: (B,) int. Returns `cache`."""
+    place. k_new/v_new: (B, Hkv, 1, hd); slot: (B,) int. Returns `cache`.
+    On a placed cache (`dist.placed`) the rank whose slice holds a row's
+    slot writes it."""
+    from repro_torch.dist import placed
+    if placed.is_placed(cache.k):
+        for name, x in (("k", k_new), ("v", v_new)):
+            payload, scale = _encode(cache, x)
+            placed.cache_write_at(getattr(cache, name), payload, slot)
+            if scale is not None:
+                placed.cache_write_at(getattr(cache, name + "_scale"), scale,
+                                      slot)
+        return cache
     rows = torch.arange(cache.k.shape[0], device=cache.k.device)
     slot = slot.to(torch.long)
     for name, x in (("k", k_new), ("v", v_new)):

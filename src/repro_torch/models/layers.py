@@ -21,6 +21,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import placed
+from repro_torch.dist.sharding import logical_constraint
 from repro_torch.kernels import ops
 
 DEFAULT_CHUNK = 512
@@ -116,6 +118,7 @@ def mlp(cfg, p, x: torch.Tensor) -> torch.Tensor:
         if hasattr(p, "b1"):
             h = h + p.b1
         h = F.gelu(h, approximate="tanh")
+    h = logical_constraint(h, ("batch", "seq", "ffn"))
     out = h @ p.w2
     if hasattr(p, "b2"):
         out = out + p.b2
@@ -147,6 +150,10 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the same as dropping them.
     """
     del chunk, remat_body
+    if placed.is_placed(q):
+        return placed.attention(q, k, v, attend=ops.flash_attention,
+                                causal=causal, window=window, scale=scale,
+                                q_offset=q_offset)
     if kv_len is not None:
         kv_len = int(kv_len)
         k, v = k[:, :, :kv_len], v[:, :, :kv_len]
@@ -179,6 +186,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (B, Hkv, W, D), keys at or past kv_len (B,) masked. Scores in float32;
     the probabilities are rounded to the cache's dtype before the product
     with v, as the JAX function's `p.astype(v.dtype)` does."""
+    if placed.is_placed(k):
+        return placed.decode_attention(q, k, v, kv_len=kv_len, window=window,
+                                       scale=scale)
     b, hq, _, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     dv = v.shape[-1]

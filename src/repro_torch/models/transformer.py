@@ -75,6 +75,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.dist import placed
+from repro_torch.dist import sharding as sh
+from repro_torch.dist.sharding import logical_constraint
 from repro_torch.models import kvcache, moe, rglru, ssm
 from repro_torch.models.layers import (apply_norm, apply_rope,
                                        banded_attention, chunked_attention,
@@ -167,19 +170,29 @@ class ParamTree(nn.Module):
 
 
 class Builder:
-    """The JAX schema's `init` mode: each `param` call draws one tensor
-    with the schema's distribution from a seeded generator on the target
-    device — fan-in-scaled normal, `normal_1` (normal x 0.02), zeros or
-    ones. The numbers differ from JAX's (Philox, not threefry); the
-    distributions do not."""
+    """The JAX schema's three modes. `init`: each `param` call draws one
+    tensor with the schema's distribution from a seeded generator on the
+    target device — fan-in-scaled normal, `normal_1` (normal x 0.02),
+    zeros or ones. The numbers differ from JAX's (Philox, not threefry);
+    the distributions do not. `shape`: a meta tensor of the shape and
+    dtype, nothing allocated. `logical`: the parameter's logical axes,
+    one name (or None) a dim, as the JAX schema gives them."""
 
-    def __init__(self, generator: torch.Generator, dtype=torch.float32,
-                 device=None):
+    def __init__(self, generator: Optional[torch.Generator] = None,
+                 dtype=torch.float32, device=None, *, mode: str = "init"):
+        if mode not in ("init", "shape", "logical"):
+            raise ValueError(f"Builder mode {mode!r}: init, shape or "
+                             "logical")
         self.generator = generator
         self.dtype = dtype
         self.device = device
+        self.mode = mode
 
-    def param(self, shape, *, init="fan_in", fan_in=None) -> torch.Tensor:
+    def param(self, shape, logical, *, init="fan_in", fan_in=None):
+        if self.mode == "logical":
+            return tuple(logical)
+        if self.mode == "shape":
+            return torch.empty(shape, dtype=self.dtype, device="meta")
         kw = dict(dtype=self.dtype, device=self.device)
         if init == "zeros":
             return torch.zeros(shape, **kw)
@@ -196,24 +209,24 @@ class Builder:
 def _norm_params(bld, cfg, dim=None):
     d = dim or cfg.d_model
     if cfg.norm == "layernorm":
-        return {"scale": bld.param((d,), init="ones"),
-                "bias": bld.param((d,), init="zeros")}
-    return {"scale": bld.param((d,), init="zeros")}
+        return {"scale": bld.param((d,), (None,), init="ones"),
+                "bias": bld.param((d,), (None,), init="zeros")}
+    return {"scale": bld.param((d,), (None,), init="zeros")}
 
 
 def _attn_params(bld, cfg):
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, hkv = cfg.num_heads, cfg.num_kv_heads
     p = {
-        "wq": bld.param((d, h * hd)),
-        "wk": bld.param((d, hkv * hd)),
-        "wv": bld.param((d, hkv * hd)),
-        "wo": bld.param((h * hd, d)),
+        "wq": bld.param((d, h * hd), ("fsdp", "tp")),
+        "wk": bld.param((d, hkv * hd), ("fsdp", "tp")),
+        "wv": bld.param((d, hkv * hd), ("fsdp", "tp")),
+        "wo": bld.param((h * hd, d), ("tp", "fsdp")),
     }
     if cfg.qkv_bias:
-        p["bq"] = bld.param((h * hd,), init="zeros")
-        p["bk"] = bld.param((hkv * hd,), init="zeros")
-        p["bv"] = bld.param((hkv * hd,), init="zeros")
+        p["bq"] = bld.param((h * hd,), ("tp",), init="zeros")
+        p["bk"] = bld.param((hkv * hd,), ("tp",), init="zeros")
+        p["bv"] = bld.param((hkv * hd,), ("tp",), init="zeros")
     return p
 
 
@@ -222,39 +235,43 @@ def _mla_params(bld, cfg):
     r, nd, rd, vd = (cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim,
                      cfg.v_head_dim)
     return {
-        "wq": bld.param((d, h * (nd + rd))),
-        "w_dkv": bld.param((d, r + rd)),
-        "kv_norm": bld.param((r,), init="zeros"),
-        "w_uk": bld.param((r, h, nd)),
-        "w_uv": bld.param((r, h, vd)),
-        "wo": bld.param((h * vd, d)),
+        "wq": bld.param((d, h * (nd + rd)), ("fsdp", "tp")),
+        "w_dkv": bld.param((d, r + rd), ("fsdp", None)),
+        "kv_norm": bld.param((r,), (None,), init="zeros"),
+        "w_uk": bld.param((r, h, nd), (None, "tp", None)),
+        "w_uv": bld.param((r, h, vd), (None, "tp", None)),
+        "wo": bld.param((h * vd, d), ("tp", "fsdp")),
     }
 
 
 def _mlp_params(bld, cfg):
     d, f = cfg.d_model, cfg.d_ff
-    p = {"w1": bld.param((d, f)), "w2": bld.param((f, d))}
+    p = {"w1": bld.param((d, f), ("fsdp", "tp")),
+         "w2": bld.param((f, d), ("tp", "fsdp"))}
     if cfg.act == "swiglu":
-        p["w3"] = bld.param((d, f))
+        p["w3"] = bld.param((d, f), ("fsdp", "tp"))
     else:
-        p["b1"] = bld.param((f,), init="zeros")
-        p["b2"] = bld.param((d,), init="zeros")
+        p["b1"] = bld.param((f,), ("tp",), init="zeros")
+        p["b2"] = bld.param((d,), (None,), init="zeros")
     return p
 
 
 def _moe_params(bld, cfg):
     d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+    ep = cfg.expert_sharding == "ep"
+    e_ax = "experts" if ep else None
+    f_ax = "expert_ffn" if ep else "tp"
     p = {
-        "router": bld.param((d, e), init="normal_1"),
-        "w1": bld.param((e, d, f), fan_in=d),
-        "w3": bld.param((e, d, f), fan_in=d),
-        "w2": bld.param((e, f, d), fan_in=f),
+        "router": bld.param((d, e), ("fsdp", None), init="normal_1"),
+        "w1": bld.param((e, d, f), (e_ax, "fsdp", f_ax), fan_in=d),
+        "w3": bld.param((e, d, f), (e_ax, "fsdp", f_ax), fan_in=d),
+        "w2": bld.param((e, f, d), (e_ax, f_ax, "fsdp"), fan_in=f),
     }
     if cfg.num_shared_experts:
         fs = f * cfg.num_shared_experts
-        p["shared_w1"] = bld.param((d, fs))
-        p["shared_w3"] = bld.param((d, fs))
-        p["shared_w2"] = bld.param((fs, d))
+        p["shared_w1"] = bld.param((d, fs), ("fsdp", "tp"))
+        p["shared_w3"] = bld.param((d, fs), ("fsdp", "tp"))
+        p["shared_w2"] = bld.param((fs, d), ("tp", "fsdp"))
     return p
 
 
@@ -265,14 +282,14 @@ def _ssd_params(bld, cfg):
     nh = d_in // cfg.ssm_head_dim
     conv_dim = d_in + 2 * g * n
     return {
-        "in_proj": bld.param((d, 2 * d_in + 2 * g * n + nh)),
-        "conv_w": bld.param((cfg.conv_kernel, conv_dim)),
-        "conv_b": bld.param((conv_dim,), init="zeros"),
-        "dt_bias": bld.param((nh,), init="zeros"),
-        "a_log": bld.param((nh,), init="zeros"),
-        "d_skip": bld.param((nh,), init="ones"),
-        "norm_scale": bld.param((d_in,), init="zeros"),
-        "out_proj": bld.param((d_in, d)),
+        "in_proj": bld.param((d, 2 * d_in + 2 * g * n + nh), ("fsdp", "tp")),
+        "conv_w": bld.param((cfg.conv_kernel, conv_dim), (None, "tp")),
+        "conv_b": bld.param((conv_dim,), ("tp",), init="zeros"),
+        "dt_bias": bld.param((nh,), (None,), init="zeros"),
+        "a_log": bld.param((nh,), (None,), init="zeros"),
+        "d_skip": bld.param((nh,), (None,), init="ones"),
+        "norm_scale": bld.param((d_in,), ("tp",), init="zeros"),
+        "out_proj": bld.param((d_in, d), ("tp", "fsdp")),
     }
 
 
@@ -280,16 +297,16 @@ def _rec_params(bld, cfg):
     d = cfg.d_model
     w = cfg.lru_width or d
     return {
-        "w_in_rec": bld.param((d, w)),
-        "w_in_gate": bld.param((d, w)),
-        "w_out": bld.param((w, d)),
-        "conv_w": bld.param((cfg.conv_kernel, w)),
-        "conv_b": bld.param((w,), init="zeros"),
-        "w_a": bld.param((w,), init="ones"),
-        "b_a": bld.param((w,), init="zeros"),
-        "w_x": bld.param((w,), init="ones"),
-        "b_x": bld.param((w,), init="zeros"),
-        "lam": bld.param((w,), init="ones"),
+        "w_in_rec": bld.param((d, w), ("fsdp", "tp")),
+        "w_in_gate": bld.param((d, w), ("fsdp", "tp")),
+        "w_out": bld.param((w, d), ("tp", "fsdp")),
+        "conv_w": bld.param((cfg.conv_kernel, w), (None, "tp")),
+        "conv_b": bld.param((w,), ("tp",), init="zeros"),
+        "w_a": bld.param((w,), ("tp",), init="ones"),
+        "b_a": bld.param((w,), ("tp",), init="zeros"),
+        "w_x": bld.param((w,), ("tp",), init="ones"),
+        "b_x": bld.param((w,), ("tp",), init="zeros"),
+        "lam": bld.param((w,), ("tp",), init="ones"),
     }
 
 
@@ -317,17 +334,19 @@ def _build(cfg: ArchConfig, bld: Builder) -> dict:
     axis), and so is the encoder's."""
     check_supported(cfg)
     d, v = cfg.d_model, cfg.padded_vocab
-    params: dict = {"embed": bld.param((v, d), init="normal_1")}
+    params: dict = {"embed": bld.param((v, d), ("vocab", "fsdp"),
+                                       init="normal_1")}
     if cfg.max_positions:
         params["pos_embed"] = bld.param((cfg.max_positions, d),
-                                        init="normal_1")
+                                        (None, "fsdp"), init="normal_1")
     params["segments"] = [
         {f"l{i}": [_layer_params(bld, cfg, ls) for _ in range(seg.repeat)]
          for i, ls in enumerate(seg.layers)}
         for seg in arch_segments(cfg)]
     params["final_norm"] = _norm_params(bld, cfg)
     if not cfg.tie_embeddings:
-        params["lm_head"] = bld.param((d, v), init="normal_1")
+        params["lm_head"] = bld.param((d, v), ("fsdp", "vocab"),
+                                      init="normal_1")
     if cfg.encoder_layers:
         params["encoder"] = {
             "segments": [{"l0": [_layer_params(bld, cfg, _ENCODER_LAYER)
@@ -345,6 +364,21 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, *,
     return ParamTree(_build(cfg, Builder(generator, dtype, dev)))
 
 
+def param_shapes(cfg: ArchConfig, dtype=torch.float32) -> dict:
+    """The parameter tree of `init_params` as meta tensors of its shapes
+    and `dtype` (nested dicts and per-layer lists, as `_build` gives
+    them): nothing is allocated."""
+    return _build(cfg, Builder(dtype=dtype, mode="shape"))
+
+
+def param_logical(cfg: ArchConfig) -> dict:
+    """The logical axes of every parameter, in `param_shapes`' tree: the
+    JAX schema's tuples, per layer (JAX's stacked leaves carry a leading
+    None for the layer axis; `convert` maps the one tree onto the
+    other)."""
+    return _build(cfg, Builder(mode="logical"))
+
+
 def param_count(params: nn.Module) -> int:
     return sum(p.numel() for p in params.parameters())
 
@@ -352,6 +386,23 @@ def param_count(params: nn.Module) -> int:
 # ---------------------------------------------------------------------------
 # Mixer
 # ---------------------------------------------------------------------------
+
+def _constrain_heads(x, heads: int, logical: tuple):
+    """JAX's constraint of the (B, H, S, hd) attention operand, applied to
+    its flat (B, S, H·hd) form before the view splits it: the entries of
+    `logical` on the 4-d shape, moved onto the flat dims (batch, rows,
+    heads·hd). DTensor cannot split a sharded flat dim that the heads do
+    not divide evenly, so the placement comes first (identity outside a
+    mesh context)."""
+    ctx = sh.current_context()
+    if ctx is None or not placed.is_placed(x):
+        return x
+    mesh, rules = ctx
+    b, s, f = x.shape
+    e = rules.resolve(logical, mesh, shape=(b, heads, s, f // heads))
+    want = sh.placements((e[0], e[2], e[1]), mesh)
+    return x if list(x.placements) == want else x.redistribute(mesh, want)
+
 
 def _qkv(cfg, p, x):
     b, s, _ = x.shape
@@ -361,6 +412,11 @@ def _qkv(cfg, p, x):
     v = x @ p.wv
     if cfg.qkv_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
+    q = _constrain_heads(q, cfg.num_heads, ("batch", "heads", "ctx", None))
+    k = _constrain_heads(k, cfg.num_kv_heads, ("batch", "kv_heads", None,
+                                               None))
+    v = _constrain_heads(v, cfg.num_kv_heads, ("batch", "kv_heads", None,
+                                               None))
     return (q.view(b, s, cfg.num_heads, hd),
             k.view(b, s, cfg.num_kv_heads, hd),
             v.view(b, s, cfg.num_kv_heads, hd))
@@ -401,9 +457,8 @@ def attn_mixer(cfg, p, x, positions, *, window: int, mode: str, cache,
         if mode == "prefill":
             w = cache.k.shape[-2]
             keep = min(w, s)
-            slots = torch.arange(s - keep, s, device=x.device) % w
-            kvcache.cache_write(cache, k[:, :, s - keep:],
-                                v[:, :, s - keep:], slots)
+            kvcache.cache_write_span(cache, k[:, :, s - keep:],
+                                     v[:, :, s - keep:], s - keep, w)
     elif isinstance(cache, kvcache.PagedAttnCache):
         bs = cache.k.shape[-2]
         mb = block_table.shape[1]
@@ -420,8 +475,13 @@ def attn_mixer(cfg, p, x, positions, *, window: int, mode: str, cache,
         kv_len = torch.clamp(pos + 1, max=w)
         out = decode_attention(q, kf, vf, kv_len=kv_len,
                                window=0)  # the ring buffer bounds the window
+    # rows split by query (`ctx`) come whole again before the heads are
+    # flattened into the output projection's rows: the residual stream
+    # keeps JAX's ("batch", "seq", None), where JAX's MLP constraint wants
+    # it whole (identity outside a mesh context)
+    out = logical_constraint(out, ("batch", "heads", None, None))
     out = out.transpose(1, 2).reshape(b, s, -1)
-    return out @ p.wo
+    return logical_constraint(out @ p.wo, ("batch", "seq", None))
 
 
 def _block_of(block_table, pos, bs: int):
@@ -566,6 +626,8 @@ def _apply_layer(cfg, spec: LayerSpec, p, x, positions, *, mode, cache=None,
     if spec.mixer not in ("attn", "local", "mla", "ssd", "rec") \
             or spec.ffn not in ("mlp", "moe", "none"):
         raise _unsupported_layer(spec)
+    if placed.is_placed(x):
+        p = placed.gather_fsdp(p)     # this layer's weights, FSDP-style
     h = apply_norm(cfg, p.ln1, x)
     if spec.mixer == "mla":
         out = mla_mixer(cfg, p.mixer, h, positions, mode=mode, cache=cache,
@@ -596,7 +658,10 @@ def _apply_layer(cfg, spec: LayerSpec, p, x, positions, *, mode, cache=None,
     if spec.ffn == "none":
         return x, 0.0
     if spec.ffn == "mlp":
-        return x + mlp(cfg, p.ffn, apply_norm(cfg, p.ln2, x)), 0.0
+        # the MLP's row-parallel sum lands whole on the residual's
+        # placement (identity outside a mesh context)
+        return logical_constraint(x + mlp(cfg, p.ffn, apply_norm(
+            cfg, p.ln2, x)), ("batch", "seq", None)), 0.0
     mask = (None if token_mask is None
             else token_mask[:, None].expand(x.shape[:2]))
     y, aux = moe.moe_block(cfg, p.ffn, apply_norm(cfg, p.ln2, x),
@@ -658,6 +723,14 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
             for seg in arch_segments(cfg)]
 
 
+def _cache_shapes(cfg: ArchConfig, batch: int, max_len: int) -> list:
+    """`init_cache`'s tree as meta tensors, made with every dispatch mode
+    off: a trace records nothing of it, and nothing is allocated."""
+    from torch.utils._python_dispatch import _disable_current_modes
+    with _disable_current_modes():
+        return init_cache(cfg, batch, max_len, device="meta")
+
+
 def init_cross(cfg: ArchConfig, batch: int, frames: int, *,
                dtype=torch.float32, device=DEFAULT_DEVICE) -> list:
     """Per segment, {"l{i}": CrossKV} of (L, B, Hkv, F, hd) zeros for each
@@ -680,8 +753,12 @@ def init_cross(cfg: ArchConfig, batch: int, frames: int, *,
 def _embed_tokens(cfg, params, tokens, pos=None):
     """Token embeddings, plus the learned positions of a model that has
     them: rows 0..S-1 at prefill; at decode (`pos` (B,)) each sequence's
-    own row, clamped to the table's last."""
-    x = params.embed[tokens.long()]
+    own row, clamped to the table's last. On a placed table, the
+    vocabulary-parallel lookup (`dist.placed.embedding`)."""
+    if placed.is_placed(params.embed):
+        x = placed.embedding(params.embed, tokens)
+    else:
+        x = params.embed[tokens.long()]
     if cfg.max_positions:
         if pos is None:
             x = x + params.pos_embed[:tokens.shape[1]][None]
@@ -692,9 +769,10 @@ def _embed_tokens(cfg, params, tokens, pos=None):
 
 
 def _logits(cfg, params, x):
-    x = apply_norm(cfg, params.final_norm, x)
+    x = apply_norm(cfg, placed.gather_fsdp(params.final_norm), x)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
-    return x @ head
+    return logical_constraint(x @ placed.gather_fsdp(head),
+                              ("batch", "seq", "vocab"))
 
 
 class ServeState(NamedTuple):
@@ -778,6 +856,7 @@ def forward_train(cfg: ArchConfig, params, tokens: torch.Tensor, *,
         enc_out = run_encoder(cfg, params, frames.to(x.device, x.dtype))
     if cfg.patch_tokens:
         x = torch.cat([patches.to(x.device, x.dtype), x], dim=1)
+    x = logical_constraint(x, ("batch", "seq", None))
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -833,7 +912,14 @@ def forward_prefill(cfg: ArchConfig, params, tokens: torch.Tensor, *,
         x = torch.cat([patches.to(x.device, x.dtype), x], dim=1)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)
-    caches = init_cache(cfg, b, max_len, device=x.device)
+    ctx = sh.current_context()
+    if ctx is not None and placed.is_placed(x):
+        # the state pinned to its serving placement: each rank allocates
+        # its slice (`launch.specs.cache_entries`)
+        caches = placed.state_zeros(_cache_shapes(cfg, b, max_len), *ctx,
+                                    device=x.to_local().device)
+    else:
+        caches = init_cache(cfg, b, max_len, device=x.device)
     cross = init_cross(cfg, b, 0 if enc_out is None else enc_out.shape[1],
                        dtype=x.dtype, device=x.device)
     for ls, lp, lc, lx in _layers(cfg, params, caches, cross):

@@ -102,19 +102,21 @@ def _class_words(num_classes: int, class_bits) -> torch.Tensor:
 
 
 def class_slices_from_table(table: torch.Tensor) -> torch.Tensor:
-    """(M, N_f, E) {0,1} table -> class slices (N_f, E) (or (N_f, E, P)):
-    entry [f, h] holds bit m = table[m, f, h] (layout in
-    `kernels/wnn_ensemble.py`)."""
-    return _class_words(table.shape[0], lambda c: table[c])
+    """(M, N_f, E) {0,1} table -> class slices (N_f, E) (or (N_f, E, P);
+    (N_f, E / epb) for M <= 4): entry [f, h] holds bit m = table[m, f, h]
+    (layout in `kernels/wnn_ensemble.py`)."""
+    return wnn_ensemble.pack_entries(
+        _class_words(table.shape[0], lambda c: table[c]), table.shape[0])
 
 
 def class_slices_from_words(words: torch.Tensor, entries: int) -> torch.Tensor:
-    """(M, N_f, W) bitplanes -> the same class slices (N_f, E[, P]) as
+    """(M, N_f, W) bitplanes -> the same class slices as
     `class_slices_from_table` on their unpacked table, one class unpacked
     at a time."""
     words = words.view(torch.int32) if words.dtype == torch.uint32 else words
-    return _class_words(words.shape[0],
-                        lambda c: unpack_words(words[c:c + 1], entries)[0])
+    return wnn_ensemble.pack_entries(_class_words(
+        words.shape[0], lambda c: unpack_words(words[c:c + 1], entries)[0]),
+        words.shape[0])
 
 
 def class_mask_words(mask: torch.Tensor) -> torch.Tensor:
@@ -123,10 +125,16 @@ def class_mask_words(mask: torch.Tensor) -> torch.Tensor:
     return _class_words(mask.shape[0], lambda c: mask[c])
 
 
-def table_from_class_slices(slices: torch.Tensor,
-                            num_classes: int) -> torch.Tensor:
+def table_from_class_slices(slices: torch.Tensor, num_classes: int,
+                            entries: int | None = None) -> torch.Tensor:
     """Class slices (N_f, E[, P]) -> the (M, N_f, E) int8 {0,1} table they
-    hold; the inverse of `class_slices_from_table`."""
+    hold; the inverse of `class_slices_from_table`. Sub-byte slices
+    (M <= 4) unpack to their padded entry count unless `entries` cuts
+    them to E."""
+    if slices.ndim == 2:
+        slices = wnn_ensemble.unpack_entries(slices, num_classes)
+        if entries is not None:
+            slices = slices[:, :entries]
     words = slices if slices.ndim == 3 else slices[..., None]
     width = wnn_ensemble.element_bits(slices.dtype)
     words = words.to(torch.int64) & ((1 << width) - 1)
@@ -154,7 +162,11 @@ class PackedTables:
     one load (`class_slices_from_words`, `class_mask_words`); `slices`
     and `class_masks` are per-submodel views of them. Tables that are
     only ever stacked into a tenant fleet (`stack_tenants`) never build
-    them. The words stay as the artifact has them.
+    them. The words stay as the artifact has them, unless
+    `release_words` drops them once the slices exist (a class-sharded
+    rank, whose slices are all it serves from): `words` is then None,
+    `plane_words()` rebuilds them from the slices on demand, and the plain
+    CPU path reads the slices (`runtime.packed_scores`).
     """
     words: tuple
     masks: tuple
@@ -176,6 +188,26 @@ class PackedTables:
                 f"h3s={len(self.h3s)} entries={len(self.entries)}")
         self.validate()
 
+    def release_words(self, columns: int | None = None) -> "PackedTables":
+        """Build the kernel arguments (if they are not built yet; `columns`
+        as `build_kernel_args` takes it), then drop the uint32 words:
+        the class slices hold every bit of them. Readers that still want
+        word planes call `plane_words()`."""
+        if self._kernel_args is None:
+            self.build_kernel_args(columns)
+        self.words = None
+        return self
+
+    def plane_words(self) -> tuple:
+        """The (M, N_f, W) int32 word planes: `words`, or, once they were
+        released, rebuilt from the class slices (one submodel at a time,
+        not kept)."""
+        if self.words is not None:
+            return self.words
+        return tuple(
+            pack_words(table_from_class_slices(sl, self.num_classes, e))
+            for sl, e in zip(self.slices, self.entries))
+
     @property
     def kernel_args(self) -> wnn_ensemble.EnsembleArgs:
         """The ensemble's launch arguments, built on first use."""
@@ -190,7 +222,7 @@ class PackedTables:
         self._kernel_args = wnn_ensemble.ensemble_args(
             self.perms, self.h3s,
             [class_slices_from_words(w, e)
-             for w, e in zip(self.words, self.entries)],
+             for w, e in zip(self.plane_words(), self.entries)],
             [class_mask_words(m) for m in self.masks], self.num_classes,
             columns=columns)
         return self
@@ -207,14 +239,15 @@ class PackedTables:
 
     @property
     def num_submodels(self) -> int:
-        return len(self.words)
+        return len(self.masks)
 
     @property
     def device(self) -> torch.device:
         return self.bias.device
 
     def to(self, device) -> "PackedTables":
-        """The same tables on `device` (self when already there)."""
+        """The same tables on `device` (self when already there); released
+        words stay released there."""
         device = torch.device(device)
         if self.device == device:
             return self
@@ -222,10 +255,14 @@ class PackedTables:
         def mv(ts):
             return tuple(t.to(device) for t in ts)
 
-        return PackedTables(words=mv(self.words), masks=mv(self.masks),
-                            perms=mv(self.perms), h3s=mv(self.h3s),
-                            bias=self.bias.to(device), entries=self.entries,
-                            num_classes=self.num_classes)
+        moved = PackedTables(words=mv(self.plane_words()),
+                             masks=mv(self.masks), perms=mv(self.perms),
+                             h3s=mv(self.h3s), bias=self.bias.to(device),
+                             entries=self.entries,
+                             num_classes=self.num_classes)
+        if self.words is None:
+            moved.release_words(self.kernel_args.columns)
+        return moved
 
     def validate(self) -> None:
         """Per-submodel geometry validation, mirroring `ops.wnn_scores`."""
@@ -250,9 +287,10 @@ class PackedTables:
                              f"(M,)=({self.num_classes},)")
 
     def table_bytes(self) -> int:
-        """Packed table storage in bytes: 4 bytes per word."""
-        return sum(int(w.shape[0]) * int(w.shape[1]) * int(w.shape[2]) * 4
-                   for w in self.words)
+        """Packed table storage in bytes: 4 bytes per word (what the words
+        take, held or released)."""
+        return sum(int(m.shape[0]) * int(m.shape[1]) * word_count(e) * 4
+                   for m, e in zip(self.masks, self.entries))
 
     def slice_bytes(self) -> int:
         """Class-sliced table storage in bytes (what the kernel probes)."""
@@ -281,7 +319,7 @@ class PackedTables:
             raise ValueError(
                 f"class range [{lo}, {hi}) outside [0, {self.num_classes})")
         return PackedTables(
-            words=tuple(w[lo:hi] for w in self.words),
+            words=tuple(w[lo:hi] for w in self.plane_words()),
             masks=tuple(m[lo:hi] for m in self.masks),
             perms=self.perms, h3s=self.h3s, bias=self.bias[lo:hi],
             entries=self.entries, num_classes=hi - lo)

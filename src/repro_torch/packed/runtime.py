@@ -55,7 +55,9 @@ def packed_scores(pt: PackedTables, bits, *, backend: str = "auto",
     dev = resolve_device(device)
     pt = pt.to(dev)
     bits = torch.as_tensor(bits).to(dev)
-    if dev.type == "cuda":
+    if dev.type == "cuda" or pt.words is None:
+        # on the CPU, tables whose words were released: the plain
+        # ensemble version over their class slices
         # the kernel reads any one-byte {0,1} rows as they are
         if bits.dtype not in (torch.int8, torch.uint8, torch.bool):
             bits = bits.to(torch.int8)
@@ -146,13 +148,24 @@ class ClassShardedTables:
     class: `local` (a `PackedTables` or a `core.export.UnpackedTables`)
     holds classes [lo, lo + M/S) of the ensemble's `num_classes`, where S
     is the degree of `class_axes`. Scores through it are the full (B, M)
-    matrix on every rank (`class_sharded_scores`)."""
+    matrix on every rank (`class_sharded_scores`).
+
+    A `PackedTables` shard keeps its class slices only: its uint32 words
+    are released here (`PackedTables.release_words`), building the kernel
+    arguments first where they are not built yet. The slices hold every
+    bit of the words; at 2 classes a rank they take 2 bits an entry, the
+    same bytes as the words (`kernels.wnn_ensemble.entry_bits`)."""
     local: object
     mesh: object
     rules: sh.ShardingRules
     class_axes: tuple
     num_classes: int
     lo: int
+
+    def __post_init__(self):
+        if isinstance(self.local, PackedTables) \
+                and self.local.words is not None:
+            self.local.release_words()
 
     @property
     def device(self) -> torch.device:

@@ -216,6 +216,34 @@ def test_wnn_ensemble_kernel_equals_plain_version(gen, m, subs, total_bits,
     assert torch.equal(got_f, want)
 
 
+@pytest.mark.parametrize("route_bits", [6272, 70001])
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5])
+def test_wnn_ensemble_kernel_sub_byte_classes_equal_plain_version(
+        gen, m, route_bits):
+    """Up to 4 classes an entry takes 1, 2 or 4 bits (5 classes: a byte):
+    bit-equal to the plain version on both routes, the global gather at
+    the first shapes past 65,536 columns, at the ULN-XL ensemble's
+    submodel geometry a class-sharded rank of 2 classes holds."""
+    subs = ((16, 11, 2), (24, 13, 2), (32, 15, 2))
+    art = seeded_artifact(m * 13 + route_bits, m, subs, route_bits)
+    bits = torch.randint(0, 2, (133, route_bits), generator=gen,
+                         device="cuda", dtype=torch.int8)
+    pt = export.prepare_artifact(art, backend="auto")
+    args = pt.kernel_args
+    assert args.route == ("shared_tile" if route_bits <= 65536
+                          else "global_gather")
+    epb = {1: 8, 2: 4, 3: 2, 4: 2, 5: 1}[m]
+    assert [s_.shape[1] for s_ in pt.slices] == [
+        2 ** log2e // epb for _, log2e, _ in subs]
+    want = ref.wnn_ensemble_ref(bits, pt.perms, pt.h3s, pt.slices,
+                                pt.class_masks, pt.bias)
+    before = kernels.launch_counts()["packed_wnn"]
+    got = kernels.packed_wnn_ensemble(bits, pt)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["packed_wnn"] == before + 1
+    assert torch.equal(got, want)
+
+
 def test_wnn_ensemble_kernel_reads_rows_wider_than_its_perms(gen):
     """Rows may run past the last input the perms read (here past the
     65536 columns a tile holds): the kernel stages only those columns."""
@@ -898,6 +926,84 @@ def test_h3_operator_equals_its_direct_launch_and_its_fake(gen):
                                                          (tuples, params)))
     assert kernels.h3_hash.launches == before + 1
     assert (tuple(fake.shape), fake.dtype) == (tuple(got.shape), got.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_operator_equals_its_direct_launch_and_its_fake(gen, dtype):
+    """`repro_torch::flash_attention` at a Llama 3.2 3B prefill shape (24
+    query heads over 8 KV heads, D 128) equals the direct `ctypes` launch
+    bit for bit, counts one launch (none under a fake trace), and its
+    fake has the real output's shape and dtype."""
+    import importlib
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    dt = getattr(torch, dtype)
+    q = torch.randn((2, 24, 1024, 128), generator=gen, device="cuda").to(dt)
+    k = torch.randn((2, 8, 1024, 128), generator=gen, device="cuda").to(dt)
+    v = torch.randn((2, 8, 1024, 128), generator=gen, device="cuda").to(dt)
+    before = kernels.flash_attention.launches
+    got = torch.ops.repro_torch.flash_attention(q, k, v, True, 0,
+                                                128 ** -0.5, 0)
+    assert kernels.flash_attention.launches == before + 1
+    want = torch.empty_like(got)
+    fa.launch_direct(q, k, v, want, True, 0, 128 ** -0.5, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    with FakeTensorMode() as mode:
+        fake = torch.ops.repro_torch.flash_attention(
+            *_fake_like(mode, (q, k, v)), True, 0, 128 ** -0.5, 0)
+    assert kernels.flash_attention.launches == before + 1
+    assert (tuple(fake.shape), fake.dtype) == (tuple(got.shape), got.dtype)
+
+
+def test_flash_ctx_shard_with_q_offset_equals_rows_of_the_full_call(gen):
+    """A query-sequence shard (the `ctx` placement: 24 heads cannot split
+    over 16) attends over the whole K and V from its offset: each of 4
+    shards' rows equal the same rows of the full call, bit for bit (the
+    kernel's tiles see the same keys in the same order)."""
+    q = torch.randn((1, 24, 2048, 128), generator=gen, device="cuda")
+    k = torch.randn((1, 8, 2048, 128), generator=gen, device="cuda")
+    v = torch.randn((1, 8, 2048, 128), generator=gen, device="cuda")
+    full = kernels.flash_attention(q, k, v, causal=True)
+    n = 2048 // 4
+    for c in range(4):
+        part = kernels.flash_attention(q[:, :, c * n:(c + 1) * n].contiguous(),
+                                       k, v, causal=True, q_offset=c * n)
+        torch.cuda.synchronize()
+        assert torch.equal(part, full[:, :, c * n:(c + 1) * n]), c
+
+
+def test_thermometer_operators_equal_their_direct_launches_and_fakes(gen):
+    import importlib
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    th = importlib.import_module("repro_torch.kernels.thermometer")
+    x = torch.rand((4099, 784), generator=gen, device="cuda")
+    thr = torch.sort(torch.rand((784, 7), generator=gen, device="cuda"),
+                     dim=1).values
+    counts = torch.randint(0, 8, (4099, 784), generator=gen, device="cuda",
+                           dtype=torch.uint8)
+    b_enc = kernels.thermometer_encode.launches
+    b_dec = kernels.thermometer_decompress.launches
+    enc = torch.ops.repro_torch.thermometer_encode(x, thr)
+    dec = torch.ops.repro_torch.thermometer_decompress(counts, 7)
+    assert kernels.thermometer_encode.launches == b_enc + 1
+    assert kernels.thermometer_decompress.launches == b_dec + 1
+    want_enc, want_dec = torch.empty_like(enc), torch.empty_like(dec)
+    th.encode_direct(x, thr, want_enc)
+    th.decompress_direct(counts, want_dec)
+    torch.cuda.synchronize()
+    assert torch.equal(enc, want_enc) and torch.equal(dec, want_dec)
+    assert torch.equal(enc, ref.thermometer_ref(x, thr))
+    assert torch.equal(dec, ref.decompress_ref(counts, 7))
+    with FakeTensorMode() as mode:
+        f_enc = torch.ops.repro_torch.thermometer_encode(
+            *_fake_like(mode, (x, thr)))
+        f_dec = torch.ops.repro_torch.thermometer_decompress(
+            *_fake_like(mode, (counts,)), 7)
+    assert kernels.thermometer_encode.launches == b_enc + 1
+    assert kernels.thermometer_decompress.launches == b_dec + 1
+    for f, r in ((f_enc, enc), (f_dec, dec)):
+        assert (tuple(f.shape), f.dtype) == (tuple(r.shape), r.dtype)
 
 
 def test_fused_wnn_reads_no_perm_and_stays_bit_equal_at_uln_l(gen):

@@ -403,27 +403,42 @@ def test_pack_words_matches_jax_and_round_trips(log2e):
     (1, 3, torch.uint8, 1), (8, 6, torch.uint8, 1), (9, 5, torch.int16, 1),
     (10, 7, torch.int16, 1), (16, 4, torch.int16, 1), (17, 6, torch.int32, 1),
     (32, 5, torch.int32, 1), (33, 6, torch.int32, 2), (40, 8, torch.int32, 2),
-    (100, 3, torch.int32, 4)])
+    (100, 3, torch.int32, 4), (2, 5, torch.uint8, 1), (3, 4, torch.uint8, 1),
+    (4, 6, torch.uint8, 1), (1, 2, torch.uint8, 1)])
 def test_class_slices_from_words_and_tables_agree_and_invert(m, log2e, dtype,
                                                              planes):
     """Built from an int8 table and from its JAX-packed words, the class
     slices are the same narrowest words, hold bit m = table[m, f, h], and
-    turn back into the table and its planes."""
+    turn back into the table and its planes. Up to 4 classes an entry is
+    1, 2 or 4 bits (8 / bits entries a byte, the last byte padded with
+    zero entries where E is smaller)."""
+    from repro_torch.kernels import wnn_ensemble
     rng = np.random.default_rng(m * 31 + log2e)
     e = 2 ** log2e
     table = rng.random((m, 13, e)) < 0.4
     from_table = layout.class_slices_from_table(torch.from_numpy(table))
     from_words = layout.class_slices_from_words(port_words(table), e)
     assert from_table.dtype == dtype and from_words.dtype == dtype
-    want_shape = (13, e) if planes == 1 else (13, e, planes)
+    epb = wnn_ensemble.entries_per_element(m)
+    bits = wnn_ensemble.entry_bits(m)
+    assert bits == (8 * from_table.element_size() if m > 4
+                    else {1: 1, 2: 2, 3: 4, 4: 4}[m])
+    want_shape = ((13, -(-e // epb)) if planes == 1
+                  else (13, e, planes))
     assert tuple(from_table.shape) == want_shape
     assert torch.equal(from_table, from_words)
-    words = from_table.numpy().astype(np.int64).reshape(13, e, planes)
-    words &= (1 << (8 * from_table.element_size())) - 1
+    raw = from_table.numpy().astype(np.int64)
+    if epb > 1:
+        raw = (raw[..., None] >> (np.arange(epb) * bits)) & ((1 << bits) - 1)
+        raw = raw.reshape(13, -1)
+        assert not raw[:, e:].any()          # padding entries hold 0
+        raw = raw[:, :e]
+    words = raw.reshape(13, e, planes)
+    words &= (1 << min(bits, 8 * from_table.element_size())) - 1
     for c in range(m):
         np.testing.assert_array_equal((words[..., c // 32] >> (c % 32)) & 1,
                                       table[c])
-    back = layout.table_from_class_slices(from_words, m)
+    back = layout.table_from_class_slices(from_words, m, e)
     np.testing.assert_array_equal(back.numpy(), table.astype(np.int8))
     np.testing.assert_array_equal(
         layout.pack_words(back).numpy().view(np.uint32),
@@ -446,7 +461,9 @@ def emulate_wnn_ensemble(bits, args, bias):
     classes from 32·P_b·y; chunk g -> submodel by `chunk_begin`, lane ->
     filter, the transposed perm (uint16 on the shared-tile route, int32
     on the global-gather route), params row j, slice word
-    (f·E + h)·P + P_b·y + p, mask word f·P + P_b·y + p."""
+    (f·E + h)·P + P_b·y + p, mask word f·P + P_b·y + p; for M <= 4 the
+    sub-byte slices: byte f·E/epb + h/epb, bits (h % epb)·bits, with E
+    the descriptor's padded entries."""
     from repro_torch.kernels import wnn_ensemble
     desc = args.desc.numpy()
     index = np.uint16 if args.route == "shared_tile" else np.int32
@@ -457,6 +474,11 @@ def emulate_wnn_ensemble(bits, args, bias):
     width = wnn_ensemble.element_bits(args.slices.dtype)
     slices = args.slices.numpy().astype(np.int64) & ((1 << width) - 1)
     masks = args.masks.numpy().astype(np.int64) & ((1 << width) - 1)
+    epb = wnn_ensemble.entries_per_element(m)
+    if epb > 1:     # one element per entry, as the kernel's shifts read it
+        bits_e = 8 // epb
+        slices = ((slices[:, None] >> (np.arange(epb) * bits_e))
+                  & ((1 << bits_e) - 1)).reshape(-1)
     out = np.zeros((bits.shape[0], m), np.int64)
     for y in range(-(-planes // block)):
         w0 = block * y
@@ -473,7 +495,7 @@ def emulate_wnn_ensemble(bits, args, bias):
                 resp = np.tile(masks[m_off + f * planes + words],
                                (bits.shape[0], 1))
                 for j in range(k):
-                    at = s_off + (f * e + h[:, j])[:, None] * planes
+                    at = s_off * epb + (f * e + h[:, j])[:, None] * planes
                     resp &= slices[at + words[None]]
                 for c in range(32 * w0, min(m, 32 * (w0 + block))):
                     out[:, c] += (resp[:, c // 32 - w0] >> (c % 32)) & 1
@@ -489,7 +511,10 @@ def emulate_wnn_ensemble(bits, args, bias):
     (129, ((5, 3, 2), (9, 4, 1)), 60, 3),    # two class groups
     (200, ((6, 3, 3),), 50, 2),              # seven words, groups of 4 + 3
     (10, ((4, 3, 2), (7, 4, 2)), 70000, 2),  # past 65536: int32 perms
-    (130, ((8, 4, 2),), 250000, 2)])         # both at once
+    (130, ((8, 4, 2),), 250000, 2),          # both at once
+    (2, ((7, 3, 1), (12, 6, 2)), 97, 5),     # sub-byte: 2 bits an entry
+    (3, ((9, 4, 2),), 70000, 2),             # 4 bits, global gather
+    (4, ((5, 2, 3), (6, 1, 1)), 40, 3)])     # E = 4 and 2: padded bytes
 def test_ensemble_args_address_what_the_plain_version_reads(m, subs,
                                                             total_bits, b):
     """The flat arguments one launch takes (transposed perms, descriptor

@@ -1,7 +1,8 @@
-"""The dense LM path's pieces that DTensor cannot place by itself, or
-would place badly: the attention launch, the cache writes, the decode
-attention over a cache whose sequence is sharded, the embedding, the
-weights' FSDP gathers and the loss.
+"""The LM path's pieces that DTensor cannot place by itself, or would
+place badly: the attention launch, the cache writes, the decode
+attention over a cache whose sequence is sharded (GQA's and MLA's
+absorbed form), the embedding, the weights' FSDP gathers, the loss, and
+the helpers the placed MoE block (`models/moe.py`) runs its rows on.
 
 `dist.sharding` places the parameters and activations as DTensors and
 constrains them where the JAX package does; DTensor then propagates
@@ -42,6 +43,19 @@ made explicit:
   and one of the (B, H, Dv) partial outputs: the log-sum-exp combine.
   The probabilities are rounded to the cache's dtype as the one-device
   function rounds them, from the same global maximum and sum.
+* `mla_decode_attention`: the same combine for MLA's absorbed decode
+  over the latent cache (B, W, r), whose W and whose heads both take
+  `model`: each rank absorbs its heads' queries, gathers them for every
+  head, scores every head against its positions and applies its heads'
+  `w_uv` after the combine.
+* The MoE block's rows: `local_rows`, `gather_rows` (a group's expert
+  choices across the batch shards), `local_param` (a weight whose
+  gradient is a partial sum over the batch shards), and `sum_over` /
+  `grad_sum_over` (Megatron's g and f: a partial output summed over the
+  mesh dims that split the experts, and its replicated inputs'
+  gradients summed over the same dims).
+* A cache leaf's sequence is dim 2 for GQA (B, Hkv, W, ...) and dim 1
+  for MLA's latent (B, W, ...): the writes take `seq_dim`.
 
 Nothing here runs on a plain tensor: the callers test `is_placed`.
 """
@@ -108,6 +122,70 @@ def sum_over(local: torch.Tensor, mesh, dims) -> torch.Tensor:
     summed (the identity over no dim)."""
     dims = tuple(dims)
     return _SumOver.apply(local, mesh, dims) if dims else local
+
+
+class _GradSumOver(torch.autograd.Function):
+    """Identity forward; backward, the gradient summed over the mesh dims
+    `dims`: a replicated input of a computation split over those dims,
+    each rank's gradient its part of the whole (Megatron's f)."""
+
+    @staticmethod
+    def forward(ctx, local, mesh, dims):
+        ctx.mesh, ctx.dims = mesh, dims
+        return local.view_as(local)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _SumOver.forward(None, grad, ctx.mesh, ctx.dims), None, None
+
+
+def grad_sum_over(local: torch.Tensor, mesh, dims) -> torch.Tensor:
+    """`local` itself, its gradient summed over the mesh dims `dims`
+    (`_GradSumOver`; the identity over no dim)."""
+    dims = tuple(dims)
+    return _GradSumOver.apply(local, mesh, dims) if dims else local
+
+
+def batch_dims(x) -> tuple:
+    """The mesh dims that split dim 0 (the batch) of placed `x`."""
+    return tuple(i for i, d in _shard_dims(x).items() if d == 0)
+
+
+def split_dims(w, dims) -> tuple:
+    """The mesh dims that split any of the dims `dims` of placed `w`."""
+    return tuple(i for i, d in _shard_dims(w).items() if d in dims)
+
+
+def local_rows(x, rows) -> torch.Tensor:
+    """This rank's rows of placed `x`, whole on every other dim: its batch
+    shard over the mesh dims `rows`, replicated elsewhere."""
+    return _keep(x, {i: 0 for i in rows}).to_local()
+
+
+def local_param(w, rows) -> torch.Tensor:
+    """This rank's shard of a placed weight used on its batch rows only:
+    its gradient is this rank's part of a sum over the batch's mesh dims
+    `rows` (a partial sum there, the weight's own placement elsewhere)."""
+    from torch.distributed.tensor import Partial, Shard
+    return w.to_local(grad_placements=[
+        Partial() if i in rows and not isinstance(p, Shard) else p
+        for i, p in enumerate(w.placements)])
+
+
+def gather_rows(local: torch.Tensor, mesh, rows, n: int) -> torch.Tensor:
+    """The (n, ...) whole of row shards split over the mesh dims `rows`
+    (outermost first), on every rank: an all-gather."""
+    from torch.distributed.tensor import Replicate, Shard
+    placements = [Shard(0) if i in rows else Replicate()
+                  for i in range(mesh.ndim)]
+    return wrap(local, mesh, placements,
+                (n, *local.shape[1:])).full_tensor()
+
+
+def whole(x) -> torch.Tensor:
+    """A placed tensor gathered whole on every rank; a plain one as it is
+    (a global value, as DTensor's implicit replication takes it)."""
+    return x.full_tensor() if is_placed(x) else x
 
 
 def _keep(x, keep_dims: dict):
@@ -177,14 +255,16 @@ def _like_cache(x, cache_leaf, seq_dim: int):
     return _keep(x, keep).to_local()
 
 
-def cache_write(cache_leaf, payload, start: int, keep: int, width: int):
+def cache_write(cache_leaf, payload, start: int, keep: int, width: int,
+                seq_dim: int = 2):
     """Prefill: write payload positions 0..keep-1 at slots
-    (start + i) % width of the placed cache leaf (B, Hkv, W, ...), in
-    place: each rank writes the slots its slice holds (a static set: the
-    positions are known when the program is made)."""
+    (start + i) % width of the placed cache leaf, whose sequence is dim
+    `seq_dim` ((B, Hkv, W, ...) for GQA, (B, W, ...) for MLA's latent),
+    in place: each rank writes the slots its slice holds (a static set:
+    the positions are known when the program is made)."""
     local = cache_leaf.to_local()
-    pay = _like_cache(payload, cache_leaf, 2)
-    w0, wl = _seq_range(cache_leaf, 2)
+    pay = _like_cache(payload, cache_leaf, seq_dim).to(local.dtype)
+    w0, wl = _seq_range(cache_leaf, seq_dim)
     pairs = [(i, (start + i) % width - w0) for i in range(keep)
              if 0 <= (start + i) % width - w0 < wl]
     if not pairs:
@@ -193,30 +273,31 @@ def cache_write(cache_leaf, payload, start: int, keep: int, width: int):
     dst = [j for _, j in pairs]
     if dst == list(range(dst[0], dst[0] + len(dst))) and \
             src == list(range(src[0], src[0] + len(src))):
-        local[:, :, dst[0]:dst[0] + len(dst)] = \
-            pay[:, :, src[0]:src[0] + len(src)]
+        local.narrow(seq_dim, dst[0], len(dst)).copy_(
+            pay.narrow(seq_dim, src[0], len(src)))
     else:
         dev = local.device
-        local[:, :, torch.tensor(dst, device=dev)] = pay[
-            :, :, torch.tensor(src, device=dev)]
+        local.index_copy_(seq_dim, torch.tensor(dst, device=dev),
+                          pay.index_select(seq_dim, torch.tensor(
+                              src, device=dev)))
 
 
-def cache_write_at(cache_leaf, payload, slot):
-    """Decode: write payload (B, Hkv, 1, ...) row b at position slot[b]
-    of the placed cache leaf, in place, on the rank whose slice holds it
-    (every rank runs the same masked read-modify-write)."""
+def cache_write_at(cache_leaf, payload, slot, seq_dim: int = 2):
+    """Decode: write payload row b (one position on dim `seq_dim`) at
+    position slot[b] of the placed cache leaf, in place, on the rank whose
+    slice holds it (every rank runs the same masked read-modify-write)."""
     local = cache_leaf.to_local()
-    pay = _like_cache(payload, cache_leaf, 2)[:, :, 0]
+    pay = _like_cache(payload, cache_leaf, seq_dim).select(seq_dim, 0)
     slot_l = _like_rows(slot, cache_leaf)
-    w0, wl = _seq_range(cache_leaf, 2)
+    w0, wl = _seq_range(cache_leaf, seq_dim)
     li = slot_l.to(torch.long) - w0
     mine = (li >= 0) & (li < wl)
     li = li.clamp(0, wl - 1)
     rows = torch.arange(local.shape[0], device=local.device)
-    old = local[rows, :, li]
+    at = (rows,) + (slice(None),) * (seq_dim - 1) + (li,)
+    old = local[at]
     shape = (-1,) + (1,) * (old.ndim - 1)
-    local[rows, :, li] = torch.where(mine.view(shape), pay.to(local.dtype),
-                                     old)
+    local[at] = torch.where(mine.view(shape), pay.to(local.dtype), old)
 
 
 def _like_rows(x, cache_leaf):
@@ -275,6 +356,63 @@ def decode_attention(q, k, v, *, kv_len, window: int = 0, scale=None):
     placements = [Shard(0) if i in batch_keep else Replicate()
                   for i in range(mesh.ndim)]
     return wrap(out, mesh, placements, (q.shape[0], hq, 1, dv))
+
+
+def mla_decode_attention(qn, qr, w_uk, w_uv, ckv, krope, *, kv_len,
+                         scale: float):
+    """Placed absorbed MLA decode: qn (B, 1, H, nd) and qr (B, 1, H, rd)
+    against the placed latent cache ckv (B, W, r) and rotary keys krope
+    (B, W, rd), whose W is sharded; positions at or past kv_len (B,)
+    masked. Each rank maps its heads' queries through its `w_uk` heads
+    (r, H, nd), gathers the absorbed queries (B, H, r) over the heads'
+    mesh dims, scores every head against its own cache positions in
+    float32 and makes the softmax whole over the cache's mesh dims with
+    the log-sum-exp combine of `decode_attention` (maximum, sum, and the
+    (B, H, r) latent context). `w_uv` is applied to its heads after the
+    combine. Returns (B, 1, H·vd) on the cache's batch shards and
+    `w_uv`'s head shards."""
+    import torch.distributed._functional_collectives as fc
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = ckv.device_mesh
+    cd = _shard_dims(ckv)
+    seq_mesh_dims = [i for i, d in cd.items() if d == 1]
+    batch = {i: 0 for i, d in cd.items() if d == 0}
+    heads = {i: 1 for i, d in _shard_dims(w_uk).items() if d == 1}
+    qn_l = _keep(qn, {**batch, **{i: 2 for i in heads}}).to_local()[:, 0]
+    qr_l = _keep(qr, batch).to_local()[:, 0].float()        # (B, H, rd)
+    wk = w_uk.to_local().float()                            # (r, H_l, nd)
+    q_abs = torch.einsum("bhn,rhn->bhr", qn_l.float(), wk)
+    b, h = q_abs.shape[0], qn.shape[2]
+    hp = [Shard(1) if i in heads else Shard(0) if i in batch
+          else Replicate() for i in range(mesh.ndim)]
+    q_abs = _keep(wrap(q_abs, mesh, hp, (qn.shape[0], h, q_abs.shape[2])),
+                  batch).to_local()                         # (B, H, r)
+    ckv_l = ckv.to_local().float()                          # (B, W_l, r)
+    kr_l = krope.to_local().float()
+    w0, wl = dim_offset(ckv, 1), ckv_l.shape[1]
+    scores = (torch.einsum("bhr,bwr->bhw", q_abs, ckv_l)
+              + torch.einsum("bhd,bwd->bhw", qr_l, kr_l)) * scale
+    kv = _like_rows(kv_len, ckv).to(torch.long)
+    mask = torch.arange(w0, w0 + wl, device=ckv_l.device)[None] < kv[:, None]
+    scores = scores.masked_fill(~mask[:, None], NEG_INF)
+    groups = [mesh.get_group(i) for i in seq_mesh_dims]
+    m = scores.amax(dim=-1, keepdim=True)
+    for grp in groups:
+        m = fc.wait_tensor(fc.all_reduce(m, "max", grp))
+    e = torch.exp(scores - m)
+    total = e.sum(dim=-1, keepdim=True)
+    for grp in groups:
+        total = fc.wait_tensor(fc.all_reduce(total, "sum", grp))
+    ctx = torch.einsum("bhw,bwr->bhr", e / total, ckv_l)
+    for grp in groups:
+        ctx = fc.wait_tensor(fc.all_reduce(ctx, "sum", grp))
+    h0 = dim_offset(w_uv, 1)
+    wv = w_uv.to_local().float()                            # (r, H_l, vd)
+    out = torch.einsum("bhr,rhv->bhv", ctx[:, h0:h0 + wv.shape[1]], wv)
+    vd = wv.shape[2]
+    op = [Shard(2) if i in heads else Shard(0) if i in batch
+          else Replicate() for i in range(mesh.ndim)]
+    return wrap(out.reshape(b, 1, -1), mesh, op, (qn.shape[0], 1, h * vd))
 
 
 def embedding(table, tokens):

@@ -33,9 +33,10 @@ chosen cell for real on the card at its single-pod shard shapes (the
 fake group makes the collectives no-ops), for the card's check of the
 records' memory and kernel launches (`chip_smoke.py`).
 
-The LM cells (the JAX `lower_cell`) of the dense GQA family
-(`PLACED_ARCHS`: Llama 3.2 3B, Qwen 2.5 14B, Minitron 8B, Qwen 1.5 32B)
-trace the same way, placed on DTensor (`dist.sharding`, `dist.placed`):
+The LM cells (the JAX `lower_cell`) of the dense GQA family and the MoE
+family (`PLACED_ARCHS`: Llama 3.2 3B, Qwen 2.5 14B, Minitron 8B, Qwen 1.5
+32B, Mixtral 8x7B, DeepSeek-V2-Lite) trace the same way, placed on
+DTensor (`dist.sharding`, `dist.placed`, the MoE block in `models/moe.py`):
 `trace_lm_cell` makes this rank's shards of the step's arguments as fake
 tensors (`launch/specs.py`: parameters, AdamW state, inputs, the decode
 state after a `seq_len` prefill), wraps them as DTensors inside the step
@@ -70,13 +71,17 @@ ULEEN_SHAPES = ("train_mnist_scale", "train_host_exec", "infer_mnist_scale",
                 "infer_packed_scale", "infer_sharded_scale",
                 "infer_multitenant_scale")
 RANK = 0            # the rank whose program a cell traces
-# the archs whose placement the port has (the dense GQA family); the
-# other families wait for DTensor rules of their operators
-PLACED_ARCHS = ("llama3p2_3b", "qwen2p5_14b", "minitron_8b", "qwen1p5_32b")
+# the archs whose placement the port has (the dense GQA family, and the
+# MoE family: Mixtral's tensor-parallel experts and banded window,
+# DeepSeek-V2-Lite's expert-parallel experts and MLA); the other
+# families wait for DTensor rules of their operators
+PLACED_ARCHS = ("llama3p2_3b", "qwen2p5_14b", "minitron_8b", "qwen1p5_32b",
+                "mixtral_8x7b", "deepseek_v2_lite_16b")
 LM_WAITS = ("the dry run of this family is not ported yet: it waits for "
-            "the placement of its operators on DTensor (MoE dispatch, "
-            "MLA's absorbed decode, the SSD and RG-LRU scans, cross "
-            "attention, patch rows; ROADMAP Queue 1, item 6.5)")
+            "the placement of its operators on DTensor (Mamba 2's SSD "
+            "scan, RecurrentGemma's RG-LRU scan and local MQA ring, "
+            "Whisper's encoder and cross attention, InternVL2's patch "
+            "rows; ROADMAP Queue 1, item 6.5)")
 EXEC_STEPS, PARITY_STEPS = 3, 2
 RANK_TIMEOUT_S = 900
 _EXEC_RUNS: dict = {}     # rank device -> (first tag, the ranks' results)
@@ -437,7 +442,8 @@ def run_uleen_exec_cell(multi_pod: bool, out_dir, *, analyze: bool = False,
 
 
 # ---------------------------------------------------------------------------
-# The LM cells (JAX `lower_cell`): the dense family, placed on DTensor
+# The LM cells (JAX `lower_cell`): the dense and MoE families, placed on
+# DTensor
 # ---------------------------------------------------------------------------
 
 def _pair_leaves(obj, ent) -> list:
@@ -761,7 +767,11 @@ def run_lm_rank_program(arch: str, shape_name: str, *, cfg=None,
     vocabulary, the decode state's positions at its last row), one
     warm-up step, then one step with the allocator's peak reset after the
     arguments exist. Returns the measured peak and argument bytes and the
-    kernel launches of the measured step."""
+    kernel launches of the measured step. `args_bytes` (allocated when
+    the step starts) exceeds the arguments' own bytes
+    (`arg_tensor_bytes`) by what outlives a step outside the program:
+    the BLAS libraries' workspaces, which no traced operator
+    allocates."""
     from repro_torch import kernels
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.launch import mesh as mesh_mod
@@ -792,6 +802,9 @@ def run_lm_rank_program(arch: str, shape_name: str, *, cfg=None,
         step, placed_args, _ = lm_cell_args(cfg, shape, mesh, make)
         args = tuple(a.local for a in placed_args)
         del placed_args
+        from repro_torch.launch import graph_cost
+        arg_tensor_bytes = sum(t.numel() * t.element_size()
+                               for _, t in graph_cost.flatten(args))
 
         def call():
             with sh.use_placement(mesh, rules):
@@ -809,7 +822,7 @@ def run_lm_rank_program(arch: str, shape_name: str, *, cfg=None,
         launches = {k: v for k, v in kernels.launch_counts().items() if v}
         result = {"arch": arch, "shape": shape_name, "launches": launches,
                   "layers": cfg.num_layers, "mesh": _mesh_name(mesh),
-                  "rank": RANK}
+                  "rank": RANK, "arg_tensor_bytes": arg_tensor_bytes}
         if dev.type == "cuda":
             result.update(peak_bytes=torch.cuda.max_memory_allocated(dev),
                           args_bytes=args_bytes)

@@ -264,12 +264,29 @@ class _Memory(TorchDispatchMode):
             self.reads.append(HostRead("_local_scalar_dense", _where()))
             return _zero_like(args[0])
         out = func(*args, **(kwargs or {}))
+        if func is torch.ops._c10d_functional.wait_tensor.default:
+            # on the device it returns its input, the collective's buffer:
+            # a fake result is a new storage, which holds the input alive
+            # and counts nothing of its own
+            self.alias(out, args[0])
+            return out
         # every output, views too: a view shares a storage that is held
         # already, but an aliasing operator may copy (`aten.to` of a
         # DTensor to another dtype) and then its output is new
         for t in _tensor_leaves(out):
             self.hold(t)
         return out
+
+    def alias(self, out: torch.Tensor, of: torch.Tensor) -> None:
+        """`out`'s storage as `of`'s: no bytes of its own, and `of` live
+        while `out` is."""
+        st = out.untyped_storage()
+        key = id(st)
+        if key in self.refs:
+            return
+        out._alias_of = of
+        self.refs[key] = weakref.ref(
+            st, lambda _, key=key: self.refs.pop(key, None))
 
 
 def _tensor_leaves(val):

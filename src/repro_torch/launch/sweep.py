@@ -6,8 +6,8 @@ sweep down.
     PYTHONPATH=src python -m repro_torch.launch.sweep --out build/dryrun
 
 By default it covers the archs whose placement the port has
-(`launch.dryrun.PLACED_ARCHS`, the dense GQA family), every shape of each
-(`configs.shapes_for`) on both production meshes. `--archs` names others;
+(`launch.dryrun.PLACED_ARCHS`, the dense GQA and MoE families), every
+shape of each (`configs.shapes_for`) on both production meshes. `--archs` names others;
 an arch whose family still waits for its placement counts as a failure,
 with the ROADMAP item it waits for. `--jobs` runs that many cells at
 once (the traces are single-threaded host work); `--layers N` cuts every
@@ -94,6 +94,9 @@ def main(argv=None) -> int:
                 except (OSError, ValueError):
                     pass
             todo.append((tag, arch, shp, mesh))
+    # the training cells first: they trace longest, and started last they
+    # would set the sweep's wall time
+    todo.sort(key=lambda c: c[2] != "train_4k")
     os.makedirs(args.out, exist_ok=True)
     t_start = time.time()
     fails = list(waiting)

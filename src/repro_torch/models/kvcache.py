@@ -379,11 +379,34 @@ def mla_cache_write(cache: MLACache, ckv_new: torch.Tensor,
     return cache
 
 
+def mla_cache_write_span(cache: MLACache, ckv_new: torch.Tensor,
+                         krope_new: torch.Tensor, start: int,
+                         width: int) -> MLACache:
+    """`mla_cache_write` at slots (start + i) % width for the T new
+    entries, the ring a prefill fills; on a placed cache (`dist.placed`,
+    the sequence on dim 1) each rank writes the slots its slice holds.
+    Returns `cache`."""
+    from repro_torch.dist import placed
+    t = ckv_new.shape[1]
+    if not placed.is_placed(cache.ckv):
+        return mla_cache_write(cache, ckv_new, krope_new, torch.arange(
+            start, start + t, device=cache.ckv.device) % width)
+    for leaf, x in ((cache.ckv, ckv_new), (cache.krope, krope_new)):
+        placed.cache_write(leaf, x, start, t, width, seq_dim=1)
+    return cache
+
+
 def mla_cache_write_at(cache: MLACache, ckv_new: torch.Tensor,
                        krope_new: torch.Tensor,
                        slot: torch.Tensor) -> MLACache:
     """Decode write, in place: one entry per sequence at its own slot.
-    ckv_new (B, 1, r); krope_new (B, 1, rd); slot (B,) int."""
+    ckv_new (B, 1, r); krope_new (B, 1, rd); slot (B,) int. On a placed
+    cache the rank whose slice holds a row's slot writes it."""
+    from repro_torch.dist import placed
+    if placed.is_placed(cache.ckv):
+        for leaf, x in ((cache.ckv, ckv_new), (cache.krope, krope_new)):
+            placed.cache_write_at(leaf, x, slot, seq_dim=1)
+        return cache
     rows = torch.arange(cache.ckv.shape[0], device=cache.ckv.device)
     slot = slot.to(torch.long)
     cache.ckv[rows, slot] = ckv_new[:, 0].to(cache.ckv.dtype)

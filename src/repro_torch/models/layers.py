@@ -175,6 +175,9 @@ def banded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     and skips the tiles outside the band, so `q_block` and `remat_body`
     (facts of the XLA program) are accepted and ignored."""
     del q_block, remat_body
+    if placed.is_placed(q):     # rank shards; a `ctx` shard's row offset
+        return placed.attention(q, k, v, attend=ops.flash_attention,
+                                causal=True, window=window, scale=scale)
     return ops.flash_attention(q, k, v, causal=True, window=window,
                                scale=scale)
 

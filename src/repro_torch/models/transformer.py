@@ -548,7 +548,8 @@ def mla_mixer(cfg, p, x, positions, *, mode: str, cache, pos=None,
                      cfg.v_head_dim)
     scale = 1.0 / ((nd + rd) ** 0.5)
 
-    q = (x @ p.wq).view(b, s, h, nd + rd)
+    heads = ("batch", "heads", "ctx", None)
+    q = _constrain_heads(x @ p.wq, h, heads).view(b, s, h, nd + rd)
     qn, qr = q[..., :nd], q[..., nd:]
     qr = apply_rope(qr, positions, cfg.rope_theta)
     dkv = x @ p.w_dkv
@@ -559,22 +560,38 @@ def mla_mixer(cfg, p, x, positions, *, mode: str, cache, pos=None,
     if mode in ("prefill", "train"):
         # plain products over the latent (the JAX package's einsums), so
         # k and v come out contiguous with real strides for the kernel;
-        # the shared rotary key is copied into every head's columns
-        kn = (ckv @ p.w_uk.reshape(r, h * nd)).view(b, s, h, nd)
-        v = (ckv @ p.w_uv.reshape(r, h * vd)).view(b, s, h, vd)
-        k = torch.cat([kn, kr[:, :, None].expand(b, s, h, rd)], dim=-1)
+        # the shared rotary key is copied into every head's columns. On
+        # a mesh q, k and v are placed by heads, as JAX constrains them
+        # (`dist.placed.attention` then runs each rank's heads)
+        kv_heads = ("batch", "heads", None, None)
+        kn = _constrain_heads(ckv @ p.w_uk.reshape(r, h * nd), h,
+                              kv_heads).view(b, s, h, nd)
+        v = _constrain_heads(ckv @ p.w_uv.reshape(r, h * vd), h,
+                             kv_heads).view(b, s, h, vd)
+        kr_h = kr[:, :, None].expand(b, s, h, rd)
+        if placed.is_placed(kn):      # the shared key's copy on kn's heads
+            kr_h = kr_h.redistribute(kn.device_mesh, kn.placements)
+        k = torch.cat([kn, kr_h], dim=-1)
         qf = torch.cat([qn, qr], dim=-1)
         out = chunked_attention(qf.transpose(1, 2), k.transpose(1, 2),
                                 v.transpose(1, 2), causal=True,
                                 chunk=cfg.attn_chunk, scale=scale,
                                 remat_body=cfg.inner_remat)
+        out = logical_constraint(out, ("batch", "heads", None, None))
         out = out.transpose(1, 2).reshape(b, s, h * vd)
         if mode == "prefill":
             w = cache.ckv.shape[-2]
             keep = min(w, s)
-            slots = torch.arange(s - keep, s, device=x.device) % w
-            kvcache.mla_cache_write(cache, ckv[:, s - keep:],
-                                    kr[:, s - keep:], slots)
+            kvcache.mla_cache_write_span(cache, ckv[:, s - keep:],
+                                         kr[:, s - keep:], s - keep, w)
+    elif placed.is_placed(cache.ckv):
+        # the latent's positions split over `model` as the heads are:
+        # each rank scores its positions for every head (`dist.placed`)
+        w = cache.ckv.shape[1]
+        kvcache.mla_cache_write_at(cache, ckv, kr, pos % w)
+        out = placed.mla_decode_attention(
+            qn, qr, p.w_uk, p.w_uv, cache.ckv, cache.krope,
+            kv_len=torch.clamp(pos + 1, max=w), scale=scale).to(x.dtype)
     else:
         if isinstance(cache, kvcache.PagedMLACache):
             bs = cache.ckv.shape[-2]
@@ -601,7 +618,9 @@ def mla_mixer(cfg, p, x, positions, *, mode: str, cache, pos=None,
         ctx = torch.einsum("bhw,bwr->bhr", attn, ckv_all)
         out = torch.einsum("bhr,rhv->bhv", ctx, p.w_uv.float())
         out = out.reshape(b, 1, h * vd).to(x.dtype)
-    return out @ p.wo
+    # the row-parallel output projection's sum, whole on the residual's
+    # placement (identity outside a mesh context)
+    return logical_constraint(out @ p.wo, ("batch", "seq", None))
 
 
 # ---------------------------------------------------------------------------
@@ -665,8 +684,8 @@ def _apply_layer(cfg, spec: LayerSpec, p, x, positions, *, mode, cache=None,
     mask = (None if token_mask is None
             else token_mask[:, None].expand(x.shape[:2]))
     y, aux = moe.moe_block(cfg, p.ffn, apply_norm(cfg, p.ln2, x),
-                           token_mask=mask)
-    return x + y, aux
+                           token_mask=mask, need_aux=mode == "train")
+    return logical_constraint(x + y, ("batch", "seq", None)), aux
 
 
 def _unsupported_layer(spec: LayerSpec) -> NotImplementedError:

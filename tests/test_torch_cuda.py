@@ -973,6 +973,52 @@ def test_flash_ctx_shard_with_q_offset_equals_rows_of_the_full_call(gen):
         assert torch.equal(part, full[:, :, c * n:(c + 1) * n]), c
 
 
+@pytest.mark.parametrize("b,s", [(2, 8192), (1, 4096)])
+def test_flash_bf16_window_at_mixtral_rank_shard(gen, b, s):
+    """The bf16 route with Mixtral's sliding window of 4096 at one rank's
+    shard of the placed prefill and train cells (`dist.placed.attention`:
+    32 heads over `model` = 16, the 8 KV heads replicated): 2 query heads
+    over the one KV head they share, D 128, q a head slice of the
+    (B, S, H, hd) projection and K, V one head of the (B, S, 8, hd) keys
+    (transposed views, as the rank hands them over); within the bf16
+    tolerance of `ref.attention_ref`."""
+    q = torch.randn((b, s, 2, 128), generator=gen,
+                    device="cuda").bfloat16().transpose(1, 2)
+    k, v = (torch.randn((b, s, 8, 128), generator=gen,
+                        device="cuda").bfloat16().transpose(1, 2)[:, 3:4]
+            for _ in range(2))
+    before = kernels.flash_attention.launches
+    got = kernels.flash_attention(q, k, v, causal=True, window=4096)
+    torch.cuda.synchronize()
+    assert kernels.flash_attention.launches == before + 1
+    want = ref.attention_ref(q, k, v, causal=True, window=4096)
+    assert got.shape == want.shape == (b, 2, s, 128)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.parametrize("b,s", [(2, 8192), (1, 4096)])
+def test_flash_bf16_mla_at_deepseek_rank_shard(gen, b, s):
+    """The bf16 (192, 128) route at one DeepSeek head, a rank's shard of
+    the placed prefill and train cells (16 heads over `model` = 16): q
+    and k the rank's (B, S, 1, 192) concatenations, v its (B, S, 1, 128)
+    values, transposed; within the bf16 tolerance of
+    `ref.attention_ref`."""
+    q, k = (torch.randn((b, s, 1, 192), generator=gen,
+                        device="cuda").bfloat16().transpose(1, 2)
+            for _ in range(2))
+    v = torch.randn((b, s, 1, 128), generator=gen,
+                    device="cuda").bfloat16().transpose(1, 2)
+    before = kernels.flash_attention.launches
+    got = kernels.flash_attention(q, k, v, causal=True, scale=192 ** -0.5)
+    torch.cuda.synchronize()
+    assert kernels.flash_attention.launches == before + 1
+    want = ref.attention_ref(q, k, v, causal=True, scale=192 ** -0.5)
+    assert got.shape == want.shape == (b, 1, s, 128)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
 def test_thermometer_operators_equal_their_direct_launches_and_fakes(gen):
     import importlib
     from torch._subclasses.fake_tensor import FakeTensorMode

@@ -58,12 +58,13 @@ def shard_bytes(shape, spec, jm, itemsize) -> int:
     return n * itemsize
 
 
-def jax_parts(shape_name, multi_pod) -> dict:
-    """{part: bytes a rank} of the JAX cell's arguments under JAX's rules
-    on the stand-in mesh: parameters and AdamW state by `param_logical`,
-    inputs by the data arguments' logical axes, the decode state by
-    `cache_shardings`' classification."""
-    jcfg = dataclasses.replace(jget_config("llama3p2_3b"), num_layers=LAYERS)
+def jax_parts(shape_name, multi_pod, *, arch="llama3p2_3b",
+              layers=LAYERS) -> dict:
+    """{part: bytes a rank} of `arch`'s JAX cell at `layers` layers under
+    JAX's rules on the stand-in mesh: parameters and AdamW state by
+    `param_logical`, inputs by the data arguments' logical axes, the
+    decode state by `cache_shardings`' classification."""
+    jcfg = dataclasses.replace(jget_config(arch), num_layers=layers)
     shape = JSHAPES[shape_name]
     jm = jmesh(multi_pod)
     train = shape.kind == "train"

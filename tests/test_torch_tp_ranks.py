@@ -35,16 +35,19 @@ def config(heads):
     return cfg
 
 
-def run(cfg, plan, *, place=None, state_after_prefill=None) -> dict:
+def run(cfg, plan, *, place=None, state_after_prefill=None,
+        decode_states=None) -> dict:
     """The prefill, two decode steps and one float32 AdamW(LR) train step of
     `plan` (numpy tokens and labels), on one device or, with `place` (a
     DeviceMesh), placed on that mesh. Everything comes back whole, as
     numpy, the state after the prefill too (`state`, in
-    `graph_cost.flatten` order). `state_after_prefill` (such leaves)
+    `graph_cost.flatten` order, with its leaves' dtypes `state_dtypes`). `state_after_prefill` (such leaves)
     replaces the prefill's state before the decode steps: the bf16 cache
     rounds float32 values that differ in their last bits between two
     programs to different bf16 neighbours, so the decode steps are held
-    to each other on one state."""
+    to each other on one state. The state before and after each decode
+    step comes back too (`states`, `after`), and `decode_states` (lists
+    of `states`' leaves) replaces the state before each step."""
     from repro_torch.launch import graph_cost
     params = transformer.init_params(
         cfg, torch.Generator().manual_seed(plan["seed"]), device="cpu")
@@ -78,16 +81,27 @@ def run(cfg, plan, *, place=None, state_after_prefill=None) -> dict:
             p, {"tokens": put(tokens, ("batch", "seq"))})
         out["prefill"] = whole(logits)
         out["state"] = [whole(t) for _, t in graph_cost.flatten(state)]
+        out["state_dtypes"] = [t.dtype for _, t in graph_cost.flatten(state)]
         if state_after_prefill is not None:
             state = graph_cost.rebuild(state, iter(
                 torch.from_numpy(a).to(t.dtype) for a, (_, t) in zip(
                     state_after_prefill, graph_cost.flatten(state),
                     strict=True)))
         decode = steps.make_decode_step(cfg)
+        out["states"] = []
         for i in range(nxt.shape[1]):
+            if decode_states is not None:
+                state = graph_cost.rebuild(state, iter(
+                    torch.from_numpy(a).to(t.dtype) for a, (_, t) in zip(
+                        decode_states[i], graph_cost.flatten(state),
+                        strict=True)))
+            out["states"].append([whole(t) for _, t in
+                                  graph_cost.flatten(state)])
             logits, state = decode(p, put(nxt[:, i:i + 1].contiguous(),
                                           ("batch", None)), state)
             out[f"decode{i}"] = whole(logits)
+            out.setdefault("after", []).append(
+                [whole(t) for _, t in graph_cost.flatten(state)])
     ctx, put, put_params = placed("train")
     with ctx:
         p = put_params(params)
@@ -127,3 +141,50 @@ def plan_for(heads, mesh, seed=0) -> dict:
                 np.int32),
             "next": rng.integers(0, cfg.vocab_size, (4, 2)).astype(
                 np.int32)}
+
+
+def moe_plan(arch, mesh, *, batch=8, seq=24, seed=0) -> dict:
+    """Numpy tokens, labels and two decode tokens of a (batch, seq) batch
+    of `arch`'s smoke config, to run on `mesh` = (shape, axes)."""
+    rng = np.random.default_rng(seed)
+    v = get_config(arch, smoke=True).vocab_size
+    return {"arch": arch, "mesh": mesh, "seed": seed,
+            "tokens": rng.integers(0, v, (batch, seq)).astype(np.int32),
+            "labels": rng.integers(0, v, (batch, seq)).astype(np.int32),
+            "next": rng.integers(0, v, (batch, 2)).astype(np.int32)}
+
+
+def run_tapped(plan, *, place=None, decode_states=None) -> dict:
+    """`run` of the plan's smoke MoE arch, with every MoE routing's group
+    capacity, expert choices and kept choices recorded in call order
+    (`taps`: the prefill's layers, each decode step's, then the train
+    step's): a placed block records the groups it routes, which on a
+    rank whose rows do not make whole groups are the groups its rows
+    belong to, routed from their gathered choices."""
+    from repro_torch.models import moe
+    taps = []
+    queue = moe._queue
+
+    def tapped(cfg, onehot, mask=None):
+        out = queue(cfg, onehot, mask)
+        taps.append({"cap": out[3], "idx": onehot.argmax(-1).numpy(),
+                     "keep": out[2].numpy().copy()})
+        return out
+    moe._queue = tapped
+    try:
+        out = run(get_config(plan["arch"], smoke=True), plan, place=place,
+                  decode_states=decode_states)
+    finally:
+        moe._queue = queue
+    out["taps"] = taps
+    return out
+
+
+def moe_rank(rank, world, plans) -> list:
+    """One gloo rank of the placed MoE runs: each plan on its
+    plan["mesh"]. Every rank returns its results (its taps are its own
+    groups'; its arrays are whole)."""
+    del rank, world
+    torch.set_num_threads(1)
+    return [run_tapped(plan, place=mesh_mod.make_mesh(*plan["mesh"]))
+            for plan in plans]

@@ -194,6 +194,7 @@ never calls it).
 """
 from __future__ import annotations
 
+import atexit
 import collections
 import dataclasses
 import gc
@@ -202,6 +203,8 @@ import json
 import math
 import os
 import re
+import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -4727,65 +4730,137 @@ def dryrun_path(kernels, *, export, wnn_ensemble, h3_mod):
 
 
 # ---------------------------------------------------------------------------
-# The LM dry run: the six cells of Llama 3.2 3B (dense), Mixtral 8x7B
-# (tensor-parallel experts, banded window) and DeepSeek-V2-Lite
-# (expert-parallel experts, MLA) traced on the production meshes (the
-# card's program), then rank 0's program of each one's single-pod cells
-# run for real against the records
+# The LM dry run: the cells of Llama 3.2 3B (dense), Mixtral 8x7B
+# (tensor-parallel experts, banded window), DeepSeek-V2-Lite
+# (expert-parallel experts, MLA), Mamba 2 2.7B (the SSD mixer by heads)
+# and RecurrentGemma 2B (the RG-LRU by channels, the local MQA by query
+# rows) traced on the production meshes (the card's program), then rank
+# 0's program of each one's single-pod cells run for real against the
+# records
 # ---------------------------------------------------------------------------
 
 LM_DRYRUN_OUT = ROOT / "build" / "lm_dryrun"
-LM_DRYRUN_ARCHS = ("llama3p2_3b", "mixtral_8x7b", "deepseek_v2_lite_16b")
+LM_DRYRUN_ARCHS = ("llama3p2_3b", "mixtral_8x7b", "deepseek_v2_lite_16b",
+                   "mamba2_2p7b", "recurrentgemma_2b")
 # layers of each arch the phase traces and runs (full width; DeepSeek's
-# dense layer and one MoE layer): a train cell's trace runs its 16
-# microbatches through every layer twice (an eager pass for memory, one
-# for the graph), tens of seconds a layer on the host; the full-depth
-# sweep runs by hand (`python -m repro_torch.launch.sweep`, PERF.md)
+# dense layer and one MoE layer; RecurrentGemma's `--layers 2` rounds up
+# to its one whole (rec, rec, local) pattern, so that its local layer's
+# flash kernel runs): a train cell's trace runs its 16 microbatches
+# through every layer twice (an eager pass for memory, one for the
+# graph), tens of seconds a layer on the host; the full-depth sweep runs
+# by hand (`python -m repro_torch.launch.sweep`, PERF.md)
 LM_DRYRUN_LAYERS = 2
-LM_DRYRUN_TIMEOUT_S = 600
-# the most a rank run may find allocated past its step's arguments when
-# the step starts: the cuBLAS workspace PyTorch keeps (64 MiB on an
-# H100) and 1 MiB for the small buffers the libraries keep besides (up to
-# 288 KiB on an H100, Mixtral's train_4k). Past it, a buffer the record
-# does not count would be taken off the peak unseen.
+# the sweep is host work only (fake tensors: nothing on the card), so it
+# starts in the background right after the build, LM_DRYRUN_JOBS cells
+# at a time, leaving the other cores to the card's phases, and
+# `lm_dryrun_path` waits for it at most LM_DRYRUN_TIMEOUT_S from its start
+LM_DRYRUN_JOBS = 4
+LM_DRYRUN_TIMEOUT_S = 900
+# 6k: the flash kernel at a rank's shard of RecurrentGemma's local MQA in
+# the placed prefill_32k: bf16, D 256, 10 query heads over one KV head, a
+# window of 2048; the heads cannot take `model`, so the last rank's 2048
+# query rows start at 30,720, past the window, against all 32,768 keys
+LM_DRYRUN_FLASH_CASE = dict(
+    name="recurrentgemma_local_rank_b2_sq2048_off30720_sk32768_w2048_bf16",
+    row="6k", b=2, h=10, hkv=1, sq=2048, sk=32768, d=256, window=2048,
+    q_offset=30720, dtype=torch.bfloat16)
+# the most a rank run may find allocated past what its arguments took
+# when the measured step starts (its warm-up's leftovers, or an earlier
+# cell's in the same process): the cuBLAS workspaces PyTorch keeps (2 x
+# 32 MiB on an H100, the forward's thread and the autograd engine's) and
+# 1 MiB besides. Past it, a buffer the
+# record does not count would be taken off the peak unseen. The
+# allocator's slack at the arguments (rounding, and a large block's tail
+# below 1 MiB, which it does not split off: 1440 KiB at RecurrentGemma's
+# embedding and its two moments) stays in the peak.
 LM_OUTSIDE_LIMIT = 65 * 2 ** 20
 
 
-def lm_dryrun_path(kernels):
-    """`launch.sweep --archs LM_DRYRUN_ARCHS --layers LM_DRYRUN_LAYERS` in
-    a subprocess (20 cells: train_4k, prefill_32k and decode_32k of each
-    arch, and Mixtral's long_500k, on both meshes; one process each, six
-    at a time), every record ok with no wnnlint error; then
-    `launch.dryrun --rank-run` of each arch's cells on one pod (one
-    process an arch, the three at once): rank 0's real program on
-    the card at its shard shapes, its max_memory_allocated less what
-    outlives a step outside the program (`args_bytes` past the arguments'
-    own bytes: the BLAS workspaces, at most LM_OUTSIDE_LIMIT) held to
-    the record's peak within DRYRUN_PEAK_TOL and its flash launches to
-    the trace's `repro_torch::flash_attention` nodes. Returns the rank
-    runs' launches by kernel."""
-    t0 = time.perf_counter()
+def start_lm_dryrun_sweep():
+    """`launch.sweep --archs LM_DRYRUN_ARCHS --layers LM_DRYRUN_LAYERS`
+    started in the background, in a session of its own (so that
+    `stop_process_group` ends its cells' processes with it), its output
+    to files beside LM_DRYRUN_OUT. Returns (process, start time on the
+    wall clock, log paths)."""
+    shutil.rmtree(LM_DRYRUN_OUT, ignore_errors=True)
+    LM_DRYRUN_OUT.mkdir(parents=True)
+    logs = tuple(LM_DRYRUN_OUT.with_suffix(x) for x in (".out", ".err"))
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    layers = str(LM_DRYRUN_LAYERS)
-    run = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.sweep", "--archs",
-         *LM_DRYRUN_ARCHS, "--layers", layers, "--jobs", "6", "--out",
-         str(LM_DRYRUN_OUT)], capture_output=True, text=True, env=env,
-        cwd=ROOT, timeout=LM_DRYRUN_TIMEOUT_S)
-    sweep_s = time.perf_counter() - t0
-    records = {}
+    with open(logs[0], "w") as out, open(logs[1], "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.sweep", "--archs",
+             *LM_DRYRUN_ARCHS, "--layers", str(LM_DRYRUN_LAYERS), "--jobs",
+             str(LM_DRYRUN_JOBS), "--out", str(LM_DRYRUN_OUT)],
+            stdout=out, stderr=err, env=env, cwd=ROOT,
+            start_new_session=True)
+    atexit.register(stop_process_group, proc)
+    return proc, time.time(), logs
+
+
+def stop_process_group(proc) -> None:
+    """Kill `proc`'s session (it and every process it started) unless it
+    has ended, and reap it."""
+    if proc.poll() is None:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    proc.wait()
+
+
+def lm_dryrun_path(kernels, sweep):
+    """First the flash kernel at LM_DRYRUN_FLASH_CASE (6k) against its
+    plain version, timed beside it and one SDPA call. Then the end of
+    `sweep` (`start_lm_dryrun_sweep`: 36 cells, train_4k, prefill_32k and
+    decode_32k of each arch, and long_500k of Mixtral, Mamba 2 and
+    RecurrentGemma, on both meshes; one process each), every record ok
+    with no wnnlint error; then `launch.dryrun --rank-run` of each arch's
+    cells on one pod (one process an arch, all at once): rank 0's real
+    program on the card at its shard shapes, its max_memory_allocated
+    less what outlives a step outside the program (`args_bytes` past
+    `args_alloc_bytes`, what its arguments took: the BLAS workspaces, at
+    most LM_OUTSIDE_LIMIT) held to the record's peak within
+    DRYRUN_PEAK_TOL and its flash launches to the trace's
+    `repro_torch::flash_attention` nodes. Returns the rank runs' launches
+    by kernel and the 6k row, with the path's launches at its shape and,
+    as `rank_run_launches`, the RecurrentGemma prefill rank run's (rank
+    0's query block at offset 0, not this shape)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import plan
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    flash_row = flash_case_row(gen, ref, kernels.flash_attention, plan,
+                               LM_DRYRUN_FLASH_CASE)
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()     # the path's run starts here
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc, started, logs = sweep
+    t_wait = time.time()
+    try:
+        rc = proc.wait(timeout=max(
+            1.0, LM_DRYRUN_TIMEOUT_S - (t_wait - started)))
+    except subprocess.TimeoutExpired:
+        rc = "timeout"
+    finally:
+        stop_process_group(proc)
+    # the sweep's own time (its start to its last record's write), from
+    # its start to this read, and what this phase waited for it
+    read_s, wait_s = time.time() - started, time.time() - t_wait
+    records, sweep_s = {}, 0.0
     for arch in LM_DRYRUN_ARCHS:
         for path in sorted(LM_DRYRUN_OUT.glob(f"{arch}.*.json")):
             records[path.stem] = json.loads(path.read_text())
+            sweep_s = max(sweep_s, path.stat().st_mtime - started)
     bad = sorted(t for t, r in records.items() if not r.get("ok")
                  or r.get("analysis", {}).get("errors", 1))
     from repro_torch.configs import get_config, shapes_for
     shapes = {a: len(shapes_for(get_config(a))) for a in LM_DRYRUN_ARCHS}
     want_cells = 2 * sum(shapes.values())
-    if run.returncode or len(records) != want_cells or bad:
+    if rc or len(records) != want_cells or bad:
         raise AssertionError(f"lm_dryrun: {len(records)} records, failed "
-                             f"{bad}, rc {run.returncode}:\n"
-                             f"{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
+                             f"{bad}, rc {rc}:\n"
+                             f"{logs[0].read_text()[-3000:]}\n"
+                             f"{logs[1].read_text()[-3000:]}")
     cells = []
     for tag, r in records.items():
         roof, mem = r["roofline"], r["memory"]
@@ -4808,8 +4883,9 @@ def lm_dryrun_path(kernels):
     t1 = time.perf_counter()
     procs = {arch: subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-         "--layers", layers, "--rank-run"], stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+         "--layers", str(LM_DRYRUN_LAYERS), "--rank-run"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT)
         for arch in LM_DRYRUN_ARCHS}
     outs = {}
     try:
@@ -4832,7 +4908,7 @@ def lm_dryrun_path(kernels):
             want_peak = rec["memory"]["peak_gib"] * 2 ** 30
             # what outlives a step outside the program (the BLAS
             # libraries' workspaces: no traced operator allocates them)
-            outside = run_["args_bytes"] - run_["arg_tensor_bytes"]
+            outside = run_["args_bytes"] - run_["args_alloc_bytes"]
             ratio = (run_["peak_bytes"] - outside) / want_peak
             launched = run_["launches"].get("flash_attention", 0)
             traced = rec["op_nodes"].get("repro_torch::flash_attention", 0)
@@ -4840,6 +4916,8 @@ def lm_dryrun_path(kernels):
                            "record_peak_bytes": want_peak, "ratio": ratio,
                            "raw_ratio": run_["peak_bytes"] / want_peak,
                            "outside_bytes": outside,
+                           "args_slack_bytes": run_["args_alloc_bytes"]
+                           - run_["arg_tensor_bytes"],
                            "args_bytes": run_["args_bytes"],
                            "record_args_bytes": rec["memory"]["args_gib"]
                            * 2 ** 30, "launches": run_["launches"],
@@ -4863,12 +4941,22 @@ def lm_dryrun_path(kernels):
                                      f"!= the trace's flash nodes {traced}")
     if len(checks) != sum(shapes.values()):
         raise AssertionError(f"lm dryrun --rank-run: {len(checks)} cells ran")
+    # the path's launches at the 6k shape (none: the rank runs run in
+    # processes of their own, and rank 0's block is at offset 0), and the
+    # RecurrentGemma prefill rank run's flash launches, at that block
+    flash_row["launches"] = kernels.flash_attention.shapes[
+        flash_shape(flash_row)]
+    flash_row["rank_run_launches"] = next(
+        c["launches"].get("flash_attention", 0) for c in checks
+        if c["cell"] == "recurrentgemma_2b.prefill_32k.pod1")
     emit("lm_dryrun_path", seconds=time.perf_counter() - t0, sweep_s=sweep_s,
+         sweep_read_s=read_s, sweep_wait_s=wait_s, sweep_jobs=LM_DRYRUN_JOBS,
          rank_run_s=time.perf_counter() - t1, archs=list(LM_DRYRUN_ARCHS),
          layers=LM_DRYRUN_LAYERS, cells=cells, rank_checks=checks,
-         peak_tolerance=DRYRUN_PEAK_TOL, outside_limit=LM_OUTSIDE_LIMIT)
+         peak_tolerance=DRYRUN_PEAK_TOL, outside_limit=LM_OUTSIDE_LIMIT,
+         flash=flash_row)
     return {k: sum(c["launches"].get(k, 0) for c in checks)
-            for k in KERNEL_INFO}
+            for k in KERNEL_INFO}, flash_row
 
 
 def main() -> int:
@@ -4921,6 +5009,9 @@ def main() -> int:
                                         front_end_kernel_name),
          wnn_shared_bytes_uln_l=wnn_ensemble.shared_bytes(
              ULN_L_BITS, ULN_L["num_classes"]))
+    # host work only: it runs beside the card's phases until
+    # `lm_dryrun_path` reads it
+    lm_dryrun_sweep = start_lm_dryrun_sweep()
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     wnn = check_wnn_ensemble(gen, export, ref, kernels, wnn_ensemble)
@@ -5023,7 +5114,8 @@ def main() -> int:
     op_rows, dryrun_launches = dryrun_path(
         kernels, export=export, wnn_ensemble=wnn_ensemble, h3_mod=h3_mod)
     torch.cuda.empty_cache()
-    lm_dryrun_launches = lm_dryrun_path(kernels)
+    lm_dryrun_launches, lm_dryrun_flash = lm_dryrun_path(kernels,
+                                                         lm_dryrun_sweep)
     torch.cuda.empty_cache()
     by_path = {"uleen_serve": launches, "uleen_train": train_launches,
                "lm_serve": lm_launches, "head": head_launches,
@@ -5044,12 +5136,15 @@ def main() -> int:
          "b": row["b"], "h": row["h"], "hkv": row["hkv"],
          "d": row["d"], "dv": row["dv"], "sq": row["sq"], "sk": row["sk"],
          "causal": row["causal"], "window": row["window"],
-         "launches": row["launches"],
+         "q_offset": row.get("q_offset", 0), "launches": row["launches"],
          "path_launches": by_path[path]["flash_attention"],
+         **({"rank_run_launches": row["rank_run_launches"]}
+            if "rank_run_launches" in row else {}),
          **{k: row[k] for k in MAIN_FLASH_KEYS if k in row}}
         for path, row in (("moe", moe_flash), ("mla", mla_flash),
                           ("hybrid", hybrid_flash), *flash_path_rows,
-                          *(("lm_train", row) for row in train_flash))]
+                          *(("lm_train", row) for row in train_flash),
+                          ("lm_dryrun", lm_dryrun_flash))]
     # each kernel's launches on the path that carries it: the ULEEN serve
     # path for the WNN and front-end kernels, the train path for the hash,
     # the LM serve path for flash attention; `launches_by_path` has every

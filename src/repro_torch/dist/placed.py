@@ -54,6 +54,13 @@ made explicit:
   `grad_sum_over` (Megatron's g and f: a partial output summed over the
   mesh dims that split the experts, and its replicated inputs'
   gradients summed over the same dims).
+* The SSD and RG-LRU mixers (`placed_mixer` in `models/ssm.py` and
+  `models/rglru.py`) run on `split_of` (a rank's share of the heads the
+  rules split), `local_parts` (a weight's columns or rows that this
+  rank's heads or channels read, cut from its own shard where they are
+  that shard, else from the weight gathered whole along that dim once)
+  and `gather_last` (a serving state's or a product's columns gathered
+  whole).
 * A cache leaf's sequence is dim 2 for GQA (B, Hkv, W, ...) and dim 1
   for MLA's latent (B, W, ...): the writes take `seq_dim`.
 
@@ -144,6 +151,56 @@ def grad_sum_over(local: torch.Tensor, mesh, dims) -> torch.Tensor:
     (`_GradSumOver`; the identity over no dim)."""
     dims = tuple(dims)
     return _GradSumOver.apply(local, mesh, dims) if dims else local
+
+
+def split_of(mesh, rules, logical: str, n: int) -> tuple:
+    """(mesh dims, first index, count) of this rank's share of a dim of
+    `n` entries whose logical axis is `logical`: the rules' split of it
+    on `mesh` (outermost mesh dim first), or the whole dim where they
+    replicate it."""
+    entry = rules.resolve((logical,), mesh, shape=(n,))[0]
+    names = list(mesh.mesh_dim_names)
+    dims = tuple(names.index(a) for a in sh.entry_axes(entry))
+    coord = mesh.get_coordinate()
+    index, degree = 0, 1
+    for i in dims:
+        index = index * mesh.size(i) + coord[i]
+        degree *= mesh.size(i)
+    return dims, index * (n // degree), n // degree
+
+
+def local_parts(w, dim: int, ranges, split) -> list:
+    """The global slices [start, start + n) of placed `w` along `dim`,
+    one for each (start, n) of `ranges`, as local tensors (whole on every
+    other dim's fsdp axes as `gather_fsdp` left them). Where `w`'s own
+    shard along `dim` is the one range asked for, that shard; otherwise
+    `w` gathered whole along `dim` once, then cut. A slice's gradient is
+    this rank's term of a sum over the mesh dims `split` (the mesh dims
+    the computation is split over: batch rows, heads or channels)."""
+    from torch.distributed.tensor import Partial, Shard
+    ranges = list(ranges)
+    own = ranges == [(dim_offset(w, dim), w.to_local().shape[dim])]
+    wk = w if own else _keep(
+        w, {i: d for i, d in _shard_dims(w).items() if d != dim})
+    local = wk.to_local(grad_placements=[
+        Partial() if i in split and not isinstance(p, Shard) else p
+        for i, p in enumerate(wk.placements)])
+    if own:
+        return [local]
+    return [local.narrow(dim, start, n) for start, n in ranges]
+
+
+def gather_last(local: torch.Tensor, mesh, rows, dims, shape) -> torch.Tensor:
+    """The whole last dim of a tensor of global `shape` whose rows (dim 0)
+    split over the mesh dims `rows` and whose last dim splits over `dims`,
+    from this rank's `local` piece: an all-gather over `dims`; its rows
+    stay this rank's. Forward only (a serving state's columns)."""
+    from torch.distributed.tensor import Replicate, Shard
+    last = len(shape) - 1
+    pl = [Shard(0) if i in rows else Shard(last) if i in dims
+          else Replicate() for i in range(mesh.ndim)]
+    return _keep(wrap(local, mesh, pl, shape),
+                 {i: 0 for i in rows}).to_local()
 
 
 def batch_dims(x) -> tuple:

@@ -33,17 +33,20 @@ chosen cell for real on the card at its single-pod shard shapes (the
 fake group makes the collectives no-ops), for the card's check of the
 records' memory and kernel launches (`chip_smoke.py`).
 
-The LM cells (the JAX `lower_cell`) of the dense GQA family and the MoE
-family (`PLACED_ARCHS`: Llama 3.2 3B, Qwen 2.5 14B, Minitron 8B, Qwen 1.5
-32B, Mixtral 8x7B, DeepSeek-V2-Lite) trace the same way, placed on
-DTensor (`dist.sharding`, `dist.placed`, the MoE block in `models/moe.py`):
+The LM cells (the JAX `lower_cell`) of the dense GQA, MoE, SSM and
+hybrid families (`PLACED_ARCHS`: Llama 3.2 3B, Qwen 2.5 14B, Minitron 8B,
+Qwen 1.5 32B, Mixtral 8x7B, DeepSeek-V2-Lite, Mamba 2 2.7B,
+RecurrentGemma 2B) trace the same way, placed on DTensor
+(`dist.sharding`, `dist.placed`, the MoE block in `models/moe.py`, the
+SSD and RG-LRU mixers' `placed_mixer`):
 `trace_lm_cell` makes this rank's shards of the step's arguments as fake
 tensors (`launch/specs.py`: parameters, AdamW state, inputs, the decode
 state after a `seq_len` prefill), wraps them as DTensors inside the step
 and traces train (AdamW(1e-4), `microbatches_for`, float32 masters),
 prefill (bf16, the cache pinned to `cache_entries`) or decode (bf16).
 Records keep JAX's keys, with `trace_s`, `traced_device`, `layers` and
-`args_bytes_by_kind`; `--layers N` cuts the depth. `--rank-run --arch
+`args_bytes_by_kind`; `--layers N` cuts the depth (to whole repeats of
+the block pattern). `--rank-run --arch
 A` runs rank 0's program of A's single-pod cells for real on the card.
 `launch/sweep.py` runs one process a cell. The other families wait for
 DTensor rules of their operators: `--arch` with one of them exits 2
@@ -71,17 +74,19 @@ ULEEN_SHAPES = ("train_mnist_scale", "train_host_exec", "infer_mnist_scale",
                 "infer_packed_scale", "infer_sharded_scale",
                 "infer_multitenant_scale")
 RANK = 0            # the rank whose program a cell traces
-# the archs whose placement the port has (the dense GQA family, and the
-# MoE family: Mixtral's tensor-parallel experts and banded window,
-# DeepSeek-V2-Lite's expert-parallel experts and MLA); the other
-# families wait for DTensor rules of their operators
+# the archs whose placement the port has (the dense GQA family; the MoE
+# family: Mixtral's tensor-parallel experts and banded window,
+# DeepSeek-V2-Lite's expert-parallel experts and MLA; the SSM and hybrid
+# families: Mamba 2's SSD mixer by heads, RecurrentGemma's RG-LRU by
+# channels and its local MQA by query rows); the other families wait for
+# DTensor rules of their operators
 PLACED_ARCHS = ("llama3p2_3b", "qwen2p5_14b", "minitron_8b", "qwen1p5_32b",
-                "mixtral_8x7b", "deepseek_v2_lite_16b")
+                "mixtral_8x7b", "deepseek_v2_lite_16b", "mamba2_2p7b",
+                "recurrentgemma_2b")
 LM_WAITS = ("the dry run of this family is not ported yet: it waits for "
-            "the placement of its operators on DTensor (Mamba 2's SSD "
-            "scan, RecurrentGemma's RG-LRU scan and local MQA ring, "
-            "Whisper's encoder and cross attention, InternVL2's patch "
-            "rows; ROADMAP Queue 1, item 6.5)")
+            "the placement of its operators on DTensor (Whisper's encoder "
+            "and cross attention, InternVL2's patch rows; ROADMAP Queue 1, "
+            "item 6.5)")
 EXEC_STEPS, PARITY_STEPS = 3, 2
 RANK_TIMEOUT_S = 900
 _EXEC_RUNS: dict = {}     # rank device -> (first tag, the ranks' results)
@@ -768,10 +773,14 @@ def run_lm_rank_program(arch: str, shape_name: str, *, cfg=None,
     warm-up step, then one step with the allocator's peak reset after the
     arguments exist. Returns the measured peak and argument bytes and the
     kernel launches of the measured step. `args_bytes` (allocated when
-    the step starts) exceeds the arguments' own bytes
-    (`arg_tensor_bytes`) by what outlives a step outside the program:
-    the BLAS libraries' workspaces, which no traced operator
-    allocates."""
+    the step starts) exceeds `args_alloc_bytes` (what making the
+    arguments allocated) by what outlives a step outside the program:
+    the BLAS libraries' workspaces (this warm-up's, or an earlier cell's
+    in the same process), which no traced operator allocates.
+    `args_alloc_bytes` exceeds the arguments' own bytes
+    (`arg_tensor_bytes`) by the allocator's slack: 512-byte rounding,
+    and a large block's tail below 1 MiB, which it does not split
+    off."""
     from repro_torch import kernels
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.launch import mesh as mesh_mod
@@ -799,12 +808,18 @@ def run_lm_rank_program(arch: str, shape_name: str, *, cfg=None,
     with mesh_mod.fake_world(world, RANK):
         mesh = mesh_mod.make_production_mesh(multi_pod, RANK,
                                              device_type=dev.type)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+            before_args = torch.cuda.memory_allocated(dev)
         step, placed_args, _ = lm_cell_args(cfg, shape, mesh, make)
         args = tuple(a.local for a in placed_args)
         del placed_args
         from repro_torch.launch import graph_cost
         arg_tensor_bytes = sum(t.numel() * t.element_size()
                                for _, t in graph_cost.flatten(args))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+            args_alloc_bytes = torch.cuda.memory_allocated(dev) - before_args
 
         def call():
             with sh.use_placement(mesh, rules):
@@ -825,15 +840,21 @@ def run_lm_rank_program(arch: str, shape_name: str, *, cfg=None,
                   "rank": RANK, "arg_tensor_bytes": arg_tensor_bytes}
         if dev.type == "cuda":
             result.update(peak_bytes=torch.cuda.max_memory_allocated(dev),
-                          args_bytes=args_bytes)
+                          args_bytes=args_bytes,
+                          args_alloc_bytes=args_alloc_bytes)
         del out
     return result
 
 
 def _cut(cfg, layers):
-    """`cfg` cut to its first `layers` layers (None: whole)."""
-    return cfg if not layers else dataclasses.replace(cfg,
-                                                      num_layers=layers)
+    """`cfg` cut to its first `layers` layers (None: whole), rounded up
+    to whole repeats of its block pattern (RecurrentGemma's (rec, rec,
+    local): 2 gives 3, so the cut keeps a local layer)."""
+    if not layers:
+        return cfg
+    unit = len(cfg.block_pattern) or 1
+    return dataclasses.replace(
+        cfg, num_layers=min(cfg.num_layers, -(-layers // unit) * unit))
 
 
 def main(argv=None) -> int:
@@ -842,8 +863,9 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", choices=ARCH_IDS + ["uleen"])
     ap.add_argument("--shape", choices=list(ULEEN_SHAPES) + list(SHAPES))
     ap.add_argument("--layers", type=int, default=None,
-                    help="cut an LM arch to its first N layers (full "
-                         "width; the record says `layers`)")
+                    help="cut an LM arch to its first N layers, whole "
+                         "repeats of its block pattern (full width; the "
+                         "record says `layers`)")
     ap.add_argument("--backend", choices=["fused", "gather", "packed", "auto"],
                     default="auto",
                     help="WNN kernel backend for the uleen infer cells")

@@ -277,7 +277,11 @@ def serve_state_spec(cfg: ArchConfig, batch: int, seq_len: int,
     port's prefill step run under `FakeTensorMode` on fake parameters of
     `param_spec`'s shapes and dtypes (a tree of meta tensors,
     `launch.specs.param_specs`), so its leaves are fake tensors on
-    `device` and nothing is allocated."""
+    `device` and nothing is allocated. The prompt is one token a row, in
+    caches `seq_len` wide: every leaf has the shape and dtype it has
+    after a `seq_len` prompt (the JAX package's `serve_state_zeros` fixes
+    its tree the same way), and the trace does not walk `seq_len`
+    positions through every layer."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.launch import specs
@@ -285,7 +289,7 @@ def serve_state_spec(cfg: ArchConfig, batch: int, seq_len: int,
         params = transformer.ParamTree(specs.map_tree(
             lambda t: torch.empty(t.shape, dtype=t.dtype, device=device),
             param_spec))
-        inputs = {"tokens": torch.zeros((batch, seq_len), dtype=torch.int32,
+        inputs = {"tokens": torch.zeros((batch, 1), dtype=torch.int32,
                                         device=device)}
         if cfg.encoder_layers:
             inputs["frames"] = torch.zeros(
@@ -385,7 +389,8 @@ def serve_state_zeros(cfg: ArchConfig, params, slots: int,
     encoder-decoder model over `cfg.encoder_frames` frames, in the
     parameters' dtype)."""
     device = params.embed.device
-    caches = transformer.init_cache(cfg, slots, max_len, device=device)
+    caches = transformer.init_cache(cfg, slots, max_len, device=device,
+                                    dtype=params.embed.dtype)
     return transformer.ServeState(
         caches=caches, cross=_cross_zeros(cfg, params, slots),
         pos=torch.zeros((slots,), dtype=torch.int32, device=device))
@@ -505,7 +510,8 @@ def paged_serve_state_zeros(cfg: ArchConfig, params, slots: int,
                 num_blocks, block_size, cfg.kv_lora_rank, cfg.qk_rope_dim,
                 stack=repeat, device=device)
         return transformer._empty_layer_cache(cfg, ls, slots, max_len,
-                                              layers=repeat, device=device)
+                                              layers=repeat, device=device,
+                                              dtype=params.embed.dtype)
 
     caches = [{f"l{i}": leaf(ls, seg.repeat)
                for i, ls in enumerate(seg.layers)}

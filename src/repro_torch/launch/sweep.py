@@ -6,12 +6,15 @@ sweep down.
     PYTHONPATH=src python -m repro_torch.launch.sweep --out build/dryrun
 
 By default it covers the archs whose placement the port has
-(`launch.dryrun.PLACED_ARCHS`, the dense GQA and MoE families), every
+(`launch.dryrun.PLACED_ARCHS`, the dense GQA, MoE, SSM and hybrid
+families), every
 shape of each (`configs.shapes_for`) on both production meshes. `--archs` names others;
 an arch whose family still waits for its placement counts as a failure,
 with the ROADMAP item it waits for. `--jobs` runs that many cells at
 once (the traces are single-threaded host work); `--layers N` cuts every
-arch to its first N layers; `--device cpu` traces the CPU program.
+arch to its first N layers (as `launch.dryrun --layers` does: whole
+repeats of a block pattern, so RecurrentGemma's (rec, rec, local) takes
+3 for 2); `--device cpu` traces the CPU program.
 Records go to `--out` as `launch.dryrun --analyze` writes them, the
 wnnlint rules folded in.
 """

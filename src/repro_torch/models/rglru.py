@@ -17,15 +17,25 @@ tens of tokens at c = 8. Decode is the single-step recurrence. The
 recurrent block is conv1d + RG-LRU on one branch, GeLU on the other
 (Griffin's gated block). Plain PyTorch on every device: the JAX package
 computes all of it in XLA.
+
+Placed (x a DTensor, `dist.sharding.use_placement`), `placed_mixer` runs
+the block on each rank's batch rows and its channels of the width W:
+`w_in_rec` and `w_in_gate` split their columns over `model`, and the
+conv, the gates, `lam` and both `RGState` leaves split the same channels
+the same way, so everything up to `w_out` is local (the scan too, on
+the rank's channels), and the row-parallel `w_out` sums over `model`
+once. The JAX package puts no constraint inside the block.
 """
 from __future__ import annotations
 
+import types
 from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.dist import placed
 from repro_torch.models.layers import causal_conv
 
 C_FACTOR = 8.0
@@ -115,6 +125,44 @@ def recurrent_block_decode(cfg, p, x: torch.Tensor, cache: RGState):
     bg = _gelu(xt @ p.w_in_gate)
     y = ((br * bg) @ p.w_out)[:, None]
     return y, RGState(conv=window[:, :, 1:], h=h_new)
+
+
+def placed_mixer(cfg, p, x, *, cache: Optional[RGState] = None,
+                 decode: bool = False):
+    """The recurrent block on placed x (B, S, D) (the module docstring's
+    placement): training with no `cache`, a prefill that writes `cache`
+    (a placed `RGState` layer view), or a decode step (x (B, 1, D)) that
+    reads and advances it. `recurrent_block` or `recurrent_block_decode`
+    runs on the rank's rows and channels; their partial output is summed
+    over `model`. Returns the placed (B, S, D) output; the cache is
+    written in place."""
+    mesh = x.device_mesh
+    chans = placed.split_dims(p.w_in_rec, (1,))
+    c0, cl = placed.dim_offset(p.w_in_rec, 1), p.w_in_rec.to_local().shape[1]
+    rows = placed.batch_dims(x)
+    split = rows + chans
+    xl = placed.grad_sum_over(placed.local_rows(x, rows), mesh, chans)
+    # the rank's channels: w_out's rows, every other weight's last dim
+    lp = types.SimpleNamespace(**{
+        name: placed.local_parts(w, 0 if name == "w_out" else w.ndim - 1,
+                                 [(c0, cl)], split)[0]
+        for name in ("w_in_rec", "w_in_gate", "w_out", "conv_w", "conv_b",
+                     "w_a", "b_a", "w_x", "b_x", "lam")
+        for w in (getattr(p, name),)})
+    if cache is None:
+        out = recurrent_block(cfg, lp, xl)
+    else:
+        local = RGState(cache.conv.to_local(), cache.h.to_local())
+        if (placed.dim_offset(cache.conv, 1), local.conv.shape[1]) != (c0, cl):
+            raise NotImplementedError(
+                "placed RG-LRU: the state's channels split otherwise than "
+                "the block's")
+        out, new = (recurrent_block_decode(cfg, lp, xl, local) if decode
+                    else recurrent_block(cfg, lp, xl, return_state=True))
+        for dst, src in zip(local, new):
+            dst.copy_(src)
+    out = placed.sum_over(out, mesh, chans)
+    return placed.wrap(out, mesh, x.placements, x.shape)
 
 
 def init_rg_state(cfg, batch: int, dtype=torch.float32, *,

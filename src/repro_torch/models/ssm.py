@@ -1,15 +1,16 @@
 """Mamba-2 (SSD: state-space duality) blocks (port of
 `repro/models/ssm.py`).
 
-The sequence is processed in chunks of Q = `cfg.ssm_chunk` tokens, a Python
-loop carrying the (B, H, P, N) float32 inter-chunk state, so nothing
-quadratic in S is materialised: per chunk the Q x Q lower-triangular decay
-("intra-chunk attention"), the chunk's contribution to the running state and
-the state's contribution to the chunk's output (Dao & Gu 2024, minimal-SSD
-formulation). The chunk is kept from the JAX package: it fixes where the
-dt = 0 padding falls and how the arithmetic groups, so both run the same
-chunks. The JAX package computes all of this in XLA, outside any Pallas
-kernel, so it is plain PyTorch here on every device.
+The sequence is processed in chunks of Q = `cfg.ssm_chunk` tokens, blocks
+of chunks at once, carrying the (B, H, P, N) float32 inter-chunk state from
+chunk to chunk, so nothing quadratic in S is materialised: per chunk the
+Q x Q lower-triangular decay ("intra-chunk attention"), the chunk's
+contribution to the running state and the state's contribution to the
+chunk's output (Dao & Gu 2024, minimal-SSD formulation). The chunk is
+kept from the JAX package: it fixes where the dt = 0 padding falls and
+how the arithmetic groups, so both run the same chunks. The JAX package
+computes all of this in XLA, outside any Pallas kernel, so it is plain
+PyTorch here on every device.
 
 B and C are shared by the heads of a group: the products read each group's
 (Q, N) rows through a broadcast head axis instead of a repeated copy, the
@@ -18,16 +19,51 @@ same dot products as the JAX package's repeat.
 Decode is the O(1) recurrent update: state = state * exp(dt*A) + dt * x B^T.
 A serving state (`SSMState`) holds the rolling conv window and the SSD
 state with the layer axis first, as the port's KV caches do.
+
+Placed (x a DTensor, `dist.sharding.use_placement`), `placed_mixer` runs
+the mixer on each rank's batch rows and heads: the heads split as the
+rules split `heads` (`model`), and the JAX layouts do not line up with
+them, so the step regroups them:
+
+* `in_proj` (D, z | x | B | C | dt) splits its columns evenly over
+  `model`, across the parts. A rank needs its heads' z, x and dt
+  columns and all of B and C (one group is every head's). Prefill and
+  training gather the weight whole over `model` and cut those columns
+  (the (B, S, 2·d_in + 2GN + H) product outweighs the weight; the
+  backward reduce-scatters its gradient to the shard); a decode step's
+  product is one row a sequence, so it multiplies by its own column
+  shard and gathers the product instead.
+* The conv weights (its x channels, B and C) are gathered whole and cut
+  the same way. The decode state's conv window (B, conv_dim, K-1) is
+  placed by channel over `model`, across the parts as well: a decode
+  step gathers it whole, convolves its channels and writes the shifted
+  window of its own channels back; the prefill writes the last K-1
+  inputs of its own channels.
+* The scan runs on the rank's heads (the heads' x, dt and decay, B and C
+  whole), with no collective, and the SSD state (B, H, P, N) is placed
+  by heads, so it stays local. JAX's one constraint in the block, x
+  over ("batch", "seq", "ffn"), is this split: a rank's x channels are
+  its heads'.
+* The gated RMSNorm normalises over all of d_in: each rank's sum of
+  squares over its heads' channels is summed over `model` first.
+* `out_proj` is row-parallel: one all-reduce over `model`.
 """
 from __future__ import annotations
 
+import types
 from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.dist import placed
+from repro_torch.dist import sharding as sh
 from repro_torch.models.layers import causal_conv, rmsnorm
+
+
+# the most elements of a block's (B, chunks, H, Q, Q) float32 products
+SCAN_BLOCK_ELEMS = 1 << 26
 
 
 def _segsum(x: torch.Tensor) -> torch.Tensor:
@@ -53,7 +89,15 @@ def ssd_scan(x, dt, a, b, c, d_skip, *, chunk: int,
     b, c: (B, S, G, N); d_skip: (H,) -> (y (B, S, H, P), final state
     (B, H, P, N) float32). `remat_body` only matters for a backward pass
     (the JAX package checkpoints each chunk); it is accepted and
-    ignored."""
+    ignored.
+
+    The chunks' own parts (the intra-chunk products, each chunk's
+    contribution to the state and the decays) are computed for a block
+    of chunks at once, as many as keep the block's (B, ·, H, Q, Q)
+    float32 products within SCAN_BLOCK_ELEMS; only the inter-chunk
+    recurrence state' = state·exp(total) + contribution runs chunk by
+    chunk, two operations each. The arithmetic is the per-chunk body's,
+    so a block's results are those of its chunks one at a time."""
     del remat_body
     bsz, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
@@ -68,35 +112,48 @@ def ssd_scan(x, dt, a, b, c, d_skip, *, chunk: int,
     else:
         x_p = x
     a = a.float()
+    nc = (s + pad) // chunk
+    blk = max(1, SCAN_BLOCK_ELEMS // (bsz * h * chunk * chunk))
     state = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
     ys = []
-    for c0 in range(0, s + pad, chunk):
-        sl = slice(c0, c0 + chunk)
+    for c0 in range(0, nc, blk):
+        nb = min(blk, nc - c0)
+        sl = slice(c0 * chunk, (c0 + nb) * chunk)
+        r = bsz * nb             # the block's chunks as rows
+
+        def rows(t):             # (B, nb·Q, K, ...) -> (B·nb, K, Q, ...)
+            t = t[:, sl].float().reshape(bsz, nb, chunk, *t.shape[2:])
+            return t.transpose(2, 3).reshape(r, t.shape[3], chunk,
+                                             *t.shape[4:])
         # per-chunk float32 upcast, as the JAX body does
-        xq = x_p[:, sl].float().permute(0, 2, 1, 3)         # (B, H, Q, P)
-        dtq = dt[:, sl].float().transpose(1, 2)              # (B, H, Q)
-        bq = b[:, sl].float().transpose(1, 2)                # (B, G, Q, N)
-        cq = c[:, sl].float().transpose(1, 2)
-        da = dtq * a[None, :, None]                          # (B, H, Q)
+        xq = rows(x_p)                                       # (R, H, Q, P)
+        dtq = rows(dt[..., None])[..., 0]                    # (R, H, Q)
+        bq, cq = rows(b), rows(c)                            # (R, G, Q, N)
+        da = dtq * a[None, :, None]                          # (R, H, Q)
         # intra-chunk: L[i, j] = exp(sum_{j<k<=i} da_k)
-        ll = torch.exp(_segsum(da))                          # (B, H, Q, Q)
-        scores = cq @ bq.transpose(-1, -2)                   # (B, G, Q, Q)
+        ll = torch.exp(_segsum(da))                          # (R, H, Q, Q)
+        scores = cq @ bq.transpose(-1, -2)                   # (R, G, Q, Q)
         m = _by_group(ll, g) * scores[:, :, None] \
-            * _by_group(dtq, g)[..., None, :]                # (B, G, R, Q, K)
-        y_diag = m @ _by_group(xq, g)                        # (B, G, R, Q, P)
-        # state -> output (inter-chunk)
-        cum = torch.cumsum(da, dim=-1)                       # (B, H, Q)
-        y_off = (cq[:, :, None] @ _by_group(state, g).transpose(-1, -2)) \
-            * _by_group(torch.exp(cum), g)[..., None]        # (B, G, R, Q, P)
-        # chunk -> new state
-        total = cum[..., -1:]                                # (B, H, 1)
-        w = dtq * torch.exp(total - cum)                     # (B, H, Q)
+            * _by_group(dtq, g)[..., None, :]              # (R, G, H/G, Q, K)
+        y_diag = m @ _by_group(xq, g)                      # (R, G, H/G, Q, P)
+        cum = torch.cumsum(da, dim=-1)                       # (R, H, Q)
+        # chunk -> its contribution to the state
+        total = cum[..., -1:]                                # (R, H, 1)
+        w = dtq * torch.exp(total - cum)                     # (R, H, Q)
         contrib = (_by_group(xq * w[..., None], g).transpose(-1, -2)
-                   @ bq[:, :, None])                         # (B, G, R, P, N)
-        state = state * torch.exp(total)[..., None] \
-            + contrib.reshape(bsz, h, p, n)
-        ys.append((y_diag + y_off).reshape(bsz, h, chunk, p).to(x.dtype))
-    y = torch.cat(ys, dim=2).permute(0, 2, 1, 3)[:, :s]      # (B, S, H, P)
+                   @ bq[:, :, None]).reshape(bsz, nb, h, p, n)
+        decay = torch.exp(total).reshape(bsz, nb, h, 1, 1)
+        before = []              # the state entering each chunk
+        for j in range(nb):
+            before.append(state)
+            state = state * decay[:, j] + contrib[:, j]
+        before = torch.stack(before, 1).reshape(r, h, p, n)
+        # state -> output (inter-chunk)
+        y_off = (cq[:, :, None] @ _by_group(before, g).transpose(-1, -2)) \
+            * _by_group(torch.exp(cum), g)[..., None]      # (R, G, H/G, Q, P)
+        y = (y_diag + y_off).reshape(bsz, nb, h, chunk, p).to(x.dtype)
+        ys.append(y.transpose(2, 3).reshape(bsz, nb * chunk, h, p))
+    y = torch.cat(ys, dim=1)[:, :s]                          # (B, S, H, P)
     skip = d_skip[None, None, :, None].to(x.dtype)
     return (y + x * skip).to(x.dtype), state
 
@@ -129,69 +186,175 @@ class SSMState(NamedTuple):
         return SSMState(self.conv[i], self.state[i])
 
 
-def _split_in_proj(cfg, zxbcdt):
-    d_in = cfg.ssm_expand * cfg.d_model
-    gn = cfg.ssm_groups * cfg.ssm_state
-    return torch.split(zxbcdt, [d_in, d_in, 2 * gn,
-                                zxbcdt.shape[-1] - 2 * d_in - 2 * gn], -1)
+def _mixer(cfg, p, zxbcdt, nh: int, g: int, *,
+           cache: Optional[SSMState] = None, return_state: bool = False,
+           norm=rmsnorm):
+    """The mixer after `in_proj`, on `nh` heads of `g` groups. zxbcdt:
+    (B, S, ·), those heads' columns z | x | B | C | dt; p: the conv's
+    weights of their channels (x | B | C), their `dt_bias`, `a_log` and
+    `d_skip`, and `norm_scale` and `out_proj`'s rows of their x channels.
+    Without `cache` the chunked scan from a zero state (with
+    `return_state`, the SSMState at S-1 besides); with `cache` (its conv
+    window of those channels and state of those heads) one decode step
+    (S = 1) and the next SSMState. `norm(v, scale)` is the gated RMSNorm
+    over all of d_in. Returns out (B, S, D) [, SSMState]."""
+    bsz, s = zxbcdt.shape[:2]
+    hdim, n, k = cfg.ssm_head_dim, cfg.ssm_state, cfg.conv_kernel
+    d_in = nh * hdim
+    z, xs, bc, dt = torch.split(zxbcdt, [d_in, d_in, 2 * g * n, nh], -1)
+    xbc_raw = torch.cat([xs, bc], dim=-1)                    # (B, S, C)
+    a = -torch.exp(p.a_log)                                  # (H,)
+    if cache is None:
+        xbc = F.silu(causal_conv(xbc_raw, p.conv_w, p.conv_b))
+        xs, b, c = torch.split(xbc, [d_in, g * n, g * n], -1)
+        dt = F.softplus(dt + p.dt_bias[None, None])          # (B, S, H)
+        y, state = ssd_scan(xs.reshape(bsz, s, nh, hdim), dt, a,
+                            b.reshape(bsz, s, g, n), c.reshape(bsz, s, g, n),
+                            p.d_skip, chunk=cfg.ssm_chunk,
+                            remat_body=cfg.inner_remat)
+        y = y.reshape(bsz, s, d_in)
+        if return_state:
+            # the last k-1 inputs, zero-padded at the front so prompts
+            # shorter than the conv kernel still yield the fixed
+            # (B, C, K-1) state
+            conv = F.pad(xbc_raw, (0, 0, k - 1, 0))[:, s:, :].transpose(1, 2)
+    else:
+        window = torch.cat([cache.conv, xbc_raw[:, 0, :, None]], -1)
+        xbc = F.silu(torch.einsum("bck,kc->bc", window, p.conv_w) + p.conv_b)
+        xs, b, c = torch.split(xbc, [d_in, g * n, g * n], -1)
+        dt = F.softplus(dt[:, 0] + p.dt_bias[None])
+        state, y = ssd_decode_step(
+            cache.state, xs.reshape(bsz, nh, hdim).float(), dt.float(), a,
+            b.reshape(bsz, g, n).float(), c.reshape(bsz, g, n).float(),
+            p.d_skip)
+        y = y.reshape(bsz, 1, d_in).to(zxbcdt.dtype)
+        conv, return_state = window[:, :, 1:], True
+    out = norm(y * F.silu(z), p.norm_scale) @ p.out_proj
+    return (out, SSMState(conv=conv, state=state)) if return_state else out
+
+
+def _heads(cfg) -> int:
+    return cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
 
 
 def mamba2_block(cfg, p, x: torch.Tensor, *, return_state: bool = False):
     """Full Mamba-2 mixer. x: (B, S, D) -> (B, S, D) [, SSMState at S-1]."""
+    return _mixer(cfg, p, x @ p.in_proj, _heads(cfg), cfg.ssm_groups,
+                  return_state=return_state)
+
+
+def mamba2_decode(cfg, p, x: torch.Tensor, cache: SSMState):
+    """x: (B, 1, D) -> (y (B, 1, D), the next SSMState)."""
+    return _mixer(cfg, p, x @ p.in_proj, _heads(cfg), cfg.ssm_groups,
+                  cache=cache)
+
+
+def placed_mixer(cfg, p, x, *, cache: Optional[SSMState] = None,
+                 decode: bool = False):
+    """The Mamba-2 mixer on placed x (B, S, D) (the module docstring's
+    placement): training with no `cache`, a prefill that writes `cache`
+    (a placed `SSMState` layer view), or a decode step (x (B, 1, D)) that
+    reads and advances it. `_mixer` runs on the rank's rows and heads,
+    the gated RMSNorm's sum of squares summed over `model`; its partial
+    output is summed over `model`. Returns the placed (B, S, D) output;
+    the cache is written in place."""
     bsz, s, d = x.shape
     d_in = cfg.ssm_expand * d
     hdim = cfg.ssm_head_dim
     nh = d_in // hdim
     g, n = cfg.ssm_groups, cfg.ssm_state
     k = cfg.conv_kernel
+    mesh, rules = sh.current_context()
+    heads, h0, hl = placed.split_of(mesh, rules, "heads", nh)
+    rep = nh // g                   # heads a group
+    g0, g1 = h0 // rep, (h0 + hl - 1) // rep + 1
+    if g1 - g0 > 1 and (h0 % rep or hl % rep):
+        raise NotImplementedError(
+            f"placed Mamba 2: heads [{h0}, {h0 + hl}) split groups of "
+            f"{rep} heads")
+    gl = g1 - g0
+    rows = placed.batch_dims(x)
+    split = rows + heads
+    xl = placed.grad_sum_over(placed.local_rows(x, rows), mesh, heads)
+    # this rank's channels of the conv's x | B | C, and its columns of
+    # in_proj's z | x | B | C | dt
+    cr = [(h0 * hdim, hl * hdim), (d_in + g0 * n, gl * n),
+          (d_in + g * n + g0 * n, gl * n)]
+    pr = [(h0 * hdim, hl * hdim)] + [(d_in + a, m) for a, m in cr] + [
+        (2 * d_in + 2 * g * n + h0, hl)]
+    lp = types.SimpleNamespace(
+        **{name: torch.cat(placed.local_parts(w, w.ndim - 1, cr, split), -1)
+           for name in ("conv_w", "conv_b") for w in (getattr(p, name),)},
+        **{name: placed.local_parts(getattr(p, name), 0, [(h0, hl)],
+                                    split)[0]
+           for name in ("dt_bias", "a_log", "d_skip")},
+        norm_scale=placed.local_parts(p.norm_scale, 0,
+                                      [(h0 * hdim, hl * hdim)], split)[0],
+        out_proj=placed.local_parts(p.out_proj, 0, [(h0 * hdim, hl * hdim)],
+                                    split)[0])
 
-    z, xs, bc, dt = _split_in_proj(cfg, x @ p.in_proj)
-    xbc_raw = torch.cat([xs, bc], dim=-1)
-    xbc = F.silu(causal_conv(xbc_raw, p.conv_w, p.conv_b))
-    xs, b, c = torch.split(xbc, [d_in, g * n, g * n], -1)
-    dt = F.softplus(dt + p.dt_bias[None, None])              # (B, S, H)
-    a = -torch.exp(p.a_log)                                  # (H,)
+    def norm(v, scale):
+        # over all d_in channels: the sum of squares of this rank's heads'
+        # channels, summed over the heads' ranks (each rank normalises
+        # its own channels by it, so its gradient is summed over them too)
+        vf = v.float()
+        ms = placed.grad_sum_over(placed.sum_over(
+            torch.sum(torch.square(vf), -1, keepdim=True), mesh, heads),
+            mesh, heads) / d_in
+        return (vf * torch.rsqrt(ms + 1e-6) * (1.0 + scale.float())).to(
+            v.dtype)
 
-    y, state_fin = ssd_scan(xs.reshape(bsz, s, nh, hdim), dt, a,
-                            b.reshape(bsz, s, g, n), c.reshape(bsz, s, g, n),
-                            p.d_skip, chunk=cfg.ssm_chunk,
-                            remat_body=cfg.inner_remat)
-    y = y.reshape(bsz, s, d_in)
-    y = rmsnorm(y * F.silu(z), p.norm_scale)
-    out = y @ p.out_proj
-    if return_state:
-        # the last k-1 inputs, zero-padded at the front so prompts shorter
-        # than the conv kernel still yield the fixed (B, C, K-1) state
-        xbc_pad = F.pad(xbc_raw, (0, 0, k - 1, 0))
-        conv = xbc_pad[:, s:, :].transpose(1, 2)             # (B, C, K-1)
-        return out, SSMState(conv=conv, state=state_fin)
-    return out
-
-
-def mamba2_decode(cfg, p, x: torch.Tensor, cache: SSMState):
-    """x: (B, 1, D) -> (y (B, 1, D), the next SSMState)."""
-    bsz, _, d = x.shape
-    d_in = cfg.ssm_expand * d
-    hdim = cfg.ssm_head_dim
-    nh = d_in // hdim
-    g, n = cfg.ssm_groups, cfg.ssm_state
-
-    z, xs, bc, dt = _split_in_proj(cfg, x[:, 0] @ p.in_proj)
-    xbc = torch.cat([xs, bc], dim=-1)                        # (B, conv_dim)
-    window = torch.cat([cache.conv, xbc[:, :, None]], dim=-1)  # K wide
-    conv_out = torch.einsum("bck,kc->bc", window, p.conv_w) + p.conv_b
-    xbc = F.silu(conv_out)
-    xs, b, c = torch.split(xbc, [d_in, g * n, g * n], -1)
-    dt = F.softplus(dt + p.dt_bias[None])
-    a = -torch.exp(p.a_log)
-    state, y = ssd_decode_step(
-        cache.state, xs.reshape(bsz, nh, hdim).float(), dt.float(), a,
-        b.reshape(bsz, g, n).float(), c.reshape(bsz, g, n).float(),
-        p.d_skip)
-    y = y.reshape(bsz, d_in).to(x.dtype)
-    y = rmsnorm(y * F.silu(z), p.norm_scale)
-    out = (y @ p.out_proj)[:, None]
-    return out, SSMState(conv=window[:, :, 1:], state=state)
+    if decode:
+        # one row a sequence: the rank's column shard of the product,
+        # gathered whole
+        wl = placed.local_parts(p.in_proj, 1, [(
+            placed.dim_offset(p.in_proj, 1), p.in_proj.to_local().shape[1])],
+            rows)[0]
+        whole = placed.gather_last(
+            (xl @ wl)[:, 0], mesh, rows,
+            placed.split_dims(p.in_proj, (1,)), (bsz, p.in_proj.shape[1]))
+        zxbcdt = torch.cat([whole[:, a:a + m] for a, m in pr], -1)[:, None]
+        conv = cache.conv
+        c0, cl = placed.dim_offset(conv, 1), conv.to_local().shape[1]
+        window_all = placed.gather_last(
+            conv.to_local().transpose(1, 2).contiguous(), mesh, rows,
+            placed.split_dims(conv, (1,)),
+            (bsz, k - 1, conv.shape[1])).transpose(1, 2)   # (B, C, K-1)
+        st = cache.state.to_local()
+        out, new = _mixer(
+            cfg, lp, zxbcdt, hl, gl, norm=norm, cache=SSMState(
+                torch.cat([window_all[:, a:a + m] for a, m in cr], 1), st))
+        # the window shifted, with this step's inputs of the rank's own
+        # channels (other ranks' heads' x among them) appended
+        new_in = whole[:, d_in:2 * d_in + 2 * g * n]
+        conv.to_local().copy_(torch.cat(
+            [window_all[:, c0:c0 + cl, 1:], new_in[:, c0:c0 + cl, None]],
+            -1))
+        st.copy_(new.state)
+    else:
+        zxbcdt = xl @ torch.cat(placed.local_parts(p.in_proj, 1, pr, split),
+                                -1)
+        out = _mixer(cfg, lp, zxbcdt, hl, gl, norm=norm,
+                     return_state=cache is not None)
+        if cache is not None:
+            out, new = out
+            if gl != g:
+                raise NotImplementedError(
+                    "placed Mamba 2 prefill: B and C split by group")
+            cache.state.to_local().copy_(new.state)
+            # the last K-1 inputs of every channel (zeros before the
+            # prompt), the x part gathered over the heads' ranks
+            tail = new.conv.transpose(1, 2)                  # (B, K-1, ·)
+            x_all = placed.gather_last(
+                tail[..., :hl * hdim].contiguous(), mesh, rows, heads,
+                (bsz, k - 1, d_in))
+            conv = cache.conv
+            c0, cl = placed.dim_offset(conv, 1), conv.to_local().shape[1]
+            conv.to_local().copy_(torch.cat([x_all, tail[..., hl * hdim:]],
+                                            -1)[:, :, c0:c0 + cl]
+                                  .transpose(1, 2))
+    out = placed.sum_over(out, mesh, heads)
+    return placed.wrap(out, mesh, x.placements, x.shape)
 
 
 def init_ssm_state(cfg, batch: int, dtype=torch.float32, *,

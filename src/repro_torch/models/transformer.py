@@ -38,7 +38,9 @@ absorbed form over them. A sliding-window layer (Mixtral) keeps a ring of
 min(max_len, window) keys; so does a hybrid's `local` layer, whose window
 is `cfg.local_window`. A Mamba 2 layer keeps `ssm.SSMState` (its conv
 window and SSD state) and an RG-LRU layer `rglru.RGState`, both with the
-layer axis first and updated in place like the caches.
+layer axis first and updated in place like the caches. On a mesh (x a
+DTensor) both layers run their module's `placed_mixer` on each rank's
+shards.
 
 A paged serving state holds a shared block pool per segment instead
 (`kvcache.PagedAttnCache`, `kvcache.PagedMLACache`);
@@ -655,7 +657,11 @@ def _apply_layer(cfg, spec: LayerSpec, p, x, positions, *, mode, cache=None,
         block, step = ((ssm.mamba2_block, ssm.mamba2_decode)
                        if spec.mixer == "ssd" else
                        (rglru.recurrent_block, rglru.recurrent_block_decode))
-        if mode == "train":
+        if placed.is_placed(h):       # each rank's rows, heads or channels
+            module = ssm if spec.mixer == "ssd" else rglru
+            out = module.placed_mixer(cfg, p.mixer, h, cache=cache,
+                                      decode=mode == "decode")
+        elif mode == "train":
             out = block(cfg, p.mixer, h)
         else:
             if mode == "prefill":
@@ -705,15 +711,18 @@ def _window(cfg, spec: LayerSpec) -> int:
 
 
 def _empty_layer_cache(cfg, spec: LayerSpec, batch: int, width: int, *,
-                       layers: Optional[int] = None, device=DEFAULT_DEVICE):
+                       layers: Optional[int] = None, device=DEFAULT_DEVICE,
+                       dtype=torch.float32):
     if spec.mixer == "mla":
         return kvcache.init_mla_cache(batch, width, cfg.kv_lora_rank,
                                       cfg.qk_rope_dim, layers=layers,
                                       device=device)
     if spec.mixer == "ssd":
-        return ssm.init_ssm_state(cfg, batch, layers=layers, device=device)
+        return ssm.init_ssm_state(cfg, batch, dtype, layers=layers,
+                                  device=device)
     if spec.mixer == "rec":
-        return rglru.init_rg_state(cfg, batch, layers=layers, device=device)
+        return rglru.init_rg_state(cfg, batch, dtype, layers=layers,
+                                   device=device)
     if spec.mixer not in ("attn", "local"):
         raise _unsupported_layer(spec)
     return kvcache.init_attn_cache(batch, cfg.num_kv_heads,
@@ -730,24 +739,28 @@ def _cache_width(cfg, spec: LayerSpec, width: int) -> int:
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
-               device=DEFAULT_DEVICE) -> list:
+               device=DEFAULT_DEVICE, dtype=torch.float32) -> list:
     """Per segment, {"l{i}": AttnCache} with (L, B, Hkv, W, hd) zeros in
     `cfg.kv_cache_dtype` (an MLACache of (L, B, W, r) and (L, B, W, rd) for
-    an MLA layer, an SSMState or RGState for an SSD or RG-LRU layer) on
-    `device` (the card unless the caller asks for the CPU)."""
+    an MLA layer, an SSMState or RGState for an SSD or RG-LRU layer, its
+    conv window in `dtype`: the activations' dtype, as the JAX package's
+    prefill returns the block's own window) on `device` (the card unless
+    the caller asks for the CPU)."""
     check_supported(cfg)
     return [{f"l{i}": _empty_layer_cache(cfg, ls, batch, max_len,
-                                         layers=seg.repeat, device=device)
+                                         layers=seg.repeat, device=device,
+                                         dtype=dtype)
              for i, ls in enumerate(seg.layers)}
             for seg in arch_segments(cfg)]
 
 
-def _cache_shapes(cfg: ArchConfig, batch: int, max_len: int) -> list:
+def _cache_shapes(cfg: ArchConfig, batch: int, max_len: int,
+                  dtype=torch.float32) -> list:
     """`init_cache`'s tree as meta tensors, made with every dispatch mode
     off: a trace records nothing of it, and nothing is allocated."""
     from torch.utils._python_dispatch import _disable_current_modes
     with _disable_current_modes():
-        return init_cache(cfg, batch, max_len, device="meta")
+        return init_cache(cfg, batch, max_len, device="meta", dtype=dtype)
 
 
 def init_cross(cfg: ArchConfig, batch: int, frames: int, *,
@@ -935,10 +948,10 @@ def forward_prefill(cfg: ArchConfig, params, tokens: torch.Tensor, *,
     if ctx is not None and placed.is_placed(x):
         # the state pinned to its serving placement: each rank allocates
         # its slice (`launch.specs.cache_entries`)
-        caches = placed.state_zeros(_cache_shapes(cfg, b, max_len), *ctx,
-                                    device=x.to_local().device)
+        caches = placed.state_zeros(_cache_shapes(cfg, b, max_len, x.dtype),
+                                    *ctx, device=x.to_local().device)
     else:
-        caches = init_cache(cfg, b, max_len, device=x.device)
+        caches = init_cache(cfg, b, max_len, device=x.device, dtype=x.dtype)
     cross = init_cross(cfg, b, 0 if enc_out is None else enc_out.shape[1],
                        dtype=x.dtype, device=x.device)
     for ls, lp, lc, lx in _layers(cfg, params, caches, cross):

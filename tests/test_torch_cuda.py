@@ -1019,6 +1019,36 @@ def test_flash_bf16_mla_at_deepseek_rank_shard(gen, b, s):
                                rtol=2e-2)
 
 
+@pytest.mark.parametrize("b,sq,q_offset,sk", [(2, 2048, 30720, 32768),
+                                               (1, 256, 3840, 4096)])
+def test_flash_bf16_local_mqa_at_recurrentgemma_rank_shard(gen, b, sq,
+                                                          q_offset, sk):
+    """The bf16 route at D 256 with RecurrentGemma's local MQA (10 query
+    heads over one KV head, a window of 2048) at one rank's shard of the
+    placed prefill and train cells: the 10 heads cannot take `model`, so
+    a rank holds S / 16 query rows (`ctx`) at `q_offset` = its first row,
+    past the window, against every key (the last rank of prefill_32k and
+    of train_4k); q a row block of the (B, S, 10, 256) projection and K,
+    V the (B, S, 1, 256) keys, transposed views as the rank hands them
+    over; within the bf16 tolerance of `ref.attention_ref`."""
+    s = q_offset + sq
+    assert s == sk and q_offset > 2048
+    q = torch.randn((b, s, 10, 256), generator=gen,
+                    device="cuda").bfloat16()[:, q_offset:].transpose(1, 2)
+    k, v = (torch.randn((b, sk, 1, 256), generator=gen,
+                        device="cuda").bfloat16().transpose(1, 2)
+            for _ in range(2))
+    kw = dict(causal=True, window=2048, q_offset=q_offset)
+    before = kernels.flash_attention.launches
+    got = kernels.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert kernels.flash_attention.launches == before + 1
+    want = ref.attention_ref(q, k, v, **kw)
+    assert got.shape == want.shape == (b, 10, sq, 256)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
 def test_thermometer_operators_equal_their_direct_launches_and_fakes(gen):
     import importlib
     from torch._subclasses.fake_tensor import FakeTensorMode

@@ -323,8 +323,8 @@ def test_spmd_train_step_on_two_gloo_ranks_matches_one_rank(spmd_problem):
 
 
 def test_lm_arch_exits_2_naming_the_roadmap_item(capsys):
-    """A family whose placement waits (Mamba 2's SSD scan; the dense and
-    MoE archs trace since their placement landed) exits 2 naming the
-    item."""
-    assert dryrun.main(["--arch", "mamba2_2p7b"]) == 2
+    """A family whose placement waits (Whisper's encoder and cross
+    attention; the dense, MoE, SSM and hybrid archs trace since their
+    placement landed) exits 2 naming the item."""
+    assert dryrun.main(["--arch", "whisper_tiny"]) == 2
     assert "item 6.5" in capsys.readouterr().err

@@ -98,7 +98,12 @@ def _bf16_edge_ulps(p: torch.Tensor) -> torch.Tensor:
 
 
 def one_device(case, got):
-    """The one-device run of `case` from the placed run's decode states,
+    """`one_device_of` the case's plan."""
+    return one_device_of(plan(case), got)
+
+
+def one_device_of(p, got):
+    """The one-device run of plan `p` from the placed run's decode states,
     with each decode step's rows' smallest distance (in float32 ulps) of
     a GQA decode probability from a bf16 rounding edge."""
     torch.set_num_threads(1)
@@ -117,7 +122,7 @@ def one_device(case, got):
         return decode(q, k, v, kv_len=kv_len, window=window, scale=scale)
     transformer.decode_attention = tapped
     try:
-        want = ranks.run_tapped(plan(case), decode_states=got["states"])
+        want = ranks.run_tapped(p, decode_states=got["states"])
     finally:
         transformer.decode_attention = decode
     steps = len(got["states"])
@@ -168,7 +173,12 @@ def runs(request, placed_runs):
 
 def test_placed_prefill_and_decode_logits_equal_one_device(runs):
     case, want, got = runs
-    got = got[0]
+    check_logits(case, want, got[0])
+
+
+def check_logits(case, want, got):
+    """The placed run's prefill and decode logits and every state leaf
+    against one device's (the module docstring's tolerances)."""
     dtypes = want["state_dtypes"]
     assert_state_close(got["state"], want["state"], dtypes, "prefill state")
     np.testing.assert_allclose(got["prefill"], want["prefill"], atol=1e-5,
@@ -240,12 +250,17 @@ def test_decode_group_spanning_data_keeps_one_device_capacity(placed_runs,
 
 def test_placed_train_step_equals_one_device(runs):
     case, want, got = runs
-    arch = CASES[case][0]
+    check_train(case, plan(case), want, got)
+
+
+def check_train(case, p, want, got):
+    """Every rank's loss and rank 0's updated parameters against one
+    device's (the module docstring's tolerances)."""
     losses = [o["loss"] for o in got]
     assert all(abs(v - want["loss"]) <= 1e-6 * abs(want["loss"])
                for v in losses), (losses, want["loss"])
-    cfg = get_config(arch, smoke=True)
-    old = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+    old = transformer.init_params(ranks.plan_config(p),
+                                  torch.Generator().manual_seed(p["seed"]),
                                   device="cpu")
     sensitive = total = 0
     for i, (g, w, o) in enumerate(zip(got[0]["params"], want["params"],
@@ -269,6 +284,11 @@ def test_one_device_equals_jax_mesh_free_steps(arch):
     """The one-device program's prefill logits and first loss against the
     JAX package's prefill step and `lm_loss`, jitted without a mesh, on
     the same parameters (`convert.lm_params_to_numpy`)."""
+    check_one_device_equals_jax(arch)
+
+
+def check_one_device_equals_jax(arch):
+    """`test_one_device_equals_jax_mesh_free_steps` of `arch`."""
     p = ranks.moe_plan(arch, None)
     cfg = get_config(arch, smoke=True)
     torch.set_num_threads(1)

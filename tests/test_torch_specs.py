@@ -197,15 +197,11 @@ def test_engine_input_specs_equal_jax(arch, paged):
 
 
 # Where the port's serving state keeps another dtype than the JAX
-# package's (each decided when the family was ported, and read back as
-# such by its decode): Whisper's cross keys and values are kept in the
-# parameters' dtype (PR 21), where JAX promotes them against the float32
-# frames; the Mamba 2 and RG-LRU conv windows stay float32 where JAX's
-# are bf16 (PR 20).
-STATE_DTYPE_DIFFERS = {("whisper_tiny", "cross"): ("bfloat16", "float32"),
-                       ("recurrentgemma_2b", "conv"): ("float32",
-                                                       "bfloat16"),
-                       ("mamba2_2p7b", "conv"): ("float32", "bfloat16")}
+# package's (decided when the family was ported, and read back as such
+# by its decode): Whisper's cross keys and values are kept in the
+# parameters' dtype, where JAX promotes them against the float32 frames.
+# The Mamba 2 and RG-LRU conv windows take the step's dtype, as JAX's.
+STATE_DTYPE_DIFFERS = {("whisper_tiny", "cross"): ("bfloat16", "float32")}
 
 
 class _Entry:

@@ -82,6 +82,8 @@ def run(cfg, plan, *, place=None, state_after_prefill=None,
         out["prefill"] = whole(logits)
         out["state"] = [whole(t) for _, t in graph_cost.flatten(state)]
         out["state_dtypes"] = [t.dtype for _, t in graph_cost.flatten(state)]
+        out["state_kinds"] = [[type(c).__name__ for c in seg.values()]
+                              for seg in state.caches]
         if state_after_prefill is not None:
             state = graph_cost.rebuild(state, iter(
                 torch.from_numpy(a).to(t.dtype) for a, (_, t) in zip(
@@ -143,15 +145,22 @@ def plan_for(heads, mesh, seed=0) -> dict:
                 np.int32)}
 
 
-def moe_plan(arch, mesh, *, batch=8, seq=24, seed=0) -> dict:
+def moe_plan(arch, mesh, *, batch=8, seq=24, seed=0, change=None) -> dict:
     """Numpy tokens, labels and two decode tokens of a (batch, seq) batch
-    of `arch`'s smoke config, to run on `mesh` = (shape, axes)."""
+    of `arch`'s smoke config (with the fields `change` gives replaced),
+    to run on `mesh` = (shape, axes)."""
     rng = np.random.default_rng(seed)
     v = get_config(arch, smoke=True).vocab_size
-    return {"arch": arch, "mesh": mesh, "seed": seed,
+    return {"arch": arch, "mesh": mesh, "seed": seed, "change": change,
             "tokens": rng.integers(0, v, (batch, seq)).astype(np.int32),
             "labels": rng.integers(0, v, (batch, seq)).astype(np.int32),
             "next": rng.integers(0, v, (batch, 2)).astype(np.int32)}
+
+
+def plan_config(plan):
+    """The plan's smoke config, with the fields its `change` gives."""
+    cfg = get_config(plan["arch"], smoke=True)
+    return dataclasses.replace(cfg, **(plan.get("change") or {}))
 
 
 def run_tapped(plan, *, place=None, decode_states=None) -> dict:
@@ -172,7 +181,7 @@ def run_tapped(plan, *, place=None, decode_states=None) -> dict:
         return out
     moe._queue = tapped
     try:
-        out = run(get_config(plan["arch"], smoke=True), plan, place=place,
+        out = run(plan_config(plan), plan, place=place,
                   decode_states=decode_states)
     finally:
         moe._queue = queue

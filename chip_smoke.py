@@ -4732,23 +4732,28 @@ def dryrun_path(kernels, *, export, wnn_ensemble, h3_mod):
 # ---------------------------------------------------------------------------
 # The LM dry run: the cells of Llama 3.2 3B (dense), Mixtral 8x7B
 # (tensor-parallel experts, banded window), DeepSeek-V2-Lite
-# (expert-parallel experts, MLA), Mamba 2 2.7B (the SSD mixer by heads)
-# and RecurrentGemma 2B (the RG-LRU by channels, the local MQA by query
-# rows) traced on the production meshes (the card's program), then rank
-# 0's program of each one's single-pod cells run for real against the
-# records
+# (expert-parallel experts, MLA), Mamba 2 2.7B (the SSD mixer by heads),
+# RecurrentGemma 2B (the RG-LRU by channels, the local MQA by query
+# rows), Whisper tiny (the encoder whole over `model`, the decoder's
+# attention by query rows, cross keys and values gathered) and InternVL2
+# 26B (patch rows ahead of the prompt, the prefill's cache write
+# wrapping) traced on the production meshes (the card's program), then
+# rank 0's program of each one's single-pod cells run for real against
+# the records
 # ---------------------------------------------------------------------------
 
 LM_DRYRUN_OUT = ROOT / "build" / "lm_dryrun"
 LM_DRYRUN_ARCHS = ("llama3p2_3b", "mixtral_8x7b", "deepseek_v2_lite_16b",
-                   "mamba2_2p7b", "recurrentgemma_2b")
+                   "mamba2_2p7b", "recurrentgemma_2b", "whisper_tiny",
+                   "internvl2_26b")
 # layers of each arch the phase traces and runs (full width; DeepSeek's
 # dense layer and one MoE layer; RecurrentGemma's `--layers 2` rounds up
 # to its one whole (rec, rec, local) pattern, so that its local layer's
-# flash kernel runs): a train cell's trace runs its 16 microbatches
-# through every layer twice (an eager pass for memory, one for the
-# graph), tens of seconds a layer on the host; the full-depth sweep runs
-# by hand (`python -m repro_torch.launch.sweep`, PERF.md)
+# flash kernel runs; Whisper's 2 decoder layers beside its 4 encoder
+# layers): a train cell's trace runs its 16 microbatches through every
+# layer for the graph (its memory pass two of them), tens of seconds a
+# layer on the host; the full-depth sweep runs by hand (`python -m
+# repro_torch.launch.sweep`, PERF.md)
 LM_DRYRUN_LAYERS = 2
 # the sweep is host work only (fake tensors: nothing on the card), so it
 # starts in the background right after the build, LM_DRYRUN_JOBS cells
@@ -4756,14 +4761,26 @@ LM_DRYRUN_LAYERS = 2
 # `lm_dryrun_path` waits for it at most LM_DRYRUN_TIMEOUT_S from its start
 LM_DRYRUN_JOBS = 4
 LM_DRYRUN_TIMEOUT_S = 900
-# 6k: the flash kernel at a rank's shard of RecurrentGemma's local MQA in
-# the placed prefill_32k: bf16, D 256, 10 query heads over one KV head, a
-# window of 2048; the heads cannot take `model`, so the last rank's 2048
-# query rows start at 30,720, past the window, against all 32,768 keys
-LM_DRYRUN_FLASH_CASE = dict(
-    name="recurrentgemma_local_rank_b2_sq2048_off30720_sk32768_w2048_bf16",
-    row="6k", b=2, h=10, hkv=1, sq=2048, sk=32768, d=256, window=2048,
-    q_offset=30720, dtype=torch.bfloat16)
+# the flash kernel at rank shards of the placed prefill_32k (2 rows a
+# rank). 6k: RecurrentGemma's local MQA: bf16, D 256, 10 query heads over
+# one KV head, a window of 2048; the heads cannot take `model`, so the
+# last rank's 2048 query rows start at 30,720, past the window, against
+# all 32,768 keys. 6l: Whisper's decoder self-attention: bf16, D 64, 6
+# heads (which cannot take `model` either), causal, the last rank's 2048
+# rows at 30,720. 6m: its cross attention: the bf16 queries promoted to
+# float32 over the float32 keys and values of the 1500 frames,
+# non-causal, a rank's 2048 rows (rank 0's, the rank runs' shape)
+LM_DRYRUN_FLASH_CASES = (
+    dict(name="recurrentgemma_local_rank_b2_sq2048_off30720_sk32768_w2048"
+              "_bf16",
+         row="6k", b=2, h=10, hkv=1, sq=2048, sk=32768, d=256, window=2048,
+         q_offset=30720, dtype=torch.bfloat16),
+    dict(name="whisper_decoder_rank_b2_sq2048_off30720_sk32768_bf16",
+         row="6l", b=2, h=6, hkv=6, sq=2048, sk=32768, d=64,
+         q_offset=30720, dtype=torch.bfloat16),
+    dict(name="whisper_cross_rank_b2_sq2048_sk1500_f32", row="6m", b=2,
+         h=6, hkv=6, sq=2048, sk=1500, d=64, causal=False,
+         dtype=torch.float32))
 # the most a rank run may find allocated past what its arguments took
 # when the measured step starts (its warm-up's leftovers, or an earlier
 # cell's in the same process): the cuBLAS workspaces PyTorch keeps (2 x
@@ -4809,11 +4826,12 @@ def stop_process_group(proc) -> None:
 
 
 def lm_dryrun_path(kernels, sweep):
-    """First the flash kernel at LM_DRYRUN_FLASH_CASE (6k) against its
-    plain version, timed beside it and one SDPA call. Then the end of
-    `sweep` (`start_lm_dryrun_sweep`: 36 cells, train_4k, prefill_32k and
-    decode_32k of each arch, and long_500k of Mixtral, Mamba 2 and
-    RecurrentGemma, on both meshes; one process each), every record ok
+    """First the flash kernel at LM_DRYRUN_FLASH_CASES (6k, 6l, 6m)
+    against its plain version, timed beside it and one SDPA call. Then
+    the end of `sweep` (`start_lm_dryrun_sweep`: 48 cells, train_4k,
+    prefill_32k and decode_32k of each arch, and long_500k of Mixtral,
+    Mamba 2 and RecurrentGemma, on both meshes; one process each), every
+    record ok
     with no wnnlint error; then `launch.dryrun --rank-run` of each arch's
     cells on one pod (one process an arch, all at once): rank 0's real
     program on the card at its shard shapes, its max_memory_allocated
@@ -4822,15 +4840,19 @@ def lm_dryrun_path(kernels, sweep):
     most LM_OUTSIDE_LIMIT) held to the record's peak within
     DRYRUN_PEAK_TOL and its flash launches to the trace's
     `repro_torch::flash_attention` nodes. Returns the rank runs' launches
-    by kernel and the 6k row, with the path's launches at its shape and,
-    as `rank_run_launches`, the RecurrentGemma prefill rank run's (rank
-    0's query block at offset 0, not this shape)."""
+    by kernel and the three flash rows, each with the path's launches at
+    its shape and, as `rank_run_launches`, the rank runs' launches at
+    exactly its shape (rank 0's query block starts at offset 0: 6m's
+    shape, not 6k's or 6l's)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import plan
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    flash_row = flash_case_row(gen, ref, kernels.flash_attention, plan,
-                               LM_DRYRUN_FLASH_CASE)
+    flash_rows = []
+    for case in LM_DRYRUN_FLASH_CASES:
+        flash_rows.append(flash_case_row(gen, ref, kernels.flash_attention,
+                                         plan, case))
+        torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     kernels.reset_launch_counts()     # the path's run starts here
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -4921,6 +4943,7 @@ def lm_dryrun_path(kernels, sweep):
                            "args_bytes": run_["args_bytes"],
                            "record_args_bytes": rec["memory"]["args_gib"]
                            * 2 ** 30, "launches": run_["launches"],
+                           "flash_shapes": run_["flash_shapes"],
                            "flash_nodes": traced,
                            "traced_device": rec["traced_device"]})
             print(f"[lm_dryrun] {tag} on the card: peak {run_['peak_bytes']}"
@@ -4941,22 +4964,22 @@ def lm_dryrun_path(kernels, sweep):
                                      f"!= the trace's flash nodes {traced}")
     if len(checks) != sum(shapes.values()):
         raise AssertionError(f"lm dryrun --rank-run: {len(checks)} cells ran")
-    # the path's launches at the 6k shape (none: the rank runs run in
-    # processes of their own, and rank 0's block is at offset 0), and the
-    # RecurrentGemma prefill rank run's flash launches, at that block
-    flash_row["launches"] = kernels.flash_attention.shapes[
-        flash_shape(flash_row)]
-    flash_row["rank_run_launches"] = next(
-        c["launches"].get("flash_attention", 0) for c in checks
-        if c["cell"] == "recurrentgemma_2b.prefill_32k.pod1")
+    # each row's launches at its shape: this process's (none: the rank
+    # runs run in processes of their own) and the rank runs'
+    for row in flash_rows:
+        key = list(flash_shape(row))
+        row["launches"] = kernels.flash_attention.shapes[flash_shape(row)]
+        row["rank_run_launches"] = sum(
+            n for c in checks for *shape, n in c["flash_shapes"]
+            if shape == key)
     emit("lm_dryrun_path", seconds=time.perf_counter() - t0, sweep_s=sweep_s,
          sweep_read_s=read_s, sweep_wait_s=wait_s, sweep_jobs=LM_DRYRUN_JOBS,
          rank_run_s=time.perf_counter() - t1, archs=list(LM_DRYRUN_ARCHS),
          layers=LM_DRYRUN_LAYERS, cells=cells, rank_checks=checks,
          peak_tolerance=DRYRUN_PEAK_TOL, outside_limit=LM_OUTSIDE_LIMIT,
-         flash=flash_row)
+         flash=flash_rows)
     return {k: sum(c["launches"].get(k, 0) for c in checks)
-            for k in KERNEL_INFO}, flash_row
+            for k in KERNEL_INFO}, flash_rows
 
 
 def main() -> int:
@@ -5144,7 +5167,7 @@ def main() -> int:
         for path, row in (("moe", moe_flash), ("mla", mla_flash),
                           ("hybrid", hybrid_flash), *flash_path_rows,
                           *(("lm_train", row) for row in train_flash),
-                          ("lm_dryrun", lm_dryrun_flash))]
+                          *(("lm_dryrun", row) for row in lm_dryrun_flash))]
     # each kernel's launches on the path that carries it: the ULEEN serve
     # path for the WNN and front-end kernels, the train path for the hash,
     # the LM serve path for flash attention; `launches_by_path` has every

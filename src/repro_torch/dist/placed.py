@@ -16,7 +16,10 @@ made explicit:
   heads cannot take `model`, by query rows (`ctx`); K and V are whole on
   the sequence. Each rank runs the flash kernel (its plain version on
   the CPU) on its local heads, with its KV heads picked for GQA, and at
-  `q_offset` = its first query row. No collective.
+  `q_offset` = its first query row (0 where q is whole, as Whisper's
+  encoder's). No collective forward; backward, where q is split on a
+  mesh dim that K and V are whole on, their gradients are summed over
+  it (one all-reduce each, so they leave as whole as they came).
 * `cache_write` / `cache_write_at`: the cache is placed batch over
   `data` and its sequence over `model` (SERVE_RULES' `cache_seq`). A
   prefill's keys go to the rank that holds their slots; a decode step's
@@ -27,6 +30,10 @@ made explicit:
   that fall in its vocabulary slice, and one all-reduce over `model`
   sums the rows (a vocabulary-parallel embedding); DTensor's own rule
   for the lookup gathers the table and the batch whole.
+* `learned_positions`: the rows of Whisper's position table (columns
+  over `fsdp`) that a step adds, cut from the local shard before they
+  are gathered (the first S at prefill and in training, each sequence's
+  row at decode), where gathering the table would move all 32,768 rows.
 * `gather_fsdp`: a layer's weights come whole on the `fsdp` mesh axes
   when the layer runs (their `tp` shards kept), FSDP's gather; left to
   its cost model, DTensor would rather gather the batch-sharded
@@ -274,13 +281,12 @@ def attention(q, k, v, *, attend, causal: bool, window: int = 0,
     keep = {i: d for i, d in kd.items() if d in (0, 1) and qd.get(i) == d}
     k, v = _keep(k, keep), _keep(v, keep)
     # K and V are whole on a mesh dim where q is split: each rank's
-    # gradient is its part of a sum over that dim
-    from torch.distributed.tensor import Partial
-    grad_pl = [p if i in keep else (Partial() if i in qd else p)
-               for i, p in enumerate(k.placements)]
+    # gradient is its part of a sum over that dim, summed there (one
+    # all-reduce) so that it leaves as whole as K and V came
+    split = tuple(i for i in qd if i not in keep)
     ql = q.to_local()
-    kl = k.to_local(grad_placements=grad_pl)
-    vl = v.to_local(grad_placements=grad_pl)
+    kl = grad_sum_over(k.to_local(), mesh, split)
+    vl = grad_sum_over(v.to_local(), mesh, split)
     h, hkv = q.shape[1], k.shape[1]
     g = h // hkv
     h0, g0 = dim_offset(q, 1), dim_offset(k, 1)
@@ -502,6 +508,27 @@ def embedding(table, tokens):
                 (tokens.shape[0], *rows.shape[1:]))
 
 
+def learned_positions(table, *, n=None, pos=None):
+    """Rows of a placed learned-position table (P, D) whose columns split
+    over the `fsdp` mesh axes: rows 0..n-1 (prefill and training), cut
+    from this rank's column shard and gathered whole, (n, D) replicated;
+    or at decode each sequence's row pos[b] (clamped to the table's
+    last), looked up for the whole batch in this rank's columns and
+    exchanged (an all-to-all) onto `pos`'s batch shards, (B, D). Only
+    the rows asked for move, never the table. Differentiable (training
+    takes the first branch)."""
+    mesh = table.device_mesh
+    local = table.to_local()
+    if pos is None:
+        return _keep(wrap(local[:n], mesh, table.placements,
+                          (n, table.shape[1])), {})
+    rows = whole(pos).clamp(max=table.shape[0] - 1).long()
+    out = wrap(local[rows], mesh, table.placements,
+               (rows.shape[0], table.shape[1]))
+    return _keep(out, {i: 0 for i in batch_dims(pos)} if is_placed(pos)
+                 else {})
+
+
 def gather_fsdp(x):
     """`x` (a placed tensor, or a parameter tree) with every shard on the
     mesh axes the rules give `fsdp` gathered, the others kept; the
@@ -568,23 +595,25 @@ def log_likelihood(logits, labels):
 
 def state_zeros(meta_state, mesh, rules: sh.ShardingRules, device):
     """A serving state of zeros placed by `launch.specs.cache_entries`:
-    `meta_state` (NamedTuple caches of meta tensors, as `init_cache`
-    builds them on the meta device) -> the same caches of DTensors, each
-    rank allocating its slice only."""
+    `meta_state` (per segment, NamedTuple caches or `CrossKV`s of meta
+    tensors, as `init_cache` and `init_cross` build them on the meta
+    device; None for a segment without any) -> the same tree of
+    DTensors, each rank allocating its slice only."""
     from repro_torch.launch import specs
 
-    def leaf(field, t):
+    def leaf(c, field, t):
         if t is None:
             return None
-        stacked = t.ndim > len(specs._BASE[field])
-        entries = rules.resolve(specs._leaf_logical(field, t.ndim, stacked),
-                                mesh, shape=tuple(t.shape))
+        entries = rules.resolve(specs.leaf_logical(c, field, t), mesh,
+                                shape=tuple(t.shape))
         return wrap(torch.zeros(sh.local_shape(t.shape, entries, mesh),
                                 dtype=t.dtype, device=device),
                     mesh, sh.placements(entries, mesh), t.shape)
 
     def cache(c):
-        fields = {f: getattr(c, f) for f in c._fields}
-        return type(c)(**{f: (v if f == "quant" else leaf(f, v))
-                          for f, v in fields.items()})
-    return [{name: cache(c) for name, c in seg.items()} for seg in meta_state]
+        return type(c)(**{f: (getattr(c, f) if f == "quant"
+                              else leaf(c, f, getattr(c, f)))
+                          for f in c._fields})
+    return [None if seg is None else
+            {name: cache(c) for name, c in seg.items()}
+            for seg in meta_state]

@@ -33,24 +33,25 @@ chosen cell for real on the card at its single-pod shard shapes (the
 fake group makes the collectives no-ops), for the card's check of the
 records' memory and kernel launches (`chip_smoke.py`).
 
-The LM cells (the JAX `lower_cell`) of the dense GQA, MoE, SSM and
-hybrid families (`PLACED_ARCHS`: Llama 3.2 3B, Qwen 2.5 14B, Minitron 8B,
-Qwen 1.5 32B, Mixtral 8x7B, DeepSeek-V2-Lite, Mamba 2 2.7B,
-RecurrentGemma 2B) trace the same way, placed on DTensor
+The LM cells (the JAX `lower_cell`) of every family of the zoo
+(`PLACED_ARCHS`: the dense Llama 3.2 3B, Qwen 2.5 14B, Minitron 8B and
+Qwen 1.5 32B, the MoE Mixtral 8x7B and DeepSeek-V2-Lite, the SSM Mamba 2
+2.7B, the hybrid RecurrentGemma 2B, the encoder-decoder Whisper tiny and
+the patch model InternVL2 26B) trace the same way, placed on DTensor
 (`dist.sharding`, `dist.placed`, the MoE block in `models/moe.py`, the
 SSD and RG-LRU mixers' `placed_mixer`):
 `trace_lm_cell` makes this rank's shards of the step's arguments as fake
 tensors (`launch/specs.py`: parameters, AdamW state, inputs, the decode
 state after a `seq_len` prefill), wraps them as DTensors inside the step
 and traces train (AdamW(1e-4), `microbatches_for`, float32 masters),
-prefill (bf16, the cache pinned to `cache_entries`) or decode (bf16).
-Records keep JAX's keys, with `trace_s`, `traced_device`, `layers` and
-`args_bytes_by_kind`; `--layers N` cuts the depth (to whole repeats of
-the block pattern). `--rank-run --arch
-A` runs rank 0's program of A's single-pod cells for real on the card.
-`launch/sweep.py` runs one process a cell. The other families wait for
-DTensor rules of their operators: `--arch` with one of them exits 2
-naming the ROADMAP item (`LM_WAITS`).
+prefill (bf16, the cache pinned to `cache_entries`) or decode (bf16, on
+the token alone, as JAX's `lower_cell` lowers it).
+Records keep JAX's keys, with `trace_s`, `traced_device`, `layers`
+(and `encoder_layers` for Whisper, whose encoder a cut keeps whole) and
+`args_bytes_by_kind`; `--layers N` cuts the decoder's depth (to whole
+repeats of the block pattern). `--rank-run --arch A` runs rank 0's
+program of A's single-pod cells for real on the card.
+`launch/sweep.py` runs one process a cell.
 """
 from __future__ import annotations
 
@@ -74,19 +75,16 @@ ULEEN_SHAPES = ("train_mnist_scale", "train_host_exec", "infer_mnist_scale",
                 "infer_packed_scale", "infer_sharded_scale",
                 "infer_multitenant_scale")
 RANK = 0            # the rank whose program a cell traces
-# the archs whose placement the port has (the dense GQA family; the MoE
-# family: Mixtral's tensor-parallel experts and banded window,
-# DeepSeek-V2-Lite's expert-parallel experts and MLA; the SSM and hybrid
-# families: Mamba 2's SSD mixer by heads, RecurrentGemma's RG-LRU by
-# channels and its local MQA by query rows); the other families wait for
-# DTensor rules of their operators
+# the archs whose placement the port has: every arch of the zoo (the
+# dense GQA family; the MoE family: Mixtral's tensor-parallel experts and
+# banded window, DeepSeek-V2-Lite's expert-parallel experts and MLA; the
+# SSM and hybrid families: Mamba 2's SSD mixer by heads, RecurrentGemma's
+# RG-LRU by channels and its local MQA by query rows; Whisper's encoder
+# whole over `model`, its cross attention over gathered keys and values;
+# InternVL2's patch rows ahead of the prompt)
 PLACED_ARCHS = ("llama3p2_3b", "qwen2p5_14b", "minitron_8b", "qwen1p5_32b",
                 "mixtral_8x7b", "deepseek_v2_lite_16b", "mamba2_2p7b",
-                "recurrentgemma_2b")
-LM_WAITS = ("the dry run of this family is not ported yet: it waits for "
-            "the placement of its operators on DTensor (Whisper's encoder "
-            "and cross attention, InternVL2's patch rows; ROADMAP Queue 1, "
-            "item 6.5)")
+                "recurrentgemma_2b", "whisper_tiny", "internvl2_26b")
 EXEC_STEPS, PARITY_STEPS = 3, 2
 RANK_TIMEOUT_S = 900
 _EXEC_RUNS: dict = {}     # rank device -> (first tag, the ranks' results)
@@ -482,13 +480,22 @@ class _Placed:
             for (t, e), path in zip(pairs, paths, strict=True)))
         self.mesh = mesh
 
-    def wrap(self, local_obj):
-        """The same object with each local shard wrapped as a DTensor."""
+    def wrap(self, local_obj, rows=None):
+        """The same object with each local shard wrapped as a DTensor;
+        with `rows`, each shard's first `rows` rows (dim 0, sharded or
+        not), the global shape cut to match."""
         from repro_torch.dist import placed
         from repro_torch.launch import graph_cost
         leaves = [t for _, t in graph_cost.flatten(local_obj)]
+
+        def one(t, shape, e):
+            if rows is not None:
+                shape = (shape[0] // t.shape[0] * rows, *shape[1:])
+                t = t[:rows]
+            return placed.wrap(t, self.mesh, sh.placements(e, self.mesh),
+                               shape)
         return graph_cost.rebuild(local_obj, iter(
-            placed.wrap(t, self.mesh, sh.placements(e, self.mesh), shape)
+            one(t, shape, e)
             for t, (shape, e) in zip(leaves, self.meta, strict=True)))
 
 
@@ -502,6 +509,8 @@ def _unplace(obj):
 
 LM_DTYPES = {"train": torch.float32, "prefill": torch.bfloat16,
              "decode": torch.bfloat16}
+# microbatches a training cell's memory pass runs (`memory_step`)
+MEMORY_MICROBATCHES = 2
 
 
 def lm_cell_args(cfg, shape, mesh, make):
@@ -509,7 +518,17 @@ def lm_cell_args(cfg, shape, mesh, make):
     `mesh` runs it: the JAX `lower_cell`'s step and arguments, each a
     `_Placed` whose local shards `make(shape, dtype, path)` makes (fake
     tensors for a trace, seeded ones for a run). kinds names each
-    argument's part of the memory (params, opt, inputs, state)."""
+    argument's part of the memory (params, opt, inputs, state).
+
+    A training step of more than MEMORY_MICROBATCHES microbatches also
+    carries `step.memory_step`: the same step on its first
+    MEMORY_MICROBATCHES microbatches' rows (views of the batch), for the
+    trace's memory pass. Its memory is the whole step's: the gradient
+    accumulators exist before the first microbatch, and each microbatch
+    then allocates and frees the same tensors in the same order (its
+    slice of the batch is a view), so the live bytes after the second
+    repeat those of the second at every later one; the optimizer's
+    update after the loop does not depend on the count."""
     from repro_torch.launch import specs, steps
     from repro_torch.models import transformer
     from repro_torch.train import optimizer as opt_lib
@@ -519,22 +538,39 @@ def lm_cell_args(cfg, shape, mesh, make):
     pmeta = specs.param_specs(cfg, dtype)
     params = _Placed(pmeta, specs.param_shardings(cfg, mesh, rules, dtype),
                      mesh, make, "params")
-    batch = _Placed(specs.input_specs(cfg, shape),
-                    specs.input_shardings(cfg, shape, mesh, rules), mesh,
-                    make, "inputs")
+    inputs = specs.input_specs(cfg, shape)
+    entries = specs.input_shardings(cfg, shape, mesh, rules)
+    if shape.kind == "decode":
+        # JAX's `lower_cell` lowers a decode on the token alone (its
+        # `input_specs` lists Whisper's frames there too)
+        inputs, entries = {"token": inputs["token"]}, {
+            "token": entries["token"]}
+    batch = _Placed(inputs, entries, mesh, make, "inputs")
     if train:
         optimizer = opt_lib.adamw(1e-4)
         opt = _Placed(optimizer.init(specs.tree_leaves(pmeta)),
                       specs.opt_shardings(cfg, optimizer, mesh, rules),
                       mesh, make, "opt")
-        step = steps.make_train_step(
-            cfg, optimizer, microbatches=specs.microbatches_for(
-                cfg, shape, mesh))
+        m = specs.microbatches_for(cfg, shape, mesh)
 
-        def run(p, o, b):
-            pt = transformer.ParamTree(params.wrap(p))
-            new, ostate, metrics = step(pt, opt.wrap(o), batch.wrap(b))
-            return _unplace((dict(new.named_parameters()), ostate, metrics))
+        def train_run(step, rows=None):
+            def run(p, o, b):
+                pt = transformer.ParamTree(params.wrap(p))
+                new, ostate, metrics = step(pt, opt.wrap(o),
+                                            batch.wrap(b, rows))
+                return _unplace((dict(new.named_parameters()), ostate,
+                                 metrics))
+            return run
+        run = train_run(steps.make_train_step(cfg, optimizer,
+                                              microbatches=m))
+        if m > MEMORY_MICROBATCHES:
+            # a closure of its own (not one over `run`: a cycle through
+            # `run` would keep the arguments alive past the caller's step)
+            local_rows = next(iter(batch.local.values())).shape[0]
+            run.memory_step = train_run(
+                steps.make_train_step(cfg, optimizer,
+                                      microbatches=MEMORY_MICROBATCHES),
+                rows=local_rows // m * MEMORY_MICROBATCHES)
         return run, (params, opt, batch), ("params", "opt", "inputs")
     if shape.kind == "prefill":
         step = steps.make_prefill_step(cfg, max_len=shape.seq_len)
@@ -585,7 +621,13 @@ def trace_lm_cell(cfg, shape, mesh, *, device="cuda"):
     def fn(*a):
         with sh.use_placement(mesh, rules):
             return step(*a)
-    traced = graph_cost.trace(fn, args, fake_mode=fake, device=dev)
+    memory_step = getattr(step, "memory_step", None)
+
+    def memory_fn(*a):
+        with sh.use_placement(mesh, rules):
+            return memory_step(*a)
+    traced = graph_cost.trace(fn, args, fake_mode=fake, device=dev,
+                              memory_fn=memory_fn if memory_step else None)
     if traced.graph is not None:
         # DTensor works out each operator's global output shape on fake
         # tensors; torch 2.11's `make_fx` records those global-shaped
@@ -636,6 +678,8 @@ def run_lm_cell(arch: str, shape_name: str, multi_pod: bool, out_dir, *,
                 "memory": graph_cost.memory_gib(traced.memory),
                 "roofline": roof.summary(),
                 "layers": cfg.num_layers,
+                **({"encoder_layers": cfg.encoder_layers}
+                   if cfg.encoder_layers else {}),
                 "args_bytes_by_kind": by_kind,
                 "rank": RANK, "device": str(torch.device(device)),
                 "traced_device": str(dev),
@@ -676,8 +720,6 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir, *,
              backend: str = "auto", analyze: bool = False,
              device="cuda") -> dict:
     if arch != "uleen":
-        if arch not in PLACED_ARCHS:
-            raise NotImplementedError(LM_WAITS)
         return run_lm_cell(arch, shape_name, multi_pod, out_dir,
                            analyze=analyze, device=device)
     return run_uleen_cell(multi_pod, out_dir, shape=shape_name,
@@ -835,9 +877,14 @@ def run_lm_rank_program(arch: str, shape_name: str, *, cfg=None,
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         launches = {k: v for k, v in kernels.launch_counts().items() if v}
+        # the flash launches by shape: (B, H, Hkv, Sq, Sk, D, Dv, causal,
+        # window, q_offset, launches)
+        shapes = [[*k, n] for k, n in
+                  kernels.flash_attention.shapes.items()]
         result = {"arch": arch, "shape": shape_name, "launches": launches,
-                  "layers": cfg.num_layers, "mesh": _mesh_name(mesh),
-                  "rank": RANK, "arg_tensor_bytes": arg_tensor_bytes}
+                  "flash_shapes": shapes, "layers": cfg.num_layers,
+                  "mesh": _mesh_name(mesh), "rank": RANK,
+                  "arg_tensor_bytes": arg_tensor_bytes}
         if dev.type == "cuda":
             result.update(peak_bytes=torch.cuda.max_memory_allocated(dev),
                           args_bytes=args_bytes,
@@ -849,7 +896,8 @@ def run_lm_rank_program(arch: str, shape_name: str, *, cfg=None,
 def _cut(cfg, layers):
     """`cfg` cut to its first `layers` layers (None: whole), rounded up
     to whole repeats of its block pattern (RecurrentGemma's (rec, rec,
-    local): 2 gives 3, so the cut keeps a local layer)."""
+    local): 2 gives 3, so the cut keeps a local layer). Whisper's
+    encoder keeps its `encoder_layers`: a cut is the decoder's."""
     if not layers:
         return cfg
     unit = len(cfg.block_pattern) or 1
@@ -864,8 +912,8 @@ def main(argv=None) -> int:
     ap.add_argument("--shape", choices=list(ULEEN_SHAPES) + list(SHAPES))
     ap.add_argument("--layers", type=int, default=None,
                     help="cut an LM arch to its first N layers, whole "
-                         "repeats of its block pattern (full width; the "
-                         "record says `layers`)")
+                         "repeats of its block pattern (full width; an "
+                         "encoder stays whole; the record says `layers`)")
     ap.add_argument("--backend", choices=["fused", "gather", "packed", "auto"],
                     default="auto",
                     help="WNN kernel backend for the uleen infer cells")
@@ -894,9 +942,6 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     lm = args.arch not in (None, "uleen")
-    if lm and args.arch not in PLACED_ARCHS:
-        print(f"[dryrun] --arch {args.arch}: {LM_WAITS}", file=sys.stderr)
-        return 2
     if args.shape and (args.shape in ULEEN_SHAPES) == lm:
         ap.error(f"--shape {args.shape} is not a cell of --arch {args.arch}")
     if args.rank_run:
@@ -914,8 +959,7 @@ def main(argv=None) -> int:
         return 0
     if args.all:
         print("[dryrun] --all: the ULEEN cells and the LM cells of "
-              f"{', '.join(PLACED_ARCHS)} (the other families wait: "
-              f"{LM_WAITS})")
+              f"{', '.join(PLACED_ARCHS)}")
         cells = [("uleen", shp) for shp in ULEEN_SHAPES] + [
             (a, s.name) for a in PLACED_ARCHS
             for s in shapes_for(get_config(a))]

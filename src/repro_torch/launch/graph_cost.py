@@ -97,8 +97,12 @@ COLLECTIVE_KINDS = {
     "_c10d_functional::all_reduce": "all-reduce",
     "_c10d_functional::reduce_scatter_tensor": "reduce-scatter",
     "_c10d_functional::all_to_all_single": "all-to-all",
+    # DTensor's redistribution of a shard from one tensor dim to another
+    # on the same mesh dim (query rows from a column shard)
+    "_dtensor::shard_dim_alltoall": "all-to-all",
 }
-_FUNCTIONAL = "_c10d_functional::"
+# collectives whose (input, ..., group name) give the operand and group
+_FUNCTIONAL = ("_c10d_functional::", "_dtensor::shard_dim_alltoall")
 # operators that read only what they gather
 _GATHERS = {"aten::index", "aten::gather", "aten::index_select",
             "aten::embedding", "aten::take"}
@@ -346,10 +350,13 @@ def _storages(tensors) -> dict:
     return {id(t.untyped_storage()): t.untyped_storage() for t in tensors}
 
 
-def trace(fn, args: tuple, *, fake_mode, device) -> Traced:
+def trace(fn, args: tuple, *, fake_mode, device, memory_fn=None) -> Traced:
     """Trace `fn(*args)`, whose tensors are fake tensors of `fake_mode`,
     as the program that runs on `device`: an eager run for memory and
-    host reads, then `make_fx` for the graph."""
+    host reads, then `make_fx` for the graph. `memory_fn` (same
+    arguments), where given, runs in the eager pass instead of `fn`: a
+    shorter program with `fn`'s memory and host reads (the first of a
+    training step's identical microbatches, `launch.dryrun`)."""
     from torch.fx.experimental.proxy_tensor import make_fx
     device = torch.device(device)
     if device.type == "cuda":
@@ -368,7 +375,7 @@ def trace(fn, args: tuple, *, fake_mode, device) -> Traced:
     error = None
     try:
         with fake_mode, mem, _HostReads(reads):
-            out = fn(*args)
+            out = (memory_fn or fn)(*args)
         out_st = _storages(t for _, t in flatten(out))
         alias = sum(_nbytes(s, granule) for k, s in out_st.items()
                     if k in in_st)
@@ -388,7 +395,11 @@ def trace(fn, args: tuple, *, fake_mode, device) -> Traced:
 
     graph_reads: list = []
     try:
-        with fake_mode:
+        # the graph is read, never run: its Python code is generated only
+        # if something asks for it (tens of seconds for a training cell's
+        # graph of ~10^5 nodes)
+        from torch.fx._lazy_graph_module import _use_lazy_graph_module
+        with fake_mode, _use_lazy_graph_module(True):
             gm = make_fx(_with_host_reads(flat_fn, graph_reads))(
                 *[t for _, t in inputs])
     except Exception as e:
@@ -471,7 +482,7 @@ def node_bytes(node) -> tuple[int, int]:
         index = sum(t.numel() * t.element_size() for t in ins
                     if not t.is_floating_point() and t is not ins[0])
         return written + index, written
-    if name.startswith(("c10d::", _FUNCTIONAL)):
+    if name.startswith(("c10d::", *_FUNCTIONAL)):
         return sum(t.numel() * t.element_size() for t in ins), written
     if name.endswith("_") and ins:          # in place: the result is an input
         written = _val_bytes(ins[0])
@@ -485,7 +496,7 @@ def node_operations(node) -> tuple[str, float]:
     name = op_name(node)
     if not name or getattr(node.target, "is_view", False) \
             or name in _NO_TOUCH or name.startswith(("prim::", "c10d::",
-                                                     _FUNCTIONAL)):
+                                                     *_FUNCTIONAL)):
         return "int32", 0.0
     out = list(_tensor_leaves(node.meta.get("val")))
     ins = _arg_tensors(node)

@@ -223,14 +223,22 @@ _BASE = {
 }
 
 
-def _leaf_logical(field: str, ndim: int, stacked: bool) -> tuple:
-    """Logical axes of a cache leaf, classified by its NamedTuple field
-    (with the layer axis first when stacked)."""
+# the cross keys and values (L, B, Hkv, F, hd): by batch and kv_heads,
+# their F frames whole (JAX's `CrossKV` constraint)
+CROSS_LOGICAL = (None, "batch", "kv_heads", None, None)
+
+
+def leaf_logical(cache, field: str, t: torch.Tensor) -> tuple:
+    """Logical axes of leaf `field` (a tensor `t`) of a cache NamedTuple:
+    a `CrossKV` leaf's `CROSS_LOGICAL`, any other classified by its field
+    name (`_BASE`, with the layer axis first when stacked)."""
+    if isinstance(cache, kvcache.CrossKV):
+        return CROSS_LOGICAL
     base = _BASE[field]
-    if stacked:
+    if t.ndim > len(base):
         base = (None, *base)
-    if len(base) != ndim:
-        raise ValueError(f"cache field {field!r}: {ndim} dims against "
+    if len(base) != t.ndim:
+        raise ValueError(f"cache field {field!r}: {t.ndim} dims against "
                          f"logical axes {base}")
     return base
 
@@ -238,30 +246,16 @@ def _leaf_logical(field: str, ndim: int, stacked: bool) -> tuple:
 def cache_entries(cfg: ArchConfig, state, mesh, rules):
     """The resolved entries of a `ServeState` (contiguous caches): per
     segment and layer name, the cache NamedTuple's fields classified by
-    name (`_leaf_logical`; stacked on the layer axis), the cross
-    keys and values (L, B, Hkv, F, hd) over batch and kv_heads, and the
-    (B,) positions over batch. The same tree as `state`, None where the
-    state holds None."""
+    `leaf_logical` (the cross keys and values over batch and kv_heads),
+    and the (B,) positions over batch. The same tree as `state`, None
+    where the state holds None."""
     del cfg
 
-    def leaf(field, t):
-        if t is None:
-            return None
-        stacked = t.ndim > len(_BASE[field])
-        return rules.resolve(_leaf_logical(field, t.ndim, stacked), mesh,
-                             shape=tuple(t.shape))
-
     def cache(c):
-        if isinstance(c, kvcache.CrossKV):
-            log = (None, "batch", "kv_heads", None, None)
-            return kvcache.CrossKV(
-                *(rules.resolve(log, mesh, shape=tuple(t.shape))
-                  for t in c))
-        fields = [f for f in c._fields if f != "quant"]
-        vals = [leaf(f, getattr(c, f)) for f in fields]
-        out = dict(zip(fields, vals))
-        if "quant" in c._fields:
-            out["quant"] = c.quant
+        out = {f: (getattr(c, f) if f == "quant" or getattr(c, f) is None
+                   else rules.resolve(leaf_logical(c, f, getattr(c, f)),
+                                      mesh, shape=tuple(getattr(c, f).shape)))
+               for f in c._fields}
         return type(c)(**out)
 
     caches = [{name: cache(c) for name, c in seg.items()}

@@ -386,8 +386,9 @@ def serve_state_zeros(cfg: ArchConfig, params, slots: int,
     """All-zero batch-wide ServeState for an engine with `slots` cache
     rows, on the parameters' device: the structure a prefill of that
     batch builds, without running one (the cross keys and values of an
-    encoder-decoder model over `cfg.encoder_frames` frames, in the
-    parameters' dtype)."""
+    encoder-decoder model over `cfg.encoder_frames` frames, in the dtype
+    float32 frames promote to with the parameters': float32, as JAX's
+    `serve_state_zeros` over float32 frame specs)."""
     device = params.embed.device
     caches = transformer.init_cache(cfg, slots, max_len, device=device,
                                     dtype=params.embed.dtype)
@@ -397,9 +398,10 @@ def serve_state_zeros(cfg: ArchConfig, params, slots: int,
 
 
 def _cross_zeros(cfg, params, slots: int) -> list:
-    return transformer.init_cross(cfg, slots, cfg.encoder_frames,
-                                  dtype=params.embed.dtype,
-                                  device=params.embed.device)
+    return transformer.init_cross(
+        cfg, slots, cfg.encoder_frames,
+        dtype=torch.promote_types(torch.float32, params.embed.dtype),
+        device=params.embed.device)
 
 
 

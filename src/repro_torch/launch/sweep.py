@@ -5,12 +5,10 @@ sweep down.
 
     PYTHONPATH=src python -m repro_torch.launch.sweep --out build/dryrun
 
-By default it covers the archs whose placement the port has
-(`launch.dryrun.PLACED_ARCHS`, the dense GQA, MoE, SSM and hybrid
-families), every
-shape of each (`configs.shapes_for`) on both production meshes. `--archs` names others;
-an arch whose family still waits for its placement counts as a failure,
-with the ROADMAP item it waits for. `--jobs` runs that many cells at
+By default it covers every arch of the zoo (`launch.dryrun.PLACED_ARCHS`:
+the dense, MoE, SSM, hybrid, encoder-decoder and patch families), every
+shape of each (`configs.shapes_for`) on both production meshes; `--archs`
+names a few. `--jobs` runs that many cells at
 once (the traces are single-threaded host work); `--layers N` cuts every
 arch to its first N layers (as `launch.dryrun --layers` does: whole
 repeats of a block pattern, so RecurrentGemma's (rec, rec, local) takes
@@ -79,13 +77,10 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     archs = args.archs or list(dryrun.PLACED_ARCHS)
-    waiting = [a for a in archs if a not in dryrun.PLACED_ARCHS]
-    for a in waiting:
-        print(f"[sweep] {a}: FAIL {dryrun.LM_WAITS}", flush=True)
     meshes = {"single": ["single"], "multi": ["multi"],
               "both": ["single", "multi"]}[args.mesh]
     todo = []
-    for arch, shp in cells_for([a for a in archs if a not in waiting]):
+    for arch, shp in cells_for(archs):
         for mesh in meshes:
             tag = f"{arch}.{shp}.{'pod2' if mesh == 'multi' else 'pod1'}"
             path = os.path.join(args.out, tag + ".json")
@@ -102,7 +97,7 @@ def main(argv=None) -> int:
     todo.sort(key=lambda c: c[2] != "train_4k")
     os.makedirs(args.out, exist_ok=True)
     t_start = time.time()
-    fails = list(waiting)
+    fails = []
     with ThreadPoolExecutor(max_workers=max(1, args.jobs)) as pool:
         futures = {tag: pool.submit(run_one, arch, shp, mesh, args)
                    for tag, arch, shp, mesh in todo}

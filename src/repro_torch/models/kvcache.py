@@ -28,8 +28,9 @@ read as it is, so it is bf16 like a GQA cache.
 
 An encoder-decoder model (Whisper) keeps beside its caches the keys and
 values of its cross-attention layers over the encoder's output:
-`CrossKV` ([L,] B, Hkv, F, hd) in the parameters' dtype, written once by
-the prefill and read by every decode step.
+`CrossKV` ([L,] B, Hkv, F, hd) in the encoder output's dtype (float32
+for float32 frames, over bf16 parameters too, as the JAX package
+promotes), written once by the prefill and read by every decode step.
 
 Quantised caches (`kv_cache_dtype` "int8" or "int4", Qwen 1.5) store
 integer payloads with a float32 scale per token and head, ([L,] B, Hkv, W,

@@ -108,18 +108,29 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor,
     return out + bias[None, None]
 
 
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """`x @ w` under the JAX package's type promotion, where torch's `@`
+    refuses two dtypes: both operands in the wider one (Whisper's float32
+    encoder over bf16 weights multiplies the weights' bf16 values in
+    float32)."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w
+
+
 def mlp(cfg, p, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU (w1/w3 gate) or GELU (w1 only; JAX's default tanh
-    approximation), per cfg.act."""
+    approximation), per cfg.act; products as `matmul` promotes them."""
     if cfg.act == "swiglu":
-        h = F.silu(x @ p.w1) * (x @ p.w3)
+        h = F.silu(matmul(x, p.w1)) * matmul(x, p.w3)
     else:
-        h = x @ p.w1
+        h = matmul(x, p.w1)
         if hasattr(p, "b1"):
             h = h + p.b1
         h = F.gelu(h, approximate="tanh")
     h = logical_constraint(h, ("batch", "seq", "ffn"))
-    out = h @ p.w2
+    out = matmul(h, p.w2)
     if hasattr(p, "b2"):
         out = out + p.b2
     return out

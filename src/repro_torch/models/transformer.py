@@ -83,8 +83,8 @@ from repro_torch.dist.sharding import logical_constraint
 from repro_torch.models import kvcache, moe, rglru, ssm
 from repro_torch.models.layers import (apply_norm, apply_rope,
                                        banded_attention, chunked_attention,
-                                       decode_attention, mlp, rmsnorm,
-                                       sinusoidal_positions)
+                                       decode_attention, matmul, mlp,
+                                       rmsnorm, sinusoidal_positions)
 
 # ---------------------------------------------------------------------------
 # Segments
@@ -409,9 +409,7 @@ def _constrain_heads(x, heads: int, logical: tuple):
 def _qkv(cfg, p, x):
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = x @ p.wq
-    k = x @ p.wk
-    v = x @ p.wv
+    q, k, v = matmul(x, p.wq), matmul(x, p.wk), matmul(x, p.wv)
     if cfg.qkv_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
     q = _constrain_heads(q, cfg.num_heads, ("batch", "heads", "ctx", None))
@@ -483,7 +481,7 @@ def attn_mixer(cfg, p, x, positions, *, window: int, mode: str, cache,
     # it whole (identity outside a mesh context)
     out = logical_constraint(out, ("batch", "heads", None, None))
     out = out.transpose(1, 2).reshape(b, s, -1)
-    return logical_constraint(out @ p.wo, ("batch", "seq", None))
+    return logical_constraint(matmul(out, p.wo), ("batch", "seq", None))
 
 
 def _block_of(block_table, pos, bs: int):
@@ -502,32 +500,51 @@ def cross_mixer(cfg, p, x, *, cross=None, enc_out=None):
     `chunked_attention` (the flash kernel on the card).
 
     With `enc_out` (B, F, D), K and V are projected from it (with the
-    biases where the layer has them): at prefill written into `cross` (a
-    `CrossKV` view, (B, Hkv, F, hd)) and read there; in training (`cross`
-    None) used as they are, with no write. Without `enc_out`, a decode
-    step reads them from `cross`. Returns the output projection
-    (B, S, D)."""
+    biases where the layer has them) in the dtype the encoder's output
+    and the weights promote to (float32 frames keep them float32 over
+    bf16 weights, as in the JAX package): at prefill written into
+    `cross` (a `CrossKV` view, (B, Hkv, F, hd)) and read there; in
+    training (`cross` None) used as they are, with no write. Without
+    `enc_out`, a decode step reads them from `cross`. The queries meet
+    them in the wider dtype and the output comes back in the queries'
+    (JAX's `chunked_attention` on bf16 queries and float32 keys). On a
+    mesh the queries are placed as the self-attention's (by heads, else
+    by query rows) and K and V as JAX constrains them (by kv_heads, else
+    whole over `model`). Returns the output projection (B, S, D)."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = x @ p.wq
+    q = matmul(x, p.wq)
     if hasattr(p, "bq"):
         q = q + p.bq
+    q = _constrain_heads(q, cfg.num_heads, ("batch", "heads", "ctx", None))
     q = q.view(b, s, cfg.num_heads, hd).transpose(1, 2)
     if enc_out is not None:
         f = enc_out.shape[1]
         kv = []
         for name in ("k", "v"):
-            y = enc_out @ getattr(p, "w" + name)
+            y = matmul(enc_out, getattr(p, "w" + name))
             if hasattr(p, "b" + name):
                 y = y + getattr(p, "b" + name)
+            y = _constrain_heads(y, cfg.num_kv_heads,
+                                 ("batch", "kv_heads", None, None))
             kv.append(y.view(b, f, cfg.num_kv_heads, hd).transpose(1, 2))
         if cross is not None:
-            cross.k.copy_(kv[0])
-            cross.v.copy_(kv[1])
+            for dst, src in zip(cross, kv):
+                if placed.is_placed(dst):      # this rank's rows, in place
+                    src = src.redistribute(dst.device_mesh, dst.placements)
+                    dst.to_local().copy_(src.to_local())
+                else:
+                    dst.copy_(src)
     k, v = (kv if cross is None else (cross.k, cross.v))
-    out = chunked_attention(q, k, v, causal=False,
-                            chunk=cfg.attn_chunk, remat_body=cfg.inner_remat)
-    return out.transpose(1, 2).reshape(b, s, -1) @ p.wo
+    dt = torch.promote_types(q.dtype, k.dtype)
+    out = chunked_attention(q.to(dt), k.to(dt), v.to(dt), causal=False,
+                            chunk=cfg.attn_chunk,
+                            remat_body=cfg.inner_remat).to(q.dtype)
+    # as the self-attention's output: rows split by query come whole
+    # before the heads are flattened (identity outside a mesh context)
+    out = logical_constraint(out, ("batch", "heads", None, None))
+    out = out.transpose(1, 2).reshape(b, s, -1)
+    return logical_constraint(matmul(out, p.wo), ("batch", "seq", None))
 
 
 def mla_mixer(cfg, p, x, positions, *, mode: str, cache, pos=None,
@@ -754,20 +771,22 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
             for seg in arch_segments(cfg)]
 
 
-def _cache_shapes(cfg: ArchConfig, batch: int, max_len: int,
-                  dtype=torch.float32) -> list:
-    """`init_cache`'s tree as meta tensors, made with every dispatch mode
-    off: a trace records nothing of it, and nothing is allocated."""
+def _meta_shapes(init, *args, **kw) -> list:
+    """`init(*args, **kw)`'s tree (`init_cache`, `init_cross`) as meta
+    tensors, made with every dispatch mode off: a trace records nothing
+    of it, and nothing is allocated."""
     from torch.utils._python_dispatch import _disable_current_modes
     with _disable_current_modes():
-        return init_cache(cfg, batch, max_len, device="meta", dtype=dtype)
+        return init(*args, **kw, device="meta")
 
 
 def init_cross(cfg: ArchConfig, batch: int, frames: int, *,
                dtype=torch.float32, device=DEFAULT_DEVICE) -> list:
     """Per segment, {"l{i}": CrossKV} of (L, B, Hkv, F, hd) zeros for each
     cross-attention layer, or None for a segment without one (every
-    segment of a model without an encoder)."""
+    segment of a model without an encoder). `dtype` is the projections'
+    (`cross_mixer`): float32 for float32 frames, whatever the
+    parameters' dtype."""
     out = []
     for seg in arch_segments(cfg):
         names = [f"l{i}" for i, ls in enumerate(seg.layers) if ls.cross]
@@ -786,12 +805,20 @@ def _embed_tokens(cfg, params, tokens, pos=None):
     """Token embeddings, plus the learned positions of a model that has
     them: rows 0..S-1 at prefill; at decode (`pos` (B,)) each sequence's
     own row, clamped to the table's last. On a placed table, the
-    vocabulary-parallel lookup (`dist.placed.embedding`)."""
+    vocabulary-parallel lookup (`dist.placed.embedding`) and the rows of
+    the positions' column shards (`dist.placed.learned_positions`)."""
     if placed.is_placed(params.embed):
         x = placed.embedding(params.embed, tokens)
     else:
         x = params.embed[tokens.long()]
-    if cfg.max_positions:
+    if cfg.max_positions and placed.is_placed(params.pos_embed):
+        if pos is None:
+            x = x + placed.learned_positions(params.pos_embed,
+                                             n=tokens.shape[1])[None]
+        else:
+            x = x + placed.learned_positions(params.pos_embed,
+                                             pos=pos)[:, None]
+    elif cfg.max_positions:
         if pos is None:
             x = x + params.pos_embed[:tokens.shape[1]][None]
         else:
@@ -869,23 +896,25 @@ def forward_train(cfg: ArchConfig, params, tokens: torch.Tensor, *,
     """Teacher-forced logits (B, S, V) — (B, P + S, V) for a patch model,
     its P patch rows first — and the summed MoE aux loss (0-d float32).
 
-    frames (B, F, D): an encoder-decoder model's encoder input; patches
-    (B, P, D): a patch model's rows ahead of the tokens. Both are cast to
-    the parameters' dtype (the JAX package promotes float32 frames
-    against bf16 weights instead; the two agree in float32). Every layer
-    runs in mode "train", under autograd when the parameters require
-    gradients. With `remat` the body of each segment repetition (its
-    layers, one after the other) runs under `torch.utils.checkpoint`, so
-    the backward pass recomputes its activations, the flash kernel's
-    forward included, as `jax.checkpoint(nothing_saveable)` does; nothing
-    in a body draws random numbers, so no generator state is kept."""
+    frames (B, F, D): an encoder-decoder model's encoder input, which
+    keeps its dtype: float32 frames run the encoder and the cross keys
+    and values in float32 over bf16 weights, as the JAX package's type
+    promotion runs them (`layers.matmul`). patches (B, P, D): a patch
+    model's rows ahead of the tokens, cast to the activations' dtype.
+    Every layer runs in mode "train", under autograd when the parameters
+    require gradients. With `remat` the body of each segment repetition
+    (its layers, one after the other) runs under
+    `torch.utils.checkpoint`, so the backward pass recomputes its
+    activations, the flash kernel's forward included, as
+    `jax.checkpoint(nothing_saveable)` does; nothing in a body draws
+    random numbers, so no generator state is kept."""
     check_supported(cfg)
     b = tokens.shape[0]
     _check_inputs(cfg, b, frames, patches)
     x = _embed_tokens(cfg, params, tokens)
     enc_out = None
     if cfg.encoder_layers:
-        enc_out = run_encoder(cfg, params, frames.to(x.device, x.dtype))
+        enc_out = run_encoder(cfg, params, frames.to(x.device))
     if cfg.patch_tokens:
         x = torch.cat([patches.to(x.device, x.dtype), x], dim=1)
     x = logical_constraint(x, ("batch", "seq", None))
@@ -917,12 +946,16 @@ def forward_prefill(cfg: ArchConfig, params, tokens: torch.Tensor, *,
     """Process the prompt (B, S), build caches of width max_len; returns
     (last-position logits (B, 1, V), ServeState).
 
-    frames (B, F, D): an encoder-decoder model's encoder input; each
+    frames (B, F, D): an encoder-decoder model's encoder input, run in
+    its own dtype promoted with the parameters' (float32 frames: a
+    float32 encoder over bf16 weights, as in the JAX package); each
     cross layer's keys and values over the encoder output go into
-    `ServeState.cross`. patches (B, P, D), P = cfg.patch_tokens: a patch
-    model's rows, put ahead of the prompt: positions, causal attention
-    and the cache run over P + S rows, and `length` counts prompt tokens
-    only (the last row is P + length - 1, pos starts at P + length).
+    `ServeState.cross`, in the encoder output's dtype. patches (B, P,
+    D), P = cfg.patch_tokens: a patch model's rows, cast to the
+    activations' dtype and put ahead of the prompt: positions, causal
+    attention and the cache run over P + S rows, and `length` counts
+    prompt tokens only (the last row is P + length - 1, pos starts at
+    P + length).
 
     length: None, an int or 0-d tensor, or a (B,) vector of per-sequence
     real prompt lengths when `tokens` is right-padded. Logits come from
@@ -945,15 +978,21 @@ def forward_prefill(cfg: ArchConfig, params, tokens: torch.Tensor, *,
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)
     ctx = sh.current_context()
+    frames_n = 0 if enc_out is None else enc_out.shape[1]
+    cross_dtype = x.dtype if enc_out is None else enc_out.dtype
     if ctx is not None and placed.is_placed(x):
         # the state pinned to its serving placement: each rank allocates
         # its slice (`launch.specs.cache_entries`)
-        caches = placed.state_zeros(_cache_shapes(cfg, b, max_len, x.dtype),
-                                    *ctx, device=x.to_local().device)
+        dev = x.to_local().device
+        caches = placed.state_zeros(_meta_shapes(
+            init_cache, cfg, b, max_len, dtype=x.dtype), *ctx, device=dev)
+        cross = placed.state_zeros(_meta_shapes(
+            init_cross, cfg, b, frames_n, dtype=cross_dtype), *ctx,
+            device=dev)
     else:
         caches = init_cache(cfg, b, max_len, device=x.device, dtype=x.dtype)
-    cross = init_cross(cfg, b, 0 if enc_out is None else enc_out.shape[1],
-                       dtype=x.dtype, device=x.device)
+        cross = init_cross(cfg, b, frames_n, dtype=cross_dtype,
+                           device=x.device)
     for ls, lp, lc, lx in _layers(cfg, params, caches, cross):
         x, _ = _apply_layer(cfg, ls, lp, x, positions, mode="prefill",
                             cache=lc, cross=lx, enc_out=enc_out)

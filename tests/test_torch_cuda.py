@@ -1049,6 +1049,54 @@ def test_flash_bf16_local_mqa_at_recurrentgemma_rank_shard(gen, b, sq,
                                rtol=2e-2)
 
 
+def test_flash_bf16_at_whisper_decoder_rank_shard(gen):
+    """The bf16 route at D 64 with Whisper's decoder self-attention at the
+    last rank's shard of the placed prefill_32k (6l): 6 heads cannot take
+    `model`, so the rank's 2048 query rows (`ctx`) start at 30,720,
+    causal against all 32,768 keys; q a row block of the (2, S, 6, 64)
+    projection, K and V the whole projections, transposed views as the
+    rank hands them over; within the bf16 tolerance of
+    `ref.attention_ref`."""
+    b, sq, q_offset, sk = 2, 2048, 30720, 32768
+    q = torch.randn((b, sk, 6, 64), generator=gen,
+                    device="cuda").bfloat16()[:, q_offset:].transpose(1, 2)
+    k, v = (torch.randn((b, sk, 6, 64), generator=gen,
+                        device="cuda").bfloat16().transpose(1, 2)
+            for _ in range(2))
+    key = (b, 6, 6, sq, sk, 64, 64, True, 0, q_offset)
+    at_shape = kernels.flash_attention.shapes[key]
+    got = kernels.flash_attention(q, k, v, causal=True, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert kernels.flash_attention.shapes[key] == at_shape + 1
+    want = ref.attention_ref(q, k, v, causal=True, q_offset=q_offset)
+    assert got.shape == want.shape == (b, 6, sq, 64)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+def test_flash_f32_at_whisper_cross_rank_shard(full_fp32_matmul):
+    """The float32 route at Whisper's cross attention in a rank's shard of
+    the placed prefill_32k (6m): the bf16 queries promoted to float32
+    (a row block of 2048 of the (2, S, 6, 64) projection, transposed)
+    over the float32 keys and values of the 1500 frames, gathered whole
+    and contiguous as the cross state keeps them, non-causal; within the
+    float32 tolerance of `ref.attention_ref`."""
+    gen = full_fp32_matmul
+    b, sq, sk = 2, 2048, 1500
+    q = torch.randn((b, 2 * sq, 6, 64), generator=gen, device="cuda"
+                    ).bfloat16().float()[:, sq:].transpose(1, 2)
+    k, v = (torch.randn((b, 6, sk, 64), generator=gen, device="cuda")
+            for _ in range(2))
+    key = (b, 6, 6, sq, sk, 64, 64, False, 0, 0)
+    at_shape = kernels.flash_attention.shapes[key]
+    got = kernels.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert kernels.flash_attention.shapes[key] == at_shape + 1
+    want = ref.attention_ref(q, k, v, causal=False)
+    assert got.shape == want.shape == (b, 6, sq, 64)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
 def test_thermometer_operators_equal_their_direct_launches_and_fakes(gen):
     import importlib
     from torch._subclasses.fake_tensor import FakeTensorMode

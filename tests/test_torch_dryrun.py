@@ -8,8 +8,8 @@ keep JAX's keys and tags, their `sharding` and `tenancy` numbers and
 traces hold the kernels' operator nodes, the executed cell's 8 gloo
 ranks give parity 0.0, and `scripts/diff_dryrun.py` reads the sweep.
 Beside it: a hand-counted program's exact bytes, operations and peak, the
-SPMD training step against the one-device step, and a waiting LM
-family's exit.
+SPMD training step against the one-device step, and every LM arch in
+the placed set and the sweep's default.
 """
 import dataclasses
 import json
@@ -322,9 +322,18 @@ def test_spmd_train_step_on_two_gloo_ranks_matches_one_rank(spmd_problem):
         assert np.array_equal(a, b)
 
 
-def test_lm_arch_exits_2_naming_the_roadmap_item(capsys):
-    """A family whose placement waits (Whisper's encoder and cross
-    attention; the dense, MoE, SSM and hybrid archs trace since their
-    placement landed) exits 2 naming the item."""
-    assert dryrun.main(["--arch", "whisper_tiny"]) == 2
-    assert "item 6.5" in capsys.readouterr().err
+def test_every_lm_arch_is_placed_and_swept(tmp_path, monkeypatch):
+    """Every arch of the zoo has its placement (no family waits any
+    more), and `launch.sweep` with no `--archs` runs every shape of all
+    ten on both meshes (its cells recorded, not traced)."""
+    from repro_torch.configs import ARCH_IDS, get_config, shapes_for
+    from repro_torch.launch import sweep
+    assert sorted(dryrun.PLACED_ARCHS) == sorted(ARCH_IDS)
+    assert len(ARCH_IDS) == 10
+    ran = []
+    monkeypatch.setattr(sweep, "run_one", lambda arch, shape, mesh, args: (
+        ran.append((arch, shape, mesh)) or (True, "", 0.0)))
+    assert sweep.main(["--out", str(tmp_path)]) == 0
+    assert sorted(ran) == sorted(
+        (a, s.name, m) for a in ARCH_IDS for s in shapes_for(get_config(a))
+        for m in ("single", "multi"))

@@ -62,8 +62,9 @@ def jax_parts(shape_name, multi_pod, *, arch="llama3p2_3b",
               layers=LAYERS) -> dict:
     """{part: bytes a rank} of `arch`'s JAX cell at `layers` layers under
     JAX's rules on the stand-in mesh: parameters and AdamW state by
-    `param_logical`, inputs by the data arguments' logical axes, the
-    decode state by `cache_shardings`' classification."""
+    `param_logical`, inputs by the data arguments' logical axes (at
+    decode the token, the one input `lower_cell` lowers), the decode
+    state by `cache_shardings`' classification."""
     jcfg = dataclasses.replace(jget_config(arch), num_layers=layers)
     shape = JSHAPES[shape_name]
     jm = jmesh(multi_pod)
@@ -83,11 +84,15 @@ def jax_parts(shape_name, multi_pod, *, arch="llama3p2_3b",
         return total
     out = {"params": tree_bytes(pshapes, plog)}
     log = {"tokens": ("batch", "seq"), "labels": ("batch", "seq"),
-           "token": ("batch", None)}
+           "token": ("batch", None), "frames": ("batch", None, None),
+           "patches": ("batch", None, None)}
+    # `lower_cell` lowers a decode on the token alone, whatever else
+    # `input_specs` lists (Whisper's frames)
     out["inputs"] = sum(
         shard_bytes(v.shape, rules.resolve(log[k], jm, shape=v.shape), jm,
                     np.dtype(v.dtype).itemsize)
-        for k, v in jspecs.input_specs(jcfg, shape).items())
+        for k, v in jspecs.input_specs(jcfg, shape).items()
+        if shape.kind != "decode" or k == "token")
     if train:
         ostate = jspecs.opt_specs(jopt.adamw(1e-4), pshapes)
         out["opt"] = (np.dtype(ostate.step.dtype).itemsize
@@ -155,3 +160,36 @@ def test_collectives_show_the_placement(records):
     assert decode["all-reduce"]["axes"].get("model", 0) >= 3 * LAYERS
     prefill = records[("prefill_32k", False)]["roofline"]
     assert prefill["collective_s"] > 0 and prefill["model_flops"] > 0
+
+
+def test_memory_pass_of_two_microbatches_equals_the_whole_step(
+        monkeypatch):
+    """A training cell's memory pass runs the step on its first
+    MEMORY_MICROBATCHES microbatches (`lm_cell_args`' `memory_step`):
+    the memory and host reads it records equal those of the whole step,
+    here the smoke Llama at one layer with 3 microbatches a rank of the
+    production mesh (the graph pass, which runs every microbatch either
+    way, is stopped: `make_fx` raises, and the trace keeps the memory
+    pass's results)."""
+    from torch.fx.experimental import proxy_tensor
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import mesh as mesh_mod
+
+    def no_graph(*a, **k):
+        raise RuntimeError("graph pass skipped")
+    monkeypatch.setattr(proxy_tensor, "make_fx", no_graph)
+    cfg = dataclasses.replace(get_config("llama3p2_3b", smoke=True),
+                              num_layers=1)
+    shape = ShapeSpec("train_small", 16, 48, "train")
+    out = {}
+    for n in (dryrun.MEMORY_MICROBATCHES, 3):
+        monkeypatch.setattr(dryrun, "MEMORY_MICROBATCHES", n)
+        with mesh_mod.fake_world(256, 0):
+            mesh = mesh_mod.make_production_mesh(False, 0, device_type="cpu")
+            traced, _, _ = dryrun.trace_lm_cell(cfg, shape, mesh,
+                                                device="cpu")
+        assert traced.error == "RuntimeError: graph pass skipped"
+        out[n] = (traced.memory, traced.host_reads)
+    short, whole = out.values()
+    assert short == whole
+    assert short[0]["peak"] > short[0]["args"] > 0

@@ -298,10 +298,12 @@ def check_one_device_equals_jax(arch):
     jp = jax.tree.map(jnp.asarray, convert.lm_params_to_numpy(cfg, params))
     jc = jget_config(arch, smoke=True)
     s = p["tokens"].shape[1]
+    extra = p.get("inputs", {})          # frames or patches
     logits, _ = jax.jit(jsteps.make_prefill_step(
-        jc, max_len=s + ranks.MAX_LEN_PAD))(jp, {"tokens": p["tokens"]})
+        jc, max_len=s + ranks.MAX_LEN_PAD))(jp, {"tokens": p["tokens"],
+                                                 **extra})
     np.testing.assert_allclose(want["prefill"], np.asarray(logits),
                                atol=1e-4, rtol=1e-4)
     _, (loss, _) = jax.jit(lambda q: jsteps.lm_loss(
-        jc, q, p["tokens"], p["labels"]))(jp)
+        jc, q, p["tokens"], p["labels"], **extra))(jp)
     assert abs(want["loss"] - float(loss)) <= 1e-4 * abs(float(loss))

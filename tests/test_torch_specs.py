@@ -196,14 +196,6 @@ def test_engine_input_specs_equal_jax(arch, paged):
         for k, v in jspecs.engine_input_specs(jcfg, 64, 32, **kw).items()}
 
 
-# Where the port's serving state keeps another dtype than the JAX
-# package's (decided when the family was ported, and read back as such
-# by its decode): Whisper's cross keys and values are kept in the
-# parameters' dtype, where JAX promotes them against the float32 frames.
-# The Mamba 2 and RG-LRU conv windows take the step's dtype, as JAX's.
-STATE_DTYPE_DIFFERS = {("whisper_tiny", "cross"): ("bfloat16", "float32")}
-
-
 class _Entry:
     """A resolved entry as an opaque pytree leaf."""
 
@@ -219,7 +211,7 @@ def test_serve_state_spec_and_cache_entries_equal_jax(arch, monkeypatch):
     classification resolved there (its `named_sharding` reduced to the
     resolved entries, since a stand-in mesh places nothing)."""
     import jax.tree_util as jtu
-    name, cfg, jcfg = arch
+    _, cfg, jcfg = arch
     jstate = jsteps.serve_state_spec(
         jcfg, 32, 64, jspecs.param_specs(jcfg, jnp.bfloat16))
     state = steps.serve_state_spec(cfg, 32, 64,
@@ -243,10 +235,8 @@ def test_serve_state_spec_and_cache_entries_equal_jax(arch, monkeypatch):
         jshape = tuple(jl.shape)
         shape = tuple(t.shape)
         assert shape == jshape or shape == (1, *jshape), (path, jpath)
-        kind = "cross" if path.startswith("cross") else path.split(".")[-1]
-        pair = (dtype_name(t.dtype), dtype_name(jl.dtype))
-        assert pair[0] == pair[1] or STATE_DTYPE_DIFFERS.get(
-            (name, kind)) == pair, (path, pair)
+        assert dtype_name(t.dtype) == dtype_name(jl.dtype), \
+            (path, t.dtype, jl.dtype)
         for pod, (jent, ent) in entries.items():
             assert ent[i] == jent[i] or ent[i] == (None, *jent[i]), \
                 (pod, path, ent[i], jent[i])

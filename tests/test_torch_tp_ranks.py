@@ -54,6 +54,9 @@ def run(cfg, plan, *, place=None, state_after_prefill=None,
     tokens = torch.from_numpy(plan["tokens"])
     labels = torch.from_numpy(plan["labels"])
     nxt = torch.from_numpy(plan["next"])
+    # Whisper's frames, InternVL2's patches (float32, by batch rows)
+    extra = {k: torch.from_numpy(v)
+             for k, v in (plan.get("inputs") or {}).items()}
     s = tokens.shape[1]
 
     def whole(t):
@@ -78,7 +81,9 @@ def run(cfg, plan, *, place=None, state_after_prefill=None,
     with ctx:
         p = put_params(params)
         logits, state = steps.make_prefill_step(cfg, max_len=s + MAX_LEN_PAD)(
-            p, {"tokens": put(tokens, ("batch", "seq"))})
+            p, {"tokens": put(tokens, ("batch", "seq")),
+                **{k: put(v, ("batch", None, None))
+                   for k, v in extra.items()}})
         out["prefill"] = whole(logits)
         out["state"] = [whole(t) for _, t in graph_cost.flatten(state)]
         out["state_dtypes"] = [t.dtype for _, t in graph_cost.flatten(state)]
@@ -113,7 +118,8 @@ def run(cfg, plan, *, place=None, state_after_prefill=None,
                                      compute_dtype=torch.float32)
         new, _, metrics = step(p, state, {
             "tokens": put(tokens, ("batch", "seq")),
-            "labels": put(labels, ("batch", "seq"))})
+            "labels": put(labels, ("batch", "seq")),
+            **{k: put(v, ("batch", None, None)) for k, v in extra.items()}})
         out["loss"] = float(whole(metrics["loss"]))
         out["params"] = [whole(t) for t in steps.tree_leaves(new)]
     return out
@@ -148,13 +154,23 @@ def plan_for(heads, mesh, seed=0) -> dict:
 def moe_plan(arch, mesh, *, batch=8, seq=24, seed=0, change=None) -> dict:
     """Numpy tokens, labels and two decode tokens of a (batch, seq) batch
     of `arch`'s smoke config (with the fields `change` gives replaced),
-    to run on `mesh` = (shape, axes)."""
+    to run on `mesh` = (shape, axes); for a model that takes them, its
+    frames (batch, F, D) or patches (batch, P, D), normal x 0.02
+    (`inputs`)."""
     rng = np.random.default_rng(seed)
-    v = get_config(arch, smoke=True).vocab_size
-    return {"arch": arch, "mesh": mesh, "seed": seed, "change": change,
-            "tokens": rng.integers(0, v, (batch, seq)).astype(np.int32),
-            "labels": rng.integers(0, v, (batch, seq)).astype(np.int32),
-            "next": rng.integers(0, v, (batch, 2)).astype(np.int32)}
+    plan = {"arch": arch, "mesh": mesh, "seed": seed, "change": change}
+    cfg = plan_config(plan)
+    v = cfg.vocab_size
+    plan.update(
+        tokens=rng.integers(0, v, (batch, seq)).astype(np.int32),
+        labels=rng.integers(0, v, (batch, seq)).astype(np.int32),
+        next=rng.integers(0, v, (batch, 2)).astype(np.int32))
+    rows = {"frames": cfg.encoder_frames, "patches": cfg.patch_tokens}
+    inputs = {k: (rng.standard_normal((batch, n, cfg.d_model)) * 0.02
+                  ).astype(np.float32) for k, n in rows.items() if n}
+    if inputs:
+        plan["inputs"] = inputs
+    return plan
 
 
 def plan_config(plan):

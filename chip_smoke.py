@@ -147,14 +147,25 @@ submodels, M = 10) and one LM path:
   cells run for real at its shard shapes (the fake group's collectives
   move nothing), its peak device memory held to the record's and its
   kernel launches to the trace's operator nodes; and the WNN and hash
-  operators timed against their direct `ctypes` launches.
+  operators timed against their direct `ctypes` launches;
+* the LM entry points on a mesh: Llama 3.2 3B at full width, depth cut
+  to 2 of 28 layers, through `launch.train.train(mesh=)` for 3 float32
+  steps of 4 x 1024 tokens in 2 microbatches on (data 2, model 2), four
+  gloo ranks sharing the card with every shard on it (DTensor's
+  all-gathers through the port's host-staged route): every rank's
+  losses equal, the losses and final parameters held to the one-device
+  `train()` of the same seed, the step-2 checkpoint resumed on (model 4)
+  and in one process to the same; `serve(mesh=)` on (model 4), 2 x 512
+  prompts for 16 tokens, against one-device `serve()`; the flash kernel
+  at a rank's train shape against its plain version.
 
 Each path resets the kernels' launch counts just before it and reads them
-just after (the sharded and distributed-trainer paths in each rank
-process too, summed over ranks). The tenant path's scoring is tensor code, as the JAX package's
-is on every platform (no Pallas tenant kernel); its line puts that time
-beside the WNN kernel's on the same rows. Every phase prints one JSON line; any mismatch raises, so the
-exit code is nonzero. The last line is `{"ok": true, "device": {...}}`;
+just after (the sharded, distributed-trainer and LM mesh paths in each
+rank process too, summed over ranks). The tenant path's scoring is
+tensor code, as the JAX package's is on every platform (no Pallas
+tenant kernel); its line puts that time beside the WNN kernel's on the
+same rows. Every phase prints one JSON line; any mismatch raises, so
+the exit code is nonzero. The last line is `{"ok": true, "device": {...}}`;
 the line before it is the card's name and power limit as `nvidia-smi`
 reports them.
 
@@ -4982,6 +4993,430 @@ def lm_dryrun_path(kernels, sweep):
             for k in KERNEL_INFO}, flash_rows
 
 
+# ---------------------------------------------------------------------------
+# The LM entry points on a mesh: `launch.train.train(mesh=)` and
+# `launch.serve.serve(mesh=)` in rank processes that share the card
+# ---------------------------------------------------------------------------
+
+# Llama 3.2 3B at full width and MESH_LAYERS of its 28 layers, trained
+# for MESH_STEPS float32-compute steps of MESH_BATCH x MESH_SEQ tokens in
+# MESH_MICROBATCHES microbatches on MESH_MAIN, a checkpoint after step
+# MESH_CKPT_AT resumed on MESH_RESUME and in one process; then served on
+# MESH_RESUME. Four gloo ranks share the card, their shards on it ("cuda"
+# DeviceMeshes, DTensor's all-gathers through `dist.collectives`' route)
+MESH_LAYERS = 2
+MESH_BATCH, MESH_SEQ, MESH_STEPS, MESH_MICROBATCHES = 4, 1024, 3, 2
+MESH_CKPT_AT = 2
+MESH_SEED, MESH_SERVE_SEED = 20272, 20273
+MESH_MAIN = ((2, 2), ("data", "model"))
+# serving runs on MESH_RESUME too: with no `data` axis the `fsdp`
+# weights are whole on every rank, where on MESH_MAIN each decode step
+# gathered ~1.2 GB a rank through gloo: 56 s for the 16 tokens on an H100
+MESH_RESUME = ((4,), ("model",))
+MESH_SERVE_BATCH, MESH_SERVE_PROMPT, MESH_SERVE_GEN = 2, 512, 16
+MESH_TIMEOUT_S = 600
+# Tolerances against the one-device run of the same seed. The losses
+# within 1e-5 relative: a rank's matmuls reduce over its own slice of
+# `model` and an all-reduce adds the slices, and cuBLAS splits a
+# reduction by its shape, so each float32 activation rounds otherwise
+# (~1e-7 relative), over two layers and a mean of 4096 tokens. Each
+# parameter within 2·Σ lr_t over the steps run: AdamW moves an element
+# by about lr_t a step whatever its gradient's size (m / √v), so a
+# gradient near 0 that rounds to the other sign moves it by up to 2·lr_t
+# the other way. And the whole difference's L2 norm within 1e-3 of the
+# L2 norm of the run's own update (final less initial parameters): a
+# placement fault misplaces whole rows or columns, an error of the
+# update's own size
+MESH_LOSS_RTOL = 1e-5
+MESH_UPDATE_RTOL = 1e-3
+# a served token that differs from one device's must follow logits whose
+# top two are closer than this (float32 logits, ~1e-5 apart)
+MESH_MARGIN = 1e-3
+# 6n: the flash kernel at a rank's train shape on MESH_MAIN
+# (`mesh_flash_case`): a microbatch's one row of the rank's two, Llama's
+# 24/8 heads of 128 over `model` 2
+MESH_FLASH_CASE = dict(name="llama3p2_3b_train_rank_b1_h12_kv4_s1024_f32",
+                       row="6n", dtype=torch.float32)
+COLLECTIVE_NAMES = ("c10d", "all_gather", "all_reduce", "reduce_scatter",
+                    "all_to_all", "wait_tensor", "barrier", "broadcast")
+
+
+def mesh_flash_case(cfg) -> dict:
+    """MESH_FLASH_CASE at `cfg`'s shape on a rank of MESH_MAIN."""
+    (data, model), _ = MESH_MAIN
+    return dict(MESH_FLASH_CASE, b=MESH_BATCH // data // MESH_MICROBATCHES,
+                h=cfg.num_heads // model, hkv=cfg.num_kv_heads // model,
+                sq=MESH_SEQ, sk=MESH_SEQ, d=cfg.head_dim)
+
+
+def mesh_train_kw(dev) -> dict:
+    return dict(steps_total=MESH_STEPS, batch=MESH_BATCH, seq=MESH_SEQ,
+                microbatches=MESH_MICROBATCHES, compute_dtype=None,
+                seed=MESH_SEED, ckpt_every=MESH_CKPT_AT, verbose=False,
+                device=dev)
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def link_checkpoint(src: str, dst: str, step: int) -> None:
+    """The checkpoint of `step` in `src` as one in `dst` (hard links: the
+    files are written once)."""
+    name = f"step_{step:010d}"
+    os.makedirs(dst, exist_ok=True)
+    shutil.copytree(os.path.join(src, name), os.path.join(dst, name),
+                    copy_function=os.link)
+
+
+def collective_seconds(prof, skip=()) -> float:
+    """Seconds during which some collective call (a name in
+    COLLECTIVE_NAMES: gloo's, DTensor's and the route's) was in progress
+    on any thread of the profile `prof`, outside the windows `skip`
+    ((start, end) seconds from the profile's start): the union of those
+    calls' intervals, so that a call nested in another, or a caller's
+    wait beside gloo's own thread, counts once."""
+    spans = sorted((ev.time_range.start / 1e6, ev.time_range.end / 1e6)
+                   for ev in prof.events()
+                   if any(k in ev.name for k in COLLECTIVE_NAMES))
+    total, end = 0.0, -math.inf
+    for a, b in spans:
+        if any(lo <= a and b <= hi for lo, hi in skip) or b <= end:
+            continue
+        total += b - max(a, end)
+        end = b
+    return total
+
+
+def lm_mesh_rank(rank, world, plan):
+    """One rank of `lm_mesh_path` (run by `launch.mesh.spawn_ranks`):
+    `train(mesh=)` on MESH_MAIN into plan["ckpt"] (rank 0 under
+    `torch.profiler` on the host, for the collectives' share); the step
+    MESH_CKPT_AT checkpoint resumed on MESH_RESUME from plan["resume"];
+    `serve(mesh=)` on MESH_RESUME. Asserts every local shard of the
+    parameters and the AdamW state lies on the rank's card. Returns the
+    histories, the served tokens, step and checkpoint seconds, peaks and
+    kernel launches (by flash shape too)."""
+    import contextlib
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import kernels
+    from repro_torch.dist import placed
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import transformer
+    from repro_torch.obs import registry
+    from repro_torch.train import checkpoint
+    del world
+    dev = mesh_mod.rank_device(plan["device"])
+    cfg = plan["cfg"]
+    meshes = {"main": mesh_mod.make_mesh(*MESH_MAIN, device_type=dev.type),
+              "resume": mesh_mod.make_mesh(*MESH_RESUME,
+                                           device_type=dev.type)}
+    kernels.reset_launch_counts()          # this rank's run starts here
+    out = {"rank": rank, "device": str(dev), "runs": {}}
+    for name, ckpt in (("main", plan["ckpt"]), ("resume", plan["resume"])):
+        if name == "resume":
+            if rank == 0:
+                link_checkpoint(plan["ckpt"], ckpt, MESH_CKPT_AT)
+            dist.barrier()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        prof = (profile(activities=[ProfilerActivity.CPU])
+                if rank == 0 and name == "main" else contextlib.nullcontext())
+        with registry.recording() as rec, prof:
+            t0 = time.perf_counter()
+            res = train_mod.train(cfg, mesh=meshes[name], ckpt_dir=ckpt,
+                                  **mesh_train_kw(dev))
+            sync(dev)
+            wall = time.perf_counter() - t0
+        saves = [(sp.t0 - t0, sp.t1 - t0) for sp in rec.spans
+                 if sp.name == "ckpt.save"]
+        locals_ = [t.to_local() for t in checkpoint.flatten(
+            (res["params"], res["opt_state"])) if placed.is_placed(t)]
+        off = sorted({str(t.device) for t in locals_} - {str(dev)})
+        if off or not locals_:
+            raise AssertionError(f"rank {rank}: {len(locals_)} placed "
+                                 f"leaves, shards off {dev}: {off}")
+        run = {"history": res["history"],
+               "resumed_from": res["resumed_from"],
+               "placed_leaves": len(locals_), "wall_s": wall,
+               "steps": {k: getattr(rec.histograms["train.step_s"], k)
+                         for k in ("count", "sum", "min", "max")},
+               "ckpt_spans_s": [(sp.name, sp.t1 - sp.t0)
+                                for sp in rec.spans],
+               "checkpoints": checkpoint.all_steps(ckpt),
+               "peak_bytes": (torch.cuda.max_memory_allocated(dev)
+                              if dev.type == "cuda" else None)}
+        if not isinstance(prof, contextlib.nullcontext):
+            # the steps' collectives: the saves' gathers left out
+            run["collective_s"] = collective_seconds(prof, skip=saves)
+        out["runs"][name] = run
+        del res, locals_, prof
+        gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    params = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(MESH_SERVE_SEED),
+        dtype=torch.float32, device=dev)
+    prompts = torch.from_numpy(plan["prompts"]).to(dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    tokens = serve_mod.serve(cfg, params, prompts, mesh=meshes["resume"],
+                             max_len=MESH_SERVE_PROMPT + MESH_SERVE_GEN,
+                             gen=MESH_SERVE_GEN)
+    sync(dev)
+    out["serve"] = {"tokens": tokens.cpu().numpy(),
+                    "seconds": time.perf_counter() - t0,
+                    "peak_bytes": (torch.cuda.max_memory_allocated(dev)
+                                   if dev.type == "cuda" else None)}
+    out["launches"] = kernels.launch_counts()     # ... and ends here
+    out["flash_shapes"] = [(*k, n) for k, n in
+                           kernels.flash_attention.shapes.items()]
+    return out
+
+
+def greedy_with_margins(cfg, params, prompts, steps, *, max_len, gen):
+    """`serve()`'s greedy loop on one device (a prefill, then a decode
+    step a token), with the top-2 margin of the logits behind each token:
+    (tokens (B, gen) numpy, margins[rid][t])."""
+    prefill = steps.make_prefill_step(cfg, max_len=max_len)
+    decode = steps.make_decode_step(cfg)
+    toks, margins = [], []
+    with torch.inference_mode():
+        logits, state = prefill(params, {"tokens": prompts})
+        for _ in range(gen):
+            last = logits[:, -1].float()
+            top = torch.topk(last, 2, dim=-1).values
+            margins.append(top[:, 0] - top[:, 1])
+            toks.append(torch.argmax(last, dim=-1)[:, None].to(torch.int32))
+            logits, state = decode(params, toks[-1], state)
+    return (torch.cat(toks, 1).cpu().numpy(),
+            torch.stack(margins, 1).cpu().tolist())
+
+
+def param_gap(got, want, init, dev) -> dict:
+    """Parameter leaves `got` (tensors or numpy arrays) against the
+    one-device run's `want`, whose initial leaves are `init` (both on the
+    host): the max |difference|, the elements past 1e-6, and the
+    difference's L2 norm over that of the run's update (want - init)."""
+    worst, past, d2, u2 = 0.0, 0, 0.0, 0.0
+    for g, w, i in zip(got, want, init, strict=True):
+        w = w.to(dev)
+        d = (torch.as_tensor(g).to(dev) - w).double()
+        worst = max(worst, float(d.abs().max()))
+        past += int((d.abs() > 1e-6).sum())
+        d2 += float(d.pow(2).sum())
+        u2 += float((w - i.to(dev)).double().pow(2).sum())
+        del d, w
+    return {"max_abs_diff": worst, "elements_past_1e-6": past,
+            "update_rel_l2": math.sqrt(d2 / u2) if u2 else math.inf}
+
+
+def lm_mesh_path(kernels, *, get_config, transformer, steps, train_mod,
+                 serve_mod, mesh_mod, optimizer, checkpoint, ref,
+                 flash_attention, plan, device="cuda"):
+    """The LM entry points on a mesh. First (not counted) the flash kernel
+    at a rank's train shape (6n) against its plain version, timed beside
+    it and one SDPA call. Then, counted: the one-device references in
+    this process (`train()` of the same seed and `serve()` with its
+    top-2 margins), freed before the ranks start; four gloo ranks sharing
+    the card (`lm_mesh_rank`): `train(mesh=)` on MESH_MAIN with its step
+    MESH_CKPT_AT checkpoint resumed on MESH_RESUME, and `serve(mesh=)`;
+    last, that checkpoint resumed in this process. Every rank's losses
+    must be equal; each run's losses within MESH_LOSS_RTOL of one
+    device's and its final parameters within 2·Σ lr_t and MESH_UPDATE_RTOL
+    (the checkpoints' stored parameters for the ranks' runs); the served
+    tokens equal one device's but where the top-2 margin is under
+    MESH_MARGIN. Returns (launches, the 6n row with the ranks' launches
+    at its shape)."""
+    from repro_torch.obs import registry as obs_registry
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(MESH_SEED)
+    cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=MESH_LAYERS)
+    case = mesh_flash_case(cfg)
+    flash_row = flash_case_row(gen, ref, flash_attention, plan, case, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    kernels.reset_launch_counts()          # the path's run starts here
+    t_path = time.perf_counter()
+    kw = mesh_train_kw(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    one = train_mod.train(cfg, **kw)
+    sync(dev)
+    one_s = time.perf_counter() - t0
+    one_peak = (torch.cuda.max_memory_allocated() if dev.type == "cuda"
+                else None)
+    want = [t.cpu() for t in checkpoint.flatten(one["params"])]
+    history = one["history"]
+    check_finite("mesh reference", history)
+    del one
+    init = [t.cpu() for t in checkpoint.flatten(transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(MESH_SEED),
+        dtype=torch.float32, device=dev))]
+    rng = np.random.default_rng(MESH_SERVE_SEED)
+    prompts = rng.integers(0, cfg.vocab_size, (MESH_SERVE_BATCH,
+                                               MESH_SERVE_PROMPT)).astype(
+                                                   np.int32)
+    serve_params = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(MESH_SERVE_SEED),
+        dtype=torch.float32, device=dev)
+    max_len = MESH_SERVE_PROMPT + MESH_SERVE_GEN
+    served = serve_mod.serve(cfg, serve_params, prompts, max_len=max_len,
+                             gen=MESH_SERVE_GEN).cpu().numpy()
+    looped, margins = greedy_with_margins(
+        cfg, serve_params, torch.from_numpy(prompts).to(dev), steps,
+        max_len=max_len, gen=MESH_SERVE_GEN)
+    if not np.array_equal(served, looped):
+        raise AssertionError("serve() and its greedy loop disagree")
+    del serve_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    parent = kernels.launch_counts()
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    free_gib = shutil.disk_usage(ROOT / "build").free / 2 ** 30
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        dirs = {k: str(Path(tmp) / k) for k in ("main", "resume", "one")}
+        t0 = time.perf_counter()
+        ranks = mesh_mod.spawn_ranks(
+            lm_mesh_rank, math.prod(MESH_MAIN[0]),
+            {"device": device, "cfg": cfg, "ckpt": dirs["main"],
+             "resume": dirs["resume"], "prompts": prompts},
+            backend="gloo", timeout_s=MESH_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t0
+        n = len(want)
+        t0 = time.perf_counter()
+        gaps = {}
+        for name in ("main", "resume"):      # the parameters' leaves
+            stored = checkpoint.stored_arrays(dirs[name], MESH_STEPS)
+            gaps[name] = param_gap([stored[f"a{i}"] for i in range(n)],
+                                   want, init, dev)
+        read_s = time.perf_counter() - t0
+        shutil.rmtree(dirs["resume"])
+        link_checkpoint(dirs["main"], dirs["one"], MESH_CKPT_AT)
+        shutil.rmtree(dirs["main"])
+        t0 = time.perf_counter()
+        with obs_registry.recording() as rec:
+            here = train_mod.train(cfg, ckpt_dir=dirs["one"], **kw)
+            sync(dev)
+        here_s = time.perf_counter() - t0
+        here_spans = [(sp.name, sp.t1 - sp.t0) for sp in rec.spans]
+        gaps["one_process"] = param_gap(checkpoint.flatten(here["params"]),
+                                        want, init, dev)
+        runs = {"main": ranks[0]["runs"]["main"]["history"],
+                "resume": ranks[0]["runs"]["resume"]["history"],
+                "one_process": here["history"]}
+        resumed = {"main": ranks[0]["runs"]["main"]["resumed_from"],
+                   "resume": ranks[0]["runs"]["resume"]["resumed_from"],
+                   "one_process": here["resumed_from"]}
+        del here
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_path
+    parent_all = kernels.launch_counts()   # ... and ends here
+
+    schedule = optimizer.warmup_cosine_schedule(3e-4, train_mod.WARMUP_STEPS,
+                                                MESH_STEPS)
+    param_tol = 2 * sum(float(schedule(torch.tensor(t)))
+                        for t in range(MESH_STEPS))
+    failures = []
+    for r in ranks[1:]:
+        for name in ("main", "resume"):
+            if r["runs"][name]["history"] != ranks[0]["runs"][name][
+                    "history"]:
+                failures.append(f"rank {r['rank']} {name}: history differs "
+                                f"from rank 0's")
+        if not np.array_equal(r["serve"]["tokens"],
+                              ranks[0]["serve"]["tokens"]):
+            failures.append(f"rank {r['rank']}: served tokens differ")
+    by_step = {h["step"]: h["loss"] for h in history}
+    loss_gaps = {}
+    for name, hist in runs.items():
+        start = MESH_CKPT_AT if name != "main" else 0
+        if resumed[name] != start or [h["step"] for h in hist] != list(
+                range(start, MESH_STEPS)):
+            failures.append(f"{name}: resumed from {resumed[name]}, steps "
+                            f"{[h['step'] for h in hist]}")
+        loss_gaps[name] = [abs(h["loss"] - by_step[h["step"]])
+                           / abs(by_step[h["step"]]) for h in hist]
+        if not all(g <= MESH_LOSS_RTOL for g in loss_gaps[name]):
+            failures.append(f"{name}: losses {loss_gaps[name]} relative "
+                            f"from one device's")
+        gap = gaps[name]
+        if not (gap["max_abs_diff"] <= param_tol
+                and gap["update_rel_l2"] <= MESH_UPDATE_RTOL):
+            failures.append(f"{name}: parameters {gap} (tolerances "
+                            f"{param_tol}, {MESH_UPDATE_RTOL})")
+    tokens = ranks[0]["serve"]["tokens"]
+    differ = token_differences(tokens.tolist(), served.tolist(), margins)
+    if any(d["top2_margin"] >= MESH_MARGIN for d in differ):
+        failures.append(f"served tokens differ past the margin: {differ}")
+    launches = {k: parent_all[k] + sum(r["launches"][k] for r in ranks)
+                for k in KERNEL_INFO}
+    key = list(flash_shape(case))
+    flash_row["launches"] = sum(n for r in ranks
+                                for *shape, n in r["flash_shapes"]
+                                if shape == key)
+    want_launches = (4 * MESH_STEPS * MESH_MICROBATCHES * 2
+                     * cfg.num_layers)
+    if flash_row["launches"] != want_launches:
+        failures.append(f"the ranks' main runs launched flash "
+                        f"{flash_row['launches']} times at {key}, not "
+                        f"{want_launches}")
+    if not launches["flash_attention"] or any(
+            launches[k] for k in KERNEL_INFO if k != "flash_attention"):
+        failures.append(f"launches {launches}")
+
+    main0 = ranks[0]["runs"]["main"]
+    steps_s = main0["steps"]
+    # the steps' mean but the slowest (the first warms up)
+    later_ms = ((steps_s["sum"] - steps_s["max"])
+                / max(1, steps_s["count"] - 1) * 1e3)
+    emit("lm_mesh_path", model=cfg.name, layers=cfg.num_layers,
+         of_layers=get_config(LM_ARCH).num_layers, d_model=cfg.d_model,
+         heads=(cfg.num_heads, cfg.num_kv_heads), d_ff=cfg.d_ff,
+         vocab=cfg.vocab_size, params=sum(t.numel() for t in want),
+         batch=MESH_BATCH, seq=MESH_SEQ, steps=MESH_STEPS,
+         microbatches=MESH_MICROBATCHES, compute_dtype="float32",
+         mesh=mesh_tag(*MESH_MAIN), resume_mesh=mesh_tag(*MESH_RESUME),
+         serve_mesh=mesh_tag(*MESH_RESUME),
+         backend="gloo", ranks_on=sorted({r["device"] for r in ranks}),
+         one_device={"history": history, "seconds": one_s,
+                     "peak_gib": one_peak / 2 ** 30 if one_peak else None,
+                     "launches": parent},
+         losses={k: [h["loss"] for h in v] for k, v in runs.items()},
+         loss_rel_gaps=loss_gaps, loss_rtol=MESH_LOSS_RTOL,
+         param_gaps=gaps, param_atol=param_tol,
+         update_rtol=MESH_UPDATE_RTOL,
+         ms_a_step_but_slowest=later_ms, step_s=steps_s,
+         collective_s=main0.get("collective_s"),
+         collective_share_of_steps=main0["collective_s"] / steps_s["sum"],
+         train_wall_s=main0["wall_s"],
+         ckpt_spans_s=main0["ckpt_spans_s"],
+         resume_ckpt_spans_s=ranks[0]["runs"]["resume"]["ckpt_spans_s"],
+         peak_gib_a_rank={r["rank"]: {
+             k: (v["peak_bytes"] / 2 ** 30 if v["peak_bytes"] else None)
+             for k, v in (*r["runs"].items(), ("serve", r["serve"]))}
+             for r in ranks},
+         serve={"batch": MESH_SERVE_BATCH, "prompt": MESH_SERVE_PROMPT,
+                "gen": MESH_SERVE_GEN, "tokens_equal": not differ,
+                "token_differences": differ, "margin": MESH_MARGIN,
+                "seconds": ranks[0]["serve"]["seconds"]},
+         ranks_s=ranks_s, read_s=read_s, one_process_resume_s=here_s,
+         one_process_ckpt_spans_s=here_spans,
+         disk_free_gib=free_gib, path_s=seconds, launches=launches,
+         flash=flash_row, failures=failures)
+    if failures:
+        raise AssertionError(f"lm_mesh_path: {failures}")
+    return launches, flash_row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -5009,7 +5444,7 @@ def main() -> int:
     from repro_torch.models import layers, moe, rglru, ssm, transformer
     from repro_torch.packed import layout as packed_layout
     from repro_torch.packed import runtime
-    from repro_torch.train import compression, optimizer
+    from repro_torch.train import checkpoint, compression, optimizer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5140,6 +5575,12 @@ def main() -> int:
     lm_dryrun_launches, lm_dryrun_flash = lm_dryrun_path(kernels,
                                                          lm_dryrun_sweep)
     torch.cuda.empty_cache()
+    lm_mesh_launches, lm_mesh_flash = lm_mesh_path(
+        kernels, get_config=get_config, transformer=transformer, steps=steps,
+        train_mod=train_mod, serve_mod=serve_mod, mesh_mod=mesh_mod,
+        optimizer=optimizer, checkpoint=checkpoint, ref=ref,
+        flash_attention=kernels.flash_attention, plan=flash_plan)
+    torch.cuda.empty_cache()
     by_path = {"uleen_serve": launches, "uleen_train": train_launches,
                "lm_serve": lm_launches, "head": head_launches,
                "tenant": tenant_launches, "examples": example_launches,
@@ -5150,7 +5591,7 @@ def main() -> int:
                "qwen": qwen_launches, "serve_profile": profile_launches,
                "loadgen": loadgen_launches, "lm_train": train_lm_launches,
                "uleen_dist_train": dist_launches, "dryrun": dryrun_launches,
-               "lm_dryrun": lm_dryrun_launches}
+               "lm_dryrun": lm_dryrun_launches, "lm_mesh": lm_mesh_launches}
     # the flash kernel's rows at the MoE, hybrid, encoder-decoder, patch
     # and Qwen paths' shapes, each with the launches its path's run made at
     # exactly that shape and all of its path's flash launches
@@ -5167,7 +5608,8 @@ def main() -> int:
         for path, row in (("moe", moe_flash), ("mla", mla_flash),
                           ("hybrid", hybrid_flash), *flash_path_rows,
                           *(("lm_train", row) for row in train_flash),
-                          *(("lm_dryrun", row) for row in lm_dryrun_flash))]
+                          *(("lm_dryrun", row) for row in lm_dryrun_flash),
+                          ("lm_mesh", lm_mesh_flash))]
     # each kernel's launches on the path that carries it: the ULEEN serve
     # path for the WNN and front-end kernels, the train path for the hash,
     # the LM serve path for flash attention; `launches_by_path` has every

@@ -121,6 +121,51 @@ def sum_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     return total
 
 
+_STAGED_OPS = []     # the Library objects that hold the routes (kept alive)
+
+
+def stage_cuda_gathers_on_host() -> None:
+    """Give DTensor's all-gathers of CUDA tensors over gloo a route that
+    gloo takes, for ranks that share one card on a "cuda" DeviceMesh.
+
+    DTensor runs its collectives as PyTorch's functional collectives.
+    Under gloo, on CUDA tensors (torch 2.11 on an H100,
+    `scripts/gloo_cuda_probe.py`), the functional all-reduce,
+    reduce-scatter and all-to-all run, and so does every
+    `torch.distributed` call, but the functional all-gather
+    (`_c10d_functional::all_gather_into_tensor`: every gather DTensor
+    makes, `full_tensor`, a redistribution to `Replicate`, FSDP's weight
+    gathers) ends the process with a segmentation fault. The route
+    registers a CUDA kernel of that operator that makes the same gather
+    with `torch.distributed.all_gather_into_tensor` on the same tensors:
+    gloo's CUDA path, which stages them through pinned host memory
+    itself (faster than a copy to the host and the functional operator
+    there, the probe's timings). The shards and all arithmetic stay on
+    the card. The kernel holds for the whole process (an operator's
+    kernel is process-wide), so it is installed only where every group
+    is gloo (`launch.mesh.make_mesh`), and raises on a group of another
+    backend. Installing it twice is a no-op."""
+    if _STAGED_OPS:
+        return
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    def gather(x, group_size, group_name):
+        group = _resolve_process_group(group_name)
+        if not host_staged(group):
+            raise RuntimeError(f"the host-staged gather runs over gloo, not "
+                               f"{dist.get_backend(group)}")
+        x = x.contiguous()
+        out = x.new_empty((group_size * x.shape[0], *x.shape[1:]))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", FutureWarning)
+            dist.all_gather_into_tensor(out, x, group=group)
+        return out
+
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    lib.impl("all_gather_into_tensor", gather, "CUDA")
+    _STAGED_OPS.append(lib)
+
+
 def row_slice(n_rows: int, mesh, axes) -> slice:
     """The rows [lo, hi) this rank holds of `n_rows` split over `axes`
     (the caller resolved `axes` with the divisibility sanitizer)."""

@@ -240,35 +240,47 @@ def local_shape(shape, entries, mesh) -> tuple:
     return tuple(n // spec_degree(mesh, e) for n, e in zip(shape, entries))
 
 
-def local_slice(t, entries, mesh):
-    """This rank's slice of a global tensor `t` under `entries`: each
-    sharded dim cut into the mesh axes' degree, at this rank's coordinate
-    (outermost axis first)."""
-    sizes = mesh_sizes(mesh)
-    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
-    for dim, entry in enumerate(entries):
-        axes = entry_axes(entry)
-        if not axes:
+def shard_slices(shape, mesh, placements_, coord=None) -> tuple:
+    """The slices of a global tensor of `shape` that the rank at mesh
+    coordinate `coord` (this rank's by default) holds under
+    `placements_`. A dim sharded over several mesh dims splits over them
+    outermost first, as DTensor reads such placements (and as a JAX
+    multi-axis entry splits)."""
+    from torch.distributed.tensor import Shard
+    coord = mesh.get_coordinate() if coord is None else coord
+    lo, n = [0] * len(shape), list(shape)
+    for i, p in enumerate(placements_):
+        if not isinstance(p, Shard):
             continue
-        index, degree = 0, 1
-        for ax in axes:
-            index = index * sizes[ax] + coord[ax]
-            degree *= sizes[ax]
-        n = t.shape[dim] // degree
-        t = t.narrow(dim, index * n, n)
-    return t
+        parts = mesh.size(i)
+        if n[p.dim] % parts:
+            raise ValueError(f"dim {p.dim} of {tuple(shape)} does not "
+                             f"split evenly over mesh dim {i} ({parts})")
+        n[p.dim] //= parts
+        lo[p.dim] += coord[i] * n[p.dim]
+    return tuple(slice(a, a + b) for a, b in zip(lo, n))
+
+
+def from_global(t, mesh, placements_, device=None):
+    """`t` (the global tensor, the same on every rank; real or fake) as a
+    DTensor of `placements_` on `mesh`: this rank's slice
+    (`shard_slices`) cut from it locally, with no collective; given a
+    `device`, a copy of the slice there (only the slice is read)."""
+    from torch.distributed.tensor import DTensor
+    local = t[shard_slices(tuple(t.shape), mesh, placements_)]
+    if device is not None:
+        local = local.to(device, copy=True)
+    return DTensor.from_local(
+        local.contiguous(), mesh, list(placements_), run_check=False,
+        shape=tuple(t.shape), stride=contiguous_stride(tuple(t.shape)))
 
 
 def distribute_tensor(t, logical, mesh, rules: ShardingRules):
     """`t` (this rank's copy of the global tensor, real or fake) as a
     DTensor on `mesh`: its slice under the entries `logical` resolves to
-    on t's shape, wrapped with `DTensor.from_local` (no collective)."""
-    from torch.distributed.tensor import DTensor
+    on t's shape (`from_global`)."""
     entries = rules.resolve(logical, mesh, shape=tuple(t.shape))
-    return DTensor.from_local(
-        local_slice(t, entries, mesh).contiguous(), mesh,
-        placements(entries, mesh), run_check=False, shape=tuple(t.shape),
-        stride=contiguous_stride(tuple(t.shape)))
+    return from_global(t, mesh, placements(entries, mesh))
 
 
 def contiguous_stride(shape: tuple) -> tuple:

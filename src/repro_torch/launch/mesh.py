@@ -19,10 +19,12 @@ and, but for a launcher's job, a deadline on the whole run.
     # fn(rank, world, arg) ran in 4 processes; outs[r] is rank r's return
 
 The production meshes (`make_production_mesh`: 16 x 16 (data, model) on
-one pod, 2 x 16 x 16 (pod, data, model) on two) exist for the dry run
-only: one process plays rank `rank` of a fake world of 256 or 512 ranks
+one pod, 2 x 16 x 16 (pod, data, model) on two) serve the dry run, where
+one process plays rank `rank` of a fake world of 256 or 512 ranks
 (`fake_world`), whose collectives record what they would send and move
-nothing, so the per-rank program is traced with no cluster and no card.
+nothing, so the per-rank program is traced with no cluster and no card;
+and `launch/train.py --production-mesh`, whose 256 ranks a launcher
+(torchrun) starts, one card a rank under NCCL.
 """
 from __future__ import annotations
 
@@ -78,11 +80,15 @@ def rank_device(device=DEFAULT_DEVICE) -> torch.device:
     return torch.device("cuda", idx)
 
 
-def make_mesh(shape: tuple, axes: tuple):
+def make_mesh(shape: tuple, axes: tuple, device_type: str | None = None):
     """A DeviceMesh of `shape` named `axes` over the ranks of the
     initialised default process group (world == prod(shape)). Under NCCL
     its device type is "cuda"; under gloo "cpu", where its collectives
-    run."""
+    run, unless `device_type` is "cuda": the mesh of a placed LM program
+    whose ranks share a card, its DTensors' shards on the card. gloo then
+    runs DTensor's collectives on the card's tensors itself, but for the
+    all-gather, which takes the host-staged route of
+    `dist.collectives.stage_cuda_gathers_on_host`."""
     shape, axes = tuple(shape), tuple(axes)
     if len(shape) != len(axes):
         raise ValueError(f"mesh shape {shape} names {len(axes)} axes {axes}")
@@ -96,7 +102,13 @@ def make_mesh(shape: tuple, axes: tuple):
         raise RuntimeError(f"mesh {dict(zip(axes, shape))} needs {n} ranks, "
                            f"the process group has {dist.get_world_size()}")
     from torch.distributed.device_mesh import init_device_mesh
-    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    if dist.get_backend() == "nccl":
+        device_type = "cuda"
+    elif device_type == "cuda":
+        from repro_torch.dist.collectives import stage_cuda_gathers_on_host
+        stage_cuda_gathers_on_host()
+    else:
+        device_type = "cpu"
     return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 
@@ -130,7 +142,7 @@ def make_production_mesh(multi_pod: bool = False, rank: int = 0, *,
     """The production DeviceMesh (the JAX package's `make_production_mesh`
     shapes) as rank `rank` sees it. Needs an initialised group of the
     mesh's size in which this process is `rank`: `fake_world(256 or 512,
-    rank)`."""
+    rank)`, or a launcher's world."""
     shape, axes = PRODUCTION_MESHES[bool(multi_pod)]
     n = math.prod(shape)
     if not dist.is_initialized():

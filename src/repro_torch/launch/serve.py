@@ -1,7 +1,8 @@
 """LM serving drivers: one synchronous batch, or a continuous-batching
 stream (port of `repro/launch/serve.py`).
 
-`serve()` prefills one batch and decodes it greedily in lockstep — the
+`serve()` prefills one batch and decodes it in lockstep, greedily or
+sampling, in one process or SPMD on a mesh of rank processes — the
 reference path. `serve_stream()` drains a request stream through
 `scheduler.Engine`, which admits queued prompts into KV-cache slots as
 they free up mid-decode.
@@ -58,27 +59,65 @@ from repro_torch.obs import torchhooks
 from repro_torch.obs.metrics import fmt_seconds as _fmt_s
 
 
-def serve(cfg, params, prompts, *, max_len: int, gen: int, frames=None,
-          patches=None) -> torch.Tensor:
-    """prompts: (B, S) int -> greedy tokens (B, gen) int32 on the
-    parameters' device. frames (B, F, D): an encoder-decoder model's
-    encoder input; patches (B, P, D): a patch model's rows ahead of the
-    prompt (they count in max_len)."""
-    device = params.embed.device
+def serve(cfg, params, prompts, *, max_len: int, gen: int, mesh=None,
+          frames=None, patches=None, greedy: bool = True, rng=None,
+          temperature: float = 1.0) -> torch.Tensor:
+    """prompts: (B, S) int -> tokens (B, gen) int32 on the parameters'
+    device (the JAX signature). frames (B, F, D): an encoder-decoder
+    model's encoder input; patches (B, P, D): a patch model's rows ahead
+    of the prompt (they count in max_len). Greedy, or with `greedy=False`
+    sampled from softmax(logits / temperature) with `rng`, a
+    `torch.Generator` on the parameters' device (the port's counterpart
+    of the JAX key: each step draws from it in turn).
+
+    `mesh` None or a `launch.mesh.HostMesh` serves in this process. On a
+    DeviceMesh every rank of the mesh calls it with the same arguments
+    (SPMD, as JAX's `serve(mesh=)`): unplaced parameters are placed under
+    SERVE_RULES, the prompts, frames and patches by their batch rows, and
+    the prefill and decode steps run under `use_placement`. Each step's
+    last logits are read whole, so every rank picks the same token (a
+    sampling rank draws from the same whole logits with the same
+    generator state), and the tokens come back whole on every rank."""
+    from repro_torch.dist import placed
+    from repro_torch.dist import sharding as sh
+    from repro_torch.launch.mesh import HostMesh
+    on_mesh = mesh is not None and not isinstance(mesh, HostMesh)
+    device = (params.embed.to_local() if placed.is_placed(params.embed)
+              else params.embed).device
     prefill = steps.make_prefill_step(cfg, max_len=max_len)
     decode = steps.make_decode_step(cfg)
     batch = {"tokens": torch.as_tensor(prompts).to(device)}
     for name, t in (("frames", frames), ("patches", patches)):
         if t is not None:
             batch[name] = torch.as_tensor(t).to(device)
-    with torch.inference_mode():
+    rules = sh.SERVE_RULES
+    place = contextlib.nullcontext()
+    if on_mesh:
+        if not placed.is_placed(params.embed):
+            params = steps.place_params(cfg, params, mesh, rules)
+        place = sh.use_placement(mesh, rules)
+        batch = steps.place_batch(batch, mesh, rules)
+
+    def rows(tok):      # a decode step's tokens, placed by batch rows
+        return (sh.distribute_tensor(tok, ("batch", None), mesh, rules)
+                if on_mesh else tok)
+
+    def pick(logits):
+        last = placed.whole(logits[:, -1])
+        if greedy:
+            return torch.argmax(last, dim=-1)[:, None].to(torch.int32)
+        probs = torch.softmax(last.float() / temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=rng).to(torch.int32)
+
+    with torch.inference_mode(), place:
         logits, state = prefill(params, batch)
         outs = []
-        tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        tok = torch.argmax(placed.whole(logits[:, -1:]), dim=-1).to(
+            torch.int32)
         for _ in range(gen):
             outs.append(tok)
-            logits, state = decode(params, tok, state)
-            tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+            logits, state = decode(params, rows(tok), state)
+            tok = pick(logits)
         return torch.cat(outs, dim=1)
 
 

@@ -146,6 +146,19 @@ def _microbatch(v, i: int, microbatches: int):
                        v.placements, (d * m, *v.shape[1:]))
 
 
+def _placed_as(grad, param):
+    """A placed parameter's gradient on the parameter's placements, as
+    the JAX package's gradients take their parameters' shardings: a
+    replicated weight's gradient leaves the backward pass as a partial
+    sum over the batch's shards (one all-reduce makes it whole), and the
+    optimizer's moments then stay placed as their parameters."""
+    from repro_torch.dist import placed
+    if not placed.is_placed(grad) or list(grad.placements) == list(
+            param.placements):
+        return grad
+    return grad.redistribute(param.device_mesh, param.placements)
+
+
 def make_train_step(cfg: ArchConfig, optimizer, *, microbatches: int = 1,
                     compute_dtype=torch.bfloat16, remat: bool = True,
                     clip_norm: float = 1.0,
@@ -223,13 +236,14 @@ def make_train_step(cfg: ArchConfig, optimizer, *, microbatches: int = 1,
     def train_step(params, opt_state, batch):
         grads, loss, aux = local_grads(_compute_copy(params, compute_dtype),
                                        batch)
+        leaves = tree_leaves(params)
+        grads = tuple(map(_placed_as, grads, leaves))
         if cross_pod_mesh is not None:
             grads, loss, aux = reduce(grads, loss, aux)
         if clip_norm:
             grads, gnorm = opt_lib.clip_by_global_norm(grads, clip_norm)
         else:
             gnorm = opt_lib.global_norm(grads)
-        leaves = tree_leaves(params)
         updates, opt_state = optimizer.update(grads, opt_state, leaves)
         del grads
         params = tree_with_leaves(params,
@@ -260,6 +274,44 @@ def place_params(cfg: ArchConfig, params, mesh, rules) -> transformer.ParamTree:
                          else walk(child, lg[name]))
         return out
     return transformer.ParamTree(walk(params, logical))
+
+
+def place_opt_state(cfg: ArchConfig, optimizer, state, mesh, rules):
+    """The optimizer's `state` placed on `mesh` as the JAX package's
+    `specs.opt_shardings` places it: each moment on its parameter's
+    placements (a state initialised over placed parameters already is;
+    it is checked), the step count replicated. A plain leaf is this
+    rank's copy of the global value (`sh.from_global`)."""
+    from repro_torch.dist import placed
+    from repro_torch.dist import sharding as sh
+    from repro_torch.launch import specs
+    want = specs.opt_shardings(cfg, optimizer, mesh, rules)
+
+    def put(t, entries):
+        if t is None:
+            return None
+        to = sh.placements(entries, mesh)
+        if not placed.is_placed(t):
+            return sh.from_global(t, mesh, to)
+        if list(t.placements) != to:
+            raise ValueError(f"an optimizer leaf placed {t.placements}, "
+                             f"its parameter {to}")
+        return t
+
+    return type(state)(*(
+        tuple(map(put, leaf, entries)) if isinstance(leaf, tuple)
+        else put(leaf, entries) for leaf, entries in zip(state, want)))
+
+
+def place_batch(batch: dict, mesh, rules) -> dict:
+    """A global data batch (every rank's copy of the same dict) placed on
+    `mesh` by its logical axes (`specs.INPUT_LOGICAL`: tokens and labels
+    by ("batch", "seq"), Whisper's frames and InternVL2's patches by
+    ("batch", None, None)): each rank keeps its rows."""
+    from repro_torch.dist import sharding as sh
+    from repro_torch.launch import specs
+    return {k: sh.distribute_tensor(v, specs.INPUT_LOGICAL[k], mesh, rules)
+            for k, v in batch.items()}
 
 
 def make_prefill_step(cfg: ArchConfig, *, max_len: int) -> Callable:

@@ -35,10 +35,21 @@ each step boundary (a MAX all-reduce of their flags), rank 0 writes the
 checkpoint, and every rank resumes from the same newest step, on any
 mesh. As in the JAX driver, the LM archs read neither `--mesh` nor
 `--compress` (the LM step's compressed cross-pod reduction is
-`steps.make_train_step(cross_pod_mesh=)`); `--production-mesh` (the
-256-device production mesh) is refused: it places weights by the
-sharding annotations of `launch/specs.py`, which the port has not taken
-(ROADMAP.md Queue 1 items 6 and 4.7).
+`steps.make_train_step(cross_pod_mesh=)`).
+
+`train(mesh=)` trains an LM arch SPMD on a DeviceMesh of rank processes:
+the weights and the AdamW state placed as DTensors by the logical-axis
+rules (`dist.sharding.TRAIN_RULES`, the shardings of `launch/specs.py`),
+each rank on its rows of every batch, logical checkpoints. `--production-
+mesh` runs it on the 16 x 16 (data, model) production mesh, as one of
+the 256 ranks that a launcher started, one card a rank:
+
+    torchrun --nnodes 32 --nproc-per-node 8 --rdzv-backend c10d \\
+        --rdzv-endpoint HOST:29500 -m repro_torch.launch.train \\
+        --arch llama3p2_3b --production-mesh --steps 50 --ckpt-dir ckpt
+
+Without a launcher, or in a world of another size, it exits with code 2
+and names the ranks it needs and those it found.
 """
 from __future__ import annotations
 
@@ -46,6 +57,7 @@ import argparse
 import contextlib
 import itertools
 import math
+import os
 import signal
 import sys
 import time
@@ -102,7 +114,7 @@ def data_iterator(cfg, batch: int, seq: int, seed: int, *,
 
 
 def train(cfg, *, steps_total: int, batch: int, seq: int, lr: float = 3e-4,
-          microbatches: int = 1, seed: int = 0,
+          microbatches: int = 1, seed: int = 0, mesh=None,
           ckpt_dir: str | None = None, ckpt_every: int = 20,
           restore: str = "auto", keep: int = 3,
           compute_dtype=torch.bfloat16, log_every: int = 10,
@@ -117,8 +129,25 @@ def train(cfg, *, steps_total: int, batch: int, seq: int, lr: float = 3e-4,
     `restore` is "auto". Stops early at a step boundary once `guard`
     reports a preemption. Returns {"params", "opt_state", "history" (one
     {"step", "loss", "aux", "grad_norm"} a step), "preempted",
-    "resumed_from", "straggler_events"}."""
+    "resumed_from", "straggler_events"}.
+
+    `mesh` None or a `launch.mesh.HostMesh` trains in this process. A
+    DeviceMesh makes the run SPMD, as the JAX package's `train(mesh=)`:
+    every rank of the mesh calls it with the same arguments and `device`
+    its own (`launch.mesh.rank_device`); the parameters and the AdamW
+    state are placed under TRAIN_RULES (`steps.place_params`,
+    `steps.place_opt_state`), every rank draws the same global batch and
+    keeps its rows (`steps.place_batch`), the step runs under
+    `use_placement`, the metrics are read whole (every rank logs the same
+    loss), the ranks agree on a preemption at each step boundary (a MAX
+    all-reduce), checkpoints are logical (`train.checkpoint` gathers
+    each leaf; one rank writes) and only the mesh's first rank prints.
+    The returned parameters and state are placed."""
+    from repro_torch.dist import placed as placed_lib
+    from repro_torch.dist import sharding as sh
+    from repro_torch.launch.mesh import HostMesh
     dev = resolve_device(device)
+    on_mesh = mesh is not None and not isinstance(mesh, HostMesh)
     optimizer = opt_lib.chain_clip(
         opt_lib.adamw(opt_lib.warmup_cosine_schedule(lr, WARMUP_STEPS,
                                                      steps_total)),
@@ -129,7 +158,16 @@ def train(cfg, *, steps_total: int, batch: int, seq: int, lr: float = 3e-4,
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = transformer.init_params(cfg, gen, dtype=torch.float32,
                                      device=dev)
+    rules = sh.TRAIN_RULES
+    rank0 = True
+    if on_mesh:
+        params = steps.place_params(cfg, params, mesh, rules)
+        rank0 = _rank0(mesh)
     opt_state = optimizer.init(steps.tree_leaves(params))
+    if on_mesh:
+        opt_state = steps.place_opt_state(cfg, optimizer, opt_state, mesh,
+                                          rules)
+    verbose = verbose and rank0
 
     rec = obs_registry.get_recorder()
     start = 0
@@ -151,8 +189,13 @@ def train(cfg, *, steps_total: int, batch: int, seq: int, lr: float = 3e-4,
         if step >= steps_total:
             break
         monitor.start()
-        params, opt_state, metrics = step_fn(params, opt_state, data)
-        metrics = {k: float(v) for k, v in metrics.items()}  # waits
+        with (sh.use_placement(mesh, rules) if on_mesh
+              else contextlib.nullcontext()):
+            if on_mesh:
+                data = steps.place_batch(data, mesh, rules)
+            params, opt_state, metrics = step_fn(params, opt_state, data)
+        metrics = {k: float(placed_lib.whole(v))      # waits
+                   for k, v in metrics.items()}
         ev = monitor.stop(step)   # observes train.step_s
         rec.counter("train.steps").inc()
         history.append({"step": step, **metrics})
@@ -161,7 +204,10 @@ def train(cfg, *, steps_total: int, batch: int, seq: int, lr: float = 3e-4,
                   f"gnorm={metrics['grad_norm']:.3f}"
                   + (f" STRAGGLER x{ev.ratio:.1f}" if ev else ""))
         want_ckpt = ckpt_dir and (step + 1) % ckpt_every == 0
-        if guard is not None and guard.preempted:
+        stop = guard is not None and guard.preempted
+        if on_mesh:
+            stop = _agree(stop, mesh, dev)
+        if stop:
             want_ckpt, preempted = bool(ckpt_dir), True
         if want_ckpt:
             with rec.span("ckpt.save", step=step + 1):
@@ -562,6 +608,52 @@ def _main_uleen(args) -> int:
     return 0
 
 
+def production_world_missing(env) -> str | None:
+    """Why this process cannot be a rank of the production mesh's world,
+    or None: a launcher (torchrun) sets RANK, WORLD_SIZE and MASTER_ADDR,
+    and the world must hold the mesh's 256 ranks."""
+    from repro_torch.launch.mesh import PRODUCTION_MESHES
+    shape, axes = PRODUCTION_MESHES[False]
+    need = math.prod(shape)
+    mesh = " x ".join(f"{n} {a}" for n, a in zip(shape, axes))
+    unset = [k for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR")
+             if k not in env]
+    if unset:
+        found = (f"no launcher ({', '.join(unset)} unset): a world of 1 "
+                 f"rank")
+    elif int(env["WORLD_SIZE"]) != need:
+        found = f"a world of {env['WORLD_SIZE']} ranks (WORLD_SIZE)"
+    else:
+        return None
+    return (f"the production mesh ({mesh}) needs {need} ranks, one card a "
+            f"rank, started by a launcher such as torchrun; found {found}")
+
+
+def _main_production_mesh(cfg, kw: dict, dev) -> int:
+    """One rank of `--production-mesh`: joins the launcher's world (env://
+    rendezvous; NCCL with one card a rank, gloo on the CPU), builds the
+    16 x 16 (data, model) production mesh over it as this rank and runs
+    `train(mesh=)`."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_production_mesh, rank_device
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method="env://")
+    try:
+        dev = rank_device(dev)
+        mesh = make_production_mesh(rank=dist.get_rank(),
+                                    device_type=dev.type)
+        with fault.PreemptionGuard() as guard:
+            out = train(cfg, mesh=mesh, guard=guard, device=dev, **kw)
+        losses = [h["loss"] for h in out["history"]]
+        if losses and dist.get_rank() == 0:
+            print(f"[train] done: first loss {losses[0]:.4f} -> last "
+                  f"{losses[-1]:.4f} over {len(losses)} steps on "
+                  f"{dist.get_world_size()} ranks")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", choices=list(ARCH_IDS) + ["uleen"],
@@ -577,8 +669,10 @@ def main(argv=None) -> int:
     ap.add_argument("--ckpt-every", type=int, default=5)
     ap.add_argument("--restore", choices=["auto", "none"], default="auto")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="16x16 mesh (refused: the port places nothing by "
-                         "sharding annotation)")
+                    help="train on the 16x16 (data, model) production mesh: "
+                         "this process is one of the 256 ranks a launcher "
+                         "such as torchrun started (env:// rendezvous), "
+                         "one card a rank under NCCL")
     # --arch uleen (the executed distributed trainer)
     ap.add_argument("--mesh", default="data=1",
                     help="uleen mesh, e.g. pod=2,data=4: that many rank "
@@ -603,10 +697,12 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     if args.production_mesh:
-        ap.error("--production-mesh: the 16x16 production mesh places the "
-                 "weights by launch/specs.py's sharding annotations, which "
-                 "the port has not taken (ROADMAP.md Queue 1 item 6, with "
-                 "item 4.7)")
+        if args.arch == "uleen":
+            ap.error("--production-mesh trains the LM archs; --arch uleen "
+                     "takes --mesh")
+        missing = production_world_missing(os.environ)
+        if missing:
+            ap.error(f"--production-mesh: {missing}")
     if args.arch == "uleen" and args.lr == 3e-4:
         args.lr = 1e-3               # LM default; uleen's paper value
     dev = resolve_device(args.device)
@@ -618,12 +714,14 @@ def main(argv=None) -> int:
             print("[train] --mesh and --compress apply to --arch uleen; "
                   "the LM driver runs in one process", file=sys.stderr)
         cfg = get_config(args.arch, smoke=args.smoke)
+        kw = dict(steps_total=args.steps, batch=args.batch, seq=args.seq,
+                  lr=args.lr, microbatches=args.microbatches, seed=args.seed,
+                  ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                  restore=args.restore)
+        if args.production_mesh:
+            return _main_production_mesh(cfg, kw, dev)
         with fault.PreemptionGuard() as guard:
-            out = train(cfg, steps_total=args.steps, batch=args.batch,
-                        seq=args.seq, lr=args.lr,
-                        microbatches=args.microbatches, seed=args.seed,
-                        ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-                        restore=args.restore, guard=guard, device=dev)
+            out = train(cfg, guard=guard, device=dev, **kw)
         losses = [h["loss"] for h in out["history"]]
         if losses:
             print(f"[train] done: first loss {losses[0]:.4f} -> "

@@ -102,7 +102,7 @@ def test_save_is_atomic_under_failure(tmp_path, monkeypatch):
 
     def boom(*a, **k):
         raise RuntimeError("disk full")
-    monkeypatch.setattr(checkpoint.np, "savez", boom)
+    monkeypatch.setattr(checkpoint.np.lib.format, "write_array", boom)
     with pytest.raises(RuntimeError):
         checkpoint.save(d, 2, _tree())
     monkeypatch.undo()

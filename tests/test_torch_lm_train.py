@@ -479,22 +479,27 @@ def test_train_stops_at_a_step_boundary_when_preempted():
 @pytest.mark.parametrize("flags", [
     ["--ckpt-dir", "ckpt"], ["--restore", "none"], ["--production-mesh"],
     ["--mesh", "pod=2,data=4"], ["--compress"]])
-def test_train_main_refuses_what_waits_for_item_5(flags, capsys, tmp_path):
+def test_train_main_refuses_what_waits_for_item_5(flags, capsys, tmp_path,
+                                                  monkeypatch):
     """The JAX driver's training-infrastructure flags on an LM arch: a
     checkpoint directory gets its step-atomic checkpoints, `--restore
     none` trains from scratch, `--mesh` and `--compress` are read by
     `--arch uleen` only (the LM driver says so and trains, as the JAX
-    driver ignores them), and `--production-mesh` alone is refused, with
-    a message that names ROADMAP.md item 6."""
+    driver ignores them), and `--production-mesh` outside a launcher's
+    256-rank world exits 2, naming the 256 ranks it needs and the world
+    it found."""
     flags = [str(tmp_path / f) if prev == "--ckpt-dir" else f
              for prev, f in zip([None, *flags], flags)]
     argv = ["--arch", "llama3p2_3b", "--smoke", "--device", "cpu",
             "--steps", "2", "--batch", "2", "--seq", "8", *flags]
     if "--production-mesh" in flags:
+        for key in ("RANK", "WORLD_SIZE", "MASTER_ADDR"):
+            monkeypatch.delenv(key, raising=False)
         with pytest.raises(SystemExit) as exc:
             train_mod.main(argv)
         assert exc.value.code == 2
-        assert "item 6" in capsys.readouterr().err
+        err = capsys.readouterr().err
+        assert "needs 256 ranks" in err and "a world of 1 rank" in err
         return
     assert train_mod.main(argv) == 0
     out = capsys.readouterr()
